@@ -1,0 +1,169 @@
+"""Builds and loads the port's CUDA sources (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` into its own shared library with a plain
+C interface and loaded with ``ctypes``; no PyTorch header is involved, so a
+build takes seconds.  All sources are built in parallel, at the first launch
+of any kernel, into ``build/repro_torch/`` at the repository root; each
+library's name carries a hash of its sources and flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch, and
+:func:`launch` raises on a non-zero value.  Only this module touches the
+libraries.  Importing it needs no CUDA toolkit; building does.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+SOURCES = ("int_gemm", "pool_reduce", "ewise")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# C entry point → (source, argument types).  Pointers and the stream are
+# c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
+ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
+    "int_gemm_i32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _P)),
+    "int_gemm_f32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _P)),
+    "pool_sum_i32": ("pool_reduce", (_P, _P, _L, _I, _P)),
+    "pool_sum_f32": ("pool_reduce", (_P, _P, _L, _I, _P)),
+    "pool_max_i32": ("pool_reduce", (_P, _P, _L, _I, _P)),
+    "pool_max_f32": ("pool_reduce", (_P, _P, _L, _I, _P)),
+    "ewise_add_i32": ("ewise", (_P, _P, _P, _L, _P)),
+    "ewise_add_f32": ("ewise", (_P, _P, _P, _L, _P)),
+    "relu_i32": ("ewise", (_P, _P, _L, _P)),
+    "relu_f32": ("ewise", (_P, _P, _L, _P)),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else under ``$CUDA_HOME`` (default
+    ``/usr/local/cuda``)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor under $CUDA_HOME/bin): the CUDA "
+        "kernels of repro_torch are built at first use and need the CUDA toolkit"
+    )
+
+
+def library_path(source: str) -> Path:
+    """Where ``source``'s library lives, keyed on a hash of its source, the
+    shared headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (f"{source}.cu", *HEADERS):
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"{source}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(source: str, out: Path) -> list:
+    return [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(CSRC / f"{source}.cu")]
+
+
+def build_all() -> Dict[str, Dict[str, object]]:
+    """Compile every source whose library is missing, all ``nvcc`` processes
+    started together; returns ``{source: {"seconds", "log", "path"}}`` for
+    the sources built by this call.  Raises with the compiler's output when a
+    build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for src in SOURCES:
+        out = library_path(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        started[src] = (proc, tmp, out, time.perf_counter())
+    built = {}
+    failed = []
+    for src, (proc, tmp, out, t0) in started.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{src}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        built[src] = {"seconds": secs, "log": log, "path": str(out)}
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return built
+
+
+_SUFFIX = {torch.int32: "i32", torch.float32: "f32"}
+
+
+def entry_suffix(*tensors: torch.Tensor) -> str:
+    """Entry-point suffix (``i32`` / ``f32``) for the operands' dtype; raises
+    on a dtype or a size the kernels do not take."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in _SUFFIX:
+        raise TypeError(f"the CUDA kernels take int32 or float32 operands of one dtype, got {dtypes}")
+    for t in tensors:
+        for d in t.shape:
+            if d >= 2**31:
+                raise ValueError(f"dimension {d} exceeds the kernels' 32-bit index range")
+    return _SUFFIX[tensors[0].dtype]
+
+
+def _function(name: str) -> ctypes._CFuncPtr:
+    fn = _fns.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        if name not in _fns:
+            source, argtypes = ENTRY_POINTS[name]
+            if source not in _libs:
+                if not library_path(source).exists():
+                    build_all()
+                _libs[source] = ctypes.CDLL(str(library_path(source)))
+            f = getattr(_libs[source], name)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+            _fns[name] = f
+    return _fns[name]
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``name`` with ``args`` and the current stream of
+    CUDA ``device`` (building and loading its library on the first call);
+    raise if the launch was refused."""
+    fn = _function(name)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        err = _function_error_string(ENTRY_POINTS[name][0], rc)
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({err})")
+
+
+def _function_error_string(source: str, code: int) -> str:
+    f = _libs[source].repro_error_string
+    f.argtypes = [ctypes.c_int]
+    f.restype = ctypes.c_char_p
+    return f(code).decode()

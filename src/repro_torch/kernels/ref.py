@@ -1,0 +1,133 @@
+"""Plain PyTorch oracles for the ported kernels (the port's copy of the
+matching functions in the JAX package's ``kernels/ref.py``).
+
+Integer semantics are kept exactly: integer inputs accumulate in int32 and
+wrap mod 2**32, integer pool means floor-divide.  Two PyTorch habits differ
+from JAX's and are handled here: ``torch.sum`` of int32 returns int64 (so the
+sums pass ``dtype=torch.int32``), and ``F.unfold`` refuses integer tensors
+(so the patch matrices are built with ``Tensor.unfold``).  An int32 matrix
+product wraps on the CPU; PyTorch has none on CUDA, so the oracles run on
+CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The accumulation type of a kernel input: int32 for integers
+    (wrapping), float32 otherwise."""
+    return torch.float32 if x.dtype.is_floating_point else torch.int32
+
+
+# ---------------------------------------------------------------------------
+# elementwise maps
+# ---------------------------------------------------------------------------
+
+
+def ewise_add_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return x + y.to(x.dtype)
+
+
+def relu_ref(x: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(x, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# 2-D convolution / pooling
+# ---------------------------------------------------------------------------
+
+
+def conv2d_out_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int) -> Tuple[int, int]:
+    """Output spatial extent of a conv/pool window sweep."""
+    return (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """(N, C, H, W) → (N·OH·OW, C·KH·KW) patch matrix (zero-padded borders).
+
+    Column order is (c, kh, kw) row-major — the order a (OC, C, KH, KW)
+    weight flattens to, so ``im2col(x) @ w.reshape(OC, -1).T`` is the conv.
+    """
+    n, c, h, w = x.shape
+    oh, ow = conv2d_out_hw(h, w, kh, kw, stride, padding)
+    xp = F.pad(x, (padding, padding, padding, padding))
+    # (N, C, OH, OW, KH, KW) → (n, oh, ow, c, kh, kw)
+    p = xp.unfold(2, kh, stride).unfold(3, kw, stride)
+    return p.permute(0, 2, 3, 1, 4, 5).reshape(n * oh * ow, c * kh * kw)
+
+
+def pool_patches(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """(N, C, H, W) → (N·C·OH·OW, window²) window matrix (no padding).
+
+    Row r holds the window of output element r in row-major (n, c, oh, ow)
+    order.
+    """
+    n, c, h, w = x.shape
+    oh, ow = conv2d_out_hw(h, w, window, window, stride, 0)
+    p = x.unfold(2, window, stride).unfold(3, window, stride)
+    return p.reshape(n * c * oh * ow, window * window)
+
+
+def _pool_mean(s: torch.Tensor, count: int) -> torch.Tensor:
+    """Window mean: integer sums floor-divide (an arithmetic right shift for
+    power-of-two counts), float sums take the true mean."""
+    if s.dtype.is_floating_point:
+        return s / count
+    return torch.div(s, count, rounding_mode="floor")
+
+
+def conv2d_ref(
+    x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 0,
+    x_bits: Optional[int] = None, w_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """(N, C, H, W) × (OC, C, KH, KW) → (N, OC, OH, OW); integer inputs
+    accumulate in int32 (wrapping), float inputs in float32.  ``x_bits`` /
+    ``w_bits`` are precision hints of the simulator lowering and do not
+    change the math."""
+    del x_bits, w_bits
+    acc = acc_dtype(x)
+    n, c, h, hw = x.shape
+    oc, _, kh, kw = w.shape
+    oh, ow = conv2d_out_hw(h, hw, kh, kw, stride, padding)
+    patches = im2col(x.to(acc), kh, kw, stride, padding)
+    out = patches @ w.to(acc).reshape(oc, c * kh * kw).T
+    return out.reshape(n, oh, ow, oc).permute(0, 3, 1, 2)
+
+
+def int_matmul_ref(
+    x: torch.Tensor, w: torch.Tensor, *,
+    x_bits: Optional[int] = None, w_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """(M, K) × (K, N) integer matmul with int32 accumulation (wrapping)."""
+    del x_bits, w_bits
+    return x.to(torch.int32) @ w.to(torch.int32)
+
+
+def maxpool2d_ref(x: torch.Tensor, *, window: int = 2, stride: Optional[int] = None) -> torch.Tensor:
+    """(N, C, H, W) → (N, C, OH, OW) window max (no padding)."""
+    s = stride or window
+    n, c, h, w = x.shape
+    oh, ow = conv2d_out_hw(h, w, window, window, s, 0)
+    return torch.amax(pool_patches(x, window, s), dim=1).reshape(n, c, oh, ow)
+
+
+def avgpool2d_ref(x: torch.Tensor, *, window: int = 2) -> torch.Tensor:
+    """(N, C, H, W) → (N, C, OH, OW) window average, stride == window.
+    Integer inputs floor-divide by the window count."""
+    n, c, h, w = x.shape
+    oh, ow = conv2d_out_hw(h, w, window, window, window, 0)
+    acc = acc_dtype(x)
+    s = torch.sum(pool_patches(x, window, window).to(acc), dim=1, dtype=acc)
+    return _pool_mean(s, window * window).reshape(n, c, oh, ow)
+
+
+def global_avgpool_ref(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) → (N, C) spatial average (integer: floor-divide by H·W)."""
+    n, c, h, w = x.shape
+    acc = acc_dtype(x)
+    s = torch.sum(x.reshape(n, c, h * w).to(acc), dim=-1, dtype=acc)
+    return _pool_mean(s, h * w)
