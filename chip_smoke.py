@@ -9,21 +9,40 @@ Phases, any failure of which exits non-zero:
 
 1. build every CUDA source of ``src/repro_torch/kernels/csrc`` (in parallel,
    into ``build/repro_torch/``) and print the build time;
-2. hold each kernel against its plain PyTorch version: at the inputs the
-   RESNET18 forward gives it (batch 32, captured from one forward on the
+2. hold each ResNet kernel against its plain PyTorch version: at the inputs
+   the RESNET18 forward gives it (batch 32, captured from one forward on the
    card), and at edge cases (ragged tiles, int32 wrap, negative pool sums,
    float32).  The plain versions run on a CPU copy, since PyTorch has no
    int32 matrix product on CUDA.  Integers must match bit for bit;
-3. the main path: RESNET18 at full width, batch 32, random weights from seed
-   0, forward on the card with every launch counter reset just before and
-   read just after; logits bit-equal to the plain CPU forward, launch counts
-   equal to what ``layer_names`` implies;
+3. the main paths, each driven through the entry points a user calls, with
+   every launch counter reset just before it and read just after:
+
+   a. RESNET18 at full width, batch 32, random weights from seed 0, eager:
+      logits bit-equal to the plain CPU forward, launches equal to what
+      ``layer_names`` implies (GEMM 21, relu 17, add 8, pool-sum 1);
+   b. the same network through the Program API (``api.trace`` → ``Program``
+      → cached ``Executor``): logits bit-equal to (a), the same launches, a
+      compile-cache hit on the second call;
+   c. the paper's bit-sliced GEMM at its Table III shape (x 61440 × 2048,
+      w 2048 × 32) through ``api.quantized_matmul`` under the ``int4``,
+      ``int8``, ``int16`` and ``w8a16`` presets, and through
+      ``SlicedTensor.from_int`` → ``api.matmul`` with an all-zero activation
+      slice whose pairs must never be launched;
+   d. ``quant_linear_relu`` (a traced matmul → relu Program) at Qwen2-0.5B's
+      MLP width, 4096 tokens × 896 → 4864, under ``w8a16``.
+
+   Each of (c) and (d) runs again on CPU copies of its inputs (the plain
+   versions); the bit-sliced kernel's output must equal its plain version's
+   on the same slices, and the path's output the CPU path's, bit for bit;
 4. time each kernel at those inputs (CUDA events around a CUDA-graph replay
    of 20 calls, after warm-up; eager back-to-back calls too) beside its
    bound, its plain version and, where one PyTorch call computes the same
-   function, that call; time 50 forwards one by one (median and p80);
-5. profile three forwards (torch.profiler): device time by kernel name and
-   the device's idle share.
+   function, that call (``torch._int_mm`` for a single-pair bit-sliced
+   GEMM); time 50 eager forwards one by one (median and p80), and the
+   eager forward, the traced call (re-trace included) and a held
+   ``Executor`` replay from an idle card (host clock);
+5. profile three forwards and one call of each bit-sliced path
+   (torch.profiler): device time by kernel name and the device's idle share.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Per-call details go
@@ -47,10 +66,23 @@ SEED = 0
 # 64 per clock per SM; that rate is computed from the card's own clock.
 MEM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core rate; a multiply-add is 2 ops
 IMAD_PER_CLOCK_PER_SM = 64
 FLOAT_ATOL = FLOAT_RTOL = 1e-4  # the JAX package's float kernel tolerance
 # forwards timed one by one: the p80 then has 10 samples beyond it
 FORWARD_SAMPLES = 50
+# latency samples of the Program API and of each bit-sliced path
+LATENCY_SAMPLES = 20
+
+# The paper's Table III GEMM (benchmarks/workloads.py:gemm, fig09_gpu.py).
+TABLE3 = (61440, 2048, 32)  # (M, K, N)
+GEMM_PRESETS = ("int4", "int8", "int16", "w8a16")
+# quant_linear_relu: 4096 tokens through Qwen2-0.5B's MLP up-projection
+# (src/repro/configs/qwen2_0_5b.py: d_model 896 → d_ff 4864).
+QLR = (4096, 896, 4864)
+
+BITSLICE_SOURCE = "src/repro_torch/kernels/csrc/bitslice_gemm.cu"
+BITSLICE_REPLACES = "src/repro/kernels/bitslice_matmul.py:29"
 
 SOURCES = {
     "gemm": "src/repro_torch/kernels/csrc/int_gemm.cu",
@@ -162,6 +194,89 @@ def forward_samples(torch, fn, n, warmup=3):
     return sorted(start.elapsed_time(end) for start, end in events)
 
 
+def sync_samples(torch, fn, n, warmup=2):
+    """Sorted host-clock times in ms of ``n`` calls of ``fn``, each from an
+    idle card (synchronized) to the end of its device work: the latency a
+    caller sees, host work such as tracing and launching included."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return sorted(out)
+
+
+def median(xs):
+    return xs[len(xs) // 2]
+
+
+def bitslice_work(x, w, slice_bits, pairs):
+    """(bytes, operations) one bit-sliced GEMM needs: each slice that a
+    computed pair reads, read once, and the int32 output written once; two
+    int8 operations (multiply, add) per product of each computed pair.  A
+    pair whose shift is 32 or more adds 0 mod 2**32 and is not computed."""
+    (_, m, k), (_, _, n) = x.shape, w.shape
+    live = [(s, t) for s, t in pairs if slice_bits * (s + t) < 32]
+    nbytes = len({s for s, _ in live}) * m * k + len({t for _, t in live}) * k * n + 4 * m * n
+    return nbytes, 2 * m * k * n * len(live)
+
+
+def run_bitslice_path(torch, api, bm, smoke, path, run, expected, skipped=()):
+    """Drive one bit-sliced path: ``run("cuda")`` with the launch counters
+    reset just before and read just after, then ``run("cpu")`` (the plain
+    versions).  Holds the kernel's output against its plain version's on the
+    same slices, the path's output against the CPU path's, the launch counts
+    against ``expected`` and the skipped pairs against the executed ones."""
+    card, cpu = [], []
+    sink = [card]
+    orig = bm._bitslice_gemm
+
+    def rec(x, w, slice_bits, pairs):
+        t = time.perf_counter()
+        out = orig(x, w, slice_bits, pairs)
+        sink[0].append(((x, w, slice_bits, pairs), out, time.perf_counter() - t))
+        return out
+
+    bm._bitslice_gemm = rec
+    try:
+        api.reset_launch_counts()
+        got = run("cuda")
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in api.launch_counts().items() if v}
+        executed, launched = api.last_executed_pairs(), bm.launched_pairs()
+        sink[0] = cpu
+        want = run("cpu")
+    finally:
+        bm._bitslice_gemm = orig
+    if counts != expected:
+        smoke.failures.append(f"{path}: launch counts {counts} != expected {expected}")
+    if len(card) != 1 or len(cpu) != 1:
+        smoke.failures.append(f"{path}: {len(card)} card and {len(cpu)} CPU bit-sliced GEMM calls, not 1 and 1")
+        return None
+    (args, out, _), (cargs, plain, plain_s) = card[0], cpu[0]
+    if not (torch.equal(args[0].cpu(), cargs[0]) and torch.equal(args[1].cpu(), cargs[1])
+            and args[2:] == cargs[2:]):
+        smoke.failures.append(f"{path}: the card and CPU paths gave the kernel different slices")
+        t = time.perf_counter()
+        plain = bm._bitslice_plain(args[0].cpu(), args[1].cpu(), *args[2:])
+        plain_s = time.perf_counter() - t
+    # the kernel against its plain version on the same slices
+    err = smoke.check("bitslice_matmul", f"{path} kernel vs plain {tuple(args[0].shape)}x{tuple(args[1].shape)}",
+                      out, plain, exact=True)
+    smoke.check(path, "output vs the CPU path", got, want, exact=True)
+    active = set(api.active_pairs(args[0].shape[0], args[1].shape[0], skipped))
+    if set(skipped) & (set(executed) | set(launched)) or not set(executed) == set(launched) == active:
+        smoke.failures.append(f"{path}: executed {executed}, launched {launched}, skipped {skipped}")
+    return {"path": path, "run": run, "launches": counts, "args": args, "out": out,
+            "plain_ms": plain_s * 1e3,
+            "max_abs_err": err, "executed": [list(p) for p in executed],
+            "launched": [list(p) for p in launched], "skipped": [list(p) for p in skipped]}
+
+
 def device_profile(torch, fn, iters=3):
     """Device time by kernel name over ``iters`` calls of ``fn`` (torch
     profiler), and the window's wall time on CUDA events: returns
@@ -195,7 +310,8 @@ def main() -> int:
         return 2
 
     from repro_torch.kernels import _build, api, conv, ewise, ref
-    from repro_torch.models import resnet
+    from repro_torch.kernels import bitslice_matmul as bm
+    from repro_torch.models import common, resnet
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -327,7 +443,7 @@ def main() -> int:
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
-    # ---------------- phase 3: the main path ----------------
+    # ---------------- phase 3a: the main path, RESNET18 eager ----------------
     expected = {}
     for name in resnet.layer_names(cfg):
         expected[LAUNCHED_BY[name]] = expected.get(LAUNCHED_BY[name], 0) + 1
@@ -351,6 +467,86 @@ def main() -> int:
           f"{int(logits.abs().max())}, bit-equal to CPU: {torch.equal(logits.cpu(), want)}; "
           f"launches {launches} (expected {expected}); first forward {first_forward_s:.3f} s, "
           f"CPU plain forward {cpu_forward_s:.2f} s")
+    path_launches = {"resnet18_eager": {k: v for k, v in counts.items() if v}}
+
+    # ---------------- phase 3b: RESNET18 through the Program API ----------------
+    traced = api.trace(lambda p, v: resnet.forward(cfg, p, v), name="resnet18")
+    params = model.params()
+    api.reset_launch_counts()
+    t = time.perf_counter()
+    with torch.no_grad():
+        logits_traced = traced(params, x)
+    torch.cuda.synchronize()
+    first_traced_s = time.perf_counter() - t
+    counts = {k: v for k, v in api.launch_counts().items() if v}
+    path_launches["resnet18_traced"] = counts
+    smoke.check("program", f"traced RESNET18 batch {BATCH} logits vs eager", logits_traced,
+                logits.cpu(), True)
+    if counts != expected:
+        smoke.failures.append(f"traced RESNET18: launch counts {counts} != expected {expected}")
+    info0 = api.compile_cache_info()
+    traced(params, x)
+    ex = api.compile(traced.program_for(params, x))
+    info1 = api.compile_cache_info()
+    if (info1.hits, info1.misses) != (info0.hits + 2, info0.misses):
+        smoke.failures.append(f"traced RESNET18: compile cache {info0} → {info1}, expected two hits")
+    smoke.check("program", "held Executor replay vs eager", ex(params, x), logits.cpu(), True)
+    print(f"phase 3b traced RESNET18 b{BATCH}: {len(ex.program.ops)} ops, logits bit-equal to "
+          f"eager: {torch.equal(logits_traced, logits)}; launches {counts}; first call "
+          f"{first_traced_s:.3f} s; compile cache {info1.hits} hits / {info1.misses} misses")
+
+    # ---------------- phase 3c: the bit-sliced GEMM at Table III ----------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m, k, n = TABLE3
+    gx = torch.randn((m, k), generator=gen, device=dev)
+    gw = torch.randn((k, n), generator=gen, device=dev) * 0.1
+    host = {"cuda": {"x": gx}, "cpu": {"x": gx.cpu()}}
+    bitslice_paths = []
+    for preset in GEMM_PRESETS:
+        spec = getattr(api.PrecisionSpec, preset)
+        w_st = api.SlicedTensor.quantize(gw, spec, weight=True)
+        wq, ws = w_st.to_int(), w_st.scale.reshape(-1)
+        for d, wqd, wsd in (("cuda", wq, ws), ("cpu", wq.cpu(), ws.cpu())):
+            host[d][preset] = (wqd, wsd)
+        r = run_bitslice_path(
+            torch, api, bm, smoke, f"gemm_{preset}",
+            lambda d, preset=preset, spec=spec: api.quantized_matmul(host[d]["x"], *host[d][preset], spec),
+            {"bitslice_matmul": 1})
+        if r:
+            bitslice_paths.append(r)
+    # zero-skip: int16 operands whose activations fit one slice, so the high
+    # activation slice is all zero and both pairs that read it are skipped
+    zx = torch.randint(-100, 100, (m, k), generator=gen, device=dev, dtype=torch.int32)
+    zw = torch.randint(-30000, 30000, (k, n), generator=gen, device=dev, dtype=torch.int32)
+    zero = {"cuda": (zx, zw), "cpu": (zx.cpu(), zw.cpu())}
+    r = run_bitslice_path(
+        torch, api, bm, smoke, "gemm_zero_skip",
+        lambda d: api.matmul(api.SlicedTensor.from_int(zero[d][0], 16),
+                             api.SlicedTensor.from_int(zero[d][1], 16)),
+        {"bitslice_matmul": 1}, skipped=((1, 0), (1, 1)))
+    if r:
+        bitslice_paths.append(r)
+
+    # ---------------- phase 3d: quant_linear_relu at Qwen2-0.5B's MLP width ----------------
+    mq, kq, nq = QLR
+    qx = torch.randn((mq, kq), generator=gen, device=dev)
+    qp = common.quantize_weight(torch.randn((kq, nq), generator=gen, device=dev) * 0.05, 8)
+    qlr = {"cuda": (qp, qx), "cpu": ({k_: v.cpu() for k_, v in qp.items()}, qx.cpu())}
+    r = run_bitslice_path(
+        torch, api, bm, smoke, "quant_linear_relu",
+        lambda d: common.quant_linear_relu(*qlr[d], api.PrecisionSpec.w8a16),
+        {"bitslice_matmul": 1, "relu": 1})
+    if r:
+        bitslice_paths.append(r)
+        # the relu kernel at the accumulator this path hands it
+        smoke.check("relu", "quant_linear_relu accumulator", ewise._ewise("relu", r["out"]),
+                    ewise._ewise_plain("relu", r["out"].cpu()), True)
+    for r in bitslice_paths:
+        path_launches[r["path"]] = r["launches"]
+        print(f"phase 3c/d {r['path']}: launches {r['launches']}, executed pairs {r['executed']}, "
+              f"launched {r['launched']}, skipped {r['skipped']}; kernel vs plain max_abs_err "
+              f"{r['max_abs_err']}; plain {r['plain_ms']:.0f} ms on the CPU")
+    torch.cuda.synchronize()
 
     # ---------------- phase 4: timing ----------------
     library = {
@@ -435,6 +631,69 @@ def main() -> int:
           f"min {fwd_samples[0]:.3f}, max {fwd_samples[-1]:.3f} over {len(fwd_samples)} forwards "
           f"(CUDA events each); {BATCH / fwd_ms * 1e3:.1f} images/s at the median; "
           f"the ported kernels alone {kernel_ms:.3f} ms")
+    for row in rows:
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in path_launches.items() if row["name"] in c}
+
+    # the Program API beside the eager forward, each call from an idle card
+    lat = {
+        "eager_forward": sync_samples(torch, lambda: model(x), LATENCY_SAMPLES),
+        "traced_call": sync_samples(torch, lambda: traced(params, x), LATENCY_SAMPLES),
+        "executor_replay": sync_samples(torch, lambda: ex(params, x), LATENCY_SAMPLES),
+    }
+    retrace = []
+    for _ in range(LATENCY_SAMPLES):
+        t = time.perf_counter()
+        traced.trace(params, x)
+        retrace.append((time.perf_counter() - t) * 1e3)
+    lat["retrace_host"] = sorted(retrace)
+    back_to_back = {
+        "eager_forward": forward_samples(torch, lambda: model(x), LATENCY_SAMPLES),
+        "traced_call": forward_samples(torch, lambda: traced(params, x), LATENCY_SAMPLES),
+        "executor_replay": forward_samples(torch, lambda: ex(params, x), LATENCY_SAMPLES),
+    }
+    program_timing = {
+        "latency_ms_median": {k: median(v) for k, v in lat.items()},
+        "back_to_back_ms_median": {k: median(v) for k, v in back_to_back.items()},
+        "latency_ms_samples": lat, "back_to_back_ms_samples": back_to_back,
+    }
+    print(f"Program API RESNET18 b{BATCH} (median of {LATENCY_SAMPLES}, host clock from an idle "
+          f"card): eager {median(lat['eager_forward']):.3f} ms, traced call "
+          f"{median(lat['traced_call']):.3f} ms, held Executor {median(lat['executor_replay']):.3f} ms, "
+          f"re-trace alone {median(retrace):.3f} ms host; back to back (CUDA events): "
+          + ", ".join(f"{k} {median(v):.3f} ms" for k, v in back_to_back.items()))
+
+    # the bit-sliced GEMM per path: kernel (graph replay and eager), its
+    # bound, its plain version (CPU), torch._int_mm where one pair is all
+    # there is, and the whole entry-point call from an idle card
+    bitslice_rows = []
+    for r in bitslice_paths:
+        xs, ws, sb, pairs = r["args"]
+        k_ms = graph_ms(torch, lambda: bm._bitslice_gemm(xs, ws, sb, pairs))
+        k_eager = cuda_ms(torch, lambda: bm._bitslice_gemm(xs, ws, sb, pairs))
+        lib_ms = lib_agrees = None
+        if tuple(pairs) == ((0, 0),):
+            lib_ms = graph_ms(torch, lambda: torch._int_mm(xs[0], ws[0]))
+            lib_agrees = torch.equal(torch._int_mm(xs[0], ws[0]), r["out"])
+        nbytes, ops = bitslice_work(xs, ws, sb, pairs)
+        b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        call_ms = sync_samples(torch, lambda: r["run"]("cuda"), LATENCY_SAMPLES // 2)
+        row = {
+            "name": f"bitslice_matmul[{r['path']}]", "route": "cuda", "source": BITSLICE_SOURCE,
+            "replaces": BITSLICE_REPLACES, "launches": r["launches"]["bitslice_matmul"],
+            "max_abs_err": r["max_abs_err"], "ms": k_ms, "plain_ms": r["plain_ms"],
+            "bound_ms": max(b_bytes, b_ops), "bound_by": "operations" if b_ops > b_bytes else "bytes",
+            "library_ms": lib_ms, "eager_ms": k_eager, "plain_device": "cpu",
+            "library": "torch._int_mm" if lib_ms is not None else None,
+            "library_agrees": lib_agrees, "launches_by_path": {r["path"]: r["launches"]["bitslice_matmul"]},
+            "shapes": [list(xs.shape), list(ws.shape)], "slice_bits": sb,
+            "pairs": [list(p) for p in pairs], "bytes": nbytes, "ops": ops,
+            "path_call_ms_median": median(call_ms), "path_call_ms_samples": call_ms,
+        }
+        bitslice_rows.append(row)
+        print(f"kernel {row['name']}: {k_ms:.4f} ms in graph replay ({k_eager:.4f} ms eager; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']}, roofline share "
+              f"{row['bound_ms'] / k_ms:.1%}), plain {r['plain_ms']:.1f} ms on the CPU, "
+              f"torch._int_mm {lib_ms}; whole {r['path']} call {median(call_ms):.3f} ms")
 
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
@@ -454,6 +713,18 @@ def main() -> int:
               f"idle share {profile_summary['idle_share']:.3f}; per forward: {top}")
     else:
         print("profile: the profiler saw no device activity; device breakdown not measured")
+    for r in bitslice_paths:
+        wall, names = device_profile(torch, lambda: r["run"]("cuda"), 1)
+        busy = sum(ms for _, ms in names.values())
+        profile_summary[r["path"]] = {
+            "wall_ms": wall, "device_busy_ms": busy if names else None,
+            "idle_share": 1 - busy / wall if names else None,
+            "kernels": sorted(([nm, c, ms] for nm, (c, ms) in names.items()), key=lambda q: -q[2]),
+        }
+        if names:
+            top = "; ".join(f"{nm[:40]} x{c:g} {ms:.3f} ms"
+                            for nm, c, ms in profile_summary[r["path"]]["kernels"][:5])
+            print(f"profile {r['path']} (one call): {wall:.3f} ms wall, {busy:.3f} ms device busy; {top}")
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -462,18 +733,20 @@ def main() -> int:
         "sm_count": sm_count, "max_sm_clock_hz": clock_hz, "forward_ms": fwd_ms,
         "forward_ms_p80": fwd_p80, "forward_ms_samples": fwd_samples,
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
-        "kernels": rows, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
+        "path_launches": path_launches, "program": program_timing,
+        "kernels": rows + bitslice_rows, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
     }, indent=1))
 
     if smoke.failures:
         for f in smoke.failures:
             print("FAIL", f, file=sys.stderr)
         return 1
-    path = [r for r in rows if r["launches"]]
+    path = [r for r in rows if r["launches"]] + bitslice_rows
     off_path = [r for r in rows if not r["launches"]]
     print(gpu)
     print(json.dumps({"kernels": path, "off_path": off_path, "forward_ms": fwd_ms,
-                      "forward_ms_p80": fwd_p80, "batch": BATCH}))
+                      "forward_ms_p80": fwd_p80, "batch": BATCH, "path_launches": path_launches,
+                      "program_latency_ms": program_timing["latency_ms_median"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

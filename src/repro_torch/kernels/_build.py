@@ -28,17 +28,18 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-SOURCES = ("int_gemm", "pool_reduce", "ewise")
+SOURCES = ("int_gemm", "pool_reduce", "ewise", "bitslice_gemm")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _B = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_char_p
 
 # C entry point → (source, argument types).  Pointers and the stream are
-# c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
+# c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.  Host
+# byte arrays (the bit-sliced GEMM's pair list) are passed as bytes.
 ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "int_gemm_i32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _P)),
     "int_gemm_f32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _P)),
@@ -50,6 +51,7 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "ewise_add_f32": ("ewise", (_P, _P, _P, _L, _P)),
     "relu_i32": ("ewise", (_P, _P, _L, _P)),
     "relu_f32": ("ewise", (_P, _P, _L, _P)),
+    "bitslice_gemm_i8": ("bitslice_gemm", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _B, _B, _I, _P)),
 }
 
 _lock = threading.Lock()

@@ -1,27 +1,55 @@
-"""Kernel registry and public kernel wrappers of the PyTorch port.
+"""Kernel registry, typed operands and public kernel wrappers of the port.
 
-The port's counterpart of the registry part of the JAX package's
-``kernels/api.py``: each kernel module registers its implementation with
-:func:`register_kernel`, paired with its plain oracle from
-:mod:`repro_torch.kernels.ref`, and the public wrappers below all go through
-:func:`dispatch`.
+The port's counterpart of the JAX package's ``kernels/api.py``:
+
+* :class:`SlicedTensor` — a logical integer tensor stored as a stack of
+  signed-digit slices, with its dequantization scale and the ids of its
+  all-zero slices, so the paper's zero-slice skipping reaches the kernel by
+  construction; :class:`PrecisionSpec` and its adaptive-precision presets.
+* The registry: each kernel module registers its implementation with
+  :func:`register_kernel`, paired with its plain oracle, and the public
+  wrappers below all go through :func:`dispatch`.
+* The Program API (:mod:`repro_torch.kernels.program`, re-exported here):
+  :func:`trace` captures a chain of registry kernel calls into a
+  :class:`Program`; :func:`compile` returns its cached :class:`Executor`.
 
 Dispatch goes by the device of the operands.  On CUDA tensors an
 implementation launches its hand-written kernel (``csrc/``) or raises; on CPU
 tensors it runs the kernel's plain PyTorch version.  Nothing falls back from
-one to the other.  Each kernel launch adds one to a per-kernel counter
-(:func:`launch_counts`, :func:`reset_launch_counts`), so a run can show which
-kernels it went through.
+one to the other, and there is no backend scope.  Inside :func:`trace` a
+call is recorded instead of run.  Each kernel launch adds one to a
+per-kernel counter (:func:`launch_counts`, :func:`reset_launch_counts`), so
+a run can show which kernels it went through.
 """
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import program as _program
+from repro_torch.kernels import ref
+from repro_torch.kernels.program import (
+    Executor,
+    Program,
+    ResidentState,
+    TraceError,
+    TracedFunction,
+    clear_compile_cache,
+    compile_cache_info,
+    compile_program,
+    trace,
+)
+
 __all__ = [
+    "PrecisionSpec",
+    "SlicedTensor",
+    "static_value",
+    "absmax_scale",
     "KernelDef",
     "register_kernel",
     "get_kernel",
@@ -32,6 +60,13 @@ __all__ = [
     "count_launch",
     "launch_counts",
     "reset_launch_counts",
+    "active_pairs",
+    "skip_pairs",
+    "zero_slice_pairs",
+    "last_executed_pairs",
+    "bitslice_matmul_oracle",
+    "matmul",
+    "quantized_matmul",
     "ewise_add",
     "relu",
     "conv2d",
@@ -39,7 +74,204 @@ __all__ = [
     "avgpool2d",
     "global_avgpool",
     "int_matmul",
+    # Program API (re-exported from repro_torch.kernels.program)
+    "trace",
+    "compile",
+    "Program",
+    "ResidentState",
+    "Executor",
+    "TracedFunction",
+    "TraceError",
+    "compile_cache_info",
+    "clear_compile_cache",
 ]
+
+# ``api.compile(program)``, the documented spelling; the module-level name
+# shadows the builtin on purpose.
+compile = compile_program
+
+
+# ---------------------------------------------------------------------------
+# staticness probe
+# ---------------------------------------------------------------------------
+
+
+def static_value(arr: Any) -> Any:
+    """The operand itself when its values exist (a tensor on the CPU or a
+    card, an ndarray or a Python scalar), else ``None``: a trace placeholder
+    (:class:`~repro_torch.kernels.program.ProgramValue`) or a meta tensor."""
+    if arr is None or isinstance(arr, _program.ProgramValue):
+        return None
+    if isinstance(arr, torch.Tensor):
+        return None if arr.device.type == "meta" else arr
+    return np.asarray(arr)
+
+
+# ---------------------------------------------------------------------------
+# PrecisionSpec
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PrecisionSpec:
+    """Bit widths of one logical matmul, PIMSAB adaptive-precision style.
+
+    ``slice_bits`` is the native slice width (8: one int8 operand of the
+    card's integer dot products); operands wider than a slice are decomposed
+    into ``ceil(bits / slice_bits)`` slices and recombined with shifts.
+    """
+
+    act_bits: int = 8
+    weight_bits: int = 8
+    slice_bits: int = 8
+    accum_bits: int = 32
+
+    def __post_init__(self) -> None:
+        if not (1 <= self.slice_bits <= 8):
+            raise ValueError(f"slice_bits must be in [1, 8], got {self.slice_bits}")
+        if self.act_bits < 1 or self.weight_bits < 1:
+            raise ValueError(f"bits must be >= 1: {self}")
+        if self.accum_bits < self.act_bits + self.weight_bits:
+            raise ValueError(
+                f"accum_bits={self.accum_bits} cannot hold a "
+                f"{self.act_bits}x{self.weight_bits}-bit product"
+            )
+
+    @property
+    def act_slices(self) -> int:
+        return max(1, math.ceil(self.act_bits / self.slice_bits))
+
+    @property
+    def weight_slices(self) -> int:
+        return max(1, math.ceil(self.weight_bits / self.slice_bits))
+
+    @property
+    def single_pass(self) -> bool:
+        """True if the matmul is one slice pair (no recombination)."""
+        return self.act_slices == 1 and self.weight_slices == 1
+
+    @classmethod
+    def from_quant_config(cls, q) -> "PrecisionSpec":
+        """Lift a quantization config (``act_bits``, ``weight_bits``,
+        ``slice_bits``) into a spec."""
+        return cls(act_bits=q.act_bits, weight_bits=q.weight_bits, slice_bits=q.slice_bits)
+
+
+# Adaptive-precision presets (§IV-C), set after the class body because
+# dataclass fields would swallow them.
+for _name, _spec in {
+    "int4": PrecisionSpec(act_bits=4, weight_bits=4),
+    "int8": PrecisionSpec(act_bits=8, weight_bits=8),
+    "int12": PrecisionSpec(act_bits=12, weight_bits=12),
+    "int16": PrecisionSpec(act_bits=16, weight_bits=16),
+    "w4a8": PrecisionSpec(act_bits=8, weight_bits=4),
+    "w8a16": PrecisionSpec(act_bits=16, weight_bits=8),
+}.items():
+    setattr(PrecisionSpec, _name, _spec)
+del _name, _spec
+
+
+# ---------------------------------------------------------------------------
+# SlicedTensor
+# ---------------------------------------------------------------------------
+
+
+def absmax_scale(xf: torch.Tensor, dim: int, qmax: int) -> torch.Tensor:
+    """Symmetric quantization scale ``max(|x|) / qmax`` along ``dim`` (kept),
+    floored at 1e-8.  The divisor is a tensor: CUDA divides by a Python
+    number as a multiply by its reciprocal, which can round one ulp away
+    from the true division that the CPU and the JAX package compute."""
+    amax = torch.amax(xf.abs(), dim=dim, keepdim=True)
+    return torch.clamp_min(amax / torch.full_like(amax, qmax), 1e-8)
+
+
+def _zero_slice_ids(slices: Any) -> Tuple[int, ...]:
+    """Indices of the all-zero slices of a stack (``()`` when its values do
+    not exist yet: a trace placeholder or a meta tensor).
+
+    A tensor on the card is reduced there; only ``n_slices`` booleans cross
+    to the host, never the stack itself.
+    """
+    if isinstance(slices, np.ndarray):
+        return tuple(s for s in range(slices.shape[0]) if not slices[s].any())
+    if static_value(slices) is None:
+        return ()
+    flags = torch.any(slices.reshape(slices.shape[0], -1), dim=1).cpu().tolist()
+    return tuple(i for i, f in enumerate(flags) if not f)
+
+
+@_program.register_pytree_node
+@dataclass(frozen=True, eq=False)
+class SlicedTensor:
+    """A logical integer tensor stored as a stack of signed-digit slices.
+
+    ``slices`` is ``(n_slices, *shape)`` int8 in the balanced signed-digit
+    radix-2**slice_bits decomposition (low to high):
+
+        value == Σ_s slices[s] · 2**(slice_bits·s)
+
+    ``scale`` (optional) dequantizes the logical value back to float.
+    ``zero_slices`` holds the slices that were all zero at construction —
+    PIMSAB ``mul_const`` zero-bit skipping — and travels as static aux data
+    through :func:`trace`, so kernels skip dead slice pairs even when the
+    slice data itself is a trace placeholder.
+    """
+
+    slices: torch.Tensor
+    scale: Optional[torch.Tensor] = None
+    slice_bits: int = 8
+    orig_bits: int = 8
+    zero_slices: Tuple[int, ...] = ()
+
+    # -- pytree protocol (children, then everything static as aux) --
+    def tree_flatten(self):
+        return (self.slices, self.scale), (self.slice_bits, self.orig_bits, self.zero_slices)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        slices, scale = children
+        slice_bits, orig_bits, zero_slices = aux
+        return cls(slices=slices, scale=scale, slice_bits=slice_bits,
+                   orig_bits=orig_bits, zero_slices=zero_slices)
+
+    # -- constructors --
+    @classmethod
+    def from_int(cls, x: torch.Tensor, bits: int, *, slice_bits: int = 8,
+                 scale: Optional[torch.Tensor] = None) -> "SlicedTensor":
+        """Decompose an integer tensor into slices, noting its zero slices."""
+        slices = ref.to_slices(x, bits, slice_bits)
+        return cls(slices=slices, scale=scale, slice_bits=slice_bits, orig_bits=bits,
+                   zero_slices=_zero_slice_ids(slices))
+
+    @classmethod
+    def quantize(cls, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec.int8, *,
+                 weight: bool = False) -> "SlicedTensor":
+        """Dynamic symmetric per-row (activation) or per-column (weight)
+        quantization: activations along the last axis (the contraction axis
+        of ``x @ w``), weights along the second-to-last."""
+        bits = spec.weight_bits if weight else spec.act_bits
+        axis = -2 if weight else -1
+        qmax = 2 ** (bits - 1) - 1
+        xf = x.to(torch.float32)
+        scale = absmax_scale(xf, axis, qmax)
+        x_q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax).to(torch.int32)
+        return cls.from_int(x_q, bits, slice_bits=spec.slice_bits, scale=scale)
+
+    # -- views --
+    @property
+    def n_slices(self) -> int:
+        return self.slices.shape[0]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.slices.shape[1:])
+
+    def to_int(self) -> torch.Tensor:
+        return ref.from_slices(self.slices, self.slice_bits)
+
+    def dequantize(self) -> torch.Tensor:
+        v = self.to_int().to(torch.float32)
+        return v * self.scale if self.scale is not None else v
 
 
 @dataclass(frozen=True)
@@ -77,6 +309,7 @@ def _ensure_registered() -> None:
     global _bootstrapped
     if _bootstrapped:
         return
+    import repro_torch.kernels.bitslice_matmul  # noqa: F401
     import repro_torch.kernels.conv  # noqa: F401
     import repro_torch.kernels.ewise  # noqa: F401
 
@@ -163,8 +396,109 @@ def reset_launch_counts() -> None:
 def dispatch(name: str, *args, **kwargs):
     """Run kernel ``name`` on the device its tensor operands lie on: its
     kernel wrappers launch the hand-written kernel for CUDA tensors and run
-    the plain version for CPU ones (see :func:`kernel_device`)."""
+    the plain version for CPU ones (see :func:`kernel_device`).  Inside
+    :func:`trace` the call is recorded into the Program under construction
+    instead."""
+    ctx = _program.active_trace()
+    if ctx is not None:
+        return ctx.record(name, args, kwargs)
     return get_kernel(name).impl(*args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# bit-sliced matmul
+# ---------------------------------------------------------------------------
+
+
+def active_pairs(n_x: int, n_w: int,
+                 skip: Tuple[Tuple[int, int], ...] = ()) -> Tuple[Tuple[int, int], ...]:
+    """The (s, t) slice pairs a bit-sliced matmul executes: every pair not
+    in ``skip``.  Both the kernel's pair list and the oracle's loop are
+    exactly this tuple, so a skipped pair is never launched."""
+    dead = set(skip)
+    return tuple((s, t) for s in range(n_x) for t in range(n_w) if (s, t) not in dead)
+
+
+def skip_pairs(x: SlicedTensor, w: SlicedTensor) -> Tuple[Tuple[int, int], ...]:
+    """(s, t) pairs known to contribute zero, from the operands' zero-slice
+    metadata."""
+    return tuple(
+        (s, t)
+        for s in range(x.n_slices)
+        for t in range(w.n_slices)
+        if s in x.zero_slices or t in w.zero_slices
+    )
+
+
+def zero_slice_pairs(x_slices: Any, w_slices: Any) -> Tuple[Tuple[int, int], ...]:
+    """All-zero (s, t) pairs of raw slice stacks, for callers that have not
+    built :class:`SlicedTensor` s.  Stacks whose values do not exist yet are
+    taken as dense."""
+    xs, ws = _zero_slice_ids(x_slices), _zero_slice_ids(w_slices)
+    if not xs and not ws:
+        return ()
+    nx = x_slices.shape[0] if x_slices is not None else 1
+    nw = w_slices.shape[0] if w_slices is not None else 1
+    return tuple((s, t) for s in range(nx) for t in range(nw) if s in xs or t in ws)
+
+
+# The pair list handed to the most recent bit-sliced matmul on this thread
+# (the list the kernel is given and the oracle loops over); regression tests
+# assert that skipped pairs never appear here.
+_last_pairs = threading.local()
+
+
+def last_executed_pairs() -> Tuple[Tuple[int, int], ...]:
+    """The (s, t) slice-pair list the most recent bit-sliced matmul on this
+    thread executed."""
+    return getattr(_last_pairs, "pairs", ())
+
+
+def bitslice_matmul_oracle(x_slices: torch.Tensor, w_slices: torch.Tensor, *,
+                           slice_bits: int = 8,
+                           skip: Tuple[Tuple[int, int], ...] = ()) -> torch.Tensor:
+    """Skip-aware plain oracle: loops exactly ``active_pairs(...)``; with an
+    empty skip list this is ``ref.bitslice_matmul_ref``."""
+    pairs = active_pairs(x_slices.shape[0], w_slices.shape[0], skip)
+    return ref.bitslice_pairs_ref(x_slices, w_slices, slice_bits, pairs)
+
+
+def matmul(x: SlicedTensor, w: SlicedTensor, *,
+           skip: Tuple[Tuple[int, int], ...] = ()) -> torch.Tensor:
+    """``x (M, K) @ w (K, N)`` over slice stacks, zero slices skipped.
+
+    The skipped pairs are the union of the operands' zero-slice metadata and
+    the explicit ``skip`` argument.  Returns float32 (scales applied) when
+    either operand carries a scale, else the raw int32 accumulator.
+    """
+    if x.slice_bits != w.slice_bits:
+        raise ValueError(f"slice_bits mismatch: {x.slice_bits} vs {w.slice_bits}")
+    all_skip = tuple(sorted(set(skip_pairs(x, w)) | set(skip)))
+    _last_pairs.pairs = active_pairs(x.n_slices, w.n_slices, all_skip)
+    acc = dispatch("bitslice_matmul", x.slices, w.slices,
+                   slice_bits=x.slice_bits, skip=all_skip)
+    if x.scale is None and w.scale is None:
+        return acc
+    out = acc.to(torch.float32)
+    if x.scale is not None:
+        out = out * x.scale.reshape(-1, 1)
+    if w.scale is not None:
+        out = out * w.scale.reshape(1, -1)
+    return out
+
+
+def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                     spec: PrecisionSpec = PrecisionSpec.int8) -> torch.Tensor:
+    """The paper's bit-sliced GEMM end to end: dynamic activation
+    quantization → slice decomposition → zero-slice skip (by SlicedTensor
+    construction) → bit-sliced integer matmul → dequantization.
+    ``x (..., K)`` float; ``w_q (K, N)`` integer; out ``(..., N)``."""
+    lead = x.shape[:-1]
+    x_st = SlicedTensor.quantize(x.reshape(-1, x.shape[-1]), spec)
+    w_st = SlicedTensor.from_int(w_q, spec.weight_bits, slice_bits=spec.slice_bits,
+                                 scale=w_scale.reshape(-1))
+    out = matmul(x_st, w_st)
+    return out.reshape(*lead, -1).to(x.dtype)
 
 
 def ewise_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,90 @@ def acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float32 if x.dtype.is_floating_point else torch.int32
 
 
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+# ---------------------------------------------------------------------------
+# bit-slice decomposition
+# ---------------------------------------------------------------------------
+
+
+def slice_range(bits: int, slice_bits: int = 8) -> Tuple[int, int]:
+    """Exactly representable range of the balanced signed-digit
+    decomposition: every digit lies in [-2^(sb-1), 2^(sb-1)-1]."""
+    n = -(-bits // slice_bits)
+    w = sum(1 << (slice_bits * s) for s in range(n))
+    half = 1 << (slice_bits - 1)
+    return -half * w, (half - 1) * w
+
+
+def to_slices(x: torch.Tensor, bits: int, slice_bits: int = 8) -> torch.Tensor:
+    """Balanced signed-digit radix-2^slice_bits decomposition, low to high.
+
+    Returns ``(n_slices, *x.shape)`` int8 with every digit in
+    [-2^(sb-1), 2^(sb-1)-1], so that ``x == Σ_s slices[s] · 2^(sb·s)``
+    within :func:`slice_range`; values outside it are clamped.  A range that
+    leaves int32 raises ``OverflowError``, as the JAX package's clip does.
+    """
+    n = -(-bits // slice_bits)
+    lo, hi = slice_range(bits, slice_bits)
+    if lo < I32_MIN or hi > I32_MAX:
+        raise OverflowError(
+            f"slice_range({bits}, {slice_bits}) = {(lo, hi)} does not fit int32")
+    rem = torch.clamp(x.to(torch.int32), lo, hi)
+    half = 1 << (slice_bits - 1)
+    mask = (1 << slice_bits) - 1
+    out = []
+    for s in range(n):
+        if s == n - 1:
+            digit = rem  # in [-half, half-1] by construction of slice_range
+        else:
+            digit = torch.bitwise_and(rem + half, mask) - half
+            rem = (rem - digit) >> slice_bits  # arithmetic shift
+        out.append(digit)
+    return torch.stack([d.to(torch.int8) for d in out])
+
+
+def from_slices(slices: torch.Tensor, slice_bits: int = 8) -> torch.Tensor:
+    """The int32 value ``Σ_s slices[s] << (slice_bits·s)`` (wrapping)."""
+    acc = torch.zeros(slices.shape[1:], dtype=torch.int32, device=slices.device)
+    for s in range(slices.shape[0]):
+        acc = acc + (slices[s].to(torch.int32) << (slice_bits * s))
+    return acc
+
+
+def bitslice_pairs_ref(x_slices: torch.Tensor, w_slices: torch.Tensor, slice_bits: int,
+                       pairs) -> torch.Tensor:
+    """``Σ_{(s,t) in pairs} (x_s @ w_t) << (slice_bits·(s+t))`` of
+    (Sx, M, K) int8 × (Sw, K, N) int8 stacks → (M, N) int32, wrapping.  A
+    shift of 32 or more gives 0, as in the JAX package."""
+    acc = torch.zeros((x_slices.shape[1], w_slices.shape[2]), dtype=torch.int32,
+                      device=x_slices.device)
+    for s, t in pairs:
+        # int8 @ int8 stays int8 in PyTorch: widen first
+        prod = x_slices[s].to(torch.int32) @ w_slices[t].to(torch.int32)
+        acc = acc + (prod << (slice_bits * (s + t)))
+    return acc
+
+
+def bitslice_matmul_ref(
+    x_slices: torch.Tensor, w_slices: torch.Tensor, slice_bits: int = 8
+) -> torch.Tensor:
+    """(Sx, M, K) int8 × (Sw, K, N) int8 → (M, N) int32 over every slice
+    pair: ``Σ_{s,t} (x_s @ w_t) << (slice_bits·(s+t))``."""
+    sx, _, k = x_slices.shape
+    sw, k2, _ = w_slices.shape
+    assert k == k2, (k, k2)
+    return bitslice_pairs_ref(x_slices, w_slices, slice_bits,
+                              [(s, t) for s in range(sx) for t in range(sw)])
+
+
+def int_matmul_wide_ref(x: torch.Tensor, w: torch.Tensor, x_bits: int, w_bits: int) -> torch.Tensor:
+    """Direct wide-integer oracle: (M, K) × (K, N) in int32 (wrapping)."""
+    del x_bits, w_bits
+    return x.to(torch.int32) @ w.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # elementwise maps
 # ---------------------------------------------------------------------------

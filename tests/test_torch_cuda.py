@@ -6,7 +6,7 @@ at first use); without one they skip.  Run them on a card with::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 ``chip_smoke.py`` holds the same kernels against their plain versions at the
-RESNET18 shapes; these tests cover the edges at small sizes.
+main paths' shapes; these tests cover the edges at small sizes.
 """
 import numpy as np
 import pytest
@@ -14,7 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import api as tapi  # noqa: E402
+from repro_torch.kernels import bitslice_matmul as tbm  # noqa: E402
 from repro_torch.kernels import conv, ewise  # noqa: E402
+from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import resnet as tres  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -102,3 +104,129 @@ def test_resnet_on_card_equals_cpu_and_counts_launches(card, cfg):
     assert counts.get("relu", 0) == names.count("relu")
     assert counts.get("ewise_add", 0) == names.count("ewise_add")
     assert counts.get("pool_max", 0) == names.count("maxpool2d")
+
+
+def stacks(sx, m, k, sw, n, slice_bits, seed):
+    half = 1 << (slice_bits - 1)
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(-half, half, (sx, m, k)).astype(np.int8)),
+            torch.from_numpy(rng.integers(-half, half, (sw, k, n)).astype(np.int8)))
+
+
+# name → (sx, m, k, sw, n, slice_bits, skip)
+BITSLICE = {
+    "sb8-one-pair-tile-aligned": (1, 256, 128, 1, 64, 8, ()),
+    "sb8-narrow-N32": (2, 300, 64, 2, 32, 8, ()),
+    "sb8-ragged-M77-K27-N70": (2, 77, 27, 2, 70, 8, ()),
+    "sb8-ragged-K-odd-N31": (2, 129, 1001, 1, 31, 8, ()),
+    "sb8-shift48-4x4": (4, 65, 40, 4, 66, 8, ()),
+    "sb8-skip": (2, 64, 64, 3, 64, 8, ((0, 1), (1, 2))),
+    "sb8-all-skipped": (2, 32, 32, 2, 32, 8, ((0, 0), (0, 1), (1, 0), (1, 1))),
+    "sb4-shift-up-to-40": (6, 50, 33, 5, 40, 4, ()),
+    "sb1-shift-up-to-37": (20, 40, 24, 18, 33, 1, ()),
+    "sb1-32x32-slices-1024-pairs": (32, 17, 8, 32, 9, 1, ()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BITSLICE))
+def test_bitslice_kernel_matches_plain(card, case):
+    sx, m, k, sw, n, sb, skip = BITSLICE[case]
+    x, w = stacks(sx, m, k, sw, n, sb, len(case))
+    pairs = tapi.active_pairs(sx, sw, skip)
+    tapi.reset_launch_counts()
+    got = tbm._bitslice_gemm(x.to(card), w.to(card), sb, pairs)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"bitslice_matmul": 1}
+    assert set(tbm.launched_pairs()) == set(pairs) and not set(skip) & set(tbm.launched_pairs())
+    assert torch.equal(got.cpu(), tbm._bitslice_plain(x, w, sb, pairs))
+
+
+def test_bitslice_kernel_reads_unaligned_stacks(card):
+    x, w = stacks(3, 50, 64, 1, 40, 8, 3)
+    xs = x.to(card).reshape(-1)
+    buf = torch.empty(xs.numel() + 1, dtype=torch.int8, device=card)
+    buf[1:] = xs
+    shifted = buf[1:].view(3, 50, 64)  # K % 4 == 0, but the stack is 1-byte aligned
+    got = tbm._bitslice_gemm(shifted, w.to(card), 8, tapi.active_pairs(3, 1))
+    assert torch.equal(got.cpu(), tbm._bitslice_plain(x, w, 8, tapi.active_pairs(3, 1)))
+
+
+def test_bitslice_kernel_refuses_what_it_does_not_take(card):
+    x, w = stacks(1, 4, 4, 1, 4, 8, 4)
+    with pytest.raises(TypeError, match="int8 slice stacks"):
+        tbm._bitslice_gemm(x.to(card).to(torch.int32), w.to(card), 8, ((0, 0),))
+    with pytest.raises(ValueError, match="at most"):
+        tbm._bitslice_gemm(torch.zeros((65, 4, 4), dtype=torch.int8, device=card), w.to(card),
+                           1, ((0, 0),))
+
+
+@pytest.mark.parametrize("preset", ["int4", "int8", "int16", "w8a16"])
+def test_quantized_matmul_on_card_equals_cpu(card, preset):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 70, 96)).astype(np.float32))
+    w_q = torch.from_numpy(rng.integers(-100, 100, (96, 40)).astype(np.int32))
+    w_scale = torch.from_numpy((rng.random(40) * 0.01 + 1e-3).astype(np.float32))
+    spec = getattr(tapi.PrecisionSpec, preset)
+    tapi.reset_launch_counts()
+    got = tapi.quantized_matmul(x.to(card), w_q.to(card), w_scale.to(card), spec)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"bitslice_matmul": 1}
+    assert torch.equal(got.cpu(), tapi.quantized_matmul(x, w_q, w_scale, spec))
+
+
+def test_zero_slice_ids_on_card_match_cpu(card):
+    x = torch.from_numpy(np.random.default_rng(6).integers(-100, 100, (64, 48)).astype(np.int32))
+    st_cpu, st_card = tapi.SlicedTensor.from_int(x, 24), tapi.SlicedTensor.from_int(x.to(card), 24)
+    assert st_card.zero_slices == st_cpu.zero_slices == (1, 2)
+
+
+@pytest.mark.parametrize("spec", ["int8", "w8a16"])
+def test_quant_linear_relu_on_card_equals_cpu(card, spec):
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy((rng.standard_normal((96, 72)) * 0.1).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 33, 96)).astype(np.float32))
+    p = tcommon.quantize_weight(w, 8)
+    pc = {k: v.to(card) for k, v in p.items()}
+    tapi.reset_launch_counts()
+    got = tcommon.quant_linear_relu(pc, x.to(card), getattr(tapi.PrecisionSpec, spec))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"bitslice_matmul": 1, "relu": 1}
+    assert torch.equal(got.cpu(), tcommon.quant_linear_relu(p, x, getattr(tapi.PrecisionSpec, spec)))
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 3), (40, 96, 72), (17, 8, 8)])
+def test_common_int_matmul_on_card_equals_cpu(card, shape):
+    m, k, n = shape
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    tapi.reset_launch_counts()
+    got = tcommon.int_matmul(x.to(card), w.to(card))
+    assert tapi.launch_counts() == {"bitslice_matmul": 1}
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), tcommon.int_matmul(x, w))
+
+
+@pytest.mark.parametrize("spec", ["int8", "int4"])
+def test_single_pass_quant_linear_on_card_equals_cpu(card, spec):
+    rng = np.random.default_rng(8)
+    p = tcommon.quantize_weight(torch.from_numpy((rng.standard_normal((64, 40)) * 0.1).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((3, 50, 64)).astype(np.float32))
+    got = tcommon.quant_linear({k: v.to(card) for k, v in p.items()}, x.to(card),
+                               getattr(tapi.PrecisionSpec, spec))
+    assert torch.equal(got.cpu(), tcommon.quant_linear(p, x, getattr(tapi.PrecisionSpec, spec)))
+
+
+def test_traced_resnet_on_card_equals_eager_and_counts_launches(card):
+    cfg = tres.TINY
+    params = tres.init_params(cfg, device="cpu")
+    x = tres.make_input(cfg, 2, device="cpu")
+    model = tres.ResNet(cfg, params, device=card)
+    traced = tapi.trace(lambda p, v: tres.forward(cfg, p, v), name="tiny_card")
+    tapi.reset_launch_counts()
+    got = traced(model.params(), x.to(card))
+    torch.cuda.synchronize()
+    counts = tapi.launch_counts()
+    assert torch.equal(got.cpu(), tres.forward(cfg, params, x))
+    names = tres.layer_names(cfg)
+    assert counts.get("gemm", 0) == names.count("conv2d") + names.count("int_matmul")
+    assert counts.get("relu", 0) == names.count("relu")
