@@ -29,11 +29,25 @@ Phases, any failure of which exits non-zero:
       ``SlicedTensor.from_int`` → ``api.matmul`` with an all-zero activation
       slice whose pairs must never be launched;
    d. ``quant_linear_relu`` (a traced matmul → relu Program) at Qwen2-0.5B's
-      MLP width, 4096 tokens × 896 → 4864, under ``w8a16``.
+      MLP width, 4096 tokens × 896 → 4864, under ``w8a16``;
+   e. serving: ``decode_program`` at Qwen2-0.5B's attention width (head_dim
+      64, int8 K/V caches of capacity 32768), compiled once per request with
+      ``api.compile`` (1 miss, 3 hits), answering 4 requests prefilled to
+      1024, 4096, 16384 and 32760 rows, 8 tokens each; the caches carried
+      from step to step by ``api.kv_append``.  Launches per step, exact:
+      ``kv_append`` 2 + 2, ``attention_qk``, ``softmax_fixedpoint`` and
+      ``attention_pv`` 1 each; every step's softmax non-degenerate;
+   f. ``decode_layer_program`` at Qwen2-0.5B's width (model 896, head 64,
+      FFN 4864) on a full 32768-row cache, and again at capacity 4096:
+      launches qk, softmax, pv 1 each, GEMM 3, relu 1.
 
-   Each of (c) and (d) runs again on CPU copies of its inputs (the plain
+   Each of (c)–(f) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
-   on the same slices, and the path's output the CPU path's, bit for bit;
+   on the same slices, and the path's output the CPU path's, bit for bit.
+   Phase 2 also holds the four attention kernels against their plain
+   versions at the decode shapes (GQA groups of 7 included) and at edges
+   (a 131072-long equal row, shift 40, int32 caches, multi-hot and all-zero
+   selectors);
 4. time each kernel at those inputs (CUDA events around a CUDA-graph replay
    of 20 calls, after warm-up; eager back-to-back calls too) beside its
    bound, its plain version and, where one PyTorch call computes the same
@@ -41,8 +55,12 @@ Phases, any failure of which exits non-zero:
    GEMM); time 50 eager forwards one by one (median and p80), and the
    eager forward, the traced call (re-trace included) and a held
    ``Executor`` replay from an idle card (host clock);
-5. profile three forwards and one call of each bit-sliced path
-   (torch.profiler): device time by kernel name and the device's idle share.
+   time the attention kernels at the serving path's T = 32768 inputs, one
+   decode step (Program call plus the cache carry) at 4096 and 32768 rows
+   and the decode layer, each from an idle card (median of 20);
+5. profile three forwards, one call of each bit-sliced path, five decode
+   steps and three decode layers (torch.profiler): device time by kernel
+   name and the device's idle share.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Per-call details go
@@ -80,6 +98,32 @@ GEMM_PRESETS = ("int4", "int8", "int16", "w8a16")
 # quant_linear_relu: 4096 tokens through Qwen2-0.5B's MLP up-projection
 # (src/repro/configs/qwen2_0_5b.py: d_model 896 → d_ff 4864).
 QLR = (4096, 896, 4864)
+
+# The attention decode slice at Qwen2-0.5B's width (src/repro/configs/
+# qwen2_0_5b.py): head_dim 64 (14 query heads, 2 KV heads: a GQA group of
+# 7), d_model 896, d_ff 4864, a 32768-token context.  score_frac 13 keeps the
+# fixed-point softmax of int8 scores non-degenerate.
+DECODE_CFG = dict(head_dim=64, value_dim=64, kv_bits=8, q_bits=8, score_bits=22, score_frac=13)
+DECODE_CAPACITY = 32768
+DECODE_PREFILL = (1024, 4096, 16384, 32760)  # rows already in each request's cache
+DECODE_STEPS = 8
+GQA = 7
+LAYER_DIMS = (896, 64, 4864)  # model_dim, head_dim, ff_dim
+STEP_LAUNCHES = {"kv_append": 4, "attention_qk": 1, "softmax_fixedpoint": 1, "attention_pv": 1}
+LAYER_LAUNCHES = {"attention_qk": 1, "softmax_fixedpoint": 1, "attention_pv": 1, "gemm": 3, "relu": 1}
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+ATTN_REPLACES = {
+    "attention_qk": "src/repro/kernels/attention.py:48",
+    "softmax_fixedpoint": "src/repro/kernels/attention.py:88",
+    "attention_pv": "src/repro/kernels/attention.py:145",
+    "kv_append": "src/repro/kernels/attention.py:218",
+}
+# why no single PyTorch call computes the same function
+ATTN_NO_LIBRARY = {
+    "attention_qk": "no int8 or int32 GEMV on CUDA (torch._int_mm refuses M <= 16)",
+    "softmax_fixedpoint": "no fixed-point softmax in PyTorch",
+    "attention_pv": "no int32 matrix product on CUDA (torch._int_mm needs int8 p and M > 16)",
+}
 
 BITSLICE_SOURCE = "src/repro_torch/kernels/csrc/bitslice_gemm.cu"
 BITSLICE_REPLACES = "src/repro/kernels/bitslice_matmul.py:29"
@@ -302,6 +346,336 @@ def device_profile(torch, fn, iters=3):
     return start.elapsed_time(end), by_name
 
 
+def attention_kernel_checks(torch, att, ref, smoke, dev, seed):
+    """Phase 2 for the attention kernels: each against its plain version
+    (on a CPU copy) at the decode shapes and at edges."""
+    g = torch.Generator().manual_seed(seed)
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    def i32(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+
+    def sel(rows, t=DECODE_CAPACITY):
+        s = torch.zeros(t, dtype=torch.int8)
+        s[list(rows)] = 1
+        return s
+
+    t, d = DECODE_CAPACITY, DECODE_CFG["head_dim"]
+    sigma = ref.softmax_sigma(DECODE_CFG["score_frac"])
+    kc, vc, q1, qg = i8((t, d)), i8((t, d)), i8((1, d)), i8((GQA, d))
+    scores = att._qk_plain(qg, kc)
+    probs = att._softmax_plain(scores, sigma)
+    equal_row = torch.zeros((1, 131072), dtype=torch.int32)
+    cases = [
+        ("attention_qk", f"(1, {d}) x ({t}, {d}) int8", att._qk, att._qk_plain, (q1, kc)),
+        ("attention_qk", f"GQA ({GQA}, {d}) x ({t}, {d}) int8", att._qk, att._qk_plain, (qg, kc)),
+        ("attention_qk", "int32 wrap (3, 32) x (500, 32)", att._qk, att._qk_plain,
+         (i32((3, 32), -2**31, 2**31 - 1), i32((500, 32), -2**31, 2**31 - 1))),
+        ("softmax_fixedpoint", f"GQA ({GQA}, {t}) in_frac 13", lambda x: att._softmax(x, sigma),
+         lambda x: att._softmax_plain(x, sigma), (scores,)),
+        ("softmax_fixedpoint", "equal row (1, 131072)", lambda x: att._softmax(x, sigma),
+         lambda x: att._softmax_plain(x, sigma), (equal_row,)),
+        ("attention_pv", f"GQA ({GQA}, {t}) int32 x ({t}, {d}) int8 shift 6", lambda p, v: att._pv(p, v, 6),
+         lambda p, v: att._pv_plain(p, v, 6), (probs, vc)),
+        ("attention_pv", "negative accumulators (3, 300) x (300, 5) shift 40", lambda p, v: att._pv(p, v, 40),
+         lambda p, v: att._pv_plain(p, v, 40), (i32((3, 300), -1000, 1000), i32((300, 5), -1000, 1000))),
+        ("kv_append", f"int8 ({t}, {d}) one-hot", att._kv_append, att._kv_append_plain, (kc, i8((d,)), sel([5000]))),
+        ("kv_append", f"int8 ({t}, {d}) all-zero selector", att._kv_append, att._kv_append_plain,
+         (kc, i8((d,)), sel([]))),
+        ("kv_append", f"int8 ({t}, {d}) two-hot", att._kv_append, att._kv_append_plain,
+         (kc, i8((d,)), sel([0, t - 1]))),
+    ]
+    cache32, row32 = i32((t, d), -2**31, 2**31 - 1), i32((d,), -2**31, 2**31 - 1)
+    for what, rows in (("one-hot", [t // 2]), ("all-zero selector", []), ("two-hot", [1, t - 2])):
+        cases.append(("kv_append", f"int32 ({t}, {d}) {what}", att._kv_append, att._kv_append_plain,
+                      (cache32, row32, sel(rows))))
+    for kernel, case, run, plain, args in cases:
+        got = run(*[a.to(dev) for a in args])
+        torch.cuda.synchronize()
+        smoke.check(kernel, case, got, plain(*args), exact=True)
+    # the oracle's exact divide gives 0 on the long equal row, where the
+    # Pallas body's shifted restoring division wraps and gives 64
+    if att._softmax_plain(equal_row, sigma).any():
+        smoke.failures.append("softmax_fixedpoint: the plain version is not 0 on the equal 131072 row")
+
+
+class AttentionRecorder:
+    """Records every call of the four attention kernel wrappers (arguments
+    and output) while installed; launches nothing of its own."""
+
+    NAMES = {"attention_qk": "_qk", "softmax_fixedpoint": "_softmax", "attention_pv": "_pv",
+             "kv_append": "_kv_append"}
+
+    def __init__(self, att):
+        self.att = att
+        self.calls = {k: [] for k in self.NAMES}
+
+    def __enter__(self):
+        self.orig = {k: getattr(self.att, f) for k, f in self.NAMES.items()}
+        for k, f in self.NAMES.items():
+            setattr(self.att, f, self._wrap(k, self.orig[k]))
+        return self
+
+    def _wrap(self, kernel, fn):
+        def rec(*args):
+            out = fn(*args)
+            self.calls[kernel].append((args, out))
+            return out
+        return rec
+
+    def __exit__(self, *exc):
+        for k, f in self.NAMES.items():
+            setattr(self.att, f, self.orig[k])
+
+
+def decode_requests(torch, seed):
+    """The serving path's requests, on the CPU: per request a prefilled K and
+    V cache (random int8 rows up to its length, zero after) and, per step, a
+    query, the new K and V rows and the one-hot selector of its row."""
+    g = torch.Generator().manual_seed(seed)
+    cap, d, dv = DECODE_CAPACITY, DECODE_CFG["head_dim"], DECODE_CFG["value_dim"]
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    reqs = []
+    for length in DECODE_PREFILL:
+        kc, vc = torch.zeros((cap, d), dtype=torch.int8), torch.zeros((cap, dv), dtype=torch.int8)
+        kc[:length], vc[:length] = i8((length, d)), i8((length, dv))
+        steps = []
+        for i in range(DECODE_STEPS):
+            onehot = torch.zeros(cap, dtype=torch.int8)
+            onehot[length + i] = 1
+            steps.append((i8((1, d)), i8((d,)), i8((dv,)), onehot))
+        reqs.append({"length": length, "kc": kc, "vc": vc, "steps": steps})
+    return reqs
+
+
+def serve(api, pimsab_step, cfg, reqs, dev, per_step=None):
+    """Answer every request token by token through the bucket's compiled
+    decode step, carrying the caches with ``api.kv_append``; returns the
+    contexts (per request, per step).  ``per_step(req, step)`` runs after
+    each step."""
+    contexts = []
+    for r, req in enumerate(reqs):
+        ex = api.compile(pimsab_step.decode_program(cfg, DECODE_CAPACITY))
+        kc, vc = req["kc"].to(dev), req["vc"].to(dev)
+        ctx = []
+        for i, step in enumerate(req["steps"]):
+            q, k_new, v_new, onehot = (a.to(dev) for a in step)
+            ctx.append(ex(kc, vc, q, k_new, v_new, onehot))
+            kc = api.kv_append(kc, k_new, onehot)
+            vc = api.kv_append(vc, v_new, onehot)
+            if per_step is not None:
+                per_step(r, i)
+        contexts.append(ctx)
+    return contexts
+
+
+def run_serve_path(torch, api, att, pimsab_step, smoke, dev, seed):
+    """Phase 3e: the serving path on the card, then on CPU copies."""
+    cfg = pimsab_step.AttnServeConfig(**DECODE_CFG)
+    reqs = decode_requests(torch, seed)
+    step_counts = []
+    last = {}
+
+    def per_step(r, i):
+        now = api.launch_counts()
+        step_counts.append({k: v - last.get(k, 0) for k, v in now.items() if v - last.get(k, 0)})
+        last.clear()
+        last.update(now)
+
+    info0 = api.compile_cache_info()
+    with AttentionRecorder(att) as rec:
+        api.reset_launch_counts()
+        t = time.perf_counter()
+        got = serve(api, pimsab_step, cfg, reqs, dev, per_step)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        counts = {k: v for k, v in api.launch_counts().items() if v}
+    info1 = api.compile_cache_info()
+    t = time.perf_counter()
+    want = serve(api, pimsab_step, cfg, reqs, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t
+
+    n_steps = len(DECODE_PREFILL) * DECODE_STEPS
+    expected = {k: v * n_steps for k, v in STEP_LAUNCHES.items()}
+    if counts != expected:
+        smoke.failures.append(f"decode serving: launch counts {counts} != expected {expected}")
+    bad_steps = [i for i, c in enumerate(step_counts) if c != STEP_LAUNCHES]
+    if bad_steps:
+        smoke.failures.append(f"decode serving: steps {bad_steps} launched {step_counts[bad_steps[0]]}, "
+                              f"not {STEP_LAUNCHES}")
+    if (info1.misses - info0.misses, info1.hits - info0.hits) != (1, len(reqs) - 1):
+        smoke.failures.append(f"decode serving: compile cache {info0.hits}/{info0.misses} → "
+                              f"{info1.hits}/{info1.misses} (hits/misses), expected 1 miss and "
+                              f"{len(reqs) - 1} hits")
+    for r, (g_ctx, w_ctx) in enumerate(zip(got, want)):
+        for i, (g_, w_) in enumerate(zip(g_ctx, w_ctx)):
+            if g_.shape != (1, DECODE_CFG["value_dim"]) or g_.dtype != torch.int32:
+                smoke.failures.append(f"decode serving: context {r}/{i} has shape {tuple(g_.shape)} {g_.dtype}")
+            smoke.check("decode_serving", f"request {r} (prefill {reqs[r]['length']}) step {i} context",
+                        g_, w_, exact=True)
+    probs = [out for _, out in rec.calls["softmax_fixedpoint"]]
+    sums = [int(p.sum()) for p in probs]
+    nonzero = [int((p != 0).sum()) for p in probs]
+    if len(probs) != n_steps or min(sums) < 32 or max(nonzero) < 2:
+        smoke.failures.append(f"decode serving: degenerate softmax (row sums {sums}, nonzero {nonzero})")
+    return {"counts": counts, "step_counts": step_counts, "calls": rec.calls,
+            "cache": {"hits": info1.hits - info0.hits, "misses": info1.misses - info0.misses},
+            "first_s": first_s, "cpu_s": cpu_s, "prob_sums": sums, "prob_nonzero": nonzero}
+
+
+def run_layer_path(torch, api, att, pimsab_step, smoke, dev, seed, capacity):
+    """Phase 3f: the decode layer at Qwen2-0.5B's width on a full cache of
+    ``capacity`` rows, on the card and on CPU copies."""
+    model_dim, head_dim, ff_dim = LAYER_DIMS
+    prog = pimsab_step.decode_layer_program(
+        model_dim, head_dim, ff_dim, capacity, q_bits=8, kv_bits=8,
+        score_bits=DECODE_CFG["score_bits"], score_frac=DECODE_CFG["score_frac"], w_bits=8)
+    g = torch.Generator().manual_seed(seed)
+    shapes = ((capacity, head_dim), (capacity, head_dim), (1, head_dim), (head_dim, model_dim),
+              (model_dim, ff_dim), (ff_dim, model_dim))
+    args = [torch.randint(-128, 128, s, generator=g, dtype=torch.int8) for s in shapes]
+    ex = api.compile(prog)
+    card_args = [a.to(dev) for a in args]
+    with AttentionRecorder(att) as rec:
+        api.reset_launch_counts()
+        got = ex(*card_args)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in api.launch_counts().items() if v}
+    want = ex(*args)
+    if counts != LAYER_LAUNCHES:
+        smoke.failures.append(f"decode layer {capacity}: launch counts {counts} != {LAYER_LAUNCHES}")
+    if got.shape != (1, model_dim) or got.dtype != torch.int32:
+        smoke.failures.append(f"decode layer {capacity}: output {tuple(got.shape)} {got.dtype}")
+    smoke.check("decode_layer", f"capacity {capacity} output", got, want, exact=True)
+    p = rec.calls["softmax_fixedpoint"][0][1]
+    if int(p.sum()) < 32 or int((p != 0).sum()) < 2:
+        smoke.failures.append(f"decode layer {capacity}: degenerate softmax (sum {int(p.sum())}, "
+                              f"nonzero {int((p != 0).sum())})")
+    return {"ex": ex, "args": card_args, "counts": counts, "prob_sum": int(p.sum()),
+            "prob_nonzero": int((p != 0).sum()), "out_absmax": int(got.abs().max())}
+
+
+def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s):
+    """Phase 4 for the attention kernels: each at the serving path's inputs
+    of its T = 32768 request (checked once more against its plain version),
+    CUDA-graph and eager ms, the plain version (on the card where PyTorch
+    has the ops, else on the CPU), the library call where there is one, and
+    the bound from this call's bytes and operations."""
+    sigma = ref.softmax_sigma(DECODE_CFG["score_frac"])
+    run = {"attention_qk": att._qk, "softmax_fixedpoint": lambda x: att._softmax(x, sigma),
+           "attention_pv": lambda p, v: att._pv(p, v, ref.SOFTMAX_F), "kv_append": att._kv_append}
+    plain = {"attention_qk": att._qk_plain, "softmax_fixedpoint": lambda x: att._softmax_plain(x, sigma),
+             "attention_pv": lambda p, v: att._pv_plain(p, v, ref.SOFTMAX_F),
+             "kv_append": att._kv_append_plain}
+    plain_on_card = {"softmax_fixedpoint", "kv_append"}  # PyTorch has no int32 matmul on CUDA
+
+    def width(a):
+        return a.element_size() * a.numel()
+
+    rows = []
+    for kernel in ATTN_REPLACES:
+        args, path_out = serve_run["calls"][kernel][-1]  # every request's cache holds 32768 rows
+        args = tuple(a for a in args if torch.is_tensor(a))  # sigma and shift are fixed above
+        cpu_args = [a.cpu() for a in args]
+        err = smoke.check(kernel, f"serving path T={DECODE_CAPACITY} call", run[kernel](*args),
+                          plain[kernel](*cpu_args), exact=True)
+        k_ms = graph_ms(torch, lambda: run[kernel](*args))
+        k_eager = cuda_ms(torch, lambda: run[kernel](*args))
+        if kernel in plain_on_card:
+            p_ms = graph_ms(torch, lambda: plain[kernel](*args))
+        else:
+            samples = []
+            for _ in range(5):
+                t = time.perf_counter()
+                plain[kernel](*cpu_args)
+                samples.append((time.perf_counter() - t) * 1e3)
+            p_ms = median(sorted(samples))
+        lib_ms = None
+        if kernel == "kv_append":
+            cache, new, sel = args
+            sel_b, new_c = (sel != 0)[:, None], new.to(cache.dtype)[None, :]
+            lib = torch.where(sel_b, new_c, cache)
+            smoke.check(kernel, "torch.where library call", lib, plain[kernel](*cpu_args), exact=True)
+            lib_ms = graph_ms(torch, lambda: torch.where(sel_b, new_c, cache))
+        nbytes = sum(width(a) for a in args) + width(path_out)
+        if kernel == "attention_qk":  # int8 products: the int8 peak, two operations a multiply-add
+            ops, rate = 2 * args[0].shape[0] * args[1].shape[0] * args[0].shape[1], INT8_OPS_PER_S
+        elif kernel == "attention_pv":  # int32 multiply-adds on IMAD
+            ops, rate = args[0].shape[0] * args[0].shape[1] * args[1].shape[1], imad_per_s
+        elif kernel == "softmax_fixedpoint":
+            # int32 operations an element, each once: the max, 13 for the
+            # exponential, the sum, the final multiply and shift
+            ops, rate = 17 * args[0].numel(), imad_per_s
+        else:
+            ops, rate = 0, imad_per_s
+        b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        rows.append({
+            "name": kernel, "route": "cuda", "source": ATTN_SOURCE, "replaces": ATTN_REPLACES[kernel],
+            "launches": serve_run["counts"].get(kernel, 0), "max_abs_err": max(
+                (c["max_abs_err"] or 0.0) for c in smoke.cases if c["kernel"] == kernel),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "operations" if b_ops > b_bytes else "bytes", "library_ms": lib_ms,
+            "eager_ms": k_eager, "plain_device": "cuda" if kernel in plain_on_card else "cpu",
+            "library": "torch.where" if lib_ms is not None else None,
+            "library_none_reason": ATTN_NO_LIBRARY.get(kernel),
+            "launches_per_step": STEP_LAUNCHES[kernel], "main_path_max_abs_err": err,
+            "shapes": [list(a.shape) for a in args], "dtypes": [str(a.dtype) for a in args],
+            "bytes": nbytes, "ops": ops,
+        })
+        print(f"kernel {kernel}: {k_ms * 1e3:.2f} us in graph replay ({k_eager * 1e3:.2f} us eager; bound "
+              f"{max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
+              f"{max(b_bytes, b_ops) / k_ms:.1%}) at {rows[-1]['shapes']}; plain {p_ms:.4f} ms on "
+              f"{rows[-1]['plain_device']}; library {lib_ms}; launches on the serving path "
+              f"{rows[-1]['launches']}")
+    return rows
+
+
+def decode_latency(torch, api, pimsab_step, dev, seed, layer):
+    """One decode step (the Program call and the two-row cache carry) and the
+    Program call alone at 4096 and 32768 rows, and the decode layer, each
+    from an idle card (host clock, median of LATENCY_SAMPLES), beside their
+    device time (CUDA-graph replay)."""
+    cfg = pimsab_step.AttnServeConfig(**DECODE_CFG)
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for cap in (4096, DECODE_CAPACITY):
+        ex = api.compile(pimsab_step.decode_program(cfg, cap))
+        d = DECODE_CFG["head_dim"]
+        kc, vc = (torch.randint(-128, 128, (cap, d), generator=g, dtype=torch.int8).to(dev) for _ in range(2))
+        q, k_new, v_new = (torch.randint(-128, 128, s, generator=g, dtype=torch.int8).to(dev)
+                           for s in ((1, d), (d,), (d,)))
+        onehot = torch.zeros(cap, dtype=torch.int8, device=dev)
+        onehot[cap - 1] = 1
+
+        def program():
+            return ex(kc, vc, q, k_new, v_new, onehot)
+
+        def step():
+            ctx = program()
+            api.kv_append(kc, k_new, onehot)
+            api.kv_append(vc, v_new, onehot)
+            return ctx
+
+        lat, prog_lat = sync_samples(torch, step, LATENCY_SAMPLES), sync_samples(torch, program, LATENCY_SAMPLES)
+        out[cap] = {"step_ms_median": median(lat), "step_ms_samples": lat,
+                    "program_ms_median": median(prog_lat), "program_ms_samples": prog_lat,
+                    "step_device_ms": graph_ms(torch, step), "step": step}
+        print(f"decode step at {cap} rows (median of {LATENCY_SAMPLES}, host clock from an idle card): "
+              f"{median(lat):.4f} ms with the cache carry, {median(prog_lat):.4f} ms the Program call "
+              f"alone; device time {out[cap]['step_device_ms'] * 1e3:.2f} us in graph replay")
+    lat = sync_samples(torch, lambda: layer["ex"](*layer["args"]), LATENCY_SAMPLES)
+    out["layer"] = {"ms_median": median(lat), "ms_samples": lat,
+                    "device_ms": graph_ms(torch, lambda: layer["ex"](*layer["args"]))}
+    print(f"decode layer at {DECODE_CAPACITY} rows: {median(lat):.4f} ms (median of {LATENCY_SAMPLES}, host "
+          f"clock from an idle card); device time {out['layer']['device_ms']:.4f} ms in graph replay")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -310,8 +684,10 @@ def main() -> int:
         return 2
 
     from repro_torch.kernels import _build, api, conv, ewise, ref
+    from repro_torch.kernels import attention as att
     from repro_torch.kernels import bitslice_matmul as bm
     from repro_torch.models import common, resnet
+    from repro_torch.serve import pimsab_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -440,6 +816,7 @@ def main() -> int:
                 api.conv2d(fx.to(dev), fw.to(dev), stride=2, padding=1),
                 api.conv2d(fx, fw, stride=2, padding=1), False)
     torch.cuda.synchronize()
+    attention_kernel_checks(torch, att, ref, smoke, dev, SEED + 3)
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
@@ -546,6 +923,25 @@ def main() -> int:
         print(f"phase 3c/d {r['path']}: launches {r['launches']}, executed pairs {r['executed']}, "
               f"launched {r['launched']}, skipped {r['skipped']}; kernel vs plain max_abs_err "
               f"{r['max_abs_err']}; plain {r['plain_ms']:.0f} ms on the CPU")
+    torch.cuda.synchronize()
+
+    # ---------------- phase 3e: serving, the decode step at Qwen2-0.5B's attention width ----------------
+    serve_run = run_serve_path(torch, api, att, pimsab_step, smoke, dev, SEED + 4)
+    path_launches["decode_serving"] = serve_run["counts"]
+    print(f"phase 3e decode serving: {len(DECODE_PREFILL)} requests x {DECODE_STEPS} tokens at capacity "
+          f"{DECODE_CAPACITY}; launches {serve_run['counts']}; compile cache {serve_run['cache']}; softmax "
+          f"row sums {min(serve_run['prob_sums'])}-{max(serve_run['prob_sums'])}, nonzero entries "
+          f"{min(serve_run['prob_nonzero'])}-{max(serve_run['prob_nonzero'])}; first run "
+          f"{serve_run['first_s']:.3f} s, CPU copies {serve_run['cpu_s']:.2f} s")
+
+    # ---------------- phase 3f: the decode layer at Qwen2-0.5B's width ----------------
+    layers = {}
+    for i, cap in enumerate((DECODE_CAPACITY, 4096)):
+        layers[cap] = run_layer_path(torch, api, att, pimsab_step, smoke, dev, SEED + 5 + i, cap)
+        path_launches[f"decode_layer_{cap}"] = layers[cap]["counts"]
+        print(f"phase 3f decode layer {LAYER_DIMS} capacity {cap}: launches {layers[cap]['counts']}; "
+              f"softmax row sum {layers[cap]['prob_sum']}, {layers[cap]['prob_nonzero']} nonzero; "
+              f"|out| max {layers[cap]['out_absmax']}")
     torch.cuda.synchronize()
 
     # ---------------- phase 4: timing ----------------
@@ -659,7 +1055,7 @@ def main() -> int:
     print(f"Program API RESNET18 b{BATCH} (median of {LATENCY_SAMPLES}, host clock from an idle "
           f"card): eager {median(lat['eager_forward']):.3f} ms, traced call "
           f"{median(lat['traced_call']):.3f} ms, held Executor {median(lat['executor_replay']):.3f} ms, "
-          f"re-trace alone {median(retrace):.3f} ms host; back to back (CUDA events): "
+          f"re-trace alone {median(lat['retrace_host']):.3f} ms host; back to back (CUDA events): "
           + ", ".join(f"{k} {median(v):.3f} ms" for k, v in back_to_back.items()))
 
     # the bit-sliced GEMM per path: kernel (graph replay and eager), its
@@ -695,6 +1091,11 @@ def main() -> int:
               f"{row['bound_ms'] / k_ms:.1%}), plain {r['plain_ms']:.1f} ms on the CPU, "
               f"torch._int_mm {lib_ms}; whole {r['path']} call {median(call_ms):.3f} ms")
 
+    attention_rows = attention_timing(torch, att, ref, smoke, serve_run, imad_per_s)
+    for row in attention_rows:
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in path_launches.items() if row["name"] in c}
+    decode = decode_latency(torch, api, pimsab_step, dev, SEED + 7, layers[DECODE_CAPACITY])
+
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
     wall_ms, by_name = device_profile(torch, lambda: model(x), prof_iters)
@@ -726,6 +1127,43 @@ def main() -> int:
                             for nm, c, ms in profile_summary[r["path"]]["kernels"][:5])
             print(f"profile {r['path']} (one call): {wall:.3f} ms wall, {busy:.3f} ms device busy; {top}")
 
+    wall, names = device_profile(torch, decode[DECODE_CAPACITY]["step"], 5)
+    busy = sum(ms for _, ms in names.values())
+    profile_summary["decode_step"] = {
+        "wall_ms_per_step": wall / 5, "device_busy_ms_per_step": busy / 5 if names else None,
+        "idle_share": 1 - busy / wall if names else None,
+        "kernels": sorted(([nm, c / 5, ms / 5] for nm, (c, ms) in names.items()), key=lambda q: -q[2]),
+    }
+    if names:
+        top = "; ".join(f"{nm[:40]} x{c:g} {ms * 1e3:.2f} us"
+                        for nm, c, ms in profile_summary["decode_step"]["kernels"][:6])
+        print(f"profile decode step at {DECODE_CAPACITY} rows (5 steps): {wall / 5:.4f} ms wall, "
+              f"{busy / 5:.4f} ms device busy, idle share {profile_summary['decode_step']['idle_share']:.3f}; "
+              f"per step: {top}")
+    layer = layers[DECODE_CAPACITY]
+    wall, names = device_profile(torch, lambda: layer["ex"](*layer["args"]), 3)
+    busy = sum(ms for _, ms in names.values())
+    profile_summary["decode_layer"] = {
+        "wall_ms_per_call": wall / 3, "device_busy_ms_per_call": busy / 3 if names else None,
+        "idle_share": 1 - busy / wall if names else None,
+        "kernels": sorted(([nm, c / 3, ms / 3] for nm, (c, ms) in names.items()), key=lambda q: -q[2]),
+    }
+    if names:
+        top = "; ".join(f"{nm[:40]} x{c:g} {ms * 1e3:.2f} us"
+                        for nm, c, ms in profile_summary["decode_layer"]["kernels"][:8])
+        print(f"profile decode layer at {DECODE_CAPACITY} rows (3 calls): {wall / 3:.4f} ms wall, "
+              f"{busy / 3:.4f} ms device busy, idle share {profile_summary['decode_layer']['idle_share']:.3f}; "
+              f"per call: {top}")
+    decode_summary = {
+        "step_ms_median": {cap: decode[cap]["step_ms_median"] for cap in (4096, DECODE_CAPACITY)},
+        "program_ms_median": {cap: decode[cap]["program_ms_median"] for cap in (4096, DECODE_CAPACITY)},
+        "step_device_ms": {cap: decode[cap]["step_device_ms"] for cap in (4096, DECODE_CAPACITY)},
+        "layer_ms_median": decode["layer"]["ms_median"], "layer_device_ms": decode["layer"]["device_ms"],
+    }
+    for cap in (4096, DECODE_CAPACITY):
+        del decode[cap]["step"]
+    registered = {name: LAUNCHED_BY.get(name, name) for name in sorted(api.registered_kernels())}
+
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -734,19 +1172,25 @@ def main() -> int:
         "forward_ms_p80": fwd_p80, "forward_ms_samples": fwd_samples,
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
         "path_launches": path_launches, "program": program_timing,
-        "kernels": rows + bitslice_rows, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
+        "kernels": rows + bitslice_rows + attention_rows, "registered_kernels": registered,
+        "decode": decode, "decode_summary": decode_summary,
+        "decode_serving": {k: serve_run[k] for k in ("counts", "step_counts", "cache", "first_s", "cpu_s",
+                                                      "prob_sums", "prob_nonzero")},
+        "decode_layer": {cap: {k: v for k, v in r.items() if k not in ("ex", "args")} for cap, r in layers.items()},
+        "calls": details, "cases": smoke.cases, "failures": smoke.failures,
     }, indent=1))
 
     if smoke.failures:
         for f in smoke.failures:
             print("FAIL", f, file=sys.stderr)
         return 1
-    path = [r for r in rows if r["launches"]] + bitslice_rows
+    path = [r for r in rows if r["launches"]] + bitslice_rows + attention_rows
     off_path = [r for r in rows if not r["launches"]]
     print(gpu)
-    print(json.dumps({"kernels": path, "off_path": off_path, "forward_ms": fwd_ms,
-                      "forward_ms_p80": fwd_p80, "batch": BATCH, "path_launches": path_launches,
-                      "program_latency_ms": program_timing["latency_ms_median"]}))
+    print(json.dumps({"kernels": path, "off_path": off_path, "registered_kernels": registered,
+                      "forward_ms": fwd_ms, "forward_ms_p80": fwd_p80, "batch": BATCH,
+                      "path_launches": path_launches,
+                      "program_latency_ms": program_timing["latency_ms_median"], "decode": decode_summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

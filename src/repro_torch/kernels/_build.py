@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-SOURCES = ("int_gemm", "pool_reduce", "ewise", "bitslice_gemm")
+SOURCES = ("int_gemm", "pool_reduce", "ewise", "bitslice_gemm", "attention")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +52,12 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "relu_i32": ("ewise", (_P, _P, _L, _P)),
     "relu_f32": ("ewise", (_P, _P, _L, _P)),
     "bitslice_gemm_i8": ("bitslice_gemm", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _B, _B, _I, _P)),
+    # the attention kernels take int8 and int32 operands, named by their
+    # element size in bytes (1 or 4) after the extents
+    "attention_qk": ("attention", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "softmax_fixedpoint": ("attention", (_P, _P, _I, _I, _I, _I, _P)),
+    "attention_pv": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "kv_append": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

@@ -74,6 +74,10 @@ __all__ = [
     "avgpool2d",
     "global_avgpool",
     "int_matmul",
+    "attention_qk",
+    "softmax_fixedpoint",
+    "attention_pv",
+    "kv_append",
     # Program API (re-exported from repro_torch.kernels.program)
     "trace",
     "compile",
@@ -309,6 +313,7 @@ def _ensure_registered() -> None:
     global _bootstrapped
     if _bootstrapped:
         return
+    import repro_torch.kernels.attention  # noqa: F401
     import repro_torch.kernels.bitslice_matmul  # noqa: F401
     import repro_torch.kernels.conv  # noqa: F401
     import repro_torch.kernels.ewise  # noqa: F401
@@ -559,3 +564,55 @@ def int_matmul(
     """Raw-integer ``(M, K) @ (K, N)`` with int32 accumulation (wrapping)."""
     return dispatch("int_matmul", x, w, x_bits=x_bits, w_bits=w_bits)
 
+
+# ---------------------------------------------------------------------------
+# attention decode
+# ---------------------------------------------------------------------------
+
+
+def attention_qk(
+    q: torch.Tensor, k: torch.Tensor, *,
+    q_bits: Optional[int] = None, k_bits: Optional[int] = None,
+    out_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention scores ``(M, D) q × (T, D) k → (M, T) int32`` (q·Kᵀ,
+    wrapping).  ``q_bits``/``k_bits`` are precision hints of the simulator
+    lowering; ``out_bits`` is the caller's promise that every score fits that
+    many signed bits.  None of them changes the math."""
+    return dispatch("attention_qk", q, k, q_bits=q_bits, k_bits=k_bits, out_bits=out_bits)
+
+
+def softmax_fixedpoint(
+    x: torch.Tensor, *, in_frac: int, in_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """Bit-exact fixed-point row softmax of ``(R, T)`` integers.
+
+    Inputs carry ``in_frac`` fraction bits (at least ``SOFTMAX_F −
+    SOFTMAX_K`` = 3, at most 28); outputs are int32 probabilities with
+    ``SOFTMAX_F`` = 6 fraction bits, rows summing to about ``2**6``.  The
+    recipe is the oracle's (max-subtract, squared-polynomial exp, exact
+    floor-division normaliser); ``in_bits`` is a width hint.
+    """
+    return dispatch("softmax_fixedpoint", x, in_frac=in_frac, in_bits=in_bits)
+
+
+def attention_pv(
+    p: torch.Tensor, v: torch.Tensor, *, shift: Optional[int] = None,
+    p_bits: Optional[int] = None, v_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """Probability-weighted value mix ``(M, T) p × (T, Dv) v → (M, Dv)
+    int32``, the int32 accumulator arithmetically shifted right by ``shift``
+    (default ``SOFTMAX_F``).  ``shift`` reaches the kernel only when given,
+    as in the JAX package, so Program signatures stay equal."""
+    kwargs = dict(p_bits=p_bits, v_bits=v_bits)
+    if shift is not None:
+        kwargs["shift"] = shift
+    return dispatch("attention_pv", p, v, **kwargs)
+
+
+def kv_append(cache: torch.Tensor, new: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """``(T, D)`` cache with the rows selected by the nonzero entries of
+    ``onehot (T,)`` replaced by the ``(D,)`` ``new`` row (all-zero selector →
+    unchanged), as a new tensor in the cache's dtype; the input cache is
+    left as it was."""
+    return dispatch("kv_append", cache, new, onehot)

@@ -215,3 +215,103 @@ def global_avgpool_ref(x: torch.Tensor) -> torch.Tensor:
     acc = acc_dtype(x)
     s = torch.sum(x.reshape(n, c, h * w).to(acc), dim=-1, dtype=acc)
     return _pool_mean(s, h * w)
+
+
+# ---------------------------------------------------------------------------
+# transformer decode (attention + KV cache).  All-integer and bit-exact: every
+# ``>>`` is arithmetic (floor), int32 arithmetic wraps.
+# ---------------------------------------------------------------------------
+
+# The fixed-point softmax constants of the JAX package's oracles.
+SOFTMAX_F = 6    # fraction bits of exponentials and output probabilities
+SOFTMAX_K = 3    # range-reduction squarings: exp(t) ≈ (quad(t/2^K))^(2^K)
+SOFTMAX_FI = 8   # extra fraction bits of the row-sum reciprocal
+
+
+def attention_qk_ref(
+    q: torch.Tensor, k: torch.Tensor, *,
+    q_bits: Optional[int] = None, k_bits: Optional[int] = None,
+    out_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """(M, D) query block × (T, D) key cache → (M, T) int32 scores q·Kᵀ
+    (wrapping).  ``q_bits``/``k_bits``/``out_bits`` are precision hints of
+    the simulator lowering (``out_bits``: the caller's promise that every
+    score fits that many signed bits) and do not change the math."""
+    del q_bits, k_bits, out_bits
+    return q.to(torch.int32) @ k.to(torch.int32).T
+
+
+def softmax_sigma(in_frac: int) -> int:
+    """The range-reduction shift σ = in_frac − F + K of the fixed-point
+    softmax; raises where the JAX package does: ``NotImplementedError``
+    below ``in_frac`` = F − K (the shift cannot go left), ``OverflowError``
+    where the clamp bound −2^(F+σ) leaves int32."""
+    f, kk = SOFTMAX_F, SOFTMAX_K
+    in_frac = int(in_frac)
+    if in_frac < f - kk:
+        raise NotImplementedError(
+            f"softmax_fixedpoint needs in_frac >= {f - kk} (got {in_frac})"
+        )
+    sigma = in_frac - f + kk
+    if f + sigma > 31:
+        raise OverflowError(
+            f"softmax_fixedpoint: in_frac={in_frac} puts the clamp bound "
+            f"-2^{f + sigma} outside int32"
+        )
+    return sigma
+
+
+def softmax_fixedpoint_ref(
+    x: torch.Tensor, *, in_frac: int, in_bits: Optional[int] = None
+) -> torch.Tensor:
+    """Bit-exact fixed-point row softmax over the last axis of (R, T) ints.
+
+    Inputs carry ``in_frac`` fraction bits; outputs are int32 probabilities
+    with ``SOFTMAX_F`` fraction bits (rows sum to ≈ ``2**SOFTMAX_F``).  Every
+    ``>>`` is arithmetic (floor), the arithmetic int32:
+
+        t   = x - rowmax(x)
+        tcl = max(t, -2^(F+σ));  u = tcl >> σ          σ = in_frac - F + K
+        w   = u + 2^F + (u² >> (F+1))         # quadratic seed of exp(u/2^F)
+        w   = (w² >> F)  (K times)            # undo the 2^K range reduction
+        q   = 2^(FI+F) // Σ_t w               # exact floor division
+        p   = (w · q) >> FI
+
+    ``in_bits`` is a width hint of the simulator lowering.  Reads no values,
+    so it runs on ``meta`` tensors.
+    """
+    del in_bits
+    f, kk, fi = SOFTMAX_F, SOFTMAX_K, SOFTMAX_FI
+    sigma = softmax_sigma(in_frac)
+    xi = x.to(torch.int32)
+    t = xi - torch.amax(xi, dim=-1, keepdim=True)
+    tcl = torch.clamp_min(t, -(1 << (f + sigma)))
+    u = tcl >> sigma
+    w = u + (1 << f) + ((u * u) >> (f + 1))
+    for _ in range(kk):
+        w = (w * w) >> f
+    s = torch.sum(w, dim=-1, keepdim=True, dtype=torch.int32)
+    q = torch.div(torch.full_like(s, 1 << (fi + f)), s, rounding_mode="floor")
+    return (w * q) >> fi
+
+
+def attention_pv_ref(
+    p: torch.Tensor, v: torch.Tensor, *, shift: int = SOFTMAX_F,
+    p_bits: Optional[int] = None, v_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """(M, T) probabilities × (T, Dv) value cache → (M, Dv) int32: the int32
+    accumulator (wrapping) arithmetically shifted right by ``shift`` (a shift
+    of 32 or more, or a negative one, fills with the sign, as in JAX)."""
+    del p_bits, v_bits
+    return (p.to(torch.int32) @ v.to(torch.int32)) >> int(shift)
+
+
+def kv_append_ref(
+    cache: torch.Tensor, new: torch.Tensor, onehot: torch.Tensor
+) -> torch.Tensor:
+    """(T, D) cache with every row whose selector entry in the (T,)
+    ``onehot`` is nonzero replaced by the (D,) ``new`` row cast to the
+    cache's dtype (an int32 → int8 cast wraps); an all-zero selector is a
+    no-op.  Returns a new tensor; the input cache is left as it was."""
+    sel = (onehot != 0)[:, None]
+    return torch.where(sel, new[None, :].to(cache.dtype), cache)

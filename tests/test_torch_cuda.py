@@ -14,10 +14,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import api as tapi  # noqa: E402
+from repro_torch.kernels import attention as tatt  # noqa: E402
 from repro_torch.kernels import bitslice_matmul as tbm  # noqa: E402
 from repro_torch.kernels import conv, ewise  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import resnet as tres  # noqa: E402
+from repro_torch.serve import pimsab_step as tps  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -230,3 +233,152 @@ def test_traced_resnet_on_card_equals_eager_and_counts_launches(card):
     names = tres.layer_names(cfg)
     assert counts.get("gemm", 0) == names.count("conv2d") + names.count("int_matmul")
     assert counts.get("relu", 0) == names.count("relu")
+
+
+def i8(shape, seed, lo=-128, hi=128):
+    return torch.from_numpy(np.random.default_rng(seed).integers(lo, hi, shape).astype(np.int8))
+
+
+# name → (q, k) makers
+QK = {
+    "int8-one-query-T32768": lambda: (i8((1, 64), 1), i8((32768, 64), 2)),
+    "int8-gqa-7": lambda: (i8((7, 64), 3), i8((4096, 64), 4)),
+    "int8-9-queries-two-groups": lambda: (i8((9, 64), 5), i8((1000, 64), 6)),
+    "int8-D12-generic": lambda: (i8((3, 12), 7), i8((333, 12), 8)),
+    "int8-D5-generic": lambda: (i8((2, 5), 9), i8((100, 5), 10)),
+    "int32-wrap": lambda: (ints((3, 32), I32_MIN, I32_MAX, 11), ints((500, 32), I32_MIN, I32_MAX, 12)),
+    "int8-q-int32-k": lambda: (i8((2, 16), 13), ints((70, 16), -2**20, 2**20, 14)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QK))
+def test_qk_kernel_matches_plain(card, case):
+    q, k = QK[case]()
+    tapi.reset_launch_counts()
+    got = tatt._qk(q.to(card), k.to(card))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"attention_qk": 1}
+    assert torch.equal(got.cpu(), tatt._qk_plain(q, k))
+
+
+def test_qk_kernel_reads_an_unaligned_cache(card):
+    q, k = i8((2, 64), 15), i8((200, 64), 16)
+    buf = torch.empty(k.numel() + 1, dtype=torch.int8, device=card)
+    buf[1:] = k.to(card).reshape(-1)
+    got = tatt._qk(q.to(card), buf[1:].view(200, 64))
+    assert torch.equal(got.cpu(), tatt._qk_plain(q, k))
+
+
+# name → (scores, in_frac)
+SOFTMAX = {
+    "gqa-7-T32768-frac13": lambda: (tatt._qk_plain(i8((7, 64), 17), i8((32768, 64), 18)), 13),
+    "equal-row-131072": lambda: (torch.zeros((1, 131072), dtype=torch.int32), 13),
+    "in_frac-3": lambda: (ints((3, 1000), -50, 50, 19), 3),
+    "in_frac-28": lambda: (ints((2, 500), -2**30, 2**30, 20), 28),
+    "full-range": lambda: (ints((4, 777), I32_MIN, I32_MAX, 21), 10),
+    "int8-rows": lambda: (i8((5, 300), 22), 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SOFTMAX))
+def test_softmax_kernel_matches_plain(card, case):
+    x, in_frac = SOFTMAX[case]()
+    sigma = tref.softmax_sigma(in_frac)
+    tapi.reset_launch_counts()
+    got = tatt._softmax(x.to(card), sigma)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"softmax_fixedpoint": 1}
+    want = tatt._softmax_plain(x, sigma)
+    assert torch.equal(got.cpu(), want)
+    if case == "equal-row-131072":
+        assert not want.any()  # the oracle's exact divide, not the Pallas body's 64
+
+
+# name → (p, v, shift)
+PV = {
+    "gqa-7-T32768-shift6": lambda: (ints((7, 32768), 0, 64, 23), i8((32768, 64), 24), 6),
+    "one-query-T4096": lambda: (ints((1, 4096), 0, 64, 25), i8((4096, 64), 26), 6),
+    "negative-shift40": lambda: (ints((3, 300), -1000, 1000, 27), ints((300, 5), -1000, 1000, 28), 40),
+    "negative-shift-minus1": lambda: (ints((2, 50), -1000, 1000, 29), ints((50, 3), -1000, 1000, 30), -1),
+    "int32-wrap-shift31": lambda: (ints((2, 600), I32_MIN, I32_MAX, 31), ints((600, 6), I32_MIN, I32_MAX, 32), 31),
+    "int8-p-T-ragged": lambda: (i8((2, 513), 33), i8((513, 7), 34), 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PV))
+def test_pv_kernel_matches_plain(card, case):
+    p, v, shift = PV[case]()
+    tapi.reset_launch_counts()
+    got = tatt._pv(p.to(card), v.to(card), shift)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"attention_pv": 1}
+    assert torch.equal(got.cpu(), tatt._pv_plain(p, v, shift))
+
+
+def _selector(t, rows, dtype):
+    s = torch.zeros(t, dtype=dtype)
+    s[list(rows)] = 1 if dtype == torch.bool else 3
+    return s
+
+
+# name → (cache, new, selector)
+KV = {
+    "int8-T32768-one-hot": lambda: (i8((32768, 64), 35), i8((64,), 36), _selector(32768, [5000], torch.int8)),
+    "int8-T32768-all-zero": lambda: (i8((32768, 64), 37), i8((64,), 38), _selector(32768, [], torch.int8)),
+    "int8-T32768-two-hot": lambda: (i8((32768, 64), 39), i8((64,), 40), _selector(32768, [0, 32767], torch.int8)),
+    "int32-cache": lambda: (ints((1000, 64), I32_MIN, I32_MAX, 41), ints((64,), I32_MIN, I32_MAX, 42),
+                            _selector(1000, [999], torch.int8)),
+    "int8-cache-int32-row": lambda: (i8((100, 64), 43), ints((64,), I32_MIN, I32_MAX, 44),
+                                     _selector(100, [7, 8], torch.int32)),
+    "int8-D5-bool-selector": lambda: (i8((50, 5), 45), i8((5,), 46), _selector(50, [4], torch.bool)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KV))
+def test_kv_append_kernel_matches_plain(card, case):
+    cache, new, sel = KV[case]()
+    dev_cache = cache.to(card)
+    tapi.reset_launch_counts()
+    got = tatt._kv_append(dev_cache, new.to(card), sel.to(card))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"kv_append": 1}
+    assert got.dtype == cache.dtype and got.data_ptr() != dev_cache.data_ptr()
+    assert torch.equal(got.cpu(), tatt._kv_append_plain(cache, new, sel))
+    assert torch.equal(dev_cache.cpu(), cache)  # the input is left as it was
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(card):
+    with pytest.raises(TypeError, match="attention kernels take"):
+        tatt._qk(torch.zeros((1, 4), dtype=torch.int64, device=card), torch.zeros((3, 4), dtype=torch.int8, device=card))
+    with pytest.raises(TypeError, match="attention kernels take"):
+        tatt._kv_append(torch.zeros((3, 4), dtype=torch.float32, device=card),
+                        torch.zeros(4, dtype=torch.int8, device=card), torch.zeros(3, dtype=torch.int8, device=card))
+
+
+def test_decode_step_on_card_equals_cpu_and_counts_launches(card):
+    cfg = tps.AttnServeConfig(head_dim=64, value_dim=64, kv_bits=8, q_bits=8, score_bits=22, score_frac=13)
+    cap = 4096
+    kc, vc, q = i8((cap, 64), 47), i8((cap, 64), 48), i8((1, 64), 49)
+    k_new, v_new = i8((64,), 50), i8((64,), 51)
+    onehot = _selector(cap, [100], torch.int8)
+    ex = tapi.compile(tps.decode_program(cfg, cap))
+    args = (kc, vc, q, k_new, v_new, onehot)
+    tapi.reset_launch_counts()
+    got = ex(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"kv_append": 2, "attention_qk": 1, "softmax_fixedpoint": 1, "attention_pv": 1}
+    assert torch.equal(got.cpu(), ex(*args))
+
+
+def test_decode_layer_on_card_equals_cpu_and_counts_launches(card):
+    prog = tps.decode_layer_program(896, 64, 4864, 1024, q_bits=8, kv_bits=8, score_bits=22, score_frac=13,
+                                    w_bits=8)
+    args = (i8((1024, 64), 52), i8((1024, 64), 53), i8((1, 64), 54), i8((64, 896), 55),
+            i8((896, 4864), 56), i8((4864, 896), 57))
+    ex = tapi.compile(prog)
+    tapi.reset_launch_counts()
+    got = ex(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"attention_qk": 1, "softmax_fixedpoint": 1, "attention_pv": 1,
+                                    "gemm": 3, "relu": 1}
+    assert torch.equal(got.cpu(), ex(*args))

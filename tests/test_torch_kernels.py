@@ -139,12 +139,15 @@ def test_pool_mean_floors_integers_like_jax(count):
 def test_registry_holds_the_seven_network_kernels():
     names = set(tapi.registered_kernels())
     assert names == {"conv2d", "int_matmul", "maxpool2d", "avgpool2d", "global_avgpool",
-                     "ewise_add", "relu", "bitslice_matmul"}
+                     "ewise_add", "relu", "bitslice_matmul", "attention_qk",
+                     "softmax_fixedpoint", "attention_pv", "kv_append"}
     assert names <= set(japi.registered_kernels())
     for kd in tapi.registered_kernels().values():
         assert callable(kd.impl) and callable(kd.oracle)
-    with pytest.raises(KeyError, match="no kernel"):
-        tapi.get_kernel("attention_qk")
+    for absent in ("decode_gemv", "rglru_scan", "htree_reduce"):
+        assert absent in japi.registered_kernels()
+        with pytest.raises(KeyError, match="no kernel"):
+            tapi.get_kernel(absent)
 
 
 def test_cpu_path_launches_no_kernel():

@@ -157,6 +157,12 @@ KERNEL_CALLS = {
     "global_avgpool": (lambda: (torch.from_numpy(floats((2, 3, 4, 4), 9)),), dict()),
     "ewise_add": (lambda: (_i((3, 4), 10), _i((3, 4), 11, dtype=np.int8)), dict()),
     "relu": (lambda: (_i((3, 4), 12),), dict()),
+    "attention_qk": (lambda: (_i((2, 8), 13, dtype=np.int8), _i((6, 8), 14, dtype=np.int8)),
+                     dict(q_bits=8, out_bits=22)),
+    "softmax_fixedpoint": (lambda: (_i((2, 6), 15, lo=-2**20, hi=2**20),), dict(in_frac=13)),
+    "attention_pv": (lambda: (_i((2, 6), 16, lo=0, hi=64), _i((6, 4), 17, dtype=np.int8)), dict(shift=6)),
+    "kv_append": (lambda: (_i((6, 4), 18, dtype=np.int8), _i((4,), 19), _i((6,), 20, lo=0, hi=2, dtype=np.int8)),
+                  dict()),
 }
 
 
