@@ -41,13 +41,27 @@ Phases, any failure of which exits non-zero:
       FFN 4864) on a full 32768-row cache, and again at capacity 4096:
       launches qk, softmax, pv 1 each, GEMM 3, relu 1.
 
-   Each of (c)–(f) runs again on CPU copies of its inputs (the plain
+   g. the entry points whose kernels no model path reaches, each eagerly
+      and through ``api.trace`` → ``api.compile`` → a held ``Executor``
+      (one launch each, exact): ``api.decode_gemv`` at Qwen2-0.5B's
+      single-token projections (int8 weights (896, 896), (128, 896),
+      (4864, 896), (896, 4864) and the tied (151936, 896) LM head) and at
+      kernels_bench's (512, 512) int32; ``api.rglru_scan`` at
+      RecurrentGemma-2B's width, (4, 2048, 2560); ``api.htree_reduce`` at
+      (256, 65536) in float32, bfloat16 and int32 and at (256, 2048)
+      float32; ``api.maxpool2d`` at this ResNet's stem (``pool_max``, which
+      RESNET18 does not run).  The RG-LRU output also within 1e-4 of the
+      associative-scan oracle.
+
+   Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
    on the same slices, and the path's output the CPU path's, bit for bit.
    Phase 2 also holds the four attention kernels against their plain
    versions at the decode shapes (GQA groups of 7 included) and at edges
    (a 131072-long equal row, shift 40, int32 caches, multi-hot and all-zero
-   selectors);
+   selectors), and decode_gemv, htree_reduce and rglru_scan at theirs (an
+   int32 wrap, a ragged K, misaligned int8 views, N = 1 and 2 in each
+   dtype, T = 1, a ragged W);
 4. time each kernel at those inputs (CUDA events around a CUDA-graph replay
    of 20 calls, after warm-up; eager back-to-back calls too) beside its
    bound, its plain version and, where one PyTorch call computes the same
@@ -57,7 +71,9 @@ Phases, any failure of which exits non-zero:
    ``Executor`` replay from an idle card (host clock);
    time the attention kernels at the serving path's T = 32768 inputs, one
    decode step (Program call plus the cache carry) at 4096 and 32768 rows
-   and the decode layer, each from an idle card (median of 20);
+   and the decode layer, each from an idle card (median of 20); time
+   decode_gemv, rglru_scan and htree_reduce at phase 3g's inputs, beside
+   their bounds, plain versions and, for the int32 H-tree, ``torch.sum``;
 5. profile three forwards, one call of each bit-sliced path, five decode
    steps and three decode layers (torch.profiler): device time by kernel
    name and the device's idle share.
@@ -123,6 +139,40 @@ ATTN_NO_LIBRARY = {
     "attention_qk": "no int8 or int32 GEMV on CUDA (torch._int_mm refuses M <= 16)",
     "softmax_fixedpoint": "no fixed-point softmax in PyTorch",
     "attention_pv": "no int32 matrix product on CUDA (torch._int_mm needs int8 p and M > 16)",
+}
+
+# The entry points whose kernels no model of the JAX package reaches, each at
+# a size its users run.  decode_gemv: Qwen2-0.5B's single-token projections
+# (src/repro/configs/qwen2_0_5b.py: d_model 896, 14 query and 2 KV heads of
+# 64, d_ff 4864, the tied 151936-row embedding as LM head), int8 weights in
+# (out, in) layout, and benchmarks/kernels_bench.py's (512, 512) in int32.
+GEMV_SHAPES = {
+    "q_o_proj": (896, 896), "k_v_proj": (128, 896), "gate_up_proj": (4864, 896),
+    "down_proj": (896, 4864), "lm_head": (151936, 896),
+}
+GEMV_BENCH = (512, 512)
+# rglru_scan: RecurrentGemma-2B's RG-LRU width (src/repro/configs/
+# recurrentgemma_2b.py: d_model 2560) over one 2048-token local-attention
+# window of prefill, batch 4; a = sigmoid(normal), b and h0 normal.
+RGLRU_SHAPE = (4, 2048, 2560)
+# htree_reduce: PimsabConfig's 256 CRAM lanes (crams_per_tile) × 65536
+# columns (pes_per_tile), and kernels_bench's (256, 2048) float32.
+HTREE_SHAPE = (256, 65536)
+HTREE_BENCH = (256, 2048)
+ENTRY_SOURCES = {
+    "decode_gemv": ATTN_SOURCE,
+    "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "htree_reduce": "src/repro_torch/kernels/csrc/htree_reduce.cu",
+}
+ENTRY_REPLACES = {
+    "decode_gemv": "src/repro/kernels/attention.py:182",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:25",
+    "htree_reduce": "src/repro/kernels/htree_reduce.py:25",
+}
+ENTRY_NO_LIBRARY = {
+    "decode_gemv": "no int8 or int32 GEMV on CUDA (torch._int_mm refuses N = 1)",
+    "rglru_scan": "no linear-recurrence scan in PyTorch",
+    "htree_reduce": "torch.sum adds floats in another order",
 }
 
 BITSLICE_SOURCE = "src/repro_torch/kernels/csrc/bitslice_gemm.cu"
@@ -676,6 +726,197 @@ def decode_latency(torch, api, pimsab_step, dev, seed, layer):
     return out
 
 
+def entry_kernel_checks(torch, att, ht, rg, smoke, dev, seed):
+    """Phase 2 for decode_gemv, htree_reduce and rglru_scan: each kernel
+    against its plain version (on a CPU copy) at edges: a wrapping int32
+    dot product, a ragged K, misaligned int8 views, N = 1 and 2 lanes in
+    each dtype, T = 1 and a ragged W."""
+    g = torch.Generator().manual_seed(seed)
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    def i32(shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32)
+
+    def f32(shape):
+        return torch.randn(shape, generator=g)
+
+    def off(t):
+        """A copy of the int8 ``t`` on the card, one byte off its allocation's
+        alignment."""
+        buf = torch.empty(t.numel() + 1, dtype=torch.int8, device=dev)
+        return buf[1:].view(t.shape).copy_(t)
+
+    def gates(shape):
+        return torch.sigmoid(f32(shape)), f32(shape), f32((shape[0], shape[2]))
+
+    w896, x896, x64k = i8((128, 896)), i8((896,)), i8((65536,))
+    w64k = i8((40, 65536))
+    # (kernel, case, run, plain, CPU operands, card operands or None for copies)
+    cases = [
+        ("decode_gemv", "q_o_proj (896, 896) int8", att._gemv, att._gemv_plain, (i8((896, 896)), x896), None),
+        ("decode_gemv", "int32 wrap (300, 64)", att._gemv, att._gemv_plain, (i32((300, 64)), i32((64,))), None),
+        ("decode_gemv", "ragged K (500, 37) int8", att._gemv, att._gemv_plain, (i8((500, 37)), i8((37,))), None),
+        ("decode_gemv", "int8 w, int32 x (77, 96)", att._gemv, att._gemv_plain,
+         (i8((77, 96)), torch.randint(-2**20, 2**20, (96,), generator=g, dtype=torch.int32)), None),
+        ("decode_gemv", "misaligned int8 w (128, 896)", att._gemv, att._gemv_plain, (w896, x896),
+         (off(w896), x896.to(dev))),
+        ("decode_gemv", "misaligned int8 x, K 65536 (not staged)", att._gemv, att._gemv_plain, (w64k, x64k),
+         (w64k.to(dev), off(x64k))),
+    ]
+    for n in (1, 2):
+        for dtype, make in (("float32", f32), ("bfloat16", lambda s: f32(s).to(torch.bfloat16)), ("int32", i32)):
+            cases.append(("htree_reduce", f"N={n} {dtype} D=1000", ht._htree, ht._htree_plain,
+                          (make((n, 1000)),), None))
+    cases.append(("htree_reduce", "N=8 float32 D=1", ht._htree, ht._htree_plain, (f32((8, 1)),), None))
+    for shape in ((2, 1, 5), (2, 37, 300)):
+        cases.append(("rglru_scan", f"(B, T, W) = {shape}", rg._scan, rg._scan_plain, gates(shape), None))
+    for kernel, case, run, plain, cpu_args, card_args in cases:
+        got = run(*(card_args or [a.to(dev) for a in cpu_args]))
+        torch.cuda.synchronize()
+        smoke.check(kernel, case, got, plain(*cpu_args), exact=True)
+
+
+def entry_point_cases(torch, api, cfg, seed):
+    """Phase 3g's calls, on the CPU: ``(kernel, case, entry point, operands)``
+    for the decode projections, the RG-LRU scan, the H-tree reductions and
+    the max pool at the stem of this ResNet (the one path that runs
+    ``pool_max``)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    acts = {k: i8((k,)) for k in sorted({k for _, k in GEMV_SHAPES.values()})}  # one activation a width
+    cases = [("decode_gemv", name, api.decode_gemv, (i8((m, k)), acts[k])) for name, (m, k) in GEMV_SHAPES.items()]
+    m, k = GEMV_BENCH
+    cases.append(("decode_gemv", "kernels_bench_int32", api.decode_gemv,
+                  (torch.randint(-50, 50, (m, k), generator=g, dtype=torch.int32),
+                   torch.randint(-50, 50, (k,), generator=g, dtype=torch.int32))))
+    bsz, _, w = RGLRU_SHAPE
+    cases.append(("rglru_scan", "recurrentgemma_2b", api.rglru_scan,
+                  (torch.sigmoid(torch.randn(RGLRU_SHAPE, generator=g)), torch.randn(RGLRU_SHAPE, generator=g),
+                   torch.randn((bsz, w), generator=g))))
+    for dtype in ("float32", "bfloat16", "int32"):
+        x = (torch.randint(-2**31, 2**31 - 1, HTREE_SHAPE, generator=g, dtype=torch.int32) if dtype == "int32"
+             else torch.randn(HTREE_SHAPE, generator=g).to(getattr(torch, dtype)))
+        cases.append(("htree_reduce", f"pimsab_tile_{dtype}", api.htree_reduce, (x,)))
+    cases.append(("htree_reduce", "kernels_bench_float32", api.htree_reduce,
+                  (torch.randn(HTREE_BENCH, generator=g),)))
+    stem = torch.randint(-2**20, 2**20, (BATCH, cfg.stem_channels, cfg.input_hw, cfg.input_hw),
+                         generator=g, dtype=torch.int32)
+    cases.append(("maxpool2d", "resnet18_stem", lambda v: api.maxpool2d(v, window=2), (stem,)))
+    return cases
+
+
+def run_entry_points(torch, api, ref, smoke, dev, cases):
+    """Phase 3g: each call of ``cases`` on the card, eagerly and through
+    ``api.trace`` → ``api.compile`` → a held ``Executor``, with the launch
+    counters reset just before and read just after each; both outputs
+    against the same call on the CPU copies, bit for bit, and the RG-LRU
+    scan also within the float tolerance of the associative-scan oracle."""
+    results = []
+    for kernel, case, fn, cpu_args in cases:
+        launched = LAUNCHED_BY.get(kernel, kernel)
+        args = [a.to(dev) for a in cpu_args]
+        api.reset_launch_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        eager = {k: v for k, v in api.launch_counts().items() if v}
+        ex = api.compile(api.trace(fn, name=f"{kernel}_{case}").program_for(*args))
+        api.reset_launch_counts()
+        replay = ex(*args)
+        torch.cuda.synchronize()
+        traced = {k: v for k, v in api.launch_counts().items() if v}
+        t = time.perf_counter()
+        want = fn(*cpu_args)
+        cpu_s = time.perf_counter() - t
+        for how, counts in (("eager", eager), ("Executor replay", traced)):
+            if counts != {launched: 1}:
+                smoke.failures.append(f"{kernel} {case} {how}: launch counts {counts} != {{{launched!r}: 1}}")
+        smoke.check(launched, f"{case} eager vs CPU", got, want, exact=True)
+        smoke.check(launched, f"{case} Executor replay vs CPU", replay, want, exact=True)
+        if kernel == "rglru_scan":
+            oracle = ref.rglru_scan_ref(*args)
+            smoke.check("rglru_scan_oracle", f"{case} vs the associative-scan oracle", got, oracle.cpu(), exact=False)
+        results.append({"kernel": kernel, "launched": launched, "case": case, "args": args, "cpu_args": cpu_args,
+                        "want": want, "launches": eager.get(launched, 0) + traced.get(launched, 0),
+                        "eager_counts": eager, "traced_counts": traced, "cpu_s": cpu_s,
+                        "shapes": [list(a.shape) for a in args], "dtypes": [str(a.dtype) for a in args]})
+        print(f"phase 3g {kernel} {case} {[tuple(a.shape) for a in args]}: launches eager {eager}, "
+              f"replay {traced}; bit-equal to CPU: {torch.equal(got.cpu(), want)} / "
+              f"{torch.equal(replay.cpu(), want)}; CPU call {cpu_s:.3f} s")
+    return results
+
+
+def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
+    """Phase 4 for decode_gemv, rglru_scan and htree_reduce: each at phase
+    3g's inputs, CUDA-graph and eager ms, its plain version (decode_gemv on
+    the CPU: PyTorch has no int32 matrix product on CUDA; the others on the
+    card), torch.sum as the library call for the int32 H-tree, and the bound
+    from this call's bytes and operations."""
+    run = {"decode_gemv": att._gemv, "htree_reduce": ht._htree, "rglru_scan": rg._scan}
+    plain = {"decode_gemv": att._gemv_plain, "htree_reduce": ht._htree_plain, "rglru_scan": rg._scan_plain}
+
+    def width(a):
+        return a.element_size() * a.numel()
+
+    rows = []
+    for r in entry:
+        kernel, args = r["kernel"], r["args"]
+        if kernel not in run:
+            continue
+        k_ms = graph_ms(torch, lambda: run[kernel](*args))
+        k_eager = cuda_ms(torch, lambda: run[kernel](*args))
+        if kernel == "decode_gemv":
+            samples = []
+            for _ in range(3):
+                t = time.perf_counter()
+                plain[kernel](*r["cpu_args"])
+                samples.append((time.perf_counter() - t) * 1e3)
+            p_ms, p_dev = median(sorted(samples)), "cpu"
+        elif kernel == "htree_reduce":
+            p_ms, p_dev = graph_ms(torch, lambda: plain[kernel](*args)), "cuda"
+        else:  # T steps of a few elementwise kernels each: eager, one call after a warm-up
+            p_ms, p_dev = cuda_ms(torch, lambda: plain[kernel](*args), reps=1, warmup=1), "cuda"
+        lib_ms = None
+        if kernel == "htree_reduce" and args[0].dtype == torch.int32:
+            smoke.check(kernel, f"{r['case']} torch.sum library call", torch.sum(args[0], 0, dtype=torch.int32),
+                        r["want"], exact=True)
+            lib_ms = graph_ms(torch, lambda: torch.sum(args[0], 0, dtype=torch.int32))
+        out_bytes = width(r["want"])
+        nbytes = sum(width(a) for a in args) + out_bytes
+        if kernel == "decode_gemv":
+            (m, k), int8 = args[0].shape, all(a.dtype == torch.int8 for a in args)
+            # int8 products at the int8 peak, two operations a multiply-add;
+            # any int32 operand on IMAD, one a multiply-add
+            ops, rate = (2 * m * k, INT8_OPS_PER_S) if int8 else (m * k, imad_per_s)
+        elif kernel == "rglru_scan":
+            ops, rate = 2 * args[0].numel(), FP32_FLOP_PER_S  # one fma a step
+        else:  # N - 1 adds a column; bfloat16 adds run in float32
+            n, d = args[0].shape
+            ops, rate = (n - 1) * d, imad_per_s if args[0].dtype == torch.int32 else FP32_FLOP_PER_S
+        b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        name = f"{kernel}[{r['case']}]"
+        rows.append({
+            "name": name, "route": "cuda", "source": ENTRY_SOURCES[kernel], "replaces": ENTRY_REPLACES[kernel],
+            "launches": r["launches"], "max_abs_err": max(
+                (c["max_abs_err"] or 0.0) for c in smoke.cases if c["kernel"] == kernel),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "operations" if b_ops > b_bytes else "bytes", "library_ms": lib_ms,
+            "eager_ms": k_eager, "plain_device": p_dev, "library": "torch.sum" if lib_ms is not None else None,
+            "library_none_reason": None if lib_ms is not None else ENTRY_NO_LIBRARY[kernel],
+            "launches_by_path": {name: r["launches"]}, "shapes": r["shapes"], "dtypes": r["dtypes"],
+            "bytes": nbytes, "ops": ops,
+        })
+        print(f"kernel {name}: {k_ms * 1e3:.2f} us in graph replay ({k_eager * 1e3:.2f} us eager; bound "
+              f"{max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
+              f"{max(b_bytes, b_ops) / k_ms:.1%}) at {r['shapes']} {r['dtypes']}; plain {p_ms:.4f} ms on "
+              f"{p_dev}; library {lib_ms}; launches {r['launches']} (eager + Executor replay)")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -686,6 +927,8 @@ def main() -> int:
     from repro_torch.kernels import _build, api, conv, ewise, ref
     from repro_torch.kernels import attention as att
     from repro_torch.kernels import bitslice_matmul as bm
+    from repro_torch.kernels import htree_reduce as ht
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.models import common, resnet
     from repro_torch.serve import pimsab_step
 
@@ -817,6 +1060,7 @@ def main() -> int:
                 api.conv2d(fx, fw, stride=2, padding=1), False)
     torch.cuda.synchronize()
     attention_kernel_checks(torch, att, ref, smoke, dev, SEED + 3)
+    entry_kernel_checks(torch, att, ht, rg, smoke, dev, SEED + 8)
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
@@ -944,6 +1188,11 @@ def main() -> int:
               f"|out| max {layers[cap]['out_absmax']}")
     torch.cuda.synchronize()
 
+    # ---------------- phase 3g: the entry points no model path reaches ----------------
+    entry = run_entry_points(torch, api, ref, smoke, dev, entry_point_cases(torch, api, cfg, SEED + 9))
+    for r in entry:
+        path_launches[f"{r['kernel']}[{r['case']}]"] = {r["launched"]: r["launches"]}
+
     # ---------------- phase 4: timing ----------------
     library = {
         "gemm": None,  # PyTorch has no int32 matrix product on CUDA
@@ -969,10 +1218,10 @@ def main() -> int:
         return 4 * n * (len(args) + 1), n, rate
 
     # pool_max is not on RESNET18's path (no stem pool): time it at the
-    # window matrix a 2×2 stem max pool of this network would get
+    # window matrix of phase 3g's stem max pool
+    entry_launches = {r["launched"]: r["launches"] for r in entry if r["kernel"] == "maxpool2d"}
     if not calls["pool_max"]:
-        stem = torch.randint(-2**20, 2**20, (BATCH, cfg.stem_channels, cfg.input_hw, cfg.input_hw),
-                             generator=g, dtype=torch.int32)
+        (stem,) = next(r["cpu_args"] for r in entry if r["kernel"] == "maxpool2d")
         calls["pool_max"].append((ref.pool_patches(stem, 2, 2).contiguous().to(dev),))
 
     rows = []
@@ -1000,10 +1249,11 @@ def main() -> int:
                             "bound_ms": max(b_bytes, b_ops), "bytes": nbytes, "ops": ops})
         if kernel == "gemm":
             plain_ms = gemm_plain_cpu_ms  # on the CPU: no int32 matmul on CUDA
-        on_path = launches[kernel] > 0
+        n_launches = launches[kernel] or entry_launches.get(kernel, 0)
+        on_path = n_launches > 0
         row = {
             "name": kernel, "route": "cuda", "source": SOURCES[kernel], "replaces": REPLACES[kernel],
-            "launches": launches[kernel],
+            "launches": n_launches,
             "max_abs_err": max((c["max_abs_err"] or 0.0) for c in smoke.cases if c["kernel"] == kernel),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
@@ -1017,7 +1267,8 @@ def main() -> int:
               f"{ms:.4f} ms summed in graph replay "
               f"({eager_ms:.4f} ms eager; bound {bound_ms:.4f} ms "
               f"by {row['bound_by']}, roofline share {bound_ms / ms:.1%}), plain {plain_ms:.4f} ms on "
-              f"{row['plain_device']}, library {row['library_ms']}, launches/forward {launches[kernel]}")
+              f"{row['plain_device']}, library {row['library_ms']}, launches/forward {launches[kernel]}, "
+              f"on the stem pool path {entry_launches.get(kernel, 0)}")
 
     fwd_samples = forward_samples(torch, lambda: model(x), FORWARD_SAMPLES)
     fwd_ms = fwd_samples[len(fwd_samples) // 2]
@@ -1095,6 +1346,7 @@ def main() -> int:
     for row in attention_rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in path_launches.items() if row["name"] in c}
     decode = decode_latency(torch, api, pimsab_step, dev, SEED + 7, layers[DECODE_CAPACITY])
+    entry_rows = entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s)
 
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
@@ -1172,7 +1424,8 @@ def main() -> int:
         "forward_ms_p80": fwd_p80, "forward_ms_samples": fwd_samples,
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
         "path_launches": path_launches, "program": program_timing,
-        "kernels": rows + bitslice_rows + attention_rows, "registered_kernels": registered,
+        "kernels": rows + bitslice_rows + attention_rows + entry_rows, "registered_kernels": registered,
+        "entry_points": [{k: v for k, v in r.items() if k not in ("args", "cpu_args", "want")} for r in entry],
         "decode": decode, "decode_summary": decode_summary,
         "decode_serving": {k: serve_run[k] for k in ("counts", "step_counts", "cache", "first_s", "cpu_s",
                                                       "prob_sums", "prob_nonzero")},
@@ -1184,10 +1437,13 @@ def main() -> int:
         for f in smoke.failures:
             print("FAIL", f, file=sys.stderr)
         return 1
-    path = [r for r in rows if r["launches"]] + bitslice_rows + attention_rows
-    off_path = [r for r in rows if not r["launches"]]
+    path = [r for r in rows if r["launches"]] + bitslice_rows + attention_rows + entry_rows
+    off_path = [r["name"] for r in rows if not r["launches"]]
+    if off_path:
+        print(f"FAIL kernels launched on no path: {off_path}", file=sys.stderr)
+        return 1
     print(gpu)
-    print(json.dumps({"kernels": path, "off_path": off_path, "registered_kernels": registered,
+    print(json.dumps({"kernels": path, "registered_kernels": registered,
                       "forward_ms": fwd_ms, "forward_ms_p80": fwd_p80, "batch": BATCH,
                       "path_launches": path_launches,
                       "program_latency_ms": program_timing["latency_ms_median"], "decode": decode_summary}))

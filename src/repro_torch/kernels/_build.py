@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-SOURCES = ("int_gemm", "pool_reduce", "ewise", "bitslice_gemm", "attention")
+SOURCES = ("int_gemm", "pool_reduce", "ewise", "bitslice_gemm", "attention", "htree_reduce",
+           "rglru_scan")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,7 +58,12 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "attention_qk": ("attention", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "softmax_fixedpoint": ("attention", (_P, _P, _I, _I, _I, _I, _P)),
     "attention_pv": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "decode_gemv": ("attention", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "kv_append": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "htree_reduce_f32": ("htree_reduce", (_P, _P, _I, _I, _P)),
+    "htree_reduce_bf16": ("htree_reduce", (_P, _P, _I, _I, _P)),
+    "htree_reduce_i32": ("htree_reduce", (_P, _P, _I, _I, _P)),
+    "rglru_scan_f32": ("rglru_scan", (_P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

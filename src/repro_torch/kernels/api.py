@@ -77,7 +77,10 @@ __all__ = [
     "attention_qk",
     "softmax_fixedpoint",
     "attention_pv",
+    "decode_gemv",
     "kv_append",
+    "htree_reduce",
+    "rglru_scan",
     # Program API (re-exported from repro_torch.kernels.program)
     "trace",
     "compile",
@@ -317,6 +320,8 @@ def _ensure_registered() -> None:
     import repro_torch.kernels.bitslice_matmul  # noqa: F401
     import repro_torch.kernels.conv  # noqa: F401
     import repro_torch.kernels.ewise  # noqa: F401
+    import repro_torch.kernels.htree_reduce  # noqa: F401
+    import repro_torch.kernels.rglru_scan  # noqa: F401
 
     _bootstrapped = True
 
@@ -610,9 +615,37 @@ def attention_pv(
     return dispatch("attention_pv", p, v, **kwargs)
 
 
+def decode_gemv(
+    w: torch.Tensor, x: torch.Tensor, *,
+    w_bits: Optional[int] = None, x_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token decode projection ``(M, K) w × (K,) x → (M,) int32``
+    (wrapping); int8 or int32 operands.  ``w_bits``/``x_bits`` are precision
+    hints of the simulator lowering and do not change the math."""
+    return dispatch("decode_gemv", w, x, w_bits=w_bits, x_bits=x_bits)
+
+
 def kv_append(cache: torch.Tensor, new: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
     """``(T, D)`` cache with the rows selected by the nonzero entries of
     ``onehot (T,)`` replaced by the ``(D,)`` ``new`` row (all-zero selector →
     unchanged), as a new tensor in the cache's dtype; the input cache is
     left as it was."""
     return dispatch("kv_append", cache, new, onehot)
+
+
+# ---------------------------------------------------------------------------
+# H-tree reduction and the RG-LRU scan
+# ---------------------------------------------------------------------------
+
+
+def htree_reduce(x: torch.Tensor) -> torch.Tensor:
+    """``(N, D) → (D,)`` log-depth H-tree reduction: adjacent pairs first,
+    N a power of two; float32, bfloat16 or int32 (wrapping)."""
+    return dispatch("htree_reduce", x)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """RG-LRU linear recurrence ``h_t = a_t·h_{t-1} + b_t`` over axis 1 of
+    float32 ``a, b (B, T, W)`` from ``h0 (B, W)``, each step one fused
+    multiply-add."""
+    return dispatch("rglru_scan", a, b, h0)

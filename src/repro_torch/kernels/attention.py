@@ -1,7 +1,8 @@
 """Integer attention decode kernels of the PyTorch port: q·Kᵀ scores, the
-fixed-point row softmax, p·V and the KV-cache append.
+fixed-point row softmax, p·V, the single-token decode projection and the
+KV-cache append.
 
-Mirrors the JAX package's ``kernels/attention.py``.  Four wrappers, each
+Mirrors the JAX package's ``kernels/attention.py``.  Five wrappers, each
 launching its kernel of ``csrc/attention.cu`` for CUDA tensors and running
 its plain version for CPU tensors:
 
@@ -9,13 +10,13 @@ its plain version for CPU tensors:
 * :func:`_softmax` — the bit-exact fixed-point row softmax (replaces
   ``_softmax_kernel``), held to the oracle's exact floor division;
 * :func:`_pv` — ``((M, T) · (T, Dv)) >> shift`` (replaces ``_pv_kernel``);
+* :func:`_gemv` — ``(M, K) · (K,) → (M,)`` int32 (replaces ``_gemv_kernel``);
 * :func:`_kv_append` — the cache with its selected rows replaced, a new
   tensor in the cache's dtype (replaces ``_kv_append_kernel``).
 
 Operands are int8 or int32 (the selector also bool); int8 operands reach
 the kernels as int8 and are widened in registers.  Everything is integer:
-int32 arithmetic wraps, every ``>>`` is arithmetic.  ``decode_gemv`` is
-not ported yet.
+int32 arithmetic wraps, every ``>>`` is arithmetic.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ def _index_range(*extents: int) -> None:
 
 
 _qk_plain = ref.attention_qk_ref
+_gemv_plain = ref.decode_gemv_ref
 _kv_append_plain = ref.kv_append_ref
 
 
@@ -63,7 +65,6 @@ def _softmax_plain(x: torch.Tensor, sigma: int) -> torch.Tensor:
 
 def _pv_plain(p: torch.Tensor, v: torch.Tensor, shift: int) -> torch.Tensor:
     return ref.attention_pv_ref(p, v, shift=shift)
-
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +132,24 @@ def _pv(p: torch.Tensor, v: torch.Tensor, shift: int) -> torch.Tensor:
     _build.launch("attention_pv", dev, p.data_ptr(), v.data_ptr(), partial.data_ptr(),
                   out.data_ptr(), m, t, dv, PV_CHUNK, sh, pb, vb)
     count_launch("attention_pv")
+    return out
+
+
+def _gemv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w (M, K) · x (K,) → (M,)`` int32; the CUDA kernel for CUDA
+    tensors."""
+    dev = kernel_device(w, x)
+    if dev.type == "cpu":
+        return _gemv_plain(w, x)
+    wb, xb = _elem_bytes(w), _elem_bytes(x)
+    m, k = w.shape
+    _index_range(m * k)
+    w, x = w.contiguous(), x.contiguous()
+    out = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
+    _build.launch("decode_gemv", dev, w.data_ptr(), x.data_ptr(), out.data_ptr(), m, k, wb, xb)
+    count_launch("decode_gemv")
     return out
 
 
@@ -206,6 +225,21 @@ def attention_pv(
     if t != t2:
         raise ValueError(f"probability length {t} != value rows {t2}")
     return _pv(p, v, int(shift))
+
+
+@register_kernel("decode_gemv", oracle=ref.decode_gemv_ref)
+def decode_gemv(
+    w: torch.Tensor, x: torch.Tensor, *,
+    w_bits: Optional[int] = None, x_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """(M, K) weights × (K,) activation → (M,) int32, the single-token
+    decode projection (wrapping).  The bit-width hints are the simulator
+    lowering's and are ignored here."""
+    del w_bits, x_bits
+    if w.dim() != 2 or tuple(x.shape) != (w.shape[1],):
+        raise ValueError(f"decode_gemv takes (M, K) weights and a (K,) activation, got "
+                         f"{tuple(w.shape)} and {tuple(x.shape)}")
+    return _gemv(w, x)
 
 
 @register_kernel("kv_append", oracle=ref.kv_append_ref)

@@ -1,11 +1,12 @@
 // Integer attention decode kernels: q·Kᵀ scores, the fixed-point row softmax,
-// the probability-weighted value mix p·V with its arithmetic shift, and the
-// KV-cache row append.
+// the probability-weighted value mix p·V with its arithmetic shift, the
+// single-token decode projection, and the KV-cache row append.
 //
 // Replaces the Pallas bodies of src/repro/kernels/attention.py:
 //   _qk_kernel (48, attention_qk)          → qk_* below
 //   _softmax_kernel (88, softmax_fixedpoint) → softmax_kernel
 //   _pv_kernel (145, attention_pv)          → pv_partial + pv_finalize
+//   _gemv_kernel (182, decode_gemv)         → gemv_*
 //   _kv_append_kernel (218, kv_append)      → kv_append_*
 // Each computes what the TPU kernel computes; the blocking is Hopper's own.
 //
@@ -32,6 +33,14 @@
 //    chunks, one block each, writing uint32 partial sums; a second kernel
 //    adds the partials (order-free mod 2^32, so bit-exact) and applies the
 //    shift to the full sum, never to a partial.
+//  * decode_gemv: (M, K) weights × (K,) activation, a GEMV bound by the
+//    weight bytes (Qwen2-0.5B's tied LM head, (151936, 896) int8, moves
+//    136.1 MB: 40.6 µs).  One warp per output row, its lanes on neighbouring
+//    16-byte chunks of the row (int8, K % 16 == 0, aligned rows: __dp4a) or
+//    on neighbouring elements (every other case); the activation is staged
+//    once per block in shared memory when it fits in 48 KB, else read
+//    through L1.  Lanes add in uint32_t and a __shfl_xor_sync tree sums them:
+//    the wrap makes the order free.
 //  * kv_append: a copy of the cache with the selected rows replaced, a new
 //    tensor (Programs replay the append, so the input is never written).
 //    Every nonzero selector entry is honoured.  int8 caches go 16 bytes a
@@ -237,6 +246,82 @@ void launch_pv_partial(int chunks, cudaStream_t s, const void* p, const void* v,
 }
 
 // ---------------------------------------------------------------------------
+// decode_gemv: out (M,) = w (M, K) · x (K,)
+// ---------------------------------------------------------------------------
+
+constexpr int GEMV_WARPS = 8;
+constexpr int GEMV_THREADS = 32 * GEMV_WARPS;
+constexpr int GEMV_STAGE_BYTES = 48 * 1024;  // static shared memory a block may take unasked
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Any int8/int32 mix, any K, any alignment: element loads.  `stage`: copy x
+// into shared memory first (the host sets it when K elements fit).
+template <typename TW, typename TX>
+__global__ void __launch_bounds__(GEMV_THREADS)
+gemv_generic(const TW* __restrict__ w, const TX* __restrict__ x, int32_t* __restrict__ out,
+             int m, int k, int stage) {
+  extern __shared__ int4 gemv_smem[];
+  const TX* xs = x;
+  if (stage) {
+    TX* buf = reinterpret_cast<TX*>(gemv_smem);
+    for (int j = threadIdx.x; j < k; j += GEMV_THREADS) buf[j] = x[j];
+    __syncthreads();
+    xs = buf;
+  }
+  const int lane = threadIdx.x & 31;
+  for (int row = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5); row < m; row += gridDim.x * GEMV_WARPS) {
+    const TW* wr = w + static_cast<size_t>(row) * k;
+    uint32_t acc = 0u;
+    for (int j = lane; j < k; j += 32) acc += widen(wr[j]) * widen(xs[j]);
+    acc = warp_sum(acc);
+    if (lane == 0) out[row] = as_i32(acc);
+  }
+}
+
+// int8 × int8, K % 16 == 0, w 16-byte aligned (and x too when not staged):
+// 16 bytes of the row a lane, four products per __dp4a.
+__global__ void __launch_bounds__(GEMV_THREADS)
+gemv_i8_packed(const int8_t* __restrict__ w, const int8_t* __restrict__ x, int32_t* __restrict__ out,
+               int m, int k, int stage) {
+  extern __shared__ int4 gemv_smem[];
+  const int chunks = k / 16;
+  const int4* xs = reinterpret_cast<const int4*>(x);
+  if (stage) {  // byte by byte: x itself need not be aligned
+    int8_t* buf = reinterpret_cast<int8_t*>(gemv_smem);
+    for (int j = threadIdx.x; j < k; j += GEMV_THREADS) buf[j] = x[j];
+    __syncthreads();
+    xs = gemv_smem;
+  }
+  const int lane = threadIdx.x & 31;
+  for (int row = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5); row < m; row += gridDim.x * GEMV_WARPS) {
+    const int4* wr = reinterpret_cast<const int4*>(w + static_cast<size_t>(row) * k);
+    int acc = 0;
+    for (int c = lane; c < chunks; c += 32) {
+      const int4 wv = wr[c], xv = xs[c];
+      acc = __dp4a(wv.x, xv.x, acc);
+      acc = __dp4a(wv.y, xv.y, acc);
+      acc = __dp4a(wv.z, xv.z, acc);
+      acc = __dp4a(wv.w, xv.w, acc);
+    }
+    const uint32_t sum = warp_sum(static_cast<uint32_t>(acc));
+    if (lane == 0) out[row] = as_i32(sum);
+  }
+}
+
+template <typename TW, typename TX>
+void launch_gemv_generic(unsigned int blocks, size_t smem, cudaStream_t s, const void* w, const void* x,
+                         void* out, int m, int k, int stage) {
+  gemv_generic<TW, TX><<<blocks, GEMV_THREADS, smem, s>>>(static_cast<const TW*>(w),
+                                                          static_cast<const TX*>(x),
+                                                          static_cast<int32_t*>(out), m, k, stage);
+}
+
+// ---------------------------------------------------------------------------
 // kv_append: out (T, D) = cache with the rows where sel != 0 set to `nw`
 // ---------------------------------------------------------------------------
 
@@ -368,6 +453,30 @@ extern "C" int kv_append(const void* cache, const void* nw, const void* sel, voi
     launch_kv_by_sel<int32_t, int8_t>(sel_bytes, s, cache, nw, sel, out, n, d);
   } else {
     launch_kv_by_sel<int32_t, int32_t>(sel_bytes, s, cache, nw, sel, out, n, d);
+  }
+  return REPRO_LAUNCH_STATUS();
+}
+
+// w (M, K), x (K,): int8 (bytes 1) or int32 (bytes 4), w row-major; out (M,) int32.
+extern "C" int decode_gemv(const void* w, const void* x, void* out, int m, int k, int w_bytes,
+                           int x_bytes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = repro_grid(m, GEMV_WARPS);
+  const long long x_size = static_cast<long long>(k) * x_bytes;
+  const int stage = x_size <= GEMV_STAGE_BYTES ? 1 : 0;
+  const size_t smem = stage ? static_cast<size_t>((x_size + 15) / 16 * 16) : 0;
+  if (w_bytes == 1 && x_bytes == 1 && k % 16 == 0 && aligned(w, 16) && (stage || aligned(x, 16))) {
+    gemv_i8_packed<<<blocks, GEMV_THREADS, smem, s>>>(static_cast<const int8_t*>(w),
+                                                      static_cast<const int8_t*>(x),
+                                                      static_cast<int32_t*>(out), m, k, stage);
+  } else if (w_bytes == 1 && x_bytes == 1) {
+    launch_gemv_generic<int8_t, int8_t>(blocks, smem, s, w, x, out, m, k, stage);
+  } else if (w_bytes == 1) {
+    launch_gemv_generic<int8_t, int32_t>(blocks, smem, s, w, x, out, m, k, stage);
+  } else if (x_bytes == 1) {
+    launch_gemv_generic<int32_t, int8_t>(blocks, smem, s, w, x, out, m, k, stage);
+  } else {
+    launch_gemv_generic<int32_t, int32_t>(blocks, smem, s, w, x, out, m, k, stage);
   }
   return REPRO_LAUNCH_STATUS();
 }

@@ -315,3 +315,77 @@ def kv_append_ref(
     no-op.  Returns a new tensor; the input cache is left as it was."""
     sel = (onehot != 0)[:, None]
     return torch.where(sel, new[None, :].to(cache.dtype), cache)
+
+
+def decode_gemv_ref(
+    w: torch.Tensor, x: torch.Tensor, *,
+    w_bits: Optional[int] = None, x_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """(M, K) weights × (K,) activation → (M,) int32, the single-token decode
+    projection (wrapping).  ``w_bits``/``x_bits`` are precision hints of the
+    simulator lowering and do not change the math."""
+    del w_bits, x_bits
+    return w.to(torch.int32) @ x.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# H-tree reduction
+# ---------------------------------------------------------------------------
+
+
+def htree_reduce_ref(x: torch.Tensor) -> torch.Tensor:
+    """Pairwise log-depth tree sum over the leading axis (N a power of two):
+    adjacent pairs first, then pairs of pairs, each partial sum rounded to
+    the input's dtype (int32 wraps)."""
+    n = x.shape[0]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"the H-tree needs a power-of-two count of lanes, got {n}")
+    y = x
+    while y.shape[0] > 1:
+        y = y[0::2] + y[1::2]
+    return y[0]
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU linear scan
+# ---------------------------------------------------------------------------
+
+
+def _associative_scan(comb, elems, dim: int):
+    """Inclusive scan of the tuple ``elems`` along ``dim`` with the
+    associative ``comb``, in the order of ``jax.lax.associative_scan``:
+    combine adjacent pairs, scan the pair sums recursively, then fill in the
+    even positions."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(t, start, stop=None, step=1):
+        return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+    odd = _associative_scan(comb, comb(tuple(sl(e, 0, -1, 2) for e in elems),
+                                       tuple(sl(e, 1, None, 2) for e in elems)), dim)
+    rest = tuple(sl(e, 2, None, 2) for e in elems)
+    head = tuple(sl(o, 0, -1) for o in odd) if n % 2 == 0 else odd
+    even = tuple(torch.cat([sl(e, 0, 1), c], dim) for e, c in zip(elems, comb(head, rest)))
+    out = tuple(torch.empty_like(e) for e in elems)
+    for o, ev, od in zip(out, even, odd):  # interleave: even positions, then odd
+        sl(o, 0, None, 2).copy_(ev)
+        sl(o, 1, None, 2).copy_(od)
+    return out
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1.  a, b: (B, T, W) fp32; h0: (B, W).
+
+    ``a[:, 0]·h0`` is added into ``b[:, 0]``, then the pairs (a, b) are
+    scanned with the combine ``(a1·a2, a2·b1 + b2)`` in the JAX oracle's
+    order.  Reads no values, so it runs on ``meta`` tensors."""
+
+    def comb(e1, e2):
+        (a1, b1), (a2, b2) = e1, e2
+        return a1 * a2, a2 * b1 + b2
+
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    return _associative_scan(comb, (a, b), 1)[1]

@@ -1,0 +1,80 @@
+"""RG-LRU linear recurrence kernel of the PyTorch port:
+``h_t = a_t · h_{t-1} + b_t`` over T, from ``h0``.
+
+Mirrors the JAX package's ``kernels/rglru_scan.py``.  One wrapper,
+:func:`_scan`, launches ``csrc/rglru_scan.cu`` (replacing the Pallas
+``_kernel``) for CUDA tensors and runs the plain version for CPU tensors.
+
+The Pallas body computes ``a·h + b`` as one fused multiply-add, rounded
+once; a multiply then an add differs by up to 1 ulp a step, and the chain
+carries it on.  So the kernel calls ``__fmaf_rn`` and the plain version
+computes an exact fma on the CPU (:func:`fma_f32`): the card, the CPU and
+the JAX package's body agree bit for bit.  The registry's oracle is the JAX
+package's associative scan (``ref.rglru_scan_ref``), which sums in another
+order.  float32 only, on either device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.api import count_launch, kernel_device, register_kernel
+
+
+def fma_f32(a: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a·h + b`` of float32 tensors rounded once to float32.
+
+    The product is exact in float64 (24 + 24 bits); the sum is rounded to
+    odd in float64 (its TwoSum error ``e`` moves an even result one ulp
+    towards the exact sum), and a float64 rounded to odd rounds to float32
+    as the exact sum would, since 53 ≥ 24 + 2."""
+    p = a.double() * h.double()
+    bd = b.double()
+    s = p + bd
+    bv = s - p
+    e = (p - (s - bv)) + (bd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, float("inf"), float("-inf")).to(s.dtype)
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _scan_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: the recurrence step by step, each step one
+    exact fma."""
+    out = torch.empty_like(a)
+    h = h0
+    for t in range(a.shape[1]):
+        h = fma_f32(a[:, t], h, b[:, t])
+        out[:, t] = h
+    return out
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t·h_{t-1} + b_t`` over axis 1 of ``a, b (B, T, W)`` from
+    ``h0 (B, W)``; the CUDA kernel for CUDA tensors."""
+    dev = kernel_device(a, b, h0)
+    if any(t.dtype != torch.float32 for t in (a, b, h0)):
+        raise TypeError(f"rglru_scan takes float32 operands, got {a.dtype}, {b.dtype}, {h0.dtype}")
+    if dev.type == "cpu":
+        return _scan_plain(a, b, h0)
+    bsz, t, w = a.shape
+    if a.numel() >= 2**31:
+        raise ValueError(f"extent {a.numel()} exceeds the kernels' 32-bit index range")
+    a, b, h0 = a.contiguous(), b.contiguous(), h0.contiguous()
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    _build.launch("rglru_scan_f32", dev, a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(),
+                  bsz, t, w)
+    count_launch("rglru_scan")
+    return out
+
+
+@register_kernel("rglru_scan", oracle=ref.rglru_scan_ref)
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, T, W) fp32; h0: (B, W).  Returns hs: (B, T, W)."""
+    if a.dim() != 3 or b.shape != a.shape or tuple(h0.shape) != (a.shape[0], a.shape[2]):
+        raise ValueError(f"rglru_scan takes a, b (B, T, W) and h0 (B, W), got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)} and {tuple(h0.shape)}")
+    return _scan(a, b, h0)

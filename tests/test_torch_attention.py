@@ -5,7 +5,7 @@ Inputs are drawn with numpy from fixed seeds and handed to both packages:
 the conformance inputs of ``tests/test_pimsab_conformance.py`` (seeds 27–31,
 34–35) and the edges the card kernels must get right (int32 wrap, shifts of
 32 or more, negative accumulators, multi-hot and all-zero selectors, an
-int32 row appended to an int8 cache).  Each registry kernel of the port on
+int32 row appended to an int8 cache, ragged and mixed-type decode GEMVs).  Each registry kernel of the port on
 CPU tensors (its plain version) must equal the JAX Pallas body run under
 ``use_backend("interpret")`` and the JAX oracle (``"xla"``) bit for bit; the
 port's oracles must equal the JAX oracles and run on ``meta`` tensors.
@@ -81,6 +81,18 @@ CASES = {
                                 {}),
     "kv_append-int8-selector-256": ("kv_append", lambda: (ints((6, 3), -100, 100, 69), ints((3,), -9, 9, 70),
                                                           selector(6, [1], np.int32, 256)), {}),
+    # K9
+    "gemv-int8-qwen-kv-proj": ("decode_gemv", lambda: (ints((128, 896), -128, 128, 73, np.int8),
+                                                       ints((896,), -128, 128, 74, np.int8)),
+                               dict(w_bits=8, x_bits=8)),
+    "gemv-int8-ragged-K": ("decode_gemv", lambda: (ints((40, 37), -128, 128, 75, np.int8),
+                                                   ints((37,), -128, 128, 76, np.int8)), {}),
+    "gemv-int32-kernels-bench": ("decode_gemv", lambda: (ints((64, 512), -1000, 1000, 77),
+                                                         ints((512,), -1000, 1000, 78)), {}),
+    "gemv-int32-wrap": ("decode_gemv", lambda: (ints((16, 64), I32_MIN, I32_MAX, 79),
+                                                ints((64,), I32_MIN, I32_MAX, 84)), {}),
+    "gemv-int8-w-int32-x": ("decode_gemv", lambda: (ints((24, 48), -128, 128, 85, np.int8),
+                                                    ints((48,), -2**20, 2**20, 86)), {}),
     "kv_append-int8-cache-64": ("kv_append", lambda: (ints((40, 64), -128, 128, 71, np.int8),
                                                       ints((64,), -128, 128, 72, np.int8),
                                                       selector(40, [39], np.int8)), {}),
@@ -162,6 +174,8 @@ META = {
                      ((7, 64), torch.int32)),
     "kv_append": (tref.kv_append_ref, [((300, 64), torch.int8), ((64,), torch.int32), ((300,), torch.int8)], {},
                   ((300, 64), torch.int8)),
+    "decode_gemv": (tref.decode_gemv_ref, [((4864, 896), torch.int8), ((896,), torch.int8)], dict(w_bits=8),
+                    ((4864,), torch.int32)),
 }
 
 
@@ -198,6 +212,8 @@ def test_kv_append_returns_a_new_cache():
                             torch.zeros(4, dtype=torch.int8)), "selector"),
     (lambda: tapi.softmax_fixedpoint(torch.empty((1, tatt.SOFTMAX_MAX_COLS), dtype=torch.int32, device="meta"),
                                      in_frac=13), "columns"),
+    (lambda: tapi.decode_gemv(torch.zeros((5, 3), dtype=torch.int8), torch.zeros(4, dtype=torch.int8)),
+     "activation"),
 ])
 def test_wrappers_refuse_bad_shapes(call, match):
     with pytest.raises(ValueError, match=match):
@@ -226,3 +242,13 @@ def test_attention_path_on_cpu_launches_no_kernel():
     p = tapi.softmax_fixedpoint(tapi.attention_qk(q, kc2), in_frac=13)
     out = tapi.attention_pv(p, kc2)
     assert tapi.launch_counts() == {} and out.shape == (1, 16) and out.dtype == torch.int32
+
+
+def test_decode_gemv_wraps_like_the_oracle():
+    """An int32 dot product past 2^31 wraps mod 2^32 on the port as in the
+    JAX oracle."""
+    w = np.full((2, 4), 2**30, np.int32)
+    x = np.array([1, 1, 1, 2], np.int32)
+    got = tapi.decode_gemv(torch.from_numpy(w), torch.from_numpy(x))
+    _compare(jref.decode_gemv_ref(jnp.asarray(w), jnp.asarray(x)), got)
+    assert got.tolist() == [2**30, 2**30]  # 5·2^30 mod 2^32

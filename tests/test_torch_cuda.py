@@ -17,7 +17,9 @@ from repro_torch.kernels import api as tapi  # noqa: E402
 from repro_torch.kernels import attention as tatt  # noqa: E402
 from repro_torch.kernels import bitslice_matmul as tbm  # noqa: E402
 from repro_torch.kernels import conv, ewise  # noqa: E402
+from repro_torch.kernels import htree_reduce as tht  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rglru_scan as trg  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import resnet as tres  # noqa: E402
 from repro_torch.serve import pimsab_step as tps  # noqa: E402
@@ -382,3 +384,120 @@ def test_decode_layer_on_card_equals_cpu_and_counts_launches(card):
     assert tapi.launch_counts() == {"attention_qk": 1, "softmax_fixedpoint": 1, "attention_pv": 1,
                                     "gemm": 3, "relu": 1}
     assert torch.equal(got.cpu(), ex(*args))
+
+
+# name → (w, x) makers
+GEMV = {
+    "int8-qwen-down-896x4864": lambda: (i8((896, 4864), 60), i8((4864,), 61)),
+    "int8-one-row": lambda: (i8((1, 896), 62), i8((896,), 63)),
+    "int8-ragged-K37": lambda: (i8((300, 37), 64), i8((37,), 65)),
+    "int8-K65536-x-not-staged": lambda: (i8((40, 65536), 66), i8((65536,), 67)),
+    "int32-wrap": lambda: (ints((100, 64), I32_MIN, I32_MAX, 68), ints((64,), I32_MIN, I32_MAX, 69)),
+    "int32-kernels-bench-512": lambda: (ints((512, 512), -1000, 1000, 70), ints((512,), -1000, 1000, 71)),
+    "int32-K16384-x-not-staged": lambda: (ints((20, 16384), I32_MIN, I32_MAX, 72),
+                                          ints((16384,), I32_MIN, I32_MAX, 73)),
+    "int8-w-int32-x": lambda: (i8((77, 96), 74), ints((96,), -2**20, 2**20, 75)),
+    "int32-w-int8-x": lambda: (ints((77, 96), -2**20, 2**20, 76), i8((96,), 77)),
+    "K0": lambda: (i8((5, 0), 78), i8((0,), 79)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEMV))
+def test_gemv_kernel_matches_plain(card, case):
+    w, x = GEMV[case]()
+    tapi.reset_launch_counts()
+    got = tatt._gemv(w.to(card), x.to(card))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"decode_gemv": 1}
+    assert torch.equal(got.cpu(), tatt._gemv_plain(w, x))
+
+
+@pytest.mark.parametrize("k", [896, 65536])
+def test_gemv_kernel_reads_misaligned_views(card, k):
+    """A weight row or an activation one byte off its 16-byte alignment
+    takes the element path (or stages the activation byte by byte)."""
+    w, x = i8((33, k), 80), i8((k,), 81)
+    wbuf = torch.empty(w.numel() + 1, dtype=torch.int8, device=card)
+    wbuf[1:] = w.to(card).reshape(-1)
+    xbuf = torch.empty(k + 1, dtype=torch.int8, device=card)
+    xbuf[1:] = x.to(card)
+    want = tatt._gemv_plain(w, x)
+    assert torch.equal(tatt._gemv(wbuf[1:].view(33, k), x.to(card)).cpu(), want)
+    assert torch.equal(tatt._gemv(w.to(card), xbuf[1:]).cpu(), want)
+
+
+# name → (x (N, D) maker)
+HTREE = {
+    "float32-N256-D65536": lambda: floats((256, 65536), 82),
+    "float32-N1": lambda: floats((1, 300), 83),
+    "float32-N2-ragged-D": lambda: floats((2, 1000), 84),
+    "float32-N8-D1": lambda: floats((8, 1), 85),
+    "bfloat16-N256-D4096": lambda: floats((256, 4096), 86).to(torch.bfloat16),
+    "bfloat16-N2": lambda: floats((2, 513), 87).to(torch.bfloat16),
+    "int32-wrap-N256-D2048": lambda: ints((256, 2048), I32_MIN, I32_MAX, 88),
+    "int32-N1": lambda: ints((1, 77), I32_MIN, I32_MAX, 89),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HTREE))
+def test_htree_kernel_matches_plain(card, case):
+    x = HTREE[case]()
+    tapi.reset_launch_counts()
+    got = tht._htree(x.to(card))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"htree_reduce": 1}
+    want = tht._htree_plain(x)
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+# name → (B, T, W)
+RGLRU = {
+    "T1": (2, 1, 5),
+    "ragged-W300-T37": (2, 37, 300),
+    "ragged-W513-T260": (3, 260, 513),
+    "recurrentgemma-width-T2048": (1, 2048, 2560),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RGLRU))
+def test_rglru_kernel_matches_plain(card, case):
+    bsz, t, w = RGLRU[case]
+    a = torch.sigmoid(floats((bsz, t, w), 90))
+    b, h0 = floats((bsz, t, w), 91), floats((bsz, w), 92)
+    tapi.reset_launch_counts()
+    got = trg._scan(a.to(card), b.to(card), h0.to(card))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"rglru_scan": 1}
+    assert torch.equal(got.cpu(), trg._scan_plain(a, b, h0))
+    assert torch.allclose(got.cpu(), tref.rglru_scan_ref(a, b, h0), atol=1e-4, rtol=1e-4)
+
+
+def test_gemv_htree_rglru_refuse_what_they_do_not_take(card):
+    with pytest.raises(TypeError, match="htree_reduce takes"):
+        tht._htree(torch.zeros((4, 8), dtype=torch.int8, device=card))
+    with pytest.raises(ValueError, match="power-of-two"):
+        tht._htree(torch.zeros((6, 8), dtype=torch.float32, device=card))
+    with pytest.raises(TypeError, match="float32"):
+        z = torch.zeros((1, 4, 3), dtype=torch.float64, device=card)
+        trg._scan(z, z, torch.zeros((1, 3), dtype=torch.float64, device=card))
+    with pytest.raises(TypeError, match="attention kernels take"):
+        tatt._gemv(torch.zeros((3, 4), dtype=torch.int16, device=card), torch.zeros(4, dtype=torch.int8, device=card))
+
+
+def test_gemv_htree_rglru_traced_on_card_equal_eager(card):
+    """Each entry point through trace → compile → a held Executor launches
+    its kernel once per replay and equals the eager call."""
+    calls = {
+        "decode_gemv": (tapi.decode_gemv, (i8((896, 896), 93), i8((896,), 94))),
+        "htree_reduce": (tapi.htree_reduce, (floats((256, 512), 95).to(torch.bfloat16),)),
+        "rglru_scan": (tapi.rglru_scan, (torch.sigmoid(floats((2, 64, 96), 96)), floats((2, 64, 96), 97),
+                                         floats((2, 96), 98))),
+    }
+    for name, (fn, args) in calls.items():
+        args = [a.to(card) for a in args]
+        ex = tapi.compile(tapi.trace(fn, name=name).program_for(*args))
+        tapi.reset_launch_counts()
+        got = ex(*args)
+        torch.cuda.synchronize()
+        assert tapi.launch_counts() == {name: 1}
+        assert torch.equal(got, fn(*args))

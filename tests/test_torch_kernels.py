@@ -137,17 +137,17 @@ def test_pool_mean_floors_integers_like_jax(count):
 
 
 def test_registry_holds_the_seven_network_kernels():
+    """The port registers every kernel the JAX package does, name for name
+    (the seven network kernels among them), each with an implementation and
+    an oracle."""
     names = set(tapi.registered_kernels())
-    assert names == {"conv2d", "int_matmul", "maxpool2d", "avgpool2d", "global_avgpool",
-                     "ewise_add", "relu", "bitslice_matmul", "attention_qk",
-                     "softmax_fixedpoint", "attention_pv", "kv_append"}
-    assert names <= set(japi.registered_kernels())
+    assert {"conv2d", "int_matmul", "maxpool2d", "avgpool2d", "global_avgpool",
+            "ewise_add", "relu"} <= names
+    assert names == set(japi.registered_kernels())
     for kd in tapi.registered_kernels().values():
         assert callable(kd.impl) and callable(kd.oracle)
-    for absent in ("decode_gemv", "rglru_scan", "htree_reduce"):
-        assert absent in japi.registered_kernels()
-        with pytest.raises(KeyError, match="no kernel"):
-            tapi.get_kernel(absent)
+    with pytest.raises(KeyError, match="no kernel"):
+        tapi.get_kernel("no_such_kernel")
 
 
 def test_cpu_path_launches_no_kernel():

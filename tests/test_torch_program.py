@@ -138,6 +138,42 @@ def test_slot_order_follows_sorted_dict_keys_like_jax():
     assert tprogram.tree_unflatten(td, tleaves) == tree
 
 
+def _gates(shape, seed):
+    a = (1.0 / (1.0 + np.exp(-floats(shape, seed)))).astype(np.float32)
+    return a, floats(shape, seed + 1), floats((shape[0], shape[2]), seed + 2)
+
+
+# entry point → (JAX call, port call, numpy operands, JAX dtypes, torch dtypes)
+ENTRY_POINTS = {
+    "htree_reduce-float32": ("htree_reduce", lambda: (floats((256, 64), 30),), None),
+    "htree_reduce-bfloat16": ("htree_reduce", lambda: (floats((16, 40), 31),), "bfloat16"),
+    "htree_reduce-int32": ("htree_reduce", lambda: (ints((8, 12), -2**31, 2**31, 32),), None),
+    "rglru_scan": ("rglru_scan", lambda: _gates((2, 16, 24), 33), None),
+    "decode_gemv-int8": ("decode_gemv", lambda: (ints((48, 96), -128, 128, 36, np.int8),
+                                                 ints((96,), -128, 128, 37, np.int8)), None),
+    "decode_gemv-int32": ("decode_gemv", lambda: (ints((32, 64), -1000, 1000, 38), ints((64,), -1000, 1000, 39)),
+                          None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENTRY_POINTS))
+def test_traced_entry_point_program_equals_jax(case):
+    """A traced call of ``htree_reduce``, ``rglru_scan`` and ``decode_gemv``
+    has JAX's Program signature (float32 and bfloat16 avals named as numpy
+    names them), and replays to the eager result."""
+    name, make, cast = ENTRY_POINTS[case]
+    args = make()
+    jargs = [jnp.asarray(a).astype(jnp.bfloat16) if cast else jnp.asarray(a) for a in args]
+    targs = [torch.from_numpy(a).to(torch.bfloat16) if cast else torch.from_numpy(a) for a in args]
+    jp = japi.trace(getattr(japi, name), name=name).program_for(*jargs)
+    tp = tapi.trace(getattr(tapi, name), name=name).program_for(*targs)
+    _assert_same_program(jp, tp)
+    assert tp.kernels == (name,)
+    if cast:
+        assert tp.slot_avals[0][1] == "bfloat16"
+    assert torch.equal(tapi.compile(tp)(*targs), getattr(tapi, name)(*targs))
+
+
 # ---------------------------------------------------------------------------
 # shape inference on meta tensors, every registered kernel
 # ---------------------------------------------------------------------------
@@ -163,6 +199,13 @@ KERNEL_CALLS = {
     "attention_pv": (lambda: (_i((2, 6), 16, lo=0, hi=64), _i((6, 4), 17, dtype=np.int8)), dict(shift=6)),
     "kv_append": (lambda: (_i((6, 4), 18, dtype=np.int8), _i((4,), 19), _i((6,), 20, lo=0, hi=2, dtype=np.int8)),
                   dict()),
+    "decode_gemv": (lambda: (_i((6, 32), 21, lo=-128, hi=128, dtype=np.int8), _i((32,), 22, lo=-128, hi=128,
+                                                                                dtype=np.int8)),
+                    dict(w_bits=8, x_bits=8)),
+    "htree_reduce": (lambda: (torch.from_numpy(floats((8, 5), 23)).to(torch.bfloat16),), dict()),
+    "rglru_scan": (lambda: (torch.sigmoid(torch.from_numpy(floats((2, 5, 3), 24))),
+                            torch.from_numpy(floats((2, 5, 3), 25)), torch.from_numpy(floats((2, 3), 26))),
+                   dict()),
 }
 
 
