@@ -59,9 +59,12 @@ Phases, any failure of which exits non-zero:
    Phase 2 also holds the four attention kernels against their plain
    versions at the decode shapes (GQA groups of 7 included) and at edges
    (a 131072-long equal row, shift 40, int32 caches, multi-hot and all-zero
-   selectors), and decode_gemv, htree_reduce and rglru_scan at theirs (an
+   selectors), decode_gemv, htree_reduce and rglru_scan at theirs (an
    int32 wrap, a ragged K, misaligned int8 views, N = 1 and 2 in each
-   dtype, T = 1, a ragged W);
+   dtype, T = 1, a ragged W), and the row reduction and the elementwise
+   kernels at the edges of their launch plans (every lane-group size,
+   misaligned views, INT32_MIN and NaN rows, n from 1 to 255, channels-last
+   operands whose layout the result keeps);
 4. time each kernel at those inputs (CUDA events around a CUDA-graph replay
    of 20 calls, after warm-up; eager back-to-back calls too) beside its
    bound, its plain version and, where one PyTorch call computes the same
@@ -74,9 +77,13 @@ Phases, any failure of which exits non-zero:
    and the decode layer, each from an idle card (median of 20); time
    decode_gemv, rglru_scan and htree_reduce at phase 3g's inputs, beside
    their bounds, plain versions and, for the int32 H-tree, ``torch.sum``;
+   the pool and elementwise kernels beside their library calls in paired
+   rounds (each read once a round, in alternating order; medians), warm and
+   with cold inputs (rotated over copies worth more than twice the L2);
 5. profile three forwards, one call of each bit-sliced path, five decode
    steps and three decode layers (torch.profiler): device time by kernel
-   name and the device's idle share.
+   name and the device's idle share, and the forward's PyTorch copies
+   (``aten::copy_``) and other glue kernels, launches and device time.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Per-call details go
@@ -84,6 +91,7 @@ to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -175,6 +183,18 @@ ENTRY_NO_LIBRARY = {
     "htree_reduce": "torch.sum adds floats in another order",
 }
 
+# Window lengths that reach every lane-group size of the row reduction (1 to
+# 32 lanes a row), each with a K % 4 == 0 neighbour (16-byte loads) and a
+# ragged one (element loads).
+POOL_EDGE_K = (1, 2, 3, 4, 5, 8, 15, 16, 17, 32, 33, 49, 100, 1000)
+# A cold reading rotates a kernel's inputs over copies worth more than this,
+# twice the H100's 50 MB L2, so each call reads its inputs from HBM.
+COLD_BYTES = 100 * 2**20
+# The pool and elementwise kernels beside their library calls: readings of
+# each, in turns, per path run (their gaps are a few percent, about the
+# spread of one reading)
+PAIRED_ROUNDS = 7
+
 BITSLICE_SOURCE = "src/repro_torch/kernels/csrc/bitslice_gemm.cu"
 BITSLICE_REPLACES = "src/repro/kernels/bitslice_matmul.py:29"
 
@@ -218,6 +238,10 @@ class Smoke:
         got = got.cpu()
         ok = got.shape == want.shape and got.dtype == want.dtype
         err = None
+        if ok and got.is_floating_point() and (got.isnan().any() or want.isnan().any()):
+            # NaN must sit where the plain version has it; the rest compares as usual
+            ok = torch.equal(got.isnan(), want.isnan())
+            got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
         if ok:
             diff = (got.double() - want.double()).abs()
             err = float(diff.max()) if diff.numel() else 0.0
@@ -248,10 +272,11 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(torch, fn, reps=20, warmup=3):
-    """Mean device time of ``fn`` in ms: ``reps`` calls captured in one CUDA
-    graph and replayed (CUDA events around the replay), so host launch cost
-    does not enter."""
+def graph_timer(torch, fn, reps=20, warmup=3):
+    """Capture ``reps`` calls of ``fn`` in one CUDA graph (after warm-up and
+    one warm replay); returns a function that replays it between CUDA events
+    and gives the mean device time of a call in ms, host launch cost left
+    out."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -265,11 +290,51 @@ def graph_ms(torch, fn, reps=20, warmup=3):
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+
+    def replay_ms():
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    replay_ms.fn = fn  # the graph reads the tensors fn holds: keep them alive while it can replay
+    return replay_ms
+
+
+def graph_ms(torch, fn, reps=20, warmup=3):
+    """Mean device time of ``fn`` in ms over one replay of ``reps`` calls
+    captured in a CUDA graph."""
+    return graph_timer(torch, fn, reps, warmup)()
+
+
+def cold_timer(torch, fn, args):
+    """A :func:`graph_timer` of ``fn(*args)`` with its inputs cold in L2: the
+    calls of the graph rotate over clones of ``args`` (each keeping its
+    layout) worth more than COLD_BYTES together."""
+    nbytes = sum(a.element_size() * a.numel() for a in args)
+    copies = max(2, -(-COLD_BYTES // max(nbytes, 1)) + 1)
+    sets = itertools.cycle([tuple(a.clone() for a in args) for _ in range(copies)])
+    return graph_timer(torch, lambda: fn(*next(sets)), reps=max(LATENCY_SAMPLES, copies))
+
+
+def paired_rounds(pairs, rounds):
+    """Read each ``(kernel timer, library timer)`` of ``pairs`` once a round,
+    the library first in every other round, so that both sides see the same
+    drift of the card; returns the per-round sums over ``pairs``, kernel and
+    library, and the per-pair medians."""
+    sums = {"kernel": [], "library": []}
+    per_pair = [([], []) for _ in pairs]
+    for r in range(rounds):
+        tot = [0.0, 0.0]
+        for (k, lib), reads in zip(pairs, per_pair):
+            for side in ((0, 1) if r % 2 == 0 else (1, 0)):
+                ms = (k, lib)[side]()
+                reads[side].append(ms)
+                tot[side] += ms
+        sums["kernel"].append(tot[0])
+        sums["library"].append(tot[1])
+    return sums, [(median(sorted(a)), median(sorted(b))) for a, b in per_pair]
 
 
 def forward_samples(torch, fn, n, warmup=3):
@@ -371,10 +436,17 @@ def run_bitslice_path(torch, api, bm, smoke, path, run, expected, skipped=()):
             "launched": [list(p) for p in launched], "skipped": [list(p) for p in skipped]}
 
 
+def is_glue(kernel_name):
+    """Whether a device kernel is PyTorch's (glue: copies, fills, casts)
+    rather than one of the port's own."""
+    return "at::" in kernel_name or kernel_name.startswith(("Memcpy", "Memset"))
+
+
 def device_profile(torch, fn, iters=3):
     """Device time by kernel name over ``iters`` calls of ``fn`` (torch
     profiler), and the window's wall time on CUDA events: returns
-    ``(wall_ms, {name: (calls, device_ms)})``; the dict is empty when the
+    ``(wall_ms, {name: (calls, device_ms)}, (copy calls, copy device_ms))``,
+    the last over PyTorch's ``aten::copy_`` ops; the dict is empty when the
     profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -389,11 +461,15 @@ def device_profile(torch, fn, iters=3):
         end.record()
         end.synchronize()
     by_name = {}
+    copies, copy_ms = 0, 0.0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             calls, ms = by_name.get(ev.name, (0, 0.0))
             by_name[ev.name] = (calls + 1, ms + ev.time_range.elapsed_us() / 1e3)
-    return start.elapsed_time(end), by_name
+        elif ev.name == "aten::copy_":
+            copies += 1
+            copy_ms += ev.device_time_total
+    return start.elapsed_time(end), by_name, (copies, copy_ms / 1e3)
 
 
 def attention_kernel_checks(torch, att, ref, smoke, dev, seed):
@@ -778,6 +854,78 @@ def entry_kernel_checks(torch, att, ht, rg, smoke, dev, seed):
         smoke.check(kernel, case, got, plain(*cpu_args), exact=True)
 
 
+def pool_ewise_edge_checks(torch, conv, ewise, smoke, dev, seed):
+    """Phase 2 for the row reduction and the elementwise kernels at the edges
+    of their launch plans: every lane-group size (POOL_EDGE_K) at row counts
+    off the groups' tiles, a window matrix and operands 4 bytes past a
+    16-byte boundary, int32 sums that wrap, INT32_MIN rows, float rows and
+    elements holding NaN, n from 1 to 255, and channels-last operands, whose
+    layout the result must keep, beside a mixed pair that is copied."""
+    g = torch.Generator().manual_seed(seed)
+
+    def i32(shape, lo=-2**31, hi=2**31 - 1):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+
+    def off(t):
+        """A copy of ``t`` on the card, one element past its allocation's
+        (16-byte aligned) start."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        return buf[1:].view(t.shape).copy_(t)
+
+    def cl(t):
+        return t.to(dev).contiguous(memory_format=torch.channels_last)
+
+    def pool(op):
+        return (lambda p: conv._pool_rows(p, op)), (lambda p: conv._pool_rows_plain(p, op))
+
+    add = (lambda a, b: ewise._ewise("add", a, b)), (lambda a, b: ewise._ewise_plain("add", a, b))
+    relu = (lambda a: ewise._ewise("relu", a)), (lambda a: ewise._ewise_plain("relu", a))
+    # (kernel, case, (run, plain), CPU operands, card operands or None for copies, exact, keeps layout)
+    cases = []
+    for k in POOL_EDGE_K:
+        for op in ("sum", "max"):
+            cases.append((f"pool_{op}", f"int32 K={k} rows={1000 + k}", pool(op), (i32((1000 + k, k)),),
+                          None, True, False))
+    cases.append(("pool_sum", "float32 K=1000 rows=333", pool("sum"), (torch.randn((333, 1000), generator=g),),
+                  None, False, False))
+    for k in (4, 16, 100):
+        p = i32((777, k))
+        for op in ("sum", "max"):
+            cases.append((f"pool_{op}", f"misaligned view K={k}", pool(op), (p,), (off(p),), True, False))
+    wrap = torch.full((300, 16), 2**31 - 1, dtype=torch.int32)
+    wrap[::3] = -2**31
+    nan = torch.randn((300, 16), generator=g)
+    nan[5, 7], nan[17] = float("nan"), float("nan")
+    for op in ("sum", "max"):
+        cases.append((f"pool_{op}", "INT32_MAX / INT32_MIN rows", pool(op), (wrap,), None, True, False))
+        cases.append((f"pool_{op}", "float32 rows holding NaN", pool(op), (nan,), None, op == "max", False))
+    for n in (1, 3, 4, 5, 255):
+        f = torch.randn((n,), generator=g)
+        f[n // 2] = float("nan")
+        cases += [("ewise_add", f"int32 wrap n={n}", add, (i32((n,)), i32((n,))), None, True, False),
+                  ("relu", f"int32 n={n}", relu, (i32((n,)),), None, True, False),
+                  ("relu", f"float32 holding NaN n={n}", relu, (f,), None, True, False)]
+    for n in (5, 1000003):
+        x, y = i32((n,)), i32((n,))
+        cases += [("ewise_add", f"misaligned x[1:] n={n}", add, (x, y), (off(x), y.to(dev)), True, False),
+                  ("relu", f"misaligned x[1:] n={n}", relu, (x,), (off(x),), True, False)]
+    for dtype in (torch.int32, torch.float32):
+        x, y = (i32((4, 24, 7, 5)) if dtype == torch.int32 else torch.randn((4, 24, 7, 5), generator=g)
+                for _ in range(2))
+        cases += [("ewise_add", f"channels-last {dtype}", add, (x, y), (cl(x), cl(y)), True, True),
+                  ("relu", f"channels-last {dtype}", relu, (x,), (cl(x),), True, True),
+                  ("ewise_add", f"channels-last + contiguous {dtype} (copied)", add, (x, y),
+                   (cl(x), y.to(dev)), True, False)]
+    for kernel, case, (run, plain), cpu_args, card_args, exact, keeps_layout in cases:
+        card_args = card_args or [a.to(dev) for a in cpu_args]
+        got = run(*card_args)
+        torch.cuda.synchronize()
+        smoke.check(kernel, case, got, plain(*cpu_args), exact)
+        if keeps_layout and got.stride() != card_args[0].stride():
+            smoke.failures.append(f"{kernel} [{case}]: result strides {got.stride()} != the operands' "
+                                  f"{card_args[0].stride()}")
+
+
 def entry_point_cases(torch, api, cfg, seed):
     """Phase 3g's calls, on the CPU: ``(kernel, case, entry point, operands)``
     for the decode projections, the RG-LRU scan, the H-tree reductions and
@@ -967,13 +1115,15 @@ def main() -> int:
         calls["gemm"].append((a.contiguous(), b.contiguous()))
         return orig[0](a, b)
 
+    # clone() keeps each operand's layout (the forward's relu and add
+    # operands are channels-last), so phase 4 times what the path launches
     def rec_pool(p, op):
-        calls[f"pool_{op}"].append((p.contiguous(),))
+        calls[f"pool_{op}"].append((p.clone(),))
         return orig[1](p, op)
 
     def rec_ewise(op, a, b=None):
         calls["ewise_add" if op == "add" else "relu"].append(
-            tuple(t.contiguous() for t in ((a,) if b is None else (a, b))))
+            tuple(t.clone() for t in ((a,) if b is None else (a, b))))
         return orig[2](op, a, b)
 
     conv._gemm, conv._pool_rows, ewise._ewise = rec_gemm, rec_pool, rec_ewise
@@ -1061,6 +1211,7 @@ def main() -> int:
     torch.cuda.synchronize()
     attention_kernel_checks(torch, att, ref, smoke, dev, SEED + 3)
     entry_kernel_checks(torch, att, ht, rg, smoke, dev, SEED + 8)
+    pool_ewise_edge_checks(torch, conv, ewise, smoke, dev, SEED + 10)
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
@@ -1229,26 +1380,45 @@ def main() -> int:
     for kernel, arglist in calls.items():
         ms = eager_ms = plain_ms = bound_ms = lib_ms = 0.0
         bytes_s = ops_s = 0.0
+        # the pool and ewise kernels: graph timers, warm and with inputs cold
+        # in L2, of each call and of its library call, read in paired rounds
+        warm_pairs, cold_pairs, mine = [], [], []
         for args in arglist:
-            k_ms = graph_ms(torch, lambda: run[kernel](*args))
             k_eager = cuda_ms(torch, lambda: run[kernel](*args))
-            p_ms = None if kernel == "gemm" else graph_ms(torch, lambda: plain[kernel](*args))
-            l_ms = None if library[kernel] is None else graph_ms(torch, lambda: library[kernel](*args))
+            if kernel == "gemm":
+                k_ms, p_ms = graph_ms(torch, lambda: run[kernel](*args)), None
+            else:
+                p_ms = graph_ms(torch, lambda: plain[kernel](*args))
+                warm_pairs.append((graph_timer(torch, lambda args=args: run[kernel](*args)),
+                                   graph_timer(torch, lambda args=args: library[kernel](*args))))
+                cold_pairs.append((cold_timer(torch, run[kernel], args), cold_timer(torch, library[kernel], args)))
+                k_ms = 0.0  # filled in from the rounds below
             nbytes, ops, rate = work(kernel, args)
             b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / rate * 1e3
             ms += k_ms
             eager_ms += k_eager
             plain_ms += p_ms or 0.0
-            lib_ms += l_ms or 0.0
             bound_ms += max(b_bytes, b_ops)
             bytes_s += b_bytes
             ops_s += b_ops
-            details.append({"kernel": kernel, "shapes": [list(a.shape) for a in args], "ms": k_ms,
-                            "eager_ms": k_eager,
-                            "plain_ms": p_ms, "library_ms": l_ms,
-                            "bound_ms": max(b_bytes, b_ops), "bytes": nbytes, "ops": ops})
+            mine.append({"kernel": kernel, "shapes": [list(a.shape) for a in args], "ms": k_ms,
+                         "eager_ms": k_eager, "plain_ms": p_ms, "library_ms": None,
+                         "bound_ms": max(b_bytes, b_ops), "bytes": nbytes, "ops": ops})
+        details += mine
         if kernel == "gemm":
             plain_ms = gemm_plain_cpu_ms  # on the CPU: no int32 matmul on CUDA
+        else:
+            rounds = {}
+            for temp, pairs in (("warm", warm_pairs), ("cold", cold_pairs)):
+                sums, each = paired_rounds(pairs, PAIRED_ROUNDS)
+                rounds[temp] = dict(sums, kernel_no_slower=sum(k <= lib for k, lib in zip(sums["kernel"],
+                                                                                        sums["library"])))
+                for d, (k, lib) in zip(mine, each):
+                    d.update({"ms": k, "library_ms": lib} if temp == "warm" else
+                             {"cold_ms": k, "library_cold_ms": lib})
+            ms, lib_ms = median(sorted(rounds["warm"]["kernel"])), median(sorted(rounds["warm"]["library"]))
+            cold = {"ms": median(sorted(rounds["cold"]["kernel"])),
+                    "library_ms": median(sorted(rounds["cold"]["library"]))}
         n_launches = launches[kernel] or entry_launches.get(kernel, 0)
         on_path = n_launches > 0
         row = {
@@ -1262,13 +1432,24 @@ def main() -> int:
             "plain_device": "cpu" if kernel == "gemm" else "cuda",
             "main_path_max_abs_err": main_err[kernel] if on_path else None,
         }
+        if kernel != "gemm":
+            row.update(cold_ms=cold["ms"], library_cold_ms=cold["library_ms"], rounds=rounds,
+                       channels_last_operands=sum(
+                           not a.is_contiguous() and a.is_contiguous(memory_format=torch.channels_last)
+                           for args in arglist for a in args), operands=sum(len(args) for args in arglist))
         rows.append(row)
+        paired_text = "" if kernel == "gemm" else (
+            f"; medians of {PAIRED_ROUNDS} rounds read in turns with the library call (kernel no slower in "
+            f"{rounds['warm']['kernel_no_slower']} warm, {rounds['cold']['kernel_no_slower']} cold); cold L2 "
+            f"{cold['ms']:.4f} ms (roofline share {bound_ms / cold['ms']:.1%}), library cold "
+            f"{cold['library_ms']:.4f} ms; {row['channels_last_operands']} of {row['operands']} operands "
+            f"channels-last")
         print(f"kernel {kernel}: {len(arglist)} calls, {ms / len(arglist):.4f} ms per call, "
               f"{ms:.4f} ms summed in graph replay "
               f"({eager_ms:.4f} ms eager; bound {bound_ms:.4f} ms "
               f"by {row['bound_by']}, roofline share {bound_ms / ms:.1%}), plain {plain_ms:.4f} ms on "
               f"{row['plain_device']}, library {row['library_ms']}, launches/forward {launches[kernel]}, "
-              f"on the stem pool path {entry_launches.get(kernel, 0)}")
+              f"on the stem pool path {entry_launches.get(kernel, 0)}{paired_text}")
 
     fwd_samples = forward_samples(torch, lambda: model(x), FORWARD_SAMPLES)
     fwd_ms = fwd_samples[len(fwd_samples) // 2]
@@ -1350,7 +1531,7 @@ def main() -> int:
 
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
-    wall_ms, by_name = device_profile(torch, lambda: model(x), prof_iters)
+    wall_ms, by_name, (copies, copy_ms) = device_profile(torch, lambda: model(x), prof_iters)
     busy_ms = sum(ms for _, ms in by_name.values())
     profile_summary = {
         "wall_ms_per_forward": wall_ms / prof_iters,
@@ -1358,16 +1539,25 @@ def main() -> int:
         "idle_share": 1 - busy_ms / wall_ms if by_name else None,
         "kernels": sorted(([n, c / prof_iters, ms / prof_iters] for n, (c, ms) in by_name.items()),
                           key=lambda r: -r[2]),
+        "glue_launches_per_forward": sum(c for n, (c, _) in by_name.items() if is_glue(n)) / prof_iters,
+        "glue_device_ms_per_forward": sum(ms for n, (_, ms) in by_name.items() if is_glue(n)) / prof_iters,
+        "copies_per_forward": copies / prof_iters,
+        "copy_device_ms_per_forward": copy_ms / prof_iters,
     }
     if by_name:
         top = "; ".join(f"{n[:40]} x{c:g} {ms:.3f} ms" for n, c, ms in profile_summary["kernels"][:6])
         print(f"profile RESNET18 b{BATCH} (torch.profiler, {prof_iters} forwards): "
               f"{wall_ms / prof_iters:.3f} ms wall, {busy_ms / prof_iters:.3f} ms device busy, "
               f"idle share {profile_summary['idle_share']:.3f}; per forward: {top}")
+        print(f"profile RESNET18 b{BATCH} PyTorch glue per forward: "
+              f"{profile_summary['copies_per_forward']:g} copies (aten::copy_) taking "
+              f"{profile_summary['copy_device_ms_per_forward']:.4f} ms of device time; all glue "
+              f"{profile_summary['glue_launches_per_forward']:g} launches, "
+              f"{profile_summary['glue_device_ms_per_forward']:.4f} ms")
     else:
         print("profile: the profiler saw no device activity; device breakdown not measured")
     for r in bitslice_paths:
-        wall, names = device_profile(torch, lambda: r["run"]("cuda"), 1)
+        wall, names, _ = device_profile(torch, lambda: r["run"]("cuda"), 1)
         busy = sum(ms for _, ms in names.values())
         profile_summary[r["path"]] = {
             "wall_ms": wall, "device_busy_ms": busy if names else None,
@@ -1379,7 +1569,7 @@ def main() -> int:
                             for nm, c, ms in profile_summary[r["path"]]["kernels"][:5])
             print(f"profile {r['path']} (one call): {wall:.3f} ms wall, {busy:.3f} ms device busy; {top}")
 
-    wall, names = device_profile(torch, decode[DECODE_CAPACITY]["step"], 5)
+    wall, names, _ = device_profile(torch, decode[DECODE_CAPACITY]["step"], 5)
     busy = sum(ms for _, ms in names.values())
     profile_summary["decode_step"] = {
         "wall_ms_per_step": wall / 5, "device_busy_ms_per_step": busy / 5 if names else None,
@@ -1393,7 +1583,7 @@ def main() -> int:
               f"{busy / 5:.4f} ms device busy, idle share {profile_summary['decode_step']['idle_share']:.3f}; "
               f"per step: {top}")
     layer = layers[DECODE_CAPACITY]
-    wall, names = device_profile(torch, lambda: layer["ex"](*layer["args"]), 3)
+    wall, names, _ = device_profile(torch, lambda: layer["ex"](*layer["args"]), 3)
     busy = sum(ms for _, ms in names.values())
     profile_summary["decode_layer"] = {
         "wall_ms_per_call": wall / 3, "device_busy_ms_per_call": busy / 3 if names else None,

@@ -44,14 +44,16 @@ _P, _I, _L, _B = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_char
 ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "int_gemm_i32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _P)),
     "int_gemm_f32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _P)),
-    "pool_sum_i32": ("pool_reduce", (_P, _P, _L, _I, _P)),
-    "pool_sum_f32": ("pool_reduce", (_P, _P, _L, _I, _P)),
-    "pool_max_i32": ("pool_reduce", (_P, _P, _L, _I, _P)),
-    "pool_max_f32": ("pool_reduce", (_P, _P, _L, _I, _P)),
-    "ewise_add_i32": ("ewise", (_P, _P, _P, _L, _P)),
-    "ewise_add_f32": ("ewise", (_P, _P, _P, _L, _P)),
-    "relu_i32": ("ewise", (_P, _P, _L, _P)),
-    "relu_f32": ("ewise", (_P, _P, _L, _P)),
+    # the pool and ewise kernels take their launch plan (conv.pool_plan,
+    # ewise.ewise_plan) after the extents
+    "pool_sum_i32": ("pool_reduce", (_P, _P, _L, _I, _I, _I, _I, _P)),
+    "pool_sum_f32": ("pool_reduce", (_P, _P, _L, _I, _I, _I, _I, _P)),
+    "pool_max_i32": ("pool_reduce", (_P, _P, _L, _I, _I, _I, _I, _P)),
+    "pool_max_f32": ("pool_reduce", (_P, _P, _L, _I, _I, _I, _I, _P)),
+    "ewise_add_i32": ("ewise", (_P, _P, _P, _L, _I, _I, _P)),
+    "ewise_add_f32": ("ewise", (_P, _P, _P, _L, _I, _I, _P)),
+    "relu_i32": ("ewise", (_P, _P, _L, _I, _I, _P)),
+    "relu_f32": ("ewise", (_P, _P, _L, _I, _I, _P)),
     "bitslice_gemm_i8": ("bitslice_gemm", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _B, _B, _I, _P)),
     # the attention kernels take int8 and int32 operands, named by their
     # element size in bytes (1 or 4) after the extents

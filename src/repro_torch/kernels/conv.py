@@ -17,7 +17,7 @@ int32 and float inputs to float32 first, as the JAX kernels do.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,6 +66,23 @@ def _pool_rows_plain(p: torch.Tensor, op: str) -> torch.Tensor:
     return torch.amax(p, dim=1)
 
 
+POOL_THREADS = 256  # csrc/pool_reduce.cu: THREADS
+
+
+def pool_plan(rows: int, k: int, ptr: int) -> Tuple[int, bool, int]:
+    """Launch plan of ``csrc/pool_reduce.cu`` for a contiguous ``(rows, k)``
+    matrix at address ``ptr``: ``(lanes, vec, blocks)``.  ``lanes`` (a power
+    of two, at most a warp) share a row, sized so that they cover it with one
+    16-byte vector each; ``vec`` selects 16-byte loads, which need every row
+    16-byte aligned; ``blocks`` give each group of lanes one row (rows <
+    2**31, as ``_build.entry_suffix`` checks: within CUDA's grid)."""
+    lanes = 1
+    while lanes < 32 and 4 * lanes < k:
+        lanes *= 2
+    vec = k % 4 == 0 and ptr % 16 == 0
+    return lanes, vec, max(1, -(-rows // (POOL_THREADS // lanes)))
+
+
 def _pool_rows(p: torch.Tensor, op: str) -> torch.Tensor:
     """Row ``op`` (``"sum"`` or ``"max"``) of a ``(P, K)`` window matrix, in
     its dtype; the CUDA kernel for CUDA tensors."""
@@ -80,7 +97,8 @@ def _pool_rows(p: torch.Tensor, op: str) -> torch.Tensor:
     out = torch.empty((rows,), dtype=p.dtype, device=dev)
     if rows == 0:
         return out
-    _build.launch(f"pool_{op}_{suffix}", dev, p.data_ptr(), out.data_ptr(), rows, k)
+    lanes, vec, blocks = pool_plan(rows, k, p.data_ptr())
+    _build.launch(f"pool_{op}_{suffix}", dev, p.data_ptr(), out.data_ptr(), rows, k, lanes, int(vec), blocks)
     count_launch(f"pool_{op}")
     return out
 

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import api as tapi  # noqa: E402
 from repro_torch.kernels import attention as tatt  # noqa: E402
 from repro_torch.kernels import bitslice_matmul as tbm  # noqa: E402
@@ -69,9 +70,13 @@ def test_gemm_kernel_float32_within_tolerance(card):
     torch.testing.assert_close(got, a @ b, atol=1e-4, rtol=1e-4)
 
 
+POOL_K = [1, 2, 3, 4, 5, 8, 15, 16, 17, 32, 33, 49, 100, 1000]
+
+
 @pytest.mark.parametrize("op", ["sum", "max"])
-@pytest.mark.parametrize("k", [1, 4, 16, 49, 100])
+@pytest.mark.parametrize("k", POOL_K)
 def test_pool_kernel_matches_plain(card, op, k):
+    # 1000 and 333 rows: not a multiple of any lane group's rows per block
     p = ints((1000, k), I32_MIN, I32_MAX, k) if op == "max" or k == 49 else ints((1000, k), -50, 10, k)
     got = conv._pool_rows(p.to(card), op)
     assert torch.equal(got.cpu(), conv._pool_rows_plain(p, op))
@@ -80,13 +85,81 @@ def test_pool_kernel_matches_plain(card, op, k):
     torch.testing.assert_close(got, conv._pool_rows_plain(f, op), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("n", [1, 255, 1000003])
+def on_card_at(t, dev, offset):
+    """A copy of ``t`` on the card ``offset`` elements past a fresh
+    allocation's (16-byte aligned) start."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("k", [4, 16, 100])
+def test_pool_kernel_reads_a_misaligned_view(card, op, k):
+    """A window matrix 4 bytes past a 16-byte boundary takes element loads."""
+    p = ints((777, k), I32_MIN, I32_MAX, 100 + k)
+    view = on_card_at(p, card, 1)
+    assert not conv.pool_plan(777, k, view.data_ptr())[1]
+    assert torch.equal(conv._pool_rows(view, op).cpu(), conv._pool_rows_plain(p, op))
+
+
+@pytest.mark.parametrize("k", [4, 16, 17])
+def test_pool_kernel_int32_and_nan_edges(card, k):
+    """Sums that wrap past INT32_MAX, rows of INT32_MIN for max, and float
+    rows holding NaN."""
+    p = torch.full((300, k), I32_MAX, dtype=torch.int32)
+    p[::3] = I32_MIN
+    for op in ("sum", "max"):
+        assert torch.equal(conv._pool_rows(p.to(card), op).cpu(), conv._pool_rows_plain(p, op))
+    f = floats((300, k), 7 + k)
+    f[5, k // 2] = float("nan")
+    f[17, :] = float("nan")
+    for op in ("sum", "max"):
+        got, want = conv._pool_rows(f.to(card), op).cpu(), conv._pool_rows_plain(f, op)
+        assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() == 2
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 255, 1000003])
 def test_ewise_kernels_match_plain(card, n):
     x, y = ints((n,), I32_MIN, I32_MAX, n), ints((n,), I32_MIN, I32_MAX, n + 1)
     assert torch.equal(ewise._ewise("add", x.to(card), y.to(card)).cpu(), x + y)
     assert torch.equal(ewise._ewise("relu", x.to(card)).cpu(), ewise._ewise_plain("relu", x))
     f = floats((n,), n + 2)
-    assert torch.equal(ewise._ewise("relu", f.to(card)).cpu(), ewise._ewise_plain("relu", f))
+    f[n // 2] = float("nan")
+    assert torch.equal(ewise._ewise("relu", f.to(card)).cpu().isnan(), f.isnan())
+    assert torch.equal(ewise._ewise("relu", f.to(card)).cpu().nan_to_num(), ewise._ewise_plain("relu", f).nan_to_num())
+
+
+@pytest.mark.parametrize("n", [5, 1000003])
+def test_ewise_kernels_read_misaligned_views(card, n):
+    """``x[1:]``-style views, 4 bytes past a 16-byte boundary: one operand
+    off, and operands and result all off, take the scalar kernel."""
+    x, y = ints((n,), I32_MIN, I32_MAX, 3 * n), ints((n,), I32_MIN, I32_MAX, 3 * n + 1)
+    xv, yv = on_card_at(x, card, 1), on_card_at(y, card, 1)
+    assert torch.equal(ewise._ewise("add", xv, y.to(card)).cpu(), x + y)
+    assert torch.equal(ewise._ewise("relu", xv).cpu(), ewise._ewise_plain("relu", x))
+    out = on_card_at(torch.zeros(n, dtype=torch.int32), card, 1)
+    vec, blocks = ewise.ewise_plan(n, [xv.data_ptr(), yv.data_ptr(), out.data_ptr()])
+    assert not vec
+    _build.launch("ewise_add_i32", card, xv.data_ptr(), yv.data_ptr(), out.data_ptr(), n, 0, blocks)
+    assert torch.equal(out.cpu(), x + y)
+    _build.launch("relu_i32", card, xv.data_ptr(), out.data_ptr(), n, 0, blocks)
+    assert torch.equal(out.cpu(), ewise._ewise_plain("relu", x))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_ewise_kernels_keep_channels_last_operands(card, dtype):
+    """Channels-last operands (as ``conv2d`` returns them) are read where
+    they lie: the result keeps their strides and equals the plain version."""
+    make = (lambda s, seed: ints(s, I32_MIN, I32_MAX, seed)) if dtype == "int32" else floats
+    x, y = make((4, 24, 7, 5), 31), make((4, 24, 7, 5), 32)
+    xc, yc = (t.to(card).contiguous(memory_format=torch.channels_last) for t in (x, y))
+    for op, args, want in (("add", (xc, yc), x + y), ("relu", (xc,), ewise._ewise_plain("relu", x))):
+        got = ewise._ewise(op, *args)
+        assert got.stride() == xc.stride() and torch.equal(got.cpu(), want)
+    # a channels-last operand with a contiguous one: copied, and still right
+    for a, b in ((xc, y.to(card)), (x.to(card), yc)):
+        assert torch.equal(ewise._ewise("add", a, b).cpu(), x + y)
 
 
 def test_card_refuses_dtypes_the_kernels_do_not_take(card):
