@@ -64,19 +64,29 @@ Phases, any failure of which exits non-zero:
    dtype, T = 1, a ragged W), and the row reduction and the elementwise
    kernels at the edges of their launch plans (every lane-group size,
    misaligned views, INT32_MIN and NaN rows, n from 1 to 255, channels-last
-   operands whose layout the result keeps);
+   operands whose layout the result keeps), and the int32 GEMM and H-tree at
+   theirs (INT32_MIN, -1, INT32_MAX and full-range operands on both sides,
+   tiles whose byte counts differ, K = 40000, M = 1 to 17 around the small-M
+   path, the stem's K = 27, ragged shapes, B as (K, N) and (N, K), misaligned
+   views; N = 1 to 65536 lanes, D off the 16-byte pack, INT32_MIN columns
+   that wrap, float32 and bfloat16 in tree order);
 4. time each kernel at those inputs (CUDA events around a CUDA-graph replay
    of 20 calls, after warm-up; eager back-to-back calls too) beside its
    bound, its plain version and, where one PyTorch call computes the same
    function, that call (``torch._int_mm`` for a single-pair bit-sliced
-   GEMM); time 50 eager forwards one by one (median and p80), and the
+   GEMM); the int32 GEMM's bound counts the int8 tensor-core digit products
+   its inputs need (``digit_products``), with the SIMT design's IMAD bound
+   beside it; K1 in the decode layer (M = 1) and K1's float32 instance beside
+   ``torch.matmul`` (TF32 off, paired rounds) at RESNET18's stage-3 shape;
+   time 50 eager forwards one by one (median and p80), and the
    eager forward, the traced call (re-trace included) and a held
    ``Executor`` replay from an idle card (host clock);
    time the attention kernels at the serving path's T = 32768 inputs, one
    decode step (Program call plus the cache carry) at 4096 and 32768 rows
    and the decode layer, each from an idle card (median of 20); time
    decode_gemv, rglru_scan and htree_reduce at phase 3g's inputs, beside
-   their bounds, plain versions and, for the int32 H-tree, ``torch.sum``;
+   their bounds, plain versions and, for the int32 H-tree, ``torch.sum`` in
+   paired rounds, warm and cold;
    the pool and elementwise kernels beside their library calls in paired
    rounds (each read once a round, in alternating order; medians), warm and
    with cold inputs (rotated over copies worth more than twice the L2);
@@ -183,6 +193,9 @@ ENTRY_NO_LIBRARY = {
     "htree_reduce": "torch.sum adds floats in another order",
 }
 
+# K1's float32 instance beside torch.matmul (TF32 off) at RESNET18's stage-3
+# GEMM shape in float32: (M, K, N).  No path runs it (the forward is int32).
+F32_GEMM = (2048, 2304, 256)
 # Window lengths that reach every lane-group size of the row reduction (1 to
 # 32 lanes a row), each with a K % 4 == 0 neighbour (16-byte loads) and a
 # ragged one (element loads).
@@ -371,6 +384,142 @@ def sync_samples(torch, fn, n, warmup=2):
 
 def median(xs):
     return xs[len(xs) // 2]
+
+
+def shapes_of(args):
+    """The shapes of a call's tensor arguments (a GEMM's B layout is a str)."""
+    return [tuple(a.shape) for a in args if hasattr(a, "shape")]
+
+
+def gemm_dims(a, b, layout):
+    """(M, K, N) of ``a @ B``, B ``(K, N)`` (``"kn"``) or ``(N, K)``."""
+    return a.shape[0], a.shape[1], b.shape[0] if layout == "nk" else b.shape[1]
+
+
+def plan_of(conv, a, b, layout):
+    """K1's launch plan for the int32 call ``a @ B``."""
+    m, k, n = gemm_dims(a, b, layout)
+    return conv.gemm_plan(m, n, k, layout, (a.data_ptr(), b.data_ptr()))
+
+
+# digit pairs (i < na, j < nb, i + j <= 3) of K1's tensor-core path
+DIGIT_PAIRS = [[sum(1 for i in range(na) for j in range(nb) if i + j <= 3) for nb in range(5)] for na in range(5)]
+
+
+def digit_products(torch, a, b, layout, tile=32):
+    """int8 tensor-core multiply-adds K1's tile path needs at these int32
+    inputs: per 32-row tile of A, 32-column tile of B and 32-wide K step,
+    the bytes each side's values need (the kernel's vote), their digit pairs
+    with i + j <= 3, times the tile's actual rows, columns and K depth."""
+    import torch.nn.functional as F
+
+    a, bt = a.cpu(), (b if layout == "nk" else b.T).cpu()
+    k = a.shape[1]
+    steps = -(-k // tile)
+    depth = torch.full((steps,), tile, dtype=torch.float64)
+    depth[-1] = k - tile * (steps - 1)
+
+    def need(x):
+        """(weights (tiles,), bytes needed (tiles, steps)) of a (rows, k)
+        operand."""
+        mag = x ^ (x >> 31)
+        e = 1 + (mag >= 0x80).to(torch.int8) + (mag >= 0x8000).to(torch.int8) + (mag >= 0x800000).to(torch.int8)
+        tiles = -(-x.shape[0] // tile)
+        pad = torch.ones((tiles * tile, steps * tile), dtype=torch.int8)
+        pad[:x.shape[0], :k] = e
+        rows = torch.full((tiles,), tile, dtype=torch.float64)
+        rows[-1] = x.shape[0] - tile * (tiles - 1)
+        return rows, pad.view(tiles, tile, steps, tile).amax(dim=(1, 3)).long()
+
+    (ra, na), (rb, nb) = need(a), need(bt)
+    wa = (F.one_hot(na, 5).double() * ra[:, None, None]).sum(0)  # (steps, 5): A rows by byte count
+    wb = (F.one_hot(nb, 5).double() * rb[:, None, None]).sum(0)
+    pairs = torch.tensor(DIGIT_PAIRS, dtype=torch.float64)
+    return int(round(float((torch.einsum("sv,vw,sw->s", wa, pairs, wb) * depth).sum())))
+
+
+def gemm_htree_edge_checks(torch, conv, ht, smoke, dev, seed):
+    """Phase 2 for K1's int32 paths and K12's int32 kernel at their edges:
+    INT32_MIN, -1, INT32_MAX and full-range operands on both sides, tiles
+    whose byte counts differ, K = 40000, M = 1, 2, 15, 16 and 17 at K = 4864
+    (the small-M boundary), the stem's K = 27, ragged M, N and K, B in both
+    layouts, views 4 bytes off a 16-byte boundary; the H-tree at N = 1, 2,
+    ..., 65536, D % 4 != 0, a misaligned view and INT32_MIN columns that
+    wrap, and in float32 and bfloat16 at every chunk count, a D off the
+    16-byte pack and a misaligned view."""
+    g = torch.Generator().manual_seed(seed)
+    lo, hi = -2**31, 2**31 - 1
+
+    def i32(shape, a=lo, b=hi):
+        return torch.randint(a, b, shape, generator=g, dtype=torch.int32)
+
+    def full(kind, shape):
+        return i32(shape) if kind == "full" else torch.full(shape, kind, dtype=torch.int32)
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        return buf[1:].view(t.shape).copy_(t)
+
+    def mixed(shape):
+        """1-, 2-, 3- and 4-byte values, changing every 16 rows and 32 K."""
+        r = torch.arange(shape[0])[:, None] // 16 + torch.arange(shape[1])[None, :] // 32
+        bits = torch.tensor([7, 15, 23, 31])[r % 4]
+        return (i32(shape).double() / 2**31 * 2.0 ** bits).floor().clamp(lo, hi).to(torch.int32)
+
+    def b_of(layout, k, n, make):
+        return make((n, k) if layout == "nk" else (k, n))
+
+    # (case, A, B, layout, card operands or None for copies)
+    cases = []
+    kinds = [lo, -1, hi, "full"]
+    for x, p in enumerate(kinds):
+        for q in kinds[x:]:
+            layout = "nk" if x % 2 else "kn"
+            cases.append((f"A {p} x B {q} ({layout})", full(p, (70, 100)), b_of(layout, 100, 40, lambda s: full(q, s)),
+                          layout, None))
+    for layout in ("kn", "nk"):
+        cases.append((f"mixed-byte tiles ({layout})", mixed((130, 200)), b_of(layout, 200, 70, mixed), layout, None))
+    cases.append(("K=40000 INT32_MAX (all-255 digits), tile path", full(hi, (40, 40000)), full(hi, (24, 40000)),
+                  "nk", None))
+    cases.append(("K=40000 INT32_MAX, small-M path", full(hi, (3, 40000)), full(hi, (40000, 24)), "kn", None))
+    w4864 = i32((4864, 896), -128, 128)
+    for m in (1, 2, 15, 16, 17):
+        cases.append((f"M={m} K=4864 N=896 (kn)", i32((m, 4864)), w4864, "kn", None))
+    cases.append(("M=1 K=4864 N=896, B as (N, K): tile path", i32((1, 4864)), w4864.T.contiguous(), "nk", None))
+    cases.append(("stem K=27 (nk)", i32((2048, 27), -8, 8), i32((64, 27), -3, 4), "nk", None))
+    cases.append(("ragged M=129 K=1001 N=67 (nk)", i32((129, 1001)), i32((67, 1001), -3, 4), "nk", None))
+    cases.append(("ragged M=65 K=33 N=1000 (kn)", i32((65, 33)), i32((33, 1000)), "kn", None))
+    cases.append(("M=1 ragged N=1001 (kn)", i32((1, 300)), i32((300, 1001)), "kn", None))
+    for layout in ("kn", "nk"):
+        for m in (1, 100):
+            a, b = i32((m, 96)), b_of(layout, 96, 64, i32)
+            cases.append((f"misaligned A and B, M={m} ({layout})", a, b, layout, (off(a), off(b))))
+    gemm = {"tile-aligned": ((128, 64), (64, 128), -8, 8, -4, 4), "ragged-K27-N1000": ((1000, 27), (27, 1000), -8, 8, -4, 4),
+            "ragged-M77-K4608": ((77, 4608), (4608, 130), -1000, 1000, -4, 4),
+            "int32-wrap": ((65, 300), (300, 33), lo, hi, lo, hi), "one-row": ((1, 512), (512, 1000), -100, 100, -4, 4)}
+    for name, (sa, sb, a0, a1, b0, b1) in gemm.items():
+        a, b = i32(sa, a0, a1), i32(sb, b0, b1)
+        cases += [(f"{name} (kn)", a, b, "kn", None), (f"{name} (nk)", a, b.T.contiguous(), "nk", None)]
+    for case, a, b, layout, card in cases:
+        ca, cb = card or (a.to(dev), b.to(dev))
+        got = conv._gemm(ca, cb, layout)
+        torch.cuda.synchronize()
+        smoke.check("gemm", case, got, conv._gemm_plain(a, b, layout), exact=True)
+
+    ht_cases = [(f"int32 N={2**e}", i32((2**e, 4 * 2**(16 - e) if e < 14 else 16)), None) for e in range(17)]
+    ht_cases += [("int32 D=1001 (D % 4 = 1)", i32((64, 1001)), None), ("int32 D=4098 (D % 4 = 2)", i32((32, 4098)), None),
+                 ("INT32_MIN columns wrap", torch.full((256, 1024), lo, dtype=torch.int32), None)]
+    x = i32((128, 4096))
+    ht_cases.append(("int32 misaligned view", x, off(x)))
+    for dtype in (torch.float32, torch.bfloat16):  # the same chunked kernel, in tree order
+        for n, d in ((1, 4096), (8, 4096), (64, 4100), (2048, 40), (65536, 16)):
+            ht_cases.append((f"{dtype} N={n} D={d}", torch.randn((n, d), generator=g).to(dtype), None))
+        x = torch.randn((256, 4096), generator=g).to(dtype)
+        ht_cases.append((f"{dtype} misaligned view", x, off(x)))
+    for case, x, card in ht_cases:
+        got = ht._htree(card if card is not None else x.to(dev))
+        torch.cuda.synchronize()
+        smoke.check("htree_reduce", case, got, ht._htree_plain(x), exact=True)
 
 
 def bitslice_work(x, w, slice_bits, pairs):
@@ -667,12 +816,27 @@ def run_layer_path(torch, api, att, pimsab_step, smoke, dev, seed, capacity):
     args = [torch.randint(-128, 128, s, generator=g, dtype=torch.int8) for s in shapes]
     ex = api.compile(prog)
     card_args = [a.to(dev) for a in args]
-    with AttentionRecorder(att) as rec:
-        api.reset_launch_counts()
-        got = ex(*card_args)
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in api.launch_counts().items() if v}
+    from repro_torch.kernels import conv
+
+    gemm_calls, orig = [], conv._gemm
+
+    def rec_gemm(a, b, layout="kn"):
+        gemm_calls.append((a.clone(), b.clone(), layout))
+        return orig(a, b, layout)
+
+    conv._gemm = rec_gemm
+    try:
+        with AttentionRecorder(att) as rec:
+            api.reset_launch_counts()
+            got = ex(*card_args)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in api.launch_counts().items() if v}
+    finally:
+        conv._gemm = orig
     want = ex(*args)
+    for i, (a, b, layout) in enumerate(gemm_calls):  # K1 at M = 1 against its plain version
+        smoke.check("gemm", f"decode layer {capacity} call {i} {shapes_of((a, b))}", orig(a, b, layout),
+                    conv._gemm_plain(a.cpu(), b.cpu(), layout), exact=True)
     if counts != LAYER_LAUNCHES:
         smoke.failures.append(f"decode layer {capacity}: launch counts {counts} != {LAYER_LAUNCHES}")
     if got.shape != (1, model_dim) or got.dtype != torch.int32:
@@ -683,7 +847,79 @@ def run_layer_path(torch, api, att, pimsab_step, smoke, dev, seed, capacity):
         smoke.failures.append(f"decode layer {capacity}: degenerate softmax (sum {int(p.sum())}, "
                               f"nonzero {int((p != 0).sum())})")
     return {"ex": ex, "args": card_args, "counts": counts, "prob_sum": int(p.sum()),
-            "prob_nonzero": int((p != 0).sum()), "out_absmax": int(got.abs().max())}
+            "prob_nonzero": int((p != 0).sum()), "out_absmax": int(got.abs().max()), "gemm_calls": gemm_calls}
+
+
+def decode_gemm_timing(torch, conv, smoke, layer, imad_per_s):
+    """Phase 4 for K1 in the decode layer: its three M = 1 calls (the small-M
+    path) at the layer's inputs, summed in CUDA-graph replay and eager, beside
+    the bound (bytes; the multiply-adds are int32 on IMAD), the plain version
+    on the CPU."""
+    k_ms = eager_ms = plain_ms = b_bytes = b_ops = 0.0
+    nbytes = ops = 0
+    for a, b, layout in layer["gemm_calls"]:
+        k_ms += graph_ms(torch, lambda: conv._gemm(a, b, layout))
+        eager_ms += cuda_ms(torch, lambda: conv._gemm(a, b, layout))
+        ca, cb = a.cpu(), b.cpu()
+        t = time.perf_counter()
+        conv._gemm_plain(ca, cb, layout)
+        plain_ms += (time.perf_counter() - t) * 1e3
+        m, k, n = gemm_dims(a, b, layout)
+        nbytes += 4 * (m * k + k * n + m * n)
+        ops += m * k * n
+    b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / imad_per_s * 1e3
+    calls = layer["gemm_calls"]
+    row = {
+        "name": "gemm[decode_layer]", "route": "cuda", "source": SOURCES["gemm"], "replaces": REPLACES["gemm"],
+        "launches": layer["counts"].get("gemm", 0), "max_abs_err": max(
+            (c["max_abs_err"] or 0.0) for c in smoke.cases if c["kernel"] == "gemm"),
+        "ms": k_ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "operations" if b_ops > b_bytes else "bytes", "library_ms": None,
+        "library_none_reason": "PyTorch has no int32 matrix product on CUDA", "eager_ms": eager_ms,
+        "plain_device": "cpu", "plans": [plan_of(conv, a, b, lay)._asdict() for a, b, lay in calls],
+        "shapes": [[list(sh) for sh in shapes_of((a, b))] for a, b, _ in calls], "bytes": nbytes, "ops": ops,
+    }
+    print(f"kernel gemm in the decode layer: {len(calls)} calls {row['shapes']}, {k_ms * 1e3:.2f} us summed in "
+          f"graph replay ({eager_ms * 1e3:.2f} us eager; bound {row['bound_ms'] * 1e3:.2f} us by "
+          f"{row['bound_by']}, roofline share {row['bound_ms'] / k_ms:.1%}), plain {plain_ms:.3f} ms on the CPU")
+    return row
+
+
+def f32_gemm_timing(torch, conv, smoke, dev, seed):
+    """Phase 4 for K1's float32 instance, which no path runs: at RESNET18's
+    stage-3 GEMM shape in float32 (F32_GEMM), held to its plain version and
+    timed beside torch.matmul with TF32 off, in paired rounds (graph replay).
+    The operands hold the forward's kind of values (4-bit activations, 3-bit
+    weights) as floats: every product and partial sum is then exact, so any
+    order of adds gives the same bits, and the kernel and torch.matmul must
+    equal the plain version exactly (random normals over K = 2304 drift past
+    the float tolerance by the order of adds alone)."""
+    m, k, n = F32_GEMM
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randint(-8, 8, (m, k), generator=g).float()
+    b = torch.randint(-3, 4, (k, n), generator=g).float()
+    t = time.perf_counter()
+    want = conv._gemm_plain(a, b)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    ca, cb = a.to(dev), b.to(dev)
+    err = smoke.check("gemm_f32", f"float32 {F32_GEMM}", conv._gemm(ca, cb), want, exact=True)
+    smoke.check("gemm_f32", "torch.matmul library call", torch.matmul(ca, cb), want, exact=True)
+    sums, _ = paired_rounds([(graph_timer(torch, lambda: conv._gemm(ca, cb)),
+                              graph_timer(torch, lambda: torch.matmul(ca, cb)))], PAIRED_ROUNDS)
+    k_ms, lib_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
+    b_bytes, b_ops = 4 * (m * k + k * n + m * n) / MEM_BYTES_PER_S * 1e3, 2 * m * k * n / FP32_FLOP_PER_S * 1e3
+    row = {
+        "name": "gemm[float32]", "route": "cuda", "source": SOURCES["gemm"], "replaces": REPLACES["gemm"],
+        "launches": 0, "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "operations" if b_ops > b_bytes else "bytes", "library_ms": lib_ms,
+        "library": "torch.matmul (TF32 off)", "eager_ms": cuda_ms(torch, lambda: conv._gemm(ca, cb)),
+        "plain_device": "cpu", "shapes": [[m, k], [k, n]], "rounds": sums,
+        "kernel_no_slower": sum(x <= y for x, y in zip(sums["kernel"], sums["library"])),
+    }
+    print(f"kernel gemm float32 at {F32_GEMM} (no path runs it): {k_ms:.4f} ms in graph replay (bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}, roofline share {row['bound_ms'] / k_ms:.1%}); "
+          f"torch.matmul {lib_ms:.4f} ms (medians of {PAIRED_ROUNDS} paired rounds); plain {plain_ms:.1f} ms on the CPU")
+    return row
 
 
 def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s):
@@ -1028,11 +1264,20 @@ def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
             p_ms, p_dev = graph_ms(torch, lambda: plain[kernel](*args)), "cuda"
         else:  # T steps of a few elementwise kernels each: eager, one call after a warm-up
             p_ms, p_dev = cuda_ms(torch, lambda: plain[kernel](*args), reps=1, warmup=1), "cuda"
-        lib_ms = None
+        lib_ms, paired = None, {}
         if kernel == "htree_reduce" and args[0].dtype == torch.int32:
-            smoke.check(kernel, f"{r['case']} torch.sum library call", torch.sum(args[0], 0, dtype=torch.int32),
-                        r["want"], exact=True)
-            lib_ms = graph_ms(torch, lambda: torch.sum(args[0], 0, dtype=torch.int32))
+            def lib(x):
+                return torch.sum(x, 0, dtype=torch.int32)
+
+            smoke.check(kernel, f"{r['case']} torch.sum library call", lib(*args), r["want"], exact=True)
+            # kernel and torch.sum read in turns, warm and with inputs cold in L2
+            for temp, pair in (("warm", (graph_timer(torch, lambda: run[kernel](*args)),
+                                         graph_timer(torch, lambda: lib(*args)))),
+                               ("cold", (cold_timer(torch, run[kernel], args), cold_timer(torch, lib, args)))):
+                sums, _ = paired_rounds([pair], PAIRED_ROUNDS)
+                paired[temp] = dict(sums, kernel_no_slower=sum(x <= y for x, y in zip(sums["kernel"], sums["library"])),
+                                    ms=median(sorted(sums["kernel"])), library_ms=median(sorted(sums["library"])))
+            k_ms, lib_ms = paired["warm"]["ms"], paired["warm"]["library_ms"]
         out_bytes = width(r["want"])
         nbytes = sum(width(a) for a in args) + out_bytes
         if kernel == "decode_gemv":
@@ -1058,6 +1303,19 @@ def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
             "launches_by_path": {name: r["launches"]}, "shapes": r["shapes"], "dtypes": r["dtypes"],
             "bytes": nbytes, "ops": ops,
         })
+        if kernel == "htree_reduce" and not paired:  # a warm reading can sit in the 50 MB L2
+            cold = cold_timer(torch, run[kernel], args)
+            rows[-1]["cold_ms"] = median(sorted(cold() for _ in range(3)))
+            print(f"kernel {name}: cold L2 {rows[-1]['cold_ms'] * 1e3:.2f} us, "
+                  f"{max(b_bytes, b_ops) / rows[-1]['cold_ms']:.1%} of the bound")
+        if paired:
+            rows[-1].update(cold_ms=paired["cold"]["ms"], library_cold_ms=paired["cold"]["library_ms"], rounds=paired)
+            print(f"kernel {name} beside torch.sum, medians of {PAIRED_ROUNDS} paired rounds: warm "
+                  f"{paired['warm']['ms'] * 1e3:.2f} us vs {paired['warm']['library_ms'] * 1e3:.2f} us (kernel no "
+                  f"slower in {paired['warm']['kernel_no_slower']}), cold {paired['cold']['ms'] * 1e3:.2f} us vs "
+                  f"{paired['cold']['library_ms'] * 1e3:.2f} us ({paired['cold']['kernel_no_slower']}); "
+                  f"{max(b_bytes, b_ops) / paired['warm']['ms']:.1%} of the bound warm, "
+                  f"{max(b_bytes, b_ops) / paired['cold']['ms']:.1%} cold")
         print(f"kernel {name}: {k_ms * 1e3:.2f} us in graph replay ({k_eager * 1e3:.2f} us eager; bound "
               f"{max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
               f"{max(b_bytes, b_ops) / k_ms:.1%}) at {r['shapes']} {r['dtypes']}; plain {p_ms:.4f} ms on "
@@ -1111,9 +1369,9 @@ def main() -> int:
     calls = {k: [] for k in SOURCES}
     orig = (conv._gemm, conv._pool_rows, ewise._ewise)
 
-    def rec_gemm(a, b):
-        calls["gemm"].append((a.contiguous(), b.contiguous()))
-        return orig[0](a, b)
+    def rec_gemm(a, b, layout="kn"):
+        calls["gemm"].append((a.contiguous(), b.contiguous(), layout))
+        return orig[0](a, b, layout)
 
     # clone() keeps each operand's layout (the forward's relu and add
     # operands are channels-last), so phase 4 times what the path launches
@@ -1135,7 +1393,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     run = {
-        "gemm": lambda a, b: conv._gemm(a, b),
+        "gemm": lambda a, b, layout: conv._gemm(a, b, layout),
         "pool_sum": lambda p: conv._pool_rows(p, "sum"),
         "pool_max": lambda p: conv._pool_rows(p, "max"),
         "ewise_add": lambda a, b: ewise._ewise("add", a, b),
@@ -1155,13 +1413,12 @@ def main() -> int:
         for i, args in enumerate(arglist):
             got = run[kernel](*args)
             torch.cuda.synchronize()
-            cpu_args = [a.cpu() for a in args]
+            cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
             t = time.perf_counter()
             want = plain[kernel](*cpu_args)
             if kernel == "gemm":
                 gemm_plain_cpu_ms += (time.perf_counter() - t) * 1e3
-            err = smoke.check(kernel, f"resnet18 b{BATCH} call {i} {[tuple(a.shape) for a in args]}",
-                              got, want, exact=True)
+            err = smoke.check(kernel, f"resnet18 b{BATCH} call {i} {shapes_of(args)}", got, want, exact=True)
             main_err[kernel] = max(main_err[kernel], err or 0.0)
 
     g = torch.Generator().manual_seed(SEED)
@@ -1174,11 +1431,12 @@ def main() -> int:
 
     big = 2**30
     edge_cases = [
-        ("gemm", "ragged M=1000 K=27 N=1000", (ints((1000, 27), -8, 8), ints((27, 1000), -4, 4)), True),
-        ("gemm", "ragged M=77 K=4608 N=130", (ints((77, 4608), -1000, 1000), ints((4608, 130), -4, 4)), True),
-        ("gemm", "int32 wrap K=576", (ints((130, 576), -big, big), ints((576, 70), -big, big)), True),
-        ("gemm", "float32 M=300 K=200 N=130", (floats((300, 200)), floats((200, 130))), False),
-        ("gemm", "float32 ragged M=129 K=27 N=1000", (floats((129, 27)), floats((27, 1000))), False),
+        ("gemm", "ragged M=1000 K=27 N=1000", (ints((1000, 27), -8, 8), ints((27, 1000), -4, 4), "kn"), True),
+        ("gemm", "ragged M=77 K=4608 N=130", (ints((77, 4608), -1000, 1000), ints((4608, 130), -4, 4), "kn"), True),
+        ("gemm", "int32 wrap K=576", (ints((130, 576), -big, big), ints((576, 70), -big, big), "kn"), True),
+        ("gemm", "float32 M=300 K=200 N=130", (floats((300, 200)), floats((200, 130)), "kn"), False),
+        ("gemm", "float32 ragged M=129 K=27 N=1000", (floats((129, 27)), floats((27, 1000)), "kn"), False),
+        ("gemm", "float32 B as (N, K)", (floats((129, 200)), floats((130, 200)), "nk"), False),
         ("pool_sum", "negative sums K=16", (ints((1000, 16), -50, 10),), True),
         ("pool_sum", "int32 wrap K=49", (ints((777, 49), -2**31, 2**31 - 1),), True),
         ("pool_sum", "ragged K=100", (ints((300, 100), -1000, 1000),), True),
@@ -1193,7 +1451,7 @@ def main() -> int:
         ("relu", "float32 n=4097", (floats((4097,)),), True),
     ]
     for kernel, case, cpu_args, exact in edge_cases:
-        got = run[kernel](*[a.to(dev) for a in cpu_args])
+        got = run[kernel](*[a.to(dev) if torch.is_tensor(a) else a for a in cpu_args])
         torch.cuda.synchronize()
         smoke.check(kernel, case, got, plain[kernel](*cpu_args), exact)
 
@@ -1212,6 +1470,7 @@ def main() -> int:
     attention_kernel_checks(torch, att, ref, smoke, dev, SEED + 3)
     entry_kernel_checks(torch, att, ht, rg, smoke, dev, SEED + 8)
     pool_ewise_edge_checks(torch, conv, ewise, smoke, dev, SEED + 10)
+    gemm_htree_edge_checks(torch, conv, ht, smoke, dev, SEED + 11)
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
@@ -1355,12 +1614,16 @@ def main() -> int:
 
     def work(kernel, args):
         """(bytes moved, operations, operation rate) of one call: each input
-        read once, each output written once; a multiply-add is one operation
-        at the IMAD rate for int32, two float32 FLOPs for float32."""
+        read once, each output written once.  An int32 GEMM runs int8
+        tensor-core digit products, two operations each, as many as its
+        inputs need (``digit_products``); a float32 multiply-add is two FLOPs;
+        other int32 operations run at the IMAD rate."""
         integer = args[0].dtype == torch.int32
         if kernel == "gemm":
-            (m, k), n = args[0].shape, args[1].shape[1]
-            return 4 * (m * k + k * n + m * n), m * k * n, imad_per_s if integer else FP32_FLOP_PER_S / 2
+            m, k, n = gemm_dims(*args)
+            if integer:
+                return 4 * (m * k + k * n + m * n), 2 * digit_products(torch, *args), INT8_OPS_PER_S
+            return 4 * (m * k + k * n + m * n), m * k * n, FP32_FLOP_PER_S / 2
         rate = imad_per_s if integer else FP32_FLOP_PER_S
         if kernel.startswith("pool"):
             rows, k = args[0].shape
@@ -1383,6 +1646,7 @@ def main() -> int:
         # the pool and ewise kernels: graph timers, warm and with inputs cold
         # in L2, of each call and of its library call, read in paired rounds
         warm_pairs, cold_pairs, mine = [], [], []
+        imad_ms = 0.0  # the SIMT design's bound: int32 multiply-adds on IMAD
         for args in arglist:
             k_eager = cuda_ms(torch, lambda: run[kernel](*args))
             if kernel == "gemm":
@@ -1395,13 +1659,16 @@ def main() -> int:
                 k_ms = 0.0  # filled in from the rounds below
             nbytes, ops, rate = work(kernel, args)
             b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / rate * 1e3
+            if kernel == "gemm":
+                m, k, n = gemm_dims(*args)
+                imad_ms += m * k * n / imad_per_s * 1e3
             ms += k_ms
             eager_ms += k_eager
             plain_ms += p_ms or 0.0
             bound_ms += max(b_bytes, b_ops)
             bytes_s += b_bytes
             ops_s += b_ops
-            mine.append({"kernel": kernel, "shapes": [list(a.shape) for a in args], "ms": k_ms,
+            mine.append({"kernel": kernel, "shapes": [list(sh) for sh in shapes_of(args)], "ms": k_ms,
                          "eager_ms": k_eager, "plain_ms": p_ms, "library_ms": None,
                          "bound_ms": max(b_bytes, b_ops), "bytes": nbytes, "ops": ops})
         details += mine
@@ -1432,18 +1699,20 @@ def main() -> int:
             "plain_device": "cpu" if kernel == "gemm" else "cuda",
             "main_path_max_abs_err": main_err[kernel] if on_path else None,
         }
-        if kernel != "gemm":
+        if kernel == "gemm":
+            row.update(imad_bound_ms=imad_ms, b_layouts=[args[2] for args in arglist])
+        else:
             row.update(cold_ms=cold["ms"], library_cold_ms=cold["library_ms"], rounds=rounds,
                        channels_last_operands=sum(
                            not a.is_contiguous() and a.is_contiguous(memory_format=torch.channels_last)
                            for args in arglist for a in args), operands=sum(len(args) for args in arglist))
         rows.append(row)
-        paired_text = "" if kernel == "gemm" else (
-            f"; medians of {PAIRED_ROUNDS} rounds read in turns with the library call (kernel no slower in "
-            f"{rounds['warm']['kernel_no_slower']} warm, {rounds['cold']['kernel_no_slower']} cold); cold L2 "
-            f"{cold['ms']:.4f} ms (roofline share {bound_ms / cold['ms']:.1%}), library cold "
-            f"{cold['library_ms']:.4f} ms; {row['channels_last_operands']} of {row['operands']} operands "
-            f"channels-last")
+        paired_text = (f"; the SIMT design's IMAD bound {imad_ms:.4f} ms" if kernel == "gemm" else
+                       f"; medians of {PAIRED_ROUNDS} rounds read in turns with the library call (kernel no slower in "
+                       f"{rounds['warm']['kernel_no_slower']} warm, {rounds['cold']['kernel_no_slower']} cold); cold L2 "
+                       f"{cold['ms']:.4f} ms (roofline share {bound_ms / cold['ms']:.1%}), library cold "
+                       f"{cold['library_ms']:.4f} ms; {row['channels_last_operands']} of {row['operands']} operands "
+                       f"channels-last")
         print(f"kernel {kernel}: {len(arglist)} calls, {ms / len(arglist):.4f} ms per call, "
               f"{ms:.4f} ms summed in graph replay "
               f"({eager_ms:.4f} ms eager; bound {bound_ms:.4f} ms "
@@ -1523,6 +1792,8 @@ def main() -> int:
               f"{row['bound_ms'] / k_ms:.1%}), plain {r['plain_ms']:.1f} ms on the CPU, "
               f"torch._int_mm {lib_ms}; whole {r['path']} call {median(call_ms):.3f} ms")
 
+    k1_rows = [decode_gemm_timing(torch, conv, smoke, layers[DECODE_CAPACITY], imad_per_s),
+               f32_gemm_timing(torch, conv, smoke, dev, SEED + 12)]
     attention_rows = attention_timing(torch, att, ref, smoke, serve_run, imad_per_s)
     for row in attention_rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in path_launches.items() if row["name"] in c}
@@ -1614,12 +1885,13 @@ def main() -> int:
         "forward_ms_p80": fwd_p80, "forward_ms_samples": fwd_samples,
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
         "path_launches": path_launches, "program": program_timing,
-        "kernels": rows + bitslice_rows + attention_rows + entry_rows, "registered_kernels": registered,
+        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows, "registered_kernels": registered,
         "entry_points": [{k: v for k, v in r.items() if k not in ("args", "cpu_args", "want")} for r in entry],
         "decode": decode, "decode_summary": decode_summary,
         "decode_serving": {k: serve_run[k] for k in ("counts", "step_counts", "cache", "first_s", "cpu_s",
                                                       "prob_sums", "prob_nonzero")},
-        "decode_layer": {cap: {k: v for k, v in r.items() if k not in ("ex", "args")} for cap, r in layers.items()},
+        "decode_layer": {cap: {k: v for k, v in r.items() if k not in ("ex", "args", "gemm_calls")}
+                         for cap, r in layers.items()},
         "calls": details, "cases": smoke.cases, "failures": smoke.failures,
     }, indent=1))
 
@@ -1627,7 +1899,7 @@ def main() -> int:
         for f in smoke.failures:
             print("FAIL", f, file=sys.stderr)
         return 1
-    path = [r for r in rows if r["launches"]] + bitslice_rows + attention_rows + entry_rows
+    path = [r for r in rows if r["launches"]] + k1_rows + bitslice_rows + attention_rows + entry_rows
     off_path = [r["name"] for r in rows if not r["launches"]]
     if off_path:
         print(f"FAIL kernels launched on no path: {off_path}", file=sys.stderr)
@@ -1635,6 +1907,7 @@ def main() -> int:
     print(gpu)
     print(json.dumps({"kernels": path, "registered_kernels": registered,
                       "forward_ms": fwd_ms, "forward_ms_p80": fwd_p80, "batch": BATCH,
+                      "copies_per_forward": profile_summary["copies_per_forward"] if by_name else None,
                       "path_launches": path_launches,
                       "program_latency_ms": program_timing["latency_ms_median"], "decode": decode_summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ runs RESNET18 at batch 32 (random weights from seed 0, as ``chip_smoke.py``
 does) and prints one JSON object:
 
 * the forward's median and p80 over 50 eager forwards, each between CUDA
-  events;
+  events, and the median host time to enqueue one forward (from an idle
+  card to the return of the call, before its device work ends): near the
+  forward's time, the forward is host-bound;
 * from ``torch.profiler`` over 3 forwards: device busy time, PyTorch's copies
   (``aten::copy_`` ops) and all of PyTorch's kernels (glue) per forward, with
   launches and device time, and the port's kernels by name;
@@ -25,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -78,6 +81,13 @@ def main() -> int:
     torch.cuda.synchronize()
 
     fwd = cs.forward_samples(torch, lambda: model(x), FORWARDS)
+    enqueue = []
+    for _ in range(FORWARDS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model(x)
+        enqueue.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
     _, kernels, (copies, copy_ms) = cs.device_profile(torch, lambda: model(x), PROFILED)
 
     def per_forward(items):
@@ -86,7 +96,7 @@ def main() -> int:
     result = {
         "label": args.label, "src": args.src, "gpu": cs.nvidia_smi("name,power.limit"), "batch": BATCH,
         "forward_ms_median": cs.median(fwd), "forward_ms_p80": fwd[int(0.8 * len(fwd)) - 1],
-        "forward_ms_min": fwd[0], "forward_ms_max": fwd[-1],
+        "forward_ms_min": fwd[0], "forward_ms_max": fwd[-1], "host_enqueue_ms_median": cs.median(sorted(enqueue)),
         "device_busy_ms_per_forward": sum(ms for _, ms in kernels.values()) / PROFILED,
         "copies_per_forward": {"launches": copies / PROFILED, "device_ms": copy_ms / PROFILED},
         "glue_per_forward": per_forward([v for n, v in kernels.items() if cs.is_glue(n)]),

@@ -42,8 +42,10 @@ _P, _I, _L, _B = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_char
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.  Host
 # byte arrays (the bit-sliced GEMM's pair list) are passed as bytes.
 ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
-    "int_gemm_i32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _P)),
-    "int_gemm_f32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _P)),
+    # the GEMMs take B's layout after the extents, and int32 its launch plan
+    # (conv.gemm_plan: small-M kernel, 16-byte A and B copies, splits, K chunk)
+    "int_gemm_i32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "int_gemm_f32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _I, _P)),
     # the pool and ewise kernels take their launch plan (conv.pool_plan,
     # ewise.ewise_plan) after the extents
     "pool_sum_i32": ("pool_reduce", (_P, _P, _L, _I, _I, _I, _I, _P)),
@@ -62,9 +64,10 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "attention_pv": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "decode_gemv": ("attention", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "kv_append": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "htree_reduce_f32": ("htree_reduce", (_P, _P, _I, _I, _P)),
-    "htree_reduce_bf16": ("htree_reduce", (_P, _P, _I, _I, _P)),
-    "htree_reduce_i32": ("htree_reduce", (_P, _P, _I, _I, _P)),
+    # the H-tree takes its launch plan (htree_reduce.htree_plan) after the extents
+    "htree_reduce_f32": ("htree_reduce", (_P, _P, _I, _I, _I, _I, _I, _P)),
+    "htree_reduce_bf16": ("htree_reduce", (_P, _P, _I, _I, _I, _I, _I, _P)),
+    "htree_reduce_i32": ("htree_reduce", (_P, _P, _I, _I, _I, _I, _I, _P)),
     "rglru_scan_f32": ("rglru_scan", (_P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
@@ -171,8 +174,15 @@ def launch(name: str, device: torch.device, *args) -> None:
     CUDA ``device`` (building and loading its library on the first call);
     raise if the launch was refused."""
     fn = _function(name)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    # the raw stream handle, without building a Stream object, and no device
+    # switch when the device is already current: a launch costs the host a
+    # few microseconds, and an eager forward makes dozens
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         err = _function_error_string(ENTRY_POINTS[name][0], rc)
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({err})")

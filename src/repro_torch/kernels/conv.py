@@ -6,7 +6,10 @@ the plain version for CPU tensors:
 
 * :func:`_gemm` — ``csrc/int_gemm.cu``, replacing the Pallas ``_dot_kernel``:
   ``conv2d`` is ``ref.im2col`` (glue, as in the JAX package) followed by this
-  GEMM, and ``int_matmul`` is the GEMM alone.
+  GEMM against the weight in its own ``(OC, C·KH·KW)`` layout, and
+  ``int_matmul`` is the GEMM alone with B as ``(K, N)``.  For int32,
+  :func:`gemm_plan` picks an int8 tensor-core digit kernel or, at M <= 16,
+  a split-K kernel for small M.
 * :func:`_pool_rows` — ``csrc/pool_reduce.cu``, replacing
   ``_pool_sum_kernel`` and ``_pool_max_kernel``: a row sum or row max over
   the ``ref.pool_patches`` window matrix.  The integer floor-divide of the
@@ -17,7 +20,7 @@ int32 and float inputs to float32 first, as the JAX kernels do.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,26 +32,92 @@ from repro_torch.kernels.api import count_launch, kernel_device, register_kernel
 # ---------------------------------------------------------------------------
 
 
-def _gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _gemm_plain(x: torch.Tensor, w: torch.Tensor, b_layout: str = "kn") -> torch.Tensor:
     """The GEMM kernel's plain version: an int32 product wraps on the CPU."""
-    return x @ w
+    return x @ (w.T if b_layout == "nk" else w)
 
 
-def _gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``(M, K) @ (K, N)`` of two int32 or two float32 matrices, int32
+GEMM_TILE = (64, 64, 32)       # csrc/int_gemm.cu: TBM, TBN, TBK
+GEMM_K_CHUNK = 8192            # K a tile block may sum: 4 pairs · 8192 · 255² < 2**31
+GEMM_TARGET_BLOCKS = 2 * 132   # tile blocks resident on one H100 (2 a SM)
+GEMM_MIN_SPLIT_K = 256         # the shortest K range a split is given
+GEMM_SMALL_M = 16              # M up to which a (K, N) B takes the small-M kernel
+GEMM_SMALL_THREADS = 128       # csrc/int_gemm.cu: SMALL_THREADS
+GEMM_SMALL_MAX_K = 256         # csrc/int_gemm.cu: SMALL_MAX_K
+GEMM_SMALL_MIN_K = 32          # the shortest K range of a small-M split
+GEMM_SMALL_TARGET_THREADS = 132 * 512
+
+
+class GemmPlan(NamedTuple):
+    """Launch plan of the int32 kernels of ``csrc/int_gemm.cu``."""
+
+    path: str      # "tile" (tensor-core digits) or "small" (M <= 16, B (K, N))
+    a_vec: bool    # 16-byte copies of A's rows (tile path)
+    b_vec: bool    # 16-byte copies of B's rows
+    splits: int    # K ranges, each added into a zeroed C when more than one
+    k_chunk: int   # K of each range
+
+
+def gemm_plan(m: int, n: int, k: int, b_layout: str, ptrs: Tuple[int, int]) -> GemmPlan:
+    """Launch plan of the int32 GEMM ``(m, k) @ B`` for contiguous operands
+    at addresses ``ptrs = (A, B)``, B ``(k, n)`` (``"kn"``) or ``(n, k)``
+    (``"nk"``).
+
+    M <= 16 with a ``(k, n)`` B takes the small-M kernel: a thread a group
+    of four columns (16-byte loads where ``n % 4 == 0`` and B is 16-byte
+    aligned) or one, K split into ranges of at most GEMM_SMALL_MAX_K (the A
+    rows a block stages) so that the grid holds about
+    GEMM_SMALL_TARGET_THREADS.  Everything else takes the tensor-core tile
+    kernel: 64 × 64 tiles of C, 16-byte copies of a row-major operand whose
+    rows are all 16-byte aligned, and K split into ranges of whole K tiles
+    when the tiles alone do not fill GEMM_TARGET_BLOCKS, each range at least
+    GEMM_MIN_SPLIT_K long and never longer than GEMM_K_CHUNK, past which a
+    digit-pair accumulator could overflow."""
+    if b_layout not in ("kn", "nk"):
+        raise ValueError(f"B's layout is 'kn' or 'nk', got {b_layout!r}")
+    a_ptr, b_ptr = ptrs
+    if m <= GEMM_SMALL_M and b_layout == "kn":
+        vec = n % 4 == 0 and b_ptr % 16 == 0
+        blocks_n = max(1, -(-(n // 4 if vec else n) // GEMM_SMALL_THREADS))
+        splits = -(-GEMM_SMALL_TARGET_THREADS // (blocks_n * GEMM_SMALL_THREADS))
+        splits = max(1, min(splits, -(-k // GEMM_SMALL_MIN_K)), -(-k // GEMM_SMALL_MAX_K))
+        k_chunk = max(1, -(-k // splits))
+        return GemmPlan("small", False, vec, max(1, -(-k // k_chunk)), k_chunk)
+    tm, tn, tk = GEMM_TILE
+    tiles = -(-m // tm) * -(-n // tn)
+    k_tiles = -(-k // tk)
+    splits = max(1, min(GEMM_TARGET_BLOCKS // tiles, -(-k // GEMM_MIN_SPLIT_K)), -(-k // GEMM_K_CHUNK))
+    k_chunk = max(1, -(-k_tiles // splits)) * tk
+    splits = max(1, -(-k // k_chunk))
+    a_vec = k % 4 == 0 and a_ptr % 16 == 0
+    b_vec = b_layout == "nk" and k % 4 == 0 and b_ptr % 16 == 0
+    return GemmPlan("tile", a_vec, b_vec, splits, k_chunk)
+
+
+def _gemm(x: torch.Tensor, w: torch.Tensor, b_layout: str = "kn") -> torch.Tensor:
+    """``(M, K) @ B`` of two int32 or two float32 matrices, B ``(K, N)``
+    (``"kn"``) or ``(N, K)`` (``"nk"``, read as its transpose), int32
     accumulation wrapping; the CUDA kernel for CUDA tensors."""
     dev = kernel_device(x, w)
     if dev.type == "cpu":
-        return _gemm_plain(x, w)
+        return _gemm_plain(x, w, b_layout)
     suffix = _build.entry_suffix(x, w)
-    (m, k), (k2, n) = x.shape, w.shape
+    if b_layout not in ("kn", "nk"):
+        raise ValueError(f"B's layout is 'kn' or 'nk', got {b_layout!r}")
+    (m, k), (k2, n) = x.shape, (w.shape[::-1] if b_layout == "nk" else w.shape)
     if k != k2:
-        raise ValueError(f"inner dimensions differ: {tuple(x.shape)} @ {tuple(w.shape)}")
+        raise ValueError(f"inner dimensions differ: {tuple(x.shape)} @ {tuple(w.shape)} ({b_layout})")
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    _build.launch(f"int_gemm_{suffix}", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k)
+    nk = int(b_layout == "nk")
+    if suffix == "f32":
+        _build.launch("int_gemm_f32", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, nk)
+    else:
+        p = gemm_plan(m, n, k, b_layout, (x.data_ptr(), w.data_ptr()))
+        _build.launch("int_gemm_i32", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, nk,
+                      int(p.path == "small"), int(p.a_vec), int(p.b_vec), p.splits, p.k_chunk)
     count_launch("gemm")
     return out
 
@@ -131,8 +200,8 @@ def conv2d(
     acc = ref.acc_dtype(x)
     oh, ow = ref.conv2d_out_hw(h, hw, kh, kw, stride, padding)
     patches = ref.im2col(x.to(acc), kh, kw, stride, padding)   # (N·OH·OW, C·KH·KW)
-    wm = w.to(acc).reshape(oc, c * kh * kw).T                  # (C·KH·KW, OC)
-    out = _gemm(patches, wm)
+    wm = w.to(acc).reshape(oc, c * kh * kw)                    # (OC, C·KH·KW): no copy
+    out = _gemm(patches, wm, "nk")
     return out.reshape(n, oh, ow, oc).permute(0, 3, 1, 2)
 
 

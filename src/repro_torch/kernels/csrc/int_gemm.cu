@@ -1,72 +1,103 @@
-// Integer (and float32) matrix product C = A @ B, row-major, A (M, K),
-// B (K, N), C (M, N).
+// Integer (and float32) matrix product C = A @ B: A (M, K) row-major, B
+// either (K, N) row-major ("kn", as int_matmul passes it) or (N, K)
+// row-major ("nk", a conv weight's own (OC, C·KH·KW) layout), C (M, N).
 //
 // Replaces the Pallas body `_dot_kernel` (src/repro/kernels/conv.py:49),
 // reached through `_blocked_matmul` (conv.py:56) from conv2d (after im2col)
 // and int_matmul.  The Pallas kernel keeps all of K resident in VMEM
-// (conv.py:70); on Hopper a block has at most 227 KB of shared memory, which
-// K = 4608 (ResNet18's stage 4) does not fit, so this kernel walks K in tiles
-// of BK inside the block.  Each block owns a BM x BN output tile; each of its
-// 256 threads accumulates TM x TN outputs in registers.  Ragged M, N and K
-// edges are masked with zero fill on load and skipped on store.
+// (conv.py:70); a Hopper block has at most 227 KB of shared memory, so every
+// kernel here walks K in tiles.  conv.gemm_plan picks the kernel and its grid.
 //
-// int32: the product wraps mod 2^32 exactly as the JAX oracle does.  Signed
-// overflow is undefined in C++, so the int32 instance multiplies and adds in
-// uint32_t and the caller's int32 buffers are reinterpreted, never converted.
-// float32: plain FMA on the CUDA cores, never TF32.
+// int32 products wrap mod 2^32 exactly as the JAX oracle does.  Signed
+// overflow is undefined in C++, so sums are taken in uint32_t and the
+// caller's int32 buffers are reinterpreted, never converted.
 //
-// Bound: the int32 instance runs on IMAD, 64 per clock per SM on Hopper, so
-// ResNet18's ~0.56 G MAC per image is operation-bound (the bytes are ~10x
-// below the memory rate).  This first kernel is simple tiled SIMT code;
-// int8 tensor-core digits are later work.
+// int32, tile path (gemm_tile_kernel): int8 tensor-core digits.  An int32 x
+// that fits in b signed bytes is exactly  Σ_{i<b-1} u8_i(x)·2^(8i) +
+// s8_{b-1}(x)·2^(8(b-1)),  where digit i is x's raw byte i, read unsigned
+// below the top digit and signed at it (the bytes above are only sign).  So
+// A·B mod 2^32 is the sum over digit pairs (i, j) of (A_i·B_j) << 8(i+j), and
+// pairs with i + j >= 4 vanish mod 2^32.  Each warp reads its int32 A and B
+// tiles (32 rows of A, 32 columns of B, one 32-wide K step) from shared
+// memory and votes (a warp-wide OR) on the bytes b_A and b_B their values
+// need.  A switch on the vote enters code compiled for those two counts, so
+// that the pairs, the digits extracted and each MMA's types are constants
+// there (as run-time values they keep the compiler from unrolling the pairs
+// and scheduling the MMAs around them).  __byte_perm packs
+// four consecutive-K bytes of one digit into a fragment register, and
+// mma.sync m16n8k32 runs with the u8/s8 type of each digit for every pair
+// with i < b_A, j < b_B and i + j <= 3, into one s32 accumulator per shift
+// s = i + j.  The epilogue adds Σ acc_s << 8s in uint32_t.  The vote reads
+// the data, so no hint can make a result wrong.  An accumulator of p pairs
+// stays exact while K · p · 255 · 255 < 2^31: a block's K range (its split)
+// is never longer than conv.GEMM_K_CHUNK (8192, four pairs), and splits of K
+// add into a zeroed C with uint32_t atomics (exact and deterministic: the
+// adds commute mod 2^32).  cp.async brings the int32 tiles into shared
+// memory, STAGES deep, with 16-byte copies where every row is 16-byte
+// aligned and 4-byte copies otherwise (the stem's K = 27, a kn B, which is
+// transposed on the way in).  Rows of a tile are XOR-swizzled by 16-byte
+// chunk so that a quarter-warp's 16-byte fragment loads hit 32 banks.
+//
+// int32, small-M path (gemm_small_kernel, M <= 16 with a kn B; the decode
+// layer's M = 1): a thread owns four neighbouring columns of B (one 16-byte
+// load a row) or one, walks a K range with MT <= 16 rows of A staged in
+// shared memory, and adds its partial sums into a zeroed C with uint32_t
+// atomics; the K ranges split so that the grid holds enough loads in flight.
+//
+// Bound on this card: bytes, for both.  ResNet18's 21 GEMMs at batch 32 read
+// and write 666 MB (0.199 ms at 3.35 TB/s) and need about 142 G int8
+// products at its data (0.072 ms at 1979 TOP/s); the decode layer's three
+// M = 1 GEMMs move 35.1 MB (10.5 µs).
+//
+// float32 (gemm_f32_kernel): tiled SIMT FMA on the CUDA cores, never TF32.
+// Each block owns a BM x BN output tile; each of its 256 threads accumulates
+// TM x TN outputs in registers; ragged edges are masked with zero fill on
+// load and skipped on store.
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------- float32
 
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 constexpr int ROW_STEP = BM / TM;               // 16: rows of a thread are strided
 constexpr int COL_STEP = BN / TN;               // 16: so are its columns
 
-__device__ __forceinline__ uint32_t mac(uint32_t acc, uint32_t a, uint32_t b) {
-  return acc + a * b;
-}
-__device__ __forceinline__ float mac(float acc, float a, float b) {
-  return __fmaf_rn(a, b, acc);
-}
-
-template <typename T>
+template <bool B_NK>
 __global__ void __launch_bounds__(THREADS)
-gemm_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-            int m, int n, int k) {
-  __shared__ T as[BK][BM + 1];  // +1: the transposing store avoids bank conflicts
-  __shared__ T bs[BK][BN];
+gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
+                int m, int n, int k) {
+  __shared__ float as[BK][BM + 1];  // +1: the transposing store avoids bank conflicts
+  __shared__ float bs[BK][BN + 1];
 
   const int tid = threadIdx.x;
   const int tx = tid % COL_STEP, ty = tid / COL_STEP;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
 
-  T acc[TM][TN];
+  float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < k; k0 += BK) {
     for (int i = tid; i < BM * BK; i += THREADS) {
       const int r = i / BK, kk = i % BK;
       const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = (gr < m && gk < k) ? a[static_cast<size_t>(gr) * k + gk] : T(0);
+      as[kk][r] = (gr < m && gk < k) ? a[static_cast<size_t>(gr) * k + gk] : 0.0f;
     }
     for (int i = tid; i < BK * BN; i += THREADS) {
-      const int kk = i / BN, cc = i % BN;
+      // neighbouring threads read neighbouring addresses in either layout
+      const int kk = B_NK ? i % BK : i / BN, cc = B_NK ? i / BK : i % BN;
       const int gk = k0 + kk, gc = col0 + cc;
-      bs[kk][cc] = (gk < k && gc < n) ? b[static_cast<size_t>(gk) * n + gc] : T(0);
+      const size_t at = B_NK ? static_cast<size_t>(gc) * k + gk : static_cast<size_t>(gk) * n + gc;
+      bs[kk][cc] = (gk < k && gc < n) ? b[at] : 0.0f;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      T av[TM], bv[TN];
+      float av[TM], bv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) av[i] = as[kk][ty + i * ROW_STEP];
 #pragma unroll
@@ -74,7 +105,7 @@ gemm_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = mac(acc[i][j], av[i], bv[j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -91,22 +122,415 @@ gemm_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
   }
 }
 
-template <typename T>
-int launch_gemm(const void* a, const void* b, void* c, int m, int n, int k, void* stream) {
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-  gemm_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c), m, n, k);
+// ------------------------------------------------- int32, tensor-core tile
+
+constexpr int TBM = 64, TBN = 64, TBK = 32;  // conv.GEMM_TILE
+constexpr int STAGES = 3;
+constexpr int TILE_THREADS = 128;            // 2 x 2 warps, each 32 x 32 of C
+constexpr int TILE_WORDS = TBM * TBK;        // A and B tiles alike: 64 rows of 32 K
+// 48 KB: within the default limit, so no cudaFuncSetAttribute is needed
+constexpr int SMEM_BYTES = STAGES * 2 * TILE_WORDS * 4;
+
+// Word of (row r, K column c) in a tile: 16-byte chunk c / 4 XOR-ed with the
+// row's parity, so rows r and r + 1 of a quarter-warp's loads hit disjoint
+// banks.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * TBK + ((((c >> 2) ^ ((r & 1) << 2))) << 2) + (c & 3);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// B's modes: (N, K) with 16-byte copies, (N, K) with 4-byte copies, (K, N)
+// transposed into the tile's [n][k] rows by 4-byte copies.
+enum BMode { B_NK16 = 0, B_NK4 = 1, B_KN4 = 2 };
+
+// One 64 x 32 tile of a row-major (rows, k) matrix into `tile` (rows from
+// r0, K columns from k0; zero past `rows` or past `k_end`).
+template <bool VEC>
+__device__ __forceinline__ void load_rows(uint32_t* tile, const uint32_t* __restrict__ src, int rows,
+                                          int k, int r0, int k0, int k_end) {
+  if (VEC) {
+#pragma unroll
+    for (int j = 0; j < TILE_WORDS / 4 / TILE_THREADS; ++j) {  // 4 chunks of 16 bytes a thread
+      const int q = threadIdx.x + j * TILE_THREADS;
+      const int r = q >> 3, c = (q & 7) << 2;
+      const int gr = r0 + r, gk = k0 + c;
+      const bool ok = gr < rows && gk < k_end;
+      cp16(smem_addr(tile + swz(r, c)), ok ? src + static_cast<size_t>(gr) * k + gk : src, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < TILE_WORDS / TILE_THREADS; ++j) {  // 16 words a thread
+      const int q = threadIdx.x + j * TILE_THREADS;
+      const int r = q >> 5, c = q & 31;
+      const int gr = r0 + r, gk = k0 + c;
+      const bool ok = gr < rows && gk < k_end;
+      cp4(smem_addr(tile + swz(r, c)), ok ? src + static_cast<size_t>(gr) * k + gk : src, ok);
+    }
+  }
+}
+
+// One 32 x 64 tile of a row-major (k, n) matrix, transposed into the tile's
+// [n][k] rows.
+__device__ __forceinline__ void load_kn(uint32_t* tile, const uint32_t* __restrict__ src, int n,
+                                        int c0, int k0, int k_end) {
+#pragma unroll 4
+  for (int j = 0; j < TILE_WORDS / TILE_THREADS; ++j) {
+    const int q = threadIdx.x + j * TILE_THREADS;
+    const int kk = q >> 6, cc = q & 63;
+    const int gk = k0 + kk, gc = c0 + cc;
+    const bool ok = gk < k_end && gc < n;
+    cp4(smem_addr(tile + swz(cc, kk)), ok ? src + static_cast<size_t>(gk) * n + gc : src, ok);
+  }
+}
+
+// Signed bytes that hold every value whose x ^ (x >> 31) was OR-ed into y.
+__device__ __forceinline__ int bytes_needed(uint32_t y) {
+  return y < 0x80u ? 1 : y < 0x8000u ? 2 : y < 0x800000u ? 3 : 4;
+}
+
+__device__ __forceinline__ uint32_t magnitude_bits(uint32_t x) {
+  return x ^ static_cast<uint32_t>(static_cast<int32_t>(x) >> 31);
+}
+
+// Four int32 words of consecutive K → d[i] = their bytes i for i < ND,
+// packed low to high in K order (a 4 x 4 byte transpose, cut to ND rows).
+template <int ND>
+__device__ __forceinline__ void to_digits(const uint4 w, uint32_t d[4]) {
+  if (ND == 1) {
+    d[0] = __byte_perm(__byte_perm(w.x, w.y, 0x0040), __byte_perm(w.z, w.w, 0x0040), 0x5410);
+    return;
+  }
+  const uint32_t lo01 = __byte_perm(w.x, w.y, 0x5140), lo23 = __byte_perm(w.z, w.w, 0x5140);
+  d[0] = __byte_perm(lo01, lo23, 0x5410);
+  d[1] = __byte_perm(lo01, lo23, 0x7632);
+  if (ND == 2) return;
+  const uint32_t hi01 = __byte_perm(w.x, w.y, 0x7362), hi23 = __byte_perm(w.z, w.w, 0x7362);
+  d[2] = __byte_perm(hi01, hi23, 0x5410);
+  if (ND == 4) d[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+#define REPRO_MMA(TA, TB)                                                                  \
+  asm("mma.sync.aligned.m16n8k32.row.col.s32." TA "." TB ".s32 "                          \
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"                   \
+               : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]))
+  if (SA && SB) REPRO_MMA("s8", "s8");
+  else if (SA) REPRO_MMA("s8", "u8");
+  else if (SB) REPRO_MMA("u8", "s8");
+  else REPRO_MMA("u8", "u8");
+#undef REPRO_MMA
+}
+
+// The pair (digit i of A, digit j of B) over a warp's four 8-column tiles.
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma_row(int acc[4][4], const uint32_t a[4], const uint32_t b[4][2]) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) mma<SA, SB>(acc[nt], a, b[nt]);
+}
+
+// B's digits, NB of them, from the warp's raw B words: bd[digit][nt][register].
+template <int NB>
+__device__ __forceinline__ void b_digits(const uint4 bw[4][2], uint32_t bd[4][4][2]) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t d[4];
+      to_digits<NB>(bw[nt][h], d);
+#pragma unroll
+      for (int i = 0; i < NB; ++i) bd[i][nt][h] = d[i];
+    }
+}
+
+// One 16-row tile's K step with NA digits of A and NB of B, known at
+// compile time: A's digits from its raw words, then every pair whose shift
+// stays below 32 bits into the accumulator of its shift.
+template <int NA, int NB>
+__device__ __forceinline__ void mma_tile(int acc[4][4][4], const uint4 aw[4], const uint32_t bd[4][4][2]) {
+  uint32_t ad[4][4];  // [digit][register]
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t d[4];
+    to_digits<NA>(aw[q], d);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) ad[i][q] = d[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (i + j > 3) continue;
+      const bool sa = i == NA - 1, sb = j == NB - 1;
+      if (sa && sb) mma_row<true, true>(acc[i + j], ad[i], bd[j]);
+      else if (sa) mma_row<true, false>(acc[i + j], ad[i], bd[j]);
+      else if (sb) mma_row<false, true>(acc[i + j], ad[i], bd[j]);
+      else mma_row<false, false>(acc[i + j], ad[i], bd[j]);
+    }
+}
+
+template <bool A_VEC, int B_MODE>
+__global__ void __launch_bounds__(TILE_THREADS)
+gemm_tile_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b, uint32_t* __restrict__ c,
+                 int m, int n, int k, int k_chunk, int atomic) {
+  extern __shared__ uint4 smem_raw[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem_raw);
+  const int row0 = blockIdx.x * TBM, col0 = blockIdx.y * TBN;
+  const int kb = blockIdx.z * k_chunk, ke = min(k, kb + k_chunk);
+  const int steps = (ke - kb + TBK - 1) / TBK;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1;  // the warp's 32 x 32 of the block's 64 x 64
+  const int g = lane >> 2, t = lane & 3;
+
+  auto stage_a = [&](int s) { return smem + s * 2 * TILE_WORDS; };
+  auto stage_b = [&](int s) { return smem + s * 2 * TILE_WORDS + TILE_WORDS; };
+  auto load = [&](int s, int k0) {
+    load_rows<A_VEC>(stage_a(s), a, m, k, row0, k0, ke);
+    if (B_MODE == B_KN4) load_kn(stage_b(s), b, n, col0, k0, ke);
+    else load_rows<B_MODE == B_NK16>(stage_b(s), b, n, k, col0, k0, ke);
+  };
+
+  // acc_mt[mt][s][nt][e]: 16-row tile mt, shift s, 8-column tile nt
+  int acc_mt[2][4][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_mt[i][s][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s, kb + s * TBK);
+    cp_commit();
+  }
+
+  for (int step = 0; step < steps; ++step) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    {  // refill the stage the previous step read (every thread is past it)
+      const int next = step + STAGES - 1;
+      if (next < steps) load(next % STAGES, kb + next * TBK);
+      cp_commit();
+    }
+    const uint32_t* as = stage_a(step % STAGES);
+    const uint32_t* bs = stage_b(step % STAGES);
+
+    // B: 4 column tiles × 2 registers, each from one 16-byte chunk of a row
+    uint4 bw[4][2];
+    uint32_t yb = 0;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = wn * 32 + nt * 8 + g;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bw[nt][h] = *reinterpret_cast<const uint4*>(bs + swz(r, h * 16 + t * 4));
+        yb |= magnitude_bits(bw[nt][h].x) | magnitude_bits(bw[nt][h].y) |
+              magnitude_bits(bw[nt][h].z) | magnitude_bits(bw[nt][h].w);
+      }
+    }
+    const int nb = bytes_needed(__reduce_or_sync(0xffffffffu, yb));
+    uint32_t bd[4][4][2];  // [digit][nt][register]
+    switch (nb) {  // the vote picks code whose digit counts are constants
+      case 1: b_digits<1>(bw, bd); break;
+      case 2: b_digits<2>(bw, bd); break;
+      case 3: b_digits<3>(bw, bd); break;
+      default: b_digits<4>(bw, bd); break;
+    }
+
+    uint4 aw[2][4];
+    uint32_t ya = 0;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = wm * 32 + mt * 16 + g + (q & 1) * 8;
+        aw[mt][q] = *reinterpret_cast<const uint4*>(as + swz(r, (q >> 1) * 16 + t * 4));
+        ya |= magnitude_bits(aw[mt][q].x) | magnitude_bits(aw[mt][q].y) | magnitude_bits(aw[mt][q].z) |
+              magnitude_bits(aw[mt][q].w);
+      }
+    const int na = bytes_needed(__reduce_or_sync(0xffffffffu, ya));
+    switch ((na - 1) * 4 + nb - 1) {
+#define REPRO_TILE(A, B) \
+  case (A - 1) * 4 + B - 1: mma_tile<A, B>(acc_mt[0], aw[0], bd); mma_tile<A, B>(acc_mt[1], aw[1], bd); break;
+      REPRO_TILE(1, 1) REPRO_TILE(1, 2) REPRO_TILE(1, 3) REPRO_TILE(1, 4)
+      REPRO_TILE(2, 1) REPRO_TILE(2, 2) REPRO_TILE(2, 3) REPRO_TILE(2, 4)
+      REPRO_TILE(3, 1) REPRO_TILE(3, 2) REPRO_TILE(3, 3) REPRO_TILE(3, 4)
+      REPRO_TILE(4, 1) REPRO_TILE(4, 2) REPRO_TILE(4, 3) REPRO_TILE(4, 4)
+#undef REPRO_TILE
+    }
+  }
+  cp_wait<0>();
+
+  // C: Σ acc_s << 8s mod 2^32; registers (e) 0-1 at row g, 2-3 at row g+8,
+  // columns 2t and 2t+1 of each 8-column tile
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + wm * 32 + mt * 16 + g + (e >> 1) * 8;
+        const int cc = col0 + wn * 32 + nt * 8 + 2 * t + (e & 1);
+        if (r >= m || cc >= n) continue;
+        const uint32_t v = static_cast<uint32_t>(acc_mt[mt][0][nt][e]) +
+                           (static_cast<uint32_t>(acc_mt[mt][1][nt][e]) << 8) +
+                           (static_cast<uint32_t>(acc_mt[mt][2][nt][e]) << 16) +
+                           (static_cast<uint32_t>(acc_mt[mt][3][nt][e]) << 24);
+        uint32_t* dst = c + static_cast<size_t>(r) * n + cc;
+        if (atomic) atomicAdd(dst, v);
+        else *dst = v;
+      }
+}
+
+// ------------------------------------------------------ int32, small M
+
+constexpr int SMALL_THREADS = 128;  // conv.GEMM_SMALL_THREADS
+constexpr int SMALL_MAX_K = 256;    // conv.GEMM_SMALL_MAX_K: A rows staged per block
+
+// V: uint4 (four columns of B a thread, 16-byte loads) or uint32_t (one).
+template <int MT, typename V>
+__global__ void __launch_bounds__(SMALL_THREADS)
+gemm_small_kernel(const uint32_t* __restrict__ a, const V* __restrict__ b, uint32_t* __restrict__ c,
+                  int m, int n, int k, int k_chunk) {
+  constexpr int W = sizeof(V) / 4;  // columns a thread
+  __shared__ uint32_t as[MT][SMALL_MAX_K];
+  const int kb = blockIdx.y * k_chunk, len = min(k, kb + k_chunk) - kb;
+  for (int i = threadIdx.x; i < MT * SMALL_MAX_K; i += SMALL_THREADS) {
+    const int r = i / SMALL_MAX_K, kk = i % SMALL_MAX_K;
+    as[r][kk] = (r < m && kk < len) ? a[static_cast<size_t>(r) * k + kb + kk] : 0u;
+  }
+  __syncthreads();
+  const int groups = n / W;
+  const int grp = blockIdx.x * SMALL_THREADS + threadIdx.x;
+  if (grp >= groups) return;
+  uint32_t acc[MT][W];
+#pragma unroll
+  for (int r = 0; r < MT; ++r)
+#pragma unroll
+    for (int e = 0; e < W; ++e) acc[r][e] = 0u;
+  const V* bp = b + static_cast<size_t>(kb) * groups + grp;
+  int kk = 0;
+  for (; kk + 4 <= len; kk += 4) {  // four rows of B in flight
+    V bv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) bv[u] = __ldg(bp + static_cast<size_t>(kk + u) * groups);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t* be = reinterpret_cast<const uint32_t*>(&bv[u]);
+#pragma unroll
+      for (int r = 0; r < MT; ++r) {
+        const uint32_t av = as[r][kk + u];
+#pragma unroll
+        for (int e = 0; e < W; ++e) acc[r][e] += av * be[e];
+      }
+    }
+  }
+  for (; kk < len; ++kk) {
+    const V bv = __ldg(bp + static_cast<size_t>(kk) * groups);
+    const uint32_t* be = reinterpret_cast<const uint32_t*>(&bv);
+#pragma unroll
+    for (int r = 0; r < MT; ++r)
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[r][e] += as[r][kk] * be[e];
+  }
+#pragma unroll
+  for (int r = 0; r < MT; ++r) {
+    if (r >= m) break;
+#pragma unroll
+    for (int e = 0; e < W; ++e) atomicAdd(c + static_cast<size_t>(r) * n + grp * W + e, acc[r][e]);
+  }
+}
+
+template <int MT>
+void launch_small(const void* a, const void* b, void* c, int m, int n, int k, int vec, int splits,
+                  int k_chunk, cudaStream_t s) {
+  const int groups = vec ? n / 4 : n;
+  const dim3 grid((groups + SMALL_THREADS - 1) / SMALL_THREADS, splits);
+  if (vec)
+    gemm_small_kernel<MT, uint4><<<grid, SMALL_THREADS, 0, s>>>(
+        static_cast<const uint32_t*>(a), static_cast<const uint4*>(b), static_cast<uint32_t*>(c), m, n, k, k_chunk);
+  else
+    gemm_small_kernel<MT, uint32_t><<<grid, SMALL_THREADS, 0, s>>>(
+        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b), static_cast<uint32_t*>(c), m, n, k,
+        k_chunk);
+}
+
+template <bool A_VEC, int B_MODE>
+int launch_tile(const void* a, const void* b, void* c, int m, int n, int k, int splits, int k_chunk,
+                cudaStream_t s) {
+  const dim3 grid((m + TBM - 1) / TBM, (n + TBN - 1) / TBN, splits);
+  gemm_tile_kernel<A_VEC, B_MODE><<<grid, TILE_THREADS, SMEM_BYTES, s>>>(static_cast<const uint32_t*>(a),
+                                                static_cast<const uint32_t*>(b), static_cast<uint32_t*>(c), m,
+                                                n, k, k_chunk, splits > 1);
   return REPRO_LAUNCH_STATUS();
 }
 
 }  // namespace
 
-extern "C" int int_gemm_i32(const void* a, const void* b, void* c, int m, int n, int k,
-                            void* stream) {
-  return launch_gemm<uint32_t>(a, b, c, m, n, k, stream);
+// int32: the launch plan of conv.gemm_plan after the extents.  `b_nk`: B is
+// (N, K); `small`: the small-M kernel (M <= 16, B (K, N)); `a_vec`, `b_vec`:
+// 16-byte copies of A's and B's rows; `splits` K ranges of `k_chunk` each
+// (K-tile multiples on the tile path), added into C zeroed here when there
+// is more than one (always on the small-M path).
+extern "C" int int_gemm_i32(const void* a, const void* b, void* c, int m, int n, int k, int b_nk, int small,
+                            int a_vec, int b_vec, int splits, int k_chunk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (small || splits > 1) {
+    const cudaError_t e = cudaMemsetAsync(c, 0, static_cast<size_t>(m) * n * 4, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (small) {
+    if (m <= 1) launch_small<1>(a, b, c, m, n, k, b_vec, splits, k_chunk, s);
+    else if (m <= 2) launch_small<2>(a, b, c, m, n, k, b_vec, splits, k_chunk, s);
+    else if (m <= 4) launch_small<4>(a, b, c, m, n, k, b_vec, splits, k_chunk, s);
+    else if (m <= 8) launch_small<8>(a, b, c, m, n, k, b_vec, splits, k_chunk, s);
+    else launch_small<16>(a, b, c, m, n, k, b_vec, splits, k_chunk, s);
+    return REPRO_LAUNCH_STATUS();
+  }
+  const int mode = !b_nk ? B_KN4 : b_vec ? B_NK16 : B_NK4;
+  if (a_vec) {
+    if (mode == B_NK16) return launch_tile<true, B_NK16>(a, b, c, m, n, k, splits, k_chunk, s);
+    if (mode == B_NK4) return launch_tile<true, B_NK4>(a, b, c, m, n, k, splits, k_chunk, s);
+    return launch_tile<true, B_KN4>(a, b, c, m, n, k, splits, k_chunk, s);
+  }
+  if (mode == B_NK16) return launch_tile<false, B_NK16>(a, b, c, m, n, k, splits, k_chunk, s);
+  if (mode == B_NK4) return launch_tile<false, B_NK4>(a, b, c, m, n, k, splits, k_chunk, s);
+  return launch_tile<false, B_KN4>(a, b, c, m, n, k, splits, k_chunk, s);
 }
 
-extern "C" int int_gemm_f32(const void* a, const void* b, void* c, int m, int n, int k,
-                            void* stream) {
-  return launch_gemm<float>(a, b, c, m, n, k, stream);
+// float32: B (K, N), or (N, K) when `b_nk`.
+extern "C" int int_gemm_f32(const void* a, const void* b, void* c, int m, int n, int k, int b_nk, void* stream) {
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fa = static_cast<const float*>(a);
+  const float* fb = static_cast<const float*>(b);
+  float* fc = static_cast<float*>(c);
+  if (b_nk) gemm_f32_kernel<true><<<grid, THREADS, 0, s>>>(fa, fb, fc, m, n, k);
+  else gemm_f32_kernel<false><<<grid, THREADS, 0, s>>>(fa, fb, fc, m, n, k);
+  return REPRO_LAUNCH_STATUS();
 }

@@ -70,6 +70,129 @@ def test_gemm_kernel_float32_within_tolerance(card):
     torch.testing.assert_close(got, a @ b, atol=1e-4, rtol=1e-4)
 
 
+def gemm_operand(kind, shape, seed):
+    """An int32 GEMM operand: every entry INT32_MIN, -1 or INT32_MAX, or
+    full-range random values."""
+    if kind == "full":
+        return ints(shape, I32_MIN, I32_MAX, seed)
+    return torch.full(shape, {"min": I32_MIN, "minus1": -1, "max": I32_MAX}[kind], dtype=torch.int32)
+
+
+def gemm_on_card(a, b, layout, card):
+    """The kernel's product on the card (one launch) and its plain version."""
+    tapi.reset_launch_counts()
+    got = conv._gemm(a.to(card), b.to(card), layout)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"gemm": 1}
+    return got.cpu(), conv._gemm_plain(a, b, layout)
+
+
+GEMM_KINDS = ["min", "minus1", "max", "full"]
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("kinds", [(p, q) for i, p in enumerate(GEMM_KINDS) for q in GEMM_KINDS[i:]],
+                         ids=lambda k: "-".join(k))
+def test_gemm_kernel_int32_extremes(card, kinds, layout):
+    """INT32_MIN, -1, INT32_MAX and full-range operands on both sides: every
+    digit count and signedness, and sums that wrap."""
+    m, k, n = 70, 100, 40
+    a = gemm_operand(kinds[0], (m, k), 1)
+    b = gemm_operand(kinds[1], (n, k) if layout == "nk" else (k, n), 2)
+    got, want = gemm_on_card(a, b, layout, card)
+    assert torch.equal(got, want)
+
+
+def mixed_bytes(shape, seed):
+    """Values whose byte count changes from one 32-wide K tile and 16-row
+    tile to the next: 1, 2, 3 and 4 bytes."""
+    rng = np.random.default_rng(seed)
+    rows, cols = shape
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    bits = np.array([7, 15, 23, 31])[(r // 16 + c // 32) % 4]
+    return torch.from_numpy(rng.integers(-(2**bits), 2**bits).astype(np.int32))
+
+
+# name → (m, k, n, layout, A maker, B maker (in its layout))
+GEMM_EDGES = {
+    "mixed-byte-tiles-nk": (130, 200, 70, "nk", lambda s: mixed_bytes(s, 20), lambda s: mixed_bytes(s, 21)),
+    "mixed-byte-tiles-kn": (130, 200, 70, "kn", lambda s: mixed_bytes(s, 22), lambda s: mixed_bytes(s, 23)),
+    # all digits 255 below a top digit of 127: the largest u8 x u8 products,
+    # over K past one K chunk (splits and atomics)
+    "K40000-all-255-digits-tile": (40, 40000, 24, "nk", lambda s: gemm_operand("max", s, 0),
+                                   lambda s: gemm_operand("max", s, 0)),
+    "K40000-all-255-digits-small-M": (3, 40000, 24, "kn", lambda s: gemm_operand("max", s, 0),
+                                      lambda s: gemm_operand("max", s, 0)),
+    "stem-K27-nk": (2048, 27, 64, "nk", lambda s: ints(s, -8, 8, 24), lambda s: ints(s, -3, 4, 25)),
+    "ragged-M129-K1001-N67-nk": (129, 1001, 67, "nk", lambda s: ints(s, I32_MIN, I32_MAX, 26),
+                                 lambda s: ints(s, -3, 4, 27)),
+    "ragged-M65-K33-N1000-kn": (65, 33, 1000, "kn", lambda s: ints(s, I32_MIN, I32_MAX, 28),
+                                lambda s: ints(s, I32_MIN, I32_MAX, 29)),
+    "stage4-split-K4608-nk": (512, 4608, 512, "nk", lambda s: ints(s, I32_MIN, I32_MAX, 30),
+                              lambda s: ints(s, -3, 4, 31)),
+    "head-kn": (32, 512, 1000, "kn", lambda s: ints(s, I32_MIN, I32_MAX, 32), lambda s: ints(s, -3, 4, 33)),
+    "one-row-nk-tile-path": (1, 896, 300, "nk", lambda s: ints(s, I32_MIN, I32_MAX, 34),
+                             lambda s: ints(s, I32_MIN, I32_MAX, 35)),
+    **{f"M{m}-K4864-small-M-boundary": (m, 4864, 896, "kn", lambda s, m=m: ints(s, I32_MIN, I32_MAX, 36 + m),
+                                        lambda s: ints(s, -128, 128, 60)) for m in (1, 2, 15, 16, 17)},
+    "M1-ragged-N-kn": (1, 300, 1001, "kn", lambda s: ints(s, I32_MIN, I32_MAX, 61),
+                       lambda s: ints(s, I32_MIN, I32_MAX, 62)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_EDGES))
+def test_gemm_kernel_int32_edges(card, case):
+    m, k, n, layout, make_a, make_b = GEMM_EDGES[case]
+    a, b = make_a((m, k)), make_b((n, k) if layout == "nk" else (k, n))
+    plan = conv.gemm_plan(m, n, k, layout, (0, 0))
+    assert plan.path == ("small" if m <= 16 and layout == "kn" else "tile")
+    got, want = gemm_on_card(a, b, layout, card)
+    assert torch.equal(got, want)
+
+
+def test_gemm_kernel_sums_a_whole_k_chunk_in_one_block(card):
+    """Enough tiles that K is not split: one block sums GEMM_K_CHUNK rows of
+    INT32_MAX (digits 255, 255, 255 and a top digit of 127) in its s32
+    accumulators.  Every row of C is the same, so one row on the CPU is the
+    plain version of all."""
+    k = conv.GEMM_K_CHUNK
+    m = conv.GEMM_TARGET_BLOCKS * conv.GEMM_TILE[0]
+    a = torch.full((m, k), I32_MAX, dtype=torch.int32, device=card)
+    b = torch.full((64, k), I32_MAX, dtype=torch.int32)
+    plan = conv.gemm_plan(m, 64, k, "nk", (a.data_ptr(), 0))
+    assert plan.path == "tile" and plan.splits == 1 and plan.k_chunk == k
+    got = conv._gemm(a, b.to(card), "nk")
+    want = conv._gemm_plain(a[:1].cpu(), b, "nk")
+    assert torch.equal(got.cpu(), want.expand(m, 64))
+
+
+@pytest.mark.parametrize("case", sorted(GEMM))
+def test_gemm_kernel_reads_b_in_either_layout(card, case):
+    """The five GEMM cases with B passed as (N, K), its transpose."""
+    a, b = GEMM[case]()
+    got, want = gemm_on_card(a, b.T.contiguous(), "nk", card)
+    assert torch.equal(got, want) and torch.equal(want, conv._gemm_plain(a, b))
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("m", [1, 100])
+def test_gemm_kernel_reads_misaligned_views(card, layout, m):
+    """Operands 4 bytes past a 16-byte boundary take the 4-byte copies."""
+    k, n = 96, 64
+    a = ints((m, k), I32_MIN, I32_MAX, 70 + m)
+    b = ints((n, k) if layout == "nk" else (k, n), I32_MIN, I32_MAX, 71)
+    av, bv = on_card_at(a, card, 1), on_card_at(b, card, 1)
+    plan = conv.gemm_plan(m, n, k, layout, (av.data_ptr(), bv.data_ptr()))
+    assert not plan.a_vec and not plan.b_vec
+    assert torch.equal(conv._gemm(av, bv, layout).cpu(), conv._gemm_plain(a, b, layout))
+
+
+def test_gemm_kernel_float32_reads_b_as_n_by_k(card):
+    a, b = floats((129, 200), 13), floats((130, 200), 14)
+    got = conv._gemm(a.to(card), b.to(card), "nk").cpu()
+    torch.testing.assert_close(got, a @ b.T, atol=1e-4, rtol=1e-4)
+
+
 POOL_K = [1, 2, 3, 4, 5, 8, 15, 16, 17, 32, 33, 49, 100, 1000]
 
 
@@ -509,7 +632,37 @@ HTREE = {
     "bfloat16-N2": lambda: floats((2, 513), 87).to(torch.bfloat16),
     "int32-wrap-N256-D2048": lambda: ints((256, 2048), I32_MIN, I32_MAX, 88),
     "int32-N1": lambda: ints((1, 77), I32_MIN, I32_MAX, 89),
+    # every chunk count of the int32 plan: N = 1, 2, 4, ..., 65536
+    **{f"int32-N{2**e}": lambda e=e: ints((2**e, 2**(16 - e) * 4 if e < 14 else 16), I32_MIN, I32_MAX, 90 + e)
+       for e in range(17)},
+    "int32-D-odd": lambda: ints((64, 1001), I32_MIN, I32_MAX, 110),
+    "int32-D-2-mod-4": lambda: ints((32, 4098), I32_MIN, I32_MAX, 111),
+    "int32-INT32_MIN-columns-wrap": lambda: torch.full((256, 1024), I32_MIN, dtype=torch.int32),
 }
+
+
+@pytest.mark.parametrize("d", [4096, 4098])
+def test_htree_kernel_int32_reads_a_misaligned_view(card, d):
+    x = ints((128, d), I32_MIN, I32_MAX, 112)
+    view = on_card_at(x, card, 1)
+    assert not tht.htree_plan(128, d, view.data_ptr())[1]
+    assert torch.equal(tht._htree(view).cpu(), tht._htree_plain(x))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, d, offset", [(1, 4096, 0), (8, 4096, 0), (64, 4100, 0), (256, 4096, 1),
+                                          (2048, 40, 0), (65536, 16, 0)])
+def test_htree_kernel_floats_in_tree_order(card, dtype, n, d, offset):
+    """float32 and bfloat16 take the chunked kernel too: every chunk count,
+    a D that is not a multiple of a 16-byte pack, a view one element off its
+    allocation's alignment; bit-equal to the plain version's tree order."""
+    x = floats((n, d), 120 + n + d).to(getattr(torch, dtype))
+    view = on_card_at(x, card, offset)
+    vec = tht.htree_plan(n, d, view.data_ptr(), x.element_size())[1]
+    assert vec == (offset == 0 and d % (16 // x.element_size()) == 0)
+    got = tht._htree(view)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tht._htree_plain(x))
 
 
 @pytest.mark.parametrize("case", sorted(HTREE))
