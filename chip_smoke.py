@@ -69,12 +69,21 @@ Phases, any failure of which exits non-zero:
    tiles whose byte counts differ, K = 40000, M = 1 to 17 around the small-M
    path, the stem's K = 27, ragged shapes, B as (K, N) and (N, K), misaligned
    views; N = 1 to 65536 lanes, D off the 16-byte pack, INT32_MIN columns
-   that wrap, float32 and bfloat16 in tree order);
+   that wrap, float32 and bfloat16 in tree order), the bit-sliced GEMM's
+   two paths at theirs (each tensor-core tile at ragged M, N and K, 4-byte
+   w copies, the zero-skip pair set, K = 2**17 + 32 of all -128 stacks,
+   which the block must fold; __dp4a at K % 16 != 0, N % 4 != 0, 3 of 4
+   pairs and stacks off 16 bytes; each call must take the path its case
+   names), and K1 float32 at ragged shapes in both B layouts, on split and
+   unsplit plans (normals within 1e-4, integer values exact, the same bits
+   in two calls);
 4. time each kernel at those inputs (CUDA events around a CUDA-graph replay
    of 20 calls, after warm-up; eager back-to-back calls too) beside its
    bound, its plain version and, where one PyTorch call computes the same
    function, that call (``torch._int_mm`` for a single-pair bit-sliced
-   GEMM); the int32 GEMM's bound counts the int8 tensor-core digit products
+   GEMM, in paired rounds); the bit-sliced GEMM's path (every phase 3c/3d
+   call must take the tensor cores) and, for quant_linear_relu, whose
+   inputs fit in L2, a reading with them cold; the int32 GEMM's bound counts the int8 tensor-core digit products
    its inputs need (``digit_products``), with the SIMT design's IMAD bound
    beside it; K1 in the decode layer (M = 1) and K1's float32 instance beside
    ``torch.matmul`` (TF32 off, paired rounds) at RESNET18's stage-3 shape;
@@ -522,6 +531,70 @@ def gemm_htree_edge_checks(torch, conv, ht, smoke, dev, seed):
         smoke.check("htree_reduce", case, got, ht._htree_plain(x), exact=True)
 
 
+def bitslice_f32_edge_checks(torch, conv, bm, api, smoke, dev, seed):
+    """Phase 2 for K4's two paths and K1's float32 kernel at their edges:
+    the tensor-core path on each tile at ragged M, N and K (4-byte w copies
+    where N % 16 != 0), the zero-skip pair set, K = 2**17 + 32 of all -128
+    stacks (one and two pairs a diagonal: the block folds its s32
+    accumulators); the __dp4a path at K % 16 != 0, N % 4 != 0, 3 of 4 pairs
+    and stacks off 16 bytes.  Each call must take the path its case names.
+    K1 float32 at ragged shapes in both B layouts, on split and unsplit
+    plans: within the float tolerance on normals scaled by K**-0.25 (outputs
+    of unit size), equal on integer values, the same bits in two calls."""
+    rng = torch.Generator().manual_seed(seed)
+
+    def stack(shape, lo=-128, hi=128):
+        return torch.randint(lo, hi, shape, generator=rng, dtype=torch.int8)
+
+    # (case, sx, m, k, sw, n, skip, path, fill, x offset in bytes)
+    cases = [
+        ("mma narrow 1x1 M130 K208 N20", 1, 130, 208, 1, 20, (), "mma", None, 0),
+        ("mma narrow 2x2 M77 K48 N32", 2, 77, 48, 2, 32, (), "mma", None, 0),
+        ("mma square 2x1 M77 K80 N100", 2, 77, 80, 1, 100, (), "mma", None, 0),
+        ("mma square 1x2 M200 K144 N36", 1, 200, 144, 2, 36, (), "mma", None, 0),
+        ("mma square 2x2 M65 K80 N132", 2, 65, 80, 2, 132, (), "mma", None, 0),
+        ("mma zero-skip M129 K64 N64", 2, 129, 64, 2, 64, ((1, 0), (1, 1)), "mma", None, 0),
+        ("mma 1x1 K=2^17+32 all -128", 1, 20, 2**17 + 32, 1, 40, (), "mma", -128, 0),
+        ("mma 2x2 K=2^17+32 all -128", 2, 20, 2**17 + 32, 2, 40, (), "mma", -128, 0),
+        ("dp4a K40", 1, 64, 40, 1, 64, (), "dp4a", None, 0),
+        ("dp4a N30", 2, 64, 64, 1, 30, (), "dp4a", None, 0),
+        ("dp4a 3 of 4 pairs", 2, 64, 64, 2, 64, ((1, 1),), "dp4a", None, 0),
+        ("dp4a x stack 4 bytes off 16", 2, 50, 64, 1, 40, (), "dp4a", None, 4),
+        ("dp4a x stack 1 byte off", 2, 50, 64, 1, 40, (), "dp4a", None, 1),
+    ]
+    for case, sx, m, k, sw, n, skip, path, fill, offset in cases:
+        if fill is None:
+            x, w = stack((sx, m, k)), stack((sw, k, n))
+        else:
+            x, w = torch.full((sx, m, k), fill, dtype=torch.int8), torch.full((sw, k, n), fill, dtype=torch.int8)
+        pairs = api.active_pairs(sx, sw, skip)
+        buf = torch.empty(x.numel() + offset, dtype=torch.int8, device=dev)
+        xc = buf[offset:].view(x.shape)
+        xc.copy_(x)
+        got = bm._bitslice_gemm(xc, w.to(dev), 8, pairs)
+        torch.cuda.synchronize()
+        if bm.launched_path() != path:
+            smoke.failures.append(f"bitslice_matmul [{case}]: took the {bm.launched_path()} path, not {path}")
+        smoke.check("bitslice_matmul", case, got, bm._bitslice_plain(x, w, 8, pairs), exact=True)
+
+    for m, k, n in ((129, 27, 1000), (300, 200, 130), (77, 4608, 130), (1000, 1001, 67), F32_GEMM):
+        for layout in ("kn", "nk"):
+            scale = k ** -0.25
+            a = torch.randn((m, k), generator=rng) * scale
+            b = torch.randn((n, k) if layout == "nk" else (k, n), generator=rng) * scale
+            plan = conv.gemm_f32_plan(m, n, k, layout, (0, 0))
+            case = f"float32 M{m} K{k} N{n} ({layout}, {plan.splits} K ranges)"
+            ac, bc = a.to(dev), b.to(dev)
+            got, again = conv._gemm(ac, bc, layout), conv._gemm(ac, bc, layout)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                smoke.failures.append(f"gemm_f32 [{case}]: two calls gave different bits")
+            smoke.check("gemm_f32", case, got, conv._gemm_plain(a, b, layout), exact=False)
+            ai, bi = (a / scale * 4).round(), (b / scale * 2).round()
+            smoke.check("gemm_f32", f"{case}, integer values", conv._gemm(ai.to(dev), bi.to(dev), layout),
+                        conv._gemm_plain(ai, bi, layout), exact=True)
+
+
 def bitslice_work(x, w, slice_bits, pairs):
     """(bytes, operations) one bit-sliced GEMM needs: each slice that a
     computed pair reads, read once, and the int32 output written once; two
@@ -555,13 +628,15 @@ def run_bitslice_path(torch, api, bm, smoke, path, run, expected, skipped=()):
         got = run("cuda")
         torch.cuda.synchronize()
         counts = {k: v for k, v in api.launch_counts().items() if v}
-        executed, launched = api.last_executed_pairs(), bm.launched_pairs()
+        executed, launched, kernel_path = api.last_executed_pairs(), bm.launched_pairs(), bm.launched_path()
         sink[0] = cpu
         want = run("cpu")
     finally:
         bm._bitslice_gemm = orig
     if counts != expected:
         smoke.failures.append(f"{path}: launch counts {counts} != expected {expected}")
+    if kernel_path != "mma":
+        smoke.failures.append(f"{path}: the bit-sliced GEMM took the {kernel_path} path, not the tensor cores")
     if len(card) != 1 or len(cpu) != 1:
         smoke.failures.append(f"{path}: {len(card)} card and {len(cpu)} CPU bit-sliced GEMM calls, not 1 and 1")
         return None
@@ -580,7 +655,7 @@ def run_bitslice_path(torch, api, bm, smoke, path, run, expected, skipped=()):
     if set(skipped) & (set(executed) | set(launched)) or not set(executed) == set(launched) == active:
         smoke.failures.append(f"{path}: executed {executed}, launched {launched}, skipped {skipped}")
     return {"path": path, "run": run, "launches": counts, "args": args, "out": out,
-            "plain_ms": plain_s * 1e3,
+            "plain_ms": plain_s * 1e3, "kernel_path": kernel_path,
             "max_abs_err": err, "executed": [list(p) for p in executed],
             "launched": [list(p) for p in launched], "skipped": [list(p) for p in skipped]}
 
@@ -907,18 +982,22 @@ def f32_gemm_timing(torch, conv, smoke, dev, seed):
     sums, _ = paired_rounds([(graph_timer(torch, lambda: conv._gemm(ca, cb)),
                               graph_timer(torch, lambda: torch.matmul(ca, cb)))], PAIRED_ROUNDS)
     k_ms, lib_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
+    cbt = cb.T.contiguous()  # B as (N, K), a conv weight's layout
+    nk_ms = graph_ms(torch, lambda: conv._gemm(ca, cbt, "nk"))
     b_bytes, b_ops = 4 * (m * k + k * n + m * n) / MEM_BYTES_PER_S * 1e3, 2 * m * k * n / FP32_FLOP_PER_S * 1e3
     row = {
         "name": "gemm[float32]", "route": "cuda", "source": SOURCES["gemm"], "replaces": REPLACES["gemm"],
         "launches": 0, "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
         "bound_by": "operations" if b_ops > b_bytes else "bytes", "library_ms": lib_ms,
         "library": "torch.matmul (TF32 off)", "eager_ms": cuda_ms(torch, lambda: conv._gemm(ca, cb)),
-        "plain_device": "cpu", "shapes": [[m, k], [k, n]], "rounds": sums,
+        "plain_device": "cpu", "shapes": [[m, k], [k, n]], "rounds": sums, "nk_ms": nk_ms,
+        "plan": conv.gemm_f32_plan(m, n, k, "kn", (ca.data_ptr(), cb.data_ptr()))._asdict(),
         "kernel_no_slower": sum(x <= y for x, y in zip(sums["kernel"], sums["library"])),
     }
     print(f"kernel gemm float32 at {F32_GEMM} (no path runs it): {k_ms:.4f} ms in graph replay (bound "
           f"{row['bound_ms']:.4f} ms by {row['bound_by']}, roofline share {row['bound_ms'] / k_ms:.1%}); "
-          f"torch.matmul {lib_ms:.4f} ms (medians of {PAIRED_ROUNDS} paired rounds); plain {plain_ms:.1f} ms on the CPU")
+          f"torch.matmul {lib_ms:.4f} ms (medians of {PAIRED_ROUNDS} paired rounds, kernel no slower in "
+          f"{row['kernel_no_slower']}); B as (N, K) {nk_ms:.4f} ms; plain {plain_ms:.1f} ms on the CPU")
     return row
 
 
@@ -1471,6 +1550,7 @@ def main() -> int:
     entry_kernel_checks(torch, att, ht, rg, smoke, dev, SEED + 8)
     pool_ewise_edge_checks(torch, conv, ewise, smoke, dev, SEED + 10)
     gemm_htree_edge_checks(torch, conv, ht, smoke, dev, SEED + 11)
+    bitslice_f32_edge_checks(torch, conv, bm, api, smoke, dev, SEED + 13)
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
@@ -1574,7 +1654,8 @@ def main() -> int:
                     ewise._ewise_plain("relu", r["out"].cpu()), True)
     for r in bitslice_paths:
         path_launches[r["path"]] = r["launches"]
-        print(f"phase 3c/d {r['path']}: launches {r['launches']}, executed pairs {r['executed']}, "
+        print(f"phase 3c/d {r['path']}: launches {r['launches']}, kernel path {r['kernel_path']}, "
+              f"executed pairs {r['executed']}, "
               f"launched {r['launched']}, skipped {r['skipped']}; kernel vs plain max_abs_err "
               f"{r['max_abs_err']}; plain {r['plain_ms']:.0f} ms on the CPU")
     torch.cuda.synchronize()
@@ -1761,17 +1842,26 @@ def main() -> int:
 
     # the bit-sliced GEMM per path: kernel (graph replay and eager), its
     # bound, its plain version (CPU), torch._int_mm where one pair is all
-    # there is, and the whole entry-point call from an idle card
+    # there is (medians of paired rounds), the kernel with its inputs cold in
+    # L2 where they fit in it (quant_linear_relu), and the whole entry-point
+    # call from an idle card
     bitslice_rows = []
     for r in bitslice_paths:
         xs, ws, sb, pairs = r["args"]
-        k_ms = graph_ms(torch, lambda: bm._bitslice_gemm(xs, ws, sb, pairs))
+        k_timer = graph_timer(torch, lambda xs=xs, ws=ws, sb=sb, pairs=pairs: bm._bitslice_gemm(xs, ws, sb, pairs))
         k_eager = cuda_ms(torch, lambda: bm._bitslice_gemm(xs, ws, sb, pairs))
-        lib_ms = lib_agrees = None
+        lib_ms = lib_agrees = rounds = cold_ms = None
         if tuple(pairs) == ((0, 0),):
-            lib_ms = graph_ms(torch, lambda: torch._int_mm(xs[0], ws[0]))
             lib_agrees = torch.equal(torch._int_mm(xs[0], ws[0]), r["out"])
+            x0, w0 = xs[0], ws[0]
+            sums, _ = paired_rounds([(k_timer, graph_timer(torch, lambda: torch._int_mm(x0, w0)))], PAIRED_ROUNDS)
+            rounds = dict(sums, kernel_no_slower=sum(k <= lib for k, lib in zip(sums["kernel"], sums["library"])))
+            k_ms, lib_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
+        else:
+            k_ms = k_timer()
         nbytes, ops = bitslice_work(xs, ws, sb, pairs)
+        if nbytes - 4 * r["out"].numel() < COLD_BYTES // 4:  # inputs that sit in L2 when warm
+            cold_ms = cold_timer(torch, lambda a, b: bm._bitslice_gemm(a, b, sb, pairs), (xs, ws))()
         b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
         call_ms = sync_samples(torch, lambda: r["run"]("cuda"), LATENCY_SAMPLES // 2)
         row = {
@@ -1779,7 +1869,8 @@ def main() -> int:
             "replaces": BITSLICE_REPLACES, "launches": r["launches"]["bitslice_matmul"],
             "max_abs_err": r["max_abs_err"], "ms": k_ms, "plain_ms": r["plain_ms"],
             "bound_ms": max(b_bytes, b_ops), "bound_by": "operations" if b_ops > b_bytes else "bytes",
-            "library_ms": lib_ms, "eager_ms": k_eager, "plain_device": "cpu",
+            "library_ms": lib_ms, "eager_ms": k_eager, "plain_device": "cpu", "kernel_path": r["kernel_path"],
+            "cold_ms": cold_ms, "rounds": rounds,
             "library": "torch._int_mm" if lib_ms is not None else None,
             "library_agrees": lib_agrees, "launches_by_path": {r["path"]: r["launches"]["bitslice_matmul"]},
             "shapes": [list(xs.shape), list(ws.shape)], "slice_bits": sb,
@@ -1787,10 +1878,13 @@ def main() -> int:
             "path_call_ms_median": median(call_ms), "path_call_ms_samples": call_ms,
         }
         bitslice_rows.append(row)
-        print(f"kernel {row['name']}: {k_ms:.4f} ms in graph replay ({k_eager:.4f} ms eager; bound "
-              f"{row['bound_ms']:.4f} ms by {row['bound_by']}, roofline share "
-              f"{row['bound_ms'] / k_ms:.1%}), plain {r['plain_ms']:.1f} ms on the CPU, "
-              f"torch._int_mm {lib_ms}; whole {r['path']} call {median(call_ms):.3f} ms")
+        paired_text = "" if rounds is None else (
+            f" (medians of {PAIRED_ROUNDS} rounds read in turns, kernel no slower in {rounds['kernel_no_slower']})")
+        cold_text = "" if cold_ms is None else f"; inputs cold in L2 {cold_ms:.4f} ms"
+        print(f"kernel {row['name']} ({r['kernel_path']} path): {k_ms:.4f} ms in graph replay ({k_eager:.4f} ms "
+              f"eager; bound {row['bound_ms']:.4f} ms by {row['bound_by']}, roofline share "
+              f"{row['bound_ms'] / k_ms:.1%}){cold_text}, plain {r['plain_ms']:.1f} ms on the CPU, "
+              f"torch._int_mm {lib_ms}{paired_text}; whole {r['path']} call {median(call_ms):.3f} ms")
 
     k1_rows = [decode_gemm_timing(torch, conv, smoke, layers[DECODE_CAPACITY], imad_per_s),
                f32_gemm_timing(torch, conv, smoke, dev, SEED + 12)]

@@ -42,10 +42,12 @@ _P, _I, _L, _B = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_char
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.  Host
 # byte arrays (the bit-sliced GEMM's pair list) are passed as bytes.
 ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
-    # the GEMMs take B's layout after the extents, and int32 its launch plan
-    # (conv.gemm_plan: small-M kernel, 16-byte A and B copies, splits, K chunk)
+    # the GEMMs take B's layout after the extents, then their launch plan
+    # (conv.gemm_plan: small-M kernel, 16-byte A and B copies, splits, K chunk;
+    # conv.gemm_f32_plan: 16-byte B copies, splits, K chunk, after the
+    # workspace of the splits' partial tiles)
     "int_gemm_i32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
-    "int_gemm_f32": ("int_gemm", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "int_gemm_f32": ("int_gemm", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     # the pool and ewise kernels take their launch plan (conv.pool_plan,
     # ewise.ewise_plan) after the extents
     "pool_sum_i32": ("pool_reduce", (_P, _P, _L, _I, _I, _I, _I, _P)),
@@ -57,6 +59,10 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "relu_i32": ("ewise", (_P, _P, _L, _I, _I, _P)),
     "relu_f32": ("ewise", (_P, _P, _L, _I, _I, _P)),
     "bitslice_gemm_i8": ("bitslice_gemm", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _B, _B, _I, _P)),
+    # the tensor-core path: staged slices' bases, extents, slice counts,
+    # diagonal shifts and its plan (bitslice_matmul.bitslice_plan)
+    "bitslice_gemm_mma": ("bitslice_gemm", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                            _P)),
     # the attention kernels take int8 and int32 operands, named by their
     # element size in bytes (1 or 4) after the extents
     "attention_qk": ("attention", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),

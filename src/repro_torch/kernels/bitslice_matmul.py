@@ -10,13 +10,15 @@ int32, wrapping mod 2**32.  Its one wrapper, :func:`_bitslice_gemm`,
 launches ``csrc/bitslice_gemm.cu`` (replacing the Pallas ``_kernel``) for
 CUDA tensors and runs the plain version for CPU tensors.  The pair list it
 hands the kernel is exactly ``api.active_pairs(Sx, Sw, skip)``: a skipped
-pair is never launched.  Unlike the Pallas wrapper, M, N and K need not divide
-any block size; the kernel masks the ragged edges.
+pair is never launched.  :func:`bitslice_plan` picks the kernel's path: int8
+tensor cores (``mma.sync``) for every ``PrecisionSpec`` preset, ``__dp4a``
+for the rest.  Unlike the Pallas wrapper, M, N and K need not divide any
+block size; the kernel masks the ragged edges.
 """
 from __future__ import annotations
 
 import threading
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,7 +34,60 @@ from repro_torch.kernels.api import (
 MAX_PAIRS = 1024   # the kernel's parameter block holds this many pairs
 MAX_SLICES = 64    # slices per operand (the kernel's slice-usage masks)
 
+# the tensor-core path (csrc/bitslice_gemm.cu, namespace tc)
+BITSLICE_MMA_BK = 128         # BK: bytes of K a shared-memory stage holds
+BITSLICE_MMA_STAGES = 3       # STAGES
+BITSLICE_FOLD_LP = 2**17 - 1  # FOLD_LP: K · pairs a diagonal's s32 accumulator may sum
+BITSLICE_NARROW_N = 32        # N up to which the narrow tile is taken
+# (BM, BN, WM): output tile and the rows of a warp's 32-column share
+BITSLICE_MMA_TILES = {"narrow": (128, 32, 32), "square": (128, 128, 64), "square_2x2": (64, 128, 32)}
+
 Pairs = Tuple[Tuple[int, int], ...]
+
+
+class BitslicePlan(NamedTuple):
+    """Launch plan of ``csrc/bitslice_gemm.cu``."""
+
+    path: str                   # "mma" (int8 tensor cores) or "dp4a"
+    x_slices: Tuple[int, ...]   # slices some computed pair reads, low to high
+    w_slices: Tuple[int, ...]
+    shifts: Tuple[int, ...]     # mma: slice_bits·(s+t) of local diagonal i + j
+    tile: Optional[str]         # mma: a key of BITSLICE_MMA_TILES
+    fold_k: int                 # mma: K a block sums in s32 between folds into out
+    w_vec: bool                 # mma: 16-byte copies of w rows (else 4-byte)
+    x_words: bool               # dp4a: x read in 4-byte words
+
+
+def bitslice_plan(sx: int, sw: int, m: int, n: int, k: int, slice_bits: int, pairs: Pairs,
+                  ptrs: Tuple[int, int]) -> BitslicePlan:
+    """Launch plan of the bit-sliced GEMM of ``(sx, m, k)`` × ``(sw, k, n)``
+    contiguous int8 stacks at addresses ``ptrs = (x, w)`` over ``pairs``
+    (the tensor-core path always takes BITSLICE_MMA_STAGES stages).
+
+    Pairs whose shift ``slice_bits·(s+t)`` is 32 or more add 0 mod 2**32
+    and are not computed.  The tensor-core path takes the computed pairs
+    when they are all pairs of at most two x slices and two w slices (with
+    equal gaps in the 2 × 2 case, so that local diagonal i + j is one
+    diagonal s + t), K % 16 == 0, x 16-byte aligned, N % 4 == 0 and w
+    4-byte aligned; everything else takes ``__dp4a``.  A block of the
+    tensor-core path sums at most ``fold_k`` of K in its s32 accumulators,
+    the largest multiple of BITSLICE_MMA_BK with ``fold_k · p`` <=
+    BITSLICE_FOLD_LP for p pairs a diagonal (|x·w| <= 2**14, so every
+    accumulator stays exact), then folds them into its output tile."""
+    x_ptr, w_ptr = ptrs
+    live = [(s, t) for s, t in pairs if slice_bits * (s + t) < 32]
+    xs, ws = tuple(sorted({s for s, _ in live})), tuple(sorted({t for _, t in live}))
+    dp4a = BitslicePlan("dp4a", xs, ws, (), None, 0, False, k % 4 == 0 and x_ptr % 4 == 0)
+    if (not live or len(xs) > 2 or len(ws) > 2 or set(live) != {(s, t) for s in xs for t in ws}
+            or (len(xs) == len(ws) == 2 and xs[1] - xs[0] != ws[1] - ws[0])
+            or k % 16 or x_ptr % 16 or n % 4 or w_ptr % 4):
+        return dp4a
+    nx, nw = len(xs), len(ws)
+    shifts = tuple(slice_bits * (xs[min(e, nx - 1)] + ws[e - min(e, nx - 1)]) for e in range(nx + nw - 1))
+    per_diagonal = 2 if nx == nw == 2 else 1
+    fold_k = BITSLICE_FOLD_LP // per_diagonal // BITSLICE_MMA_BK * BITSLICE_MMA_BK
+    tile = "narrow" if n <= BITSLICE_NARROW_N else "square_2x2" if nx == nw == 2 else "square"
+    return BitslicePlan("mma", xs, ws, shifts, tile, fold_k, n % 16 == 0 and w_ptr % 16 == 0, False)
 
 # The pair list of the most recent kernel launch on this thread, in the order
 # the kernel was given it.
@@ -43,6 +98,12 @@ def launched_pairs() -> Pairs:
     """The (s, t) pairs the most recent CUDA launch of the bit-sliced GEMM on
     this thread was given (``()`` before any)."""
     return getattr(_launched, "pairs", ())
+
+
+def launched_path() -> Optional[str]:
+    """The path (``"mma"`` or ``"dp4a"``) of the most recent CUDA launch of
+    the bit-sliced GEMM on this thread (None before any)."""
+    return getattr(_launched, "path", None)
 
 
 # The kernel's plain version: the shifted int32 products of exactly ``pairs``.
@@ -68,14 +129,22 @@ def _bitslice_gemm(x: torch.Tensor, w: torch.Tensor, slice_bits: int, pairs: Pai
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    # sorted by diagonal: the kernel shifts each diagonal's sum once per K tile
+    # sorted by diagonal: the kernel sums each diagonal in one accumulator
     order = tuple(sorted(pairs, key=lambda p: (p[0] + p[1], p)))
-    x_words = int(k % 4 == 0 and x.data_ptr() % 4 == 0)
-    _build.launch("bitslice_gemm_i8", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                  m, n, k, sx, sw, slice_bits, x_words,
-                  bytes(s for s, _ in order), bytes(t for _, t in order), len(order))
+    plan = bitslice_plan(sx, sw, m, n, k, slice_bits, order, (x.data_ptr(), w.data_ptr()))
+    if plan.path == "mma":
+        xp = [x.data_ptr() + s * m * k for s in plan.x_slices]
+        wp = [w.data_ptr() + t * k * n for t in plan.w_slices]
+        shifts = plan.shifts + (0,) * (3 - len(plan.shifts))
+        _build.launch("bitslice_gemm_mma", dev, xp[0], xp[-1], wp[0], wp[-1], out.data_ptr(), m, n, k,
+                      len(xp), len(wp), *shifts, int(plan.tile == "narrow"), int(plan.w_vec),
+                      plan.fold_k // BITSLICE_MMA_BK)
+    else:
+        _build.launch("bitslice_gemm_i8", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                      m, n, k, sx, sw, slice_bits, int(plan.x_words),
+                      bytes(s for s, _ in order), bytes(t for _, t in order), len(order))
     count_launch("bitslice_matmul")
-    _launched.pairs = order
+    _launched.pairs, _launched.path = order, plan.path
     return out
 
 

@@ -94,6 +94,44 @@ def gemm_plan(m: int, n: int, k: int, b_layout: str, ptrs: Tuple[int, int]) -> G
     return GemmPlan("tile", a_vec, b_vec, splits, k_chunk)
 
 
+GEMM_F32_TILE = (128, 64, 16)     # csrc/int_gemm.cu: FBM, FBN, FBK
+GEMM_F32_STAGES = 2               # csrc/int_gemm.cu: F_STAGES
+GEMM_F32_TARGET_BLOCKS = 2 * 132  # 128-thread float32 blocks resident on one H100 (2 a SM)
+GEMM_F32_MIN_SPLIT_K = 256        # the shortest K range a float32 split is given
+
+
+class GemmF32Plan(NamedTuple):
+    """Launch plan of the float32 kernel of ``csrc/int_gemm.cu``."""
+
+    b_vec: bool    # 16-byte copies of a (K, N) B's rows
+    splits: int    # K ranges; more than one go to a workspace added in order
+    k_chunk: int   # K of each range, a multiple of the K tile
+
+
+def gemm_f32_plan(m: int, n: int, k: int, b_layout: str, ptrs: Tuple[int, int]) -> GemmF32Plan:
+    """Launch plan of the float32 GEMM ``(m, k) @ B`` for contiguous operands
+    at addresses ``ptrs = (A, B)``, B ``(k, n)`` (``"kn"``) or ``(n, k)``
+    (``"nk"``).
+
+    128 × 64 tiles of C; K split into ranges of whole K tiles when the tiles
+    alone do not fill GEMM_F32_TARGET_BLOCKS, each range at least
+    GEMM_F32_MIN_SPLIT_K long.  The splits' partial tiles are added in
+    split order by a second kernel (no float atomics), so a result has the
+    same bits on every run.  A ``(k, n)`` B takes 16-byte copies when ``n %
+    4 == 0`` and B is 16-byte aligned; A and an ``(n, k)`` B are transposed
+    on their way into shared memory by 4-byte copies."""
+    if b_layout not in ("kn", "nk"):
+        raise ValueError(f"B's layout is 'kn' or 'nk', got {b_layout!r}")
+    tm, tn, tk = GEMM_F32_TILE
+    tiles = -(-m // tm) * -(-n // tn)
+    splits = max(1, min(GEMM_F32_TARGET_BLOCKS // max(tiles, 1), -(-k // GEMM_F32_MIN_SPLIT_K)))
+    k_tiles = -(-k // tk)
+    k_chunk = max(1, -(-k_tiles // splits)) * tk
+    splits = max(1, -(-k // k_chunk))
+    b_vec = b_layout == "kn" and n % 4 == 0 and ptrs[1] % 16 == 0
+    return GemmF32Plan(b_vec, splits, k_chunk)
+
+
 def _gemm(x: torch.Tensor, w: torch.Tensor, b_layout: str = "kn") -> torch.Tensor:
     """``(M, K) @ B`` of two int32 or two float32 matrices, B ``(K, N)``
     (``"kn"``) or ``(N, K)`` (``"nk"``, read as its transpose), int32
@@ -113,7 +151,10 @@ def _gemm(x: torch.Tensor, w: torch.Tensor, b_layout: str = "kn") -> torch.Tenso
         return out
     nk = int(b_layout == "nk")
     if suffix == "f32":
-        _build.launch("int_gemm_f32", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, nk)
+        p = gemm_f32_plan(m, n, k, b_layout, (x.data_ptr(), w.data_ptr()))
+        ws = torch.empty((p.splits, m, n), dtype=torch.float32, device=dev) if p.splits > 1 else None
+        _build.launch("int_gemm_f32", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                      None if ws is None else ws.data_ptr(), m, n, k, nk, int(p.b_vec), p.splits, p.k_chunk)
     else:
         p = gemm_plan(m, n, k, b_layout, (x.data_ptr(), w.data_ptr()))
         _build.launch("int_gemm_i32", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, nk,

@@ -49,76 +49,184 @@
 // products at its data (0.072 ms at 1979 TOP/s); the decode layer's three
 // M = 1 GEMMs move 35.1 MB (10.5 µs).
 //
-// float32 (gemm_f32_kernel): tiled SIMT FMA on the CUDA cores, never TF32.
-// Each block owns a BM x BN output tile; each of its 256 threads accumulates
-// TM x TN outputs in registers; ragged edges are masked with zero fill on
-// load and skipped on store.
+// float32 (gemm_f32_kernel): a SIMT GEMM on the CUDA cores with FFMA
+// (__fmaf_rn), never TF32 and never the tensor cores.  Bound: operations (at
+// (2048, 2304) x (2304, 256), 2.4 GFLOP against 7.3 MB).  Each 128-thread
+// block owns a 128 x 64 tile of C over one K range; each thread holds 8 x 8
+// outputs (rows ty*4 + {0..3} and +64, columns tx*4 + {0..3} and +32), so one
+// K step costs four float4 shared loads for 64 FMAs.  Both tiles are stored
+// K-major ([BK][BM] and [BK][BN], rows padded by 4 floats): cp.async brings
+// them in F_STAGES deep, B as (K, N) by 16-byte copies when N % 4 == 0 and B
+// is 16-byte aligned (4-byte copies otherwise), A and an (N, K) B transposed
+// on the way in by 4-byte copies whose lanes (4 rows x 8 K a warp) hit 32
+// distinct banks under the padding.  conv.gemm_f32_plan splits K so that the
+// grid holds about two blocks an SM; the partial tiles of a split go to a
+// workspace the wrapper allocates and gemm_f32_reduce adds them in split
+// order, so that a result never depends on the order blocks run in (no float
+// atomics).
 #include "common.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- float32
 
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int ROW_STEP = BM / TM;               // 16: rows of a thread are strided
-constexpr int COL_STEP = BN / TN;               // 16: so are its columns
+constexpr int FBM = 128, FBN = 64, FBK = 16;  // conv.GEMM_F32_TILE
+constexpr int F_STAGES = 2;                   // conv.GEMM_F32_STAGES
+constexpr int F_TX = FBN / 8, F_TY = FBM / 8;  // threads along N and M, 8 x 8 outputs each
+constexpr int F_THREADS = F_TX * F_TY;         // 128
+constexpr int F_LDA = FBM + 4, F_LDB = FBN + 4;  // padded K rows (floats)
+constexpr int F_STAGE = FBK * (F_LDA + F_LDB);   // floats a stage
+// 25,600 bytes: within the default limit, so no cudaFuncSetAttribute is needed.
+// Two stages (a double buffer) read faster than three in a sweep of tiles and
+// stages at (2048, 2304) x (2304, 256) on the H100 (PERF.md §6).
+constexpr int F_SMEM_BYTES = F_STAGES * F_STAGE * 4;
+constexpr int F_REDUCE_THREADS = 256;
+static_assert(FBK % 8 == 0 && FBM * FBK % F_THREADS == 0 && FBN * FBK % (4 * F_THREADS) == 0,
+              "float32 tile / thread mismatch");
 
-template <bool B_NK>
-__global__ void __launch_bounds__(THREADS)
-gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
-                int m, int n, int k) {
-  __shared__ float as[BK][BM + 1];  // +1: the transposing store avoids bank conflicts
-  __shared__ float bs[BK][BN + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % COL_STEP, ty = tid / COL_STEP;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-
-  float acc[TM][TN];
+// A (M, K) row-major → as[kk][r]: lanes over 4 rows x 8 K, so that a warp's
+// 4-byte stores hit 32 distinct banks under the padding.
+__device__ __forceinline__ void f_load_a(float* as, const float* __restrict__ a, int m, int k, int row0, int k0,
+                                         int k_end) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, kk = i % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = (gr < m && gk < k) ? a[static_cast<size_t>(gr) * k + gk] : 0.0f;
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      // neighbouring threads read neighbouring addresses in either layout
-      const int kk = B_NK ? i % BK : i / BN, cc = B_NK ? i / BK : i % BN;
-      const int gk = k0 + kk, gc = col0 + cc;
-      const size_t at = B_NK ? static_cast<size_t>(gc) * k + gk : static_cast<size_t>(gk) * n + gc;
-      bs[kk][cc] = (gk < k && gc < n) ? b[at] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = as[kk][ty + i * ROW_STEP];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = bs[kk][tx + j * COL_STEP];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int j = 0; j < FBM * FBK / F_THREADS; ++j) {
+    const int q = threadIdx.x + j * F_THREADS;
+    const int r = q / (4 * FBK) * 4 + (q & 3), kk = (q >> 2) % FBK;
+    const int gr = row0 + r, gk = k0 + kk;
+    const bool ok = gr < m && gk < k_end;
+    cp4(smem_addr(as + kk * F_LDA + r), ok ? a + static_cast<size_t>(gr) * k + gk : a, ok);
   }
+}
+
+// B → bs[kk][c]: (N, K) transposed like A; (K, N) by 16-byte copies (VEC) or
+// by 4-byte copies along N.
+template <bool B_NK, bool VEC>
+__device__ __forceinline__ void f_load_b(float* bs, const float* __restrict__ b, int n, int k, int col0, int k0,
+                                         int k_end) {
+  if (B_NK) {
+#pragma unroll
+    for (int j = 0; j < FBN * FBK / F_THREADS; ++j) {
+      const int q = threadIdx.x + j * F_THREADS;
+      const int c = q / (4 * FBK) * 4 + (q & 3), kk = (q >> 2) % FBK;
+      const int gc = col0 + c, gk = k0 + kk;
+      const bool ok = gc < n && gk < k_end;
+      cp4(smem_addr(bs + kk * F_LDB + c), ok ? b + static_cast<size_t>(gc) * k + gk : b, ok);
+    }
+  } else if (VEC) {
+#pragma unroll
+    for (int j = 0; j < FBN * FBK / 4 / F_THREADS; ++j) {
+      const int q = threadIdx.x + j * F_THREADS;
+      const int kk = q / (FBN / 4), c = q % (FBN / 4) * 4;
+      const int gc = col0 + c, gk = k0 + kk;
+      const bool ok = gc < n && gk < k_end;  // n % 4 == 0: a chunk is all in or all out
+      cp16(smem_addr(bs + kk * F_LDB + c), ok ? b + static_cast<size_t>(gk) * n + gc : b, ok);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < FBN * FBK / F_THREADS; ++j) {
+      const int q = threadIdx.x + j * F_THREADS;
+      const int kk = q / FBN, c = q % FBN;
+      const int gc = col0 + c, gk = k0 + kk;
+      const bool ok = gc < n && gk < k_end;
+      cp4(smem_addr(bs + kk * F_LDB + c), ok ? b + static_cast<size_t>(gk) * n + gc : b, ok);
+    }
+  }
+}
+
+// C (or split z's slab of the workspace) = A[:, K range z] @ B[K range z, :].
+template <bool B_NK, bool VEC>
+__global__ void __launch_bounds__(F_THREADS)
+gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
+                int m, int n, int k, int k_chunk) {
+  extern __shared__ float4 f_smem_raw[];
+  float* smem = reinterpret_cast<float*>(f_smem_raw);
+  const int tx = threadIdx.x % F_TX, ty = threadIdx.x / F_TX;
+  const int row0 = blockIdx.x * FBM, col0 = blockIdx.y * FBN;
+  const int kb = blockIdx.z * k_chunk, ke = min(k, kb + k_chunk);
+  const int steps = ke > kb ? (ke - kb + FBK - 1) / FBK : 0;
+  c += static_cast<size_t>(blockIdx.z) * m * n;
+
+  auto stage_a = [&](int s) { return smem + s * F_STAGE; };
+  auto stage_b = [&](int s) { return smem + s * F_STAGE + FBK * F_LDA; };
+  auto load = [&](int s, int k0) {
+    f_load_a(stage_a(s), a, m, k, row0, k0, ke);
+    f_load_b<B_NK, VEC>(stage_b(s), b, n, k, col0, k0, ke);
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + i * ROW_STEP;
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < steps) load(s, kb + s * FBK);
+    cp_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_wait<F_STAGES - 2>();
+    __syncthreads();
+    {  // refill the stage the previous step read (every thread is past it)
+      const int next = step + F_STAGES - 1;
+      if (next < steps) load(next % F_STAGES, kb + next * FBK);
+      cp_commit();
+    }
+    const float* as = stage_a(step % F_STAGES);
+    const float* bs = stage_b(step % F_STAGES);
+#pragma unroll
+    for (int kk = 0; kk < FBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * F_LDA + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * F_LDA + FBM / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * F_LDB + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * F_LDB + FBN / 2 + tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_wait<0>();
+
+  const bool vec_out = (n & 3) == 0;  // rows of C 16-byte aligned (C from torch.empty)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + (i >> 2) * (FBM / 2) + ty * 4 + (i & 3);
     if (r >= m) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int cc = col0 + tx + j * COL_STEP;
-      if (cc < n) c[static_cast<size_t>(r) * n + cc] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int cc = col0 + h * (FBN / 2) + tx * 4;
+      float* dst = c + static_cast<size_t>(r) * n + cc;
+      if (vec_out && cc + 3 < n) {
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
+                                                      acc[i][h * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (cc + e < n) dst[e] = acc[i][h * 4 + e];
+      }
     }
+  }
+}
+
+// C = Σ_z ws[z] in split order z = 0, 1, ...: the same bits on every run.
+template <typename V>
+__global__ void __launch_bounds__(F_REDUCE_THREADS)
+gemm_f32_reduce(const V* __restrict__ ws, V* __restrict__ c, long long count, int splits) {
+  for (long long i = blockIdx.x * static_cast<long long>(F_REDUCE_THREADS) + threadIdx.x; i < count;
+       i += static_cast<long long>(gridDim.x) * F_REDUCE_THREADS) {
+    V s = ws[i];
+    for (int z = 1; z < splits; ++z) {
+      const V v = ws[z * count + i];
+      if constexpr (sizeof(V) == 16) {
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      } else {
+        s += v;
+      }
+    }
+    c[i] = s;
   }
 }
 
@@ -136,27 +244,6 @@ constexpr int SMEM_BYTES = STAGES * 2 * TILE_WORDS * 4;
 // banks.
 __device__ __forceinline__ int swz(int r, int c) {
   return r * TBK + ((((c >> 2) ^ ((r & 1) << 2))) << 2) + (c & 3);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // B's modes: (N, K) with 16-byte copies, (N, K) with 4-byte copies, (K, N)
@@ -523,14 +610,30 @@ extern "C" int int_gemm_i32(const void* a, const void* b, void* c, int m, int n,
   return launch_tile<false, B_KN4>(a, b, c, m, n, k, splits, k_chunk, s);
 }
 
-// float32: B (K, N), or (N, K) when `b_nk`.
-extern "C" int int_gemm_f32(const void* a, const void* b, void* c, int m, int n, int k, int b_nk, void* stream) {
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+// float32: B (K, N), or (N, K) when `b_nk`; the launch plan of
+// conv.gemm_f32_plan after it: `b_vec` (16-byte copies of a (K, N) B),
+// `splits` K ranges of `k_chunk` each.  With more than one split the partial
+// tiles go to `ws` (splits x M x N floats) and are added into C in order.
+extern "C" int int_gemm_f32(const void* a, const void* b, void* c, void* ws, int m, int n, int k, int b_nk,
+                            int b_vec, int splits, int k_chunk, void* stream) {
+  if (splits < 1 || (splits > 1 && ws == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((m + FBM - 1) / FBM, (n + FBN - 1) / FBN, splits);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fa = static_cast<const float*>(a);
   const float* fb = static_cast<const float*>(b);
-  float* fc = static_cast<float*>(c);
-  if (b_nk) gemm_f32_kernel<true><<<grid, THREADS, 0, s>>>(fa, fb, fc, m, n, k);
-  else gemm_f32_kernel<false><<<grid, THREADS, 0, s>>>(fa, fb, fc, m, n, k);
+  float* dst = static_cast<float*>(splits > 1 ? ws : c);
+  if (b_nk) gemm_f32_kernel<true, false><<<grid, F_THREADS, F_SMEM_BYTES, s>>>(fa, fb, dst, m, n, k, k_chunk);
+  else if (b_vec) gemm_f32_kernel<false, true><<<grid, F_THREADS, F_SMEM_BYTES, s>>>(fa, fb, dst, m, n, k, k_chunk);
+  else gemm_f32_kernel<false, false><<<grid, F_THREADS, F_SMEM_BYTES, s>>>(fa, fb, dst, m, n, k, k_chunk);
+  if (splits == 1) return REPRO_LAUNCH_STATUS();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long count = static_cast<long long>(m) * n;
+  if (count % 4 == 0)
+    gemm_f32_reduce<float4><<<repro_grid(count / 4, F_REDUCE_THREADS), F_REDUCE_THREADS, 0, s>>>(
+        static_cast<const float4*>(ws), static_cast<float4*>(c), count / 4, splits);
+  else
+    gemm_f32_reduce<float><<<repro_grid(count, F_REDUCE_THREADS), F_REDUCE_THREADS, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<float*>(c), count, splits);
   return REPRO_LAUNCH_STATUS();
 }

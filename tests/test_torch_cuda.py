@@ -193,6 +193,49 @@ def test_gemm_kernel_float32_reads_b_as_n_by_k(card):
     torch.testing.assert_close(got, a @ b.T, atol=1e-4, rtol=1e-4)
 
 
+# float32 at ragged shapes, on unsplit and split plans: the kernel within the
+# float tolerance of the plain version in both layouts, exactly equal on
+# integer-valued operands (every partial sum exact), the same bits twice.
+# The normals are scaled by K**-0.25 so that the outputs are of unit size:
+# unscaled, the order of adds alone moves a K = 4608 sum by about 1e-4.
+F32_GEMM = {
+    "unsplit-M129-K27-N1000": (129, 27, 1000),
+    "unsplit-M300-K200-N130": (300, 200, 130),
+    "split-M77-K4608-N130": (77, 4608, 130),
+    "split-M2048-K2304-N256": (2048, 2304, 256),
+    "split-M1000-K1001-N67": (1000, 1001, 67),
+}
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("case", sorted(F32_GEMM))
+def test_gemm_kernel_float32_plans_and_layouts(card, case, layout):
+    m, k, n = F32_GEMM[case]
+    plan = conv.gemm_f32_plan(m, n, k, layout, (0, 0))
+    assert (plan.splits > 1) == case.startswith("split")
+    scale = k ** -0.25
+    a, b = floats((m, k), m) * scale, floats((n, k) if layout == "nk" else (k, n), n) * scale
+    ac, bc = a.to(card), b.to(card)
+    tapi.reset_launch_counts()
+    got = conv._gemm(ac, bc, layout)
+    again = conv._gemm(ac, bc, layout)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"gemm": 2}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), conv._gemm_plain(a, b, layout), atol=1e-4, rtol=1e-4)
+    ai, bi = a.div(scale).mul(4).round(), b.div(scale).mul(2).round()
+    assert torch.equal(conv._gemm(ai.to(card), bi.to(card), layout).cpu(), conv._gemm_plain(ai, bi, layout))
+
+
+def test_gemm_kernel_float32_reads_a_misaligned_b(card):
+    a, b = floats((100, 96), 21), floats((96, 64), 22)
+    buf = torch.empty(b.numel() + 1, dtype=torch.float32, device=card)
+    bv = buf[1:].view(b.shape)
+    bv.copy_(b)
+    assert not conv.gemm_f32_plan(100, 64, 96, "kn", (0, bv.data_ptr())).b_vec
+    torch.testing.assert_close(conv._gemm(a.to(card), bv).cpu(), a @ b, atol=1e-4, rtol=1e-4)
+
+
 POOL_K = [1, 2, 3, 4, 5, 8, 15, 16, 17, 32, 33, 49, 100, 1000]
 
 
@@ -415,6 +458,81 @@ def test_single_pass_quant_linear_on_card_equals_cpu(card, spec):
     got = tcommon.quant_linear({k: v.to(card) for k, v in p.items()}, x.to(card),
                                getattr(tapi.PrecisionSpec, spec))
     assert torch.equal(got.cpu(), tcommon.quant_linear(p, x, getattr(tapi.PrecisionSpec, spec)))
+
+
+# name → (sx, m, k, sw, n, skip, path): the tensor-core path at ragged M, N
+# and K (K % 16 == 0 but not a multiple of its 64-byte K tile), on each tile
+# and with 4-byte w copies (N % 16 != 0); the __dp4a path where K % 16 != 0,
+# N % 4 != 0 or the pair set is not all pairs of its slices
+BITSLICE_PATHS = {
+    "mma-narrow-1x1-M130-K208-N20": (1, 130, 208, 1, 20, (), "mma"),
+    "mma-narrow-2x2-M77-K48-N32": (2, 77, 48, 2, 32, (), "mma"),
+    "mma-square-2x1-M77-K80-N100": (2, 77, 80, 1, 100, (), "mma"),
+    "mma-square-1x2-M200-K144-N36": (1, 200, 144, 2, 36, (), "mma"),
+    "mma-square-2x2-M65-K80-N132": (2, 65, 80, 2, 132, (), "mma"),
+    "mma-zero-skip-M129-K64-N64": (2, 129, 64, 2, 64, ((1, 0), (1, 1)), "mma"),
+    "dp4a-K40-N64": (1, 64, 40, 1, 64, (), "dp4a"),
+    "dp4a-N30": (2, 64, 64, 1, 30, (), "dp4a"),
+    "dp4a-3-of-4-pairs": (2, 64, 64, 2, 64, ((1, 1),), "dp4a"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BITSLICE_PATHS))
+def test_bitslice_kernel_paths_at_ragged_shapes(card, case):
+    sx, m, k, sw, n, skip, path = BITSLICE_PATHS[case]
+    x, w = stacks(sx, m, k, sw, n, 8, len(case) + 40)
+    pairs = tapi.active_pairs(sx, sw, skip)
+    tapi.reset_launch_counts()
+    got = tbm._bitslice_gemm(x.to(card), w.to(card), 8, pairs)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"bitslice_matmul": 1} and tbm.launched_path() == path
+    assert torch.equal(got.cpu(), tbm._bitslice_plain(x, w, 8, pairs))
+
+
+@pytest.mark.parametrize("sx, sw", [(1, 1), (2, 2)])
+def test_bitslice_mma_folds_past_the_s32_bound(card, sx, sw):
+    """K = 2**17 + 32 of all -128 slices: every product is 2**14, so one
+    accumulator over all of K would pass 2**31 (two pairs on the 2 × 2 middle
+    diagonal sooner); the block folds at the plan's interval and the
+    result wraps as the plain version's does."""
+    k = 2**17 + 32
+    x = torch.full((sx, 20, k), -128, dtype=torch.int8)
+    w = torch.full((sw, k, 40), -128, dtype=torch.int8)
+    pairs = tapi.active_pairs(sx, sw)
+    xc, wc = x.to(card), w.to(card)
+    plan = tbm.bitslice_plan(sx, sw, 20, 40, k, 8, pairs, (xc.data_ptr(), wc.data_ptr()))
+    assert plan.path == "mma" and plan.fold_k < k
+    got = tbm._bitslice_gemm(xc, wc, 8, pairs)
+    torch.cuda.synchronize()
+    assert tbm.launched_path() == "mma"
+    assert torch.equal(got.cpu(), tbm._bitslice_plain(x, w, 8, pairs))
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_bitslice_kernel_takes_dp4a_for_a_stack_off_16_bytes(card, offset):
+    x, w = stacks(2, 50, 64, 1, 40, 8, 30 + offset)
+    buf = torch.empty(x.numel() + offset, dtype=torch.int8, device=card)
+    shifted = buf[offset:].view(x.shape)
+    shifted.copy_(x)
+    pairs = tapi.active_pairs(2, 1)
+    got = tbm._bitslice_gemm(shifted, w.to(card), 8, pairs)
+    torch.cuda.synchronize()
+    assert tbm.launched_path() == "dp4a"
+    assert torch.equal(got.cpu(), tbm._bitslice_plain(x, w, 8, pairs))
+
+
+@pytest.mark.parametrize("preset", ["int4", "int8", "int12", "int16", "w4a8", "w8a16"])
+def test_quantized_matmul_presets_take_the_tensor_cores(card, preset):
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 100, 128)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((128, 48)) * 0.1).astype(np.float32))
+    spec = getattr(tapi.PrecisionSpec, preset)
+    w_st = tapi.SlicedTensor.quantize(w, spec, weight=True)
+    wq, ws = w_st.to_int(), w_st.scale.reshape(-1)
+    got = tapi.quantized_matmul(x.to(card), wq.to(card), ws.to(card), spec)
+    torch.cuda.synchronize()
+    assert tbm.launched_path() == "mma"
+    assert torch.equal(got.cpu(), tapi.quantized_matmul(x, wq, ws, spec))
 
 
 def test_traced_resnet_on_card_equals_eager_and_counts_launches(card):
