@@ -59,7 +59,15 @@ Phases, any failure of which exits non-zero:
    Phase 2 also holds the four attention kernels against their plain
    versions at the decode shapes (GQA groups of 7 included) and at edges
    (a 131072-long equal row, shift 40, int32 caches, multi-hot and all-zero
-   selectors), decode_gemv, htree_reduce and rglru_scan at theirs (an
+   selectors), the softmax and p·V at the edges of their launch plans (each
+   call held to the path its case names: the rows kernel at T = 1 to 512 and
+   64 rows of T = 8; the cluster's registers at T = 513 to 65536, ragged T
+   and views off 16 bytes with element loads; its loop past the registers
+   and at 2**20; int8 scores; the packed p·V at M = 1, 2, 9, T = 1, T below a
+   warp's rows, ragged T, Dv 16 to 256, int32 wrap at shifts 0, 31, 40; the
+   generic one at Dv 48 and 300, int32 v, int8 p, a v one byte off), the p·V
+   ticket (two shapes back to back, three CUDA-graph replays) and one device
+   kernel a p·V call (profiler), decode_gemv, htree_reduce and rglru_scan at theirs (an
    int32 wrap, a ragged K, misaligned int8 views, N = 1 and 2 in each
    dtype, T = 1, a ragged W), and the row reduction and the elementwise
    kernels at the edges of their launch plans (every lane-group size,
@@ -90,8 +98,9 @@ Phases, any failure of which exits non-zero:
    time 50 eager forwards one by one (median and p80), and the
    eager forward, the traced call (re-trace included) and a held
    ``Executor`` replay from an idle card (host clock);
-   time the attention kernels at the serving path's T = 32768 inputs, one
-   decode step (Program call plus the cache carry) at 4096 and 32768 rows
+   time the attention kernels at the serving path's T = 32768 inputs (warm
+   and cold) beside the launch floor (one ``x.add_(1)`` on a one-element
+   tensor in graph replay), one decode step (Program call plus the cache carry) at 4096 and 32768 rows
    and the decode layer, each from an idle card (median of 20); time
    decode_gemv, rglru_scan and htree_reduce at phase 3g's inputs, beside
    their bounds, plain versions and, for the int32 H-tree, ``torch.sum`` in
@@ -749,6 +758,123 @@ def attention_kernel_checks(torch, att, ref, smoke, dev, seed):
     # Pallas body's shifted restoring division wraps and gives 64
     if att._softmax_plain(equal_row, sigma).any():
         smoke.failures.append("softmax_fixedpoint: the plain version is not 0 on the equal 131072 row")
+    softmax_pv_edge_checks(torch, att, ref, smoke, dev, seed + 100)
+
+
+def softmax_path(att, x):
+    """The path of attention.softmax_plan for ``x``: rows, registers, loop;
+    with ``+element`` where the cluster path cannot take 16-byte access."""
+    plan = att.softmax_plan(*x.shape, x.element_size(), x.data_ptr())
+    if plan.cluster == 0:
+        return "rows"
+    return ("registers" if plan.regs else "loop") + ("" if plan.vec else "+element")
+
+
+def softmax_pv_edge_checks(torch, att, ref, smoke, dev, seed):
+    """Phase 2 for the softmax and p·V launch plans: each path at its edges
+    (every call held to the path its case names), a value cache one byte off
+    16-byte alignment, the p·V ticket through back-to-back calls of two
+    shapes and three CUDA-graph replays, and one device kernel a p·V call."""
+    g = torch.Generator().manual_seed(seed)
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    def i32(shape, lo=-2**20, hi=2**20):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+
+    def offset(x):  # a copy one element past the start of a buffer: off 16-byte alignment
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:] = x.to(dev).reshape(-1)
+        return buf[1:].view(x.shape)
+
+    lo, hi = -2**31, 2**31 - 1
+    sm_cases = [  # (case, path, scores, in_frac)
+        ("one query (1, 32768)", "registers", att._qk_plain(i8((1, 64)), i8((32768, 64))), 13),
+        ("T = 1", "rows", i32((1, 1)), 13),
+        ("T below a warp (3, 20)", "rows", i32((3, 20)), 13),
+        ("64 rows of T = 8", "rows", i32((64, 8)), 13),
+        ("widest rows-path rows (9, 512)", "rows", i32((9, 512)), 13),
+        ("cluster of one (3, 513)", "registers+element", i32((3, 513)), 13),
+        ("ragged (3, 4099)", "registers+element", i32((3, 4099)), 13),
+        ("registers full (1, 65536)", "registers", i32((1, 65536)), 13),
+        ("past the registers (2, 70000)", "loop", i32((2, 70000)), 13),
+        ("row of 2**20", "loop", i32((1, 2**20)), 13),
+        ("equal row (1, 131072)", "loop", torch.zeros((1, 131072), dtype=torch.int32), 13),
+        ("full range (2, 32768)", "registers", i32((2, 32768), lo, hi), 10),
+        ("int8 (2, 32768)", "registers", i8((2, 32768)), 5),
+        ("int8 past the registers (1, 70000)", "loop", i8((1, 70000)), 5),
+        ("int8 ragged (2, 4097)", "registers+element", i8((2, 4097)), 5),
+    ]
+    for case, path, x, in_frac in sm_cases:
+        sig = ref.softmax_sigma(in_frac)
+        for view, where in ((x.to(dev), ""), (offset(x), " off 16 bytes")):
+            if where and path == "rows":
+                continue
+            want_path = path if not where else path.split("+")[0] + "+element"
+            got_path = softmax_path(att, view)
+            if got_path != want_path:
+                smoke.failures.append(f"softmax_fixedpoint [{case}{where}]: took {got_path}, not {want_path}")
+            got = att._softmax(view, sig)
+            torch.cuda.synchronize()
+            smoke.check("softmax_fixedpoint", f"{want_path}: {case}{where}", got, att._softmax_plain(x, sig),
+                        exact=True)
+
+    pv_cases = [  # (case, packed, p, v, shift)
+        ("one query T = 32768", True, i32((1, 32768), 0, 64), i8((32768, 64)), 6),
+        ("two queries T = 32768", True, i32((2, 32768), 0, 64), i8((32768, 64)), 6),
+        ("9 queries, three groups", True, i32((9, 1000), 0, 64), i8((1000, 64)), 6),
+        ("T = 1", True, i32((1, 1), 0, 64), i8((1, 64)), 6),
+        ("T below a warp's rows", True, i32((2, 5), 0, 64), i8((5, 64)), 6),
+        ("T ragged 1000", True, i32((1, 1000), 0, 64), i8((1000, 64)), 6),
+        ("T ragged 32767", True, i32((1, 32767), 0, 64), i8((32767, 64)), 6),
+        ("int32 wrap shift 0", True, i32((2, 3000), lo, hi), i8((3000, 64)), 0),
+        ("int32 wrap shift 31", True, i32((2, 3000), lo, hi), i8((3000, 64)), 31),
+        ("int32 wrap shift 40", True, i32((2, 3000), lo, hi), i8((3000, 64)), 40),
+        ("Dv 16", True, i32((3, 777), 0, 64), i8((777, 16)), 6),
+        ("Dv 128", True, i32((5, 2048), 0, 64), i8((2048, 128)), 6),
+        ("Dv 256", True, i32((4, 999), 0, 64), i8((999, 256)), 6),
+        ("Dv 48", False, i32((2, 700), 0, 64), i8((700, 48)), 6),
+        ("Dv 300", False, i32((2, 400), 0, 64), i8((400, 300)), 6),
+        ("int32 v T = 32768", False, i32((1, 32768), 0, 64), i32((32768, 64)), 6),
+        ("int8 p and v", False, i8((3, 4096)), i8((4096, 64)), 2),
+    ]
+    for case, packed, pc, vc, shift in pv_cases:
+        views = [(pc.to(dev), vc.to(dev), "", packed)]
+        if packed:
+            views.append((pc.to(dev), offset(vc), " v off by one byte", False))
+        for dp, dv_, where, want in views:
+            plan = att.pv_plan(dp.shape[0], dp.shape[1], dv_.shape[1], dp.element_size(), dv_.element_size(),
+                               (dp.data_ptr(), dv_.data_ptr()))
+            path = "packed" if want else "generic"
+            if plan.packed != want:
+                smoke.failures.append(f"attention_pv [{case}{where}]: took the {'packed' if plan.packed else 'generic'} "
+                                      f"kernel, not the {path} one")
+            got = att._pv(dp, dv_, shift)
+            torch.cuda.synchronize()
+            smoke.check("attention_pv", f"{path}: {case}{where}", got, att._pv_plain(pc, vc, shift), exact=True)
+
+    # the ticket: two shapes back to back, then three replays of a captured call
+    (p1, v1), (p2, v2) = (i32((1, 32768), 0, 64), i8((32768, 64))), (i32((7, 999), 0, 64), i8((999, 64)))
+    d1, d2 = (p1.to(dev), v1.to(dev)), (p2.to(dev), v2.to(dev))
+    outs = [att._pv(*d1, 6), att._pv(*d2, 6)]
+    for (pc, vc), got, what in zip(((p1, v1), (p2, v2)), outs, ("first", "second")):
+        smoke.check("attention_pv", f"ticket: {what} of two calls back to back", got, att._pv_plain(pc, vc, 6),
+                    exact=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = att._pv(*d1, 6)
+    for i in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        smoke.check("attention_pv", f"ticket: graph replay {i + 1}", captured, att._pv_plain(p1, v1, 6), exact=True)
+    if int(att._pv_ticket(dev).item()) != 0:
+        smoke.failures.append("attention_pv: the ticket is not 0 after a launch")
+    # one device kernel a call (the profiler sees every kernel the call launches)
+    _, names, _ = device_profile(torch, lambda: att._pv(*d1, 6), 1)
+    if sum(c for c, _ in names.values()) != 1 or not any("pv_packed" in n for n in names):
+        smoke.failures.append(f"attention_pv: one call launched {sorted(names)} on the device, not one pv_packed")
 
 
 class AttentionRecorder:
@@ -1001,12 +1127,21 @@ def f32_gemm_timing(torch, conv, smoke, dev, seed):
     return row
 
 
-def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s):
+def launch_floor(torch, dev):
+    """The least device time of one launch on this card: one PyTorch op on
+    a one-element tensor (``x.add_(1)``) in CUDA-graph replay, the median of
+    5 readings (ms)."""
+    x = torch.zeros(1, dtype=torch.int32, device=dev)
+    return median(sorted(graph_ms(torch, lambda: x.add_(1)) for _ in range(5)))
+
+
+def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s, floor_ms):
     """Phase 4 for the attention kernels: each at the serving path's inputs
     of its T = 32768 request (checked once more against its plain version),
-    CUDA-graph and eager ms, the plain version (on the card where PyTorch
-    has the ops, else on the CPU), the library call where there is one, and
-    the bound from this call's bytes and operations."""
+    CUDA-graph ms warm and with the inputs cold in L2, eager ms, the plain
+    version (on the card where PyTorch has the ops, else on the CPU), the
+    library call where there is one, the bound from this call's bytes and
+    operations, and the launch floor beside them."""
     sigma = ref.softmax_sigma(DECODE_CFG["score_frac"])
     run = {"attention_qk": att._qk, "softmax_fixedpoint": lambda x: att._softmax(x, sigma),
            "attention_pv": lambda p, v: att._pv(p, v, ref.SOFTMAX_F), "kv_append": att._kv_append}
@@ -1026,6 +1161,7 @@ def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s):
         err = smoke.check(kernel, f"serving path T={DECODE_CAPACITY} call", run[kernel](*args),
                           plain[kernel](*cpu_args), exact=True)
         k_ms = graph_ms(torch, lambda: run[kernel](*args))
+        k_cold = cold_timer(torch, run[kernel], args)()
         k_eager = cuda_ms(torch, lambda: run[kernel](*args))
         if kernel in plain_on_card:
             p_ms = graph_ms(torch, lambda: plain[kernel](*args))
@@ -1061,16 +1197,18 @@ def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s):
                 (c["max_abs_err"] or 0.0) for c in smoke.cases if c["kernel"] == kernel),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
             "bound_by": "operations" if b_ops > b_bytes else "bytes", "library_ms": lib_ms,
-            "eager_ms": k_eager, "plain_device": "cuda" if kernel in plain_on_card else "cpu",
+            "eager_ms": k_eager, "cold_ms": k_cold, "launch_floor_ms": floor_ms,
+            "plain_device": "cuda" if kernel in plain_on_card else "cpu",
             "library": "torch.where" if lib_ms is not None else None,
             "library_none_reason": ATTN_NO_LIBRARY.get(kernel),
             "launches_per_step": STEP_LAUNCHES[kernel], "main_path_max_abs_err": err,
             "shapes": [list(a.shape) for a in args], "dtypes": [str(a.dtype) for a in args],
             "bytes": nbytes, "ops": ops,
         })
-        print(f"kernel {kernel}: {k_ms * 1e3:.2f} us in graph replay ({k_eager * 1e3:.2f} us eager; bound "
-              f"{max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
-              f"{max(b_bytes, b_ops) / k_ms:.1%}) at {rows[-1]['shapes']}; plain {p_ms:.4f} ms on "
+        print(f"kernel {kernel}: {k_ms * 1e3:.2f} us in graph replay ({k_cold * 1e3:.2f} us cold, {k_eager * 1e3:.2f} "
+              f"us eager; bound {max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
+              f"{max(b_bytes, b_ops) / k_ms:.1%}; {k_ms / floor_ms:.2f}x the launch floor) at "
+              f"{rows[-1]['shapes']}; plain {p_ms:.4f} ms on "
               f"{rows[-1]['plain_device']}; library {lib_ms}; launches on the serving path "
               f"{rows[-1]['launches']}")
     return rows
@@ -1888,7 +2026,10 @@ def main() -> int:
 
     k1_rows = [decode_gemm_timing(torch, conv, smoke, layers[DECODE_CAPACITY], imad_per_s),
                f32_gemm_timing(torch, conv, smoke, dev, SEED + 12)]
-    attention_rows = attention_timing(torch, att, ref, smoke, serve_run, imad_per_s)
+    floor_ms = launch_floor(torch, dev)
+    print(f"launch floor: {floor_ms * 1e3:.3f} us a launch (x.add_(1) on one element, CUDA-graph replay, "
+          f"median of 5)")
+    attention_rows = attention_timing(torch, att, ref, smoke, serve_run, imad_per_s, floor_ms)
     for row in attention_rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in path_launches.items() if row["name"] in c}
     decode = decode_latency(torch, api, pimsab_step, dev, SEED + 7, layers[DECODE_CAPACITY])
@@ -1975,7 +2116,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda, "batch": BATCH,
-        "sm_count": sm_count, "max_sm_clock_hz": clock_hz, "forward_ms": fwd_ms,
+        "sm_count": sm_count, "max_sm_clock_hz": clock_hz, "launch_floor_ms": floor_ms, "forward_ms": fwd_ms,
         "forward_ms_p80": fwd_p80, "forward_ms_samples": fwd_samples,
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
         "path_launches": path_launches, "program": program_timing,
@@ -1999,7 +2140,7 @@ def main() -> int:
         print(f"FAIL kernels launched on no path: {off_path}", file=sys.stderr)
         return 1
     print(gpu)
-    print(json.dumps({"kernels": path, "registered_kernels": registered,
+    print(json.dumps({"kernels": path, "registered_kernels": registered, "launch_floor_ms": floor_ms,
                       "forward_ms": fwd_ms, "forward_ms_p80": fwd_p80, "batch": BATCH,
                       "copies_per_forward": profile_summary["copies_per_forward"] if by_name else None,
                       "path_launches": path_launches,

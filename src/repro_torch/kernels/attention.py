@@ -16,11 +16,13 @@ its plain version for CPU tensors:
 
 Operands are int8 or int32 (the selector also bool); int8 operands reach
 the kernels as int8 and are widened in registers.  Everything is integer:
-int32 arithmetic wraps, every ``>>`` is arithmetic.
+int32 arithmetic wraps, every ``>>`` is arithmetic.  The softmax and p·V
+kernels take launch plans computed here (:func:`softmax_plan`,
+:func:`pv_plan`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,10 +32,114 @@ from repro_torch.kernels.api import count_launch, kernel_device, register_kernel
 # the card's element types: int8 (and bool, for the selector) as 1 byte, int32 as 4
 _BYTES = {torch.int8: 1, torch.int32: 4}
 _SEL_BYTES = {**_BYTES, torch.bool: 1}
-# cache rows per block of the p·V partial pass
-PV_CHUNK = 256
 # a row sum of exponentials (each at most 2^F) fits int32 below this many columns
 SOFTMAX_MAX_COLS = 1 << (31 - ref.SOFTMAX_F)
+
+# csrc/attention.cu's softmax constants
+SOFTMAX_ROW_WARPS = 8         # SM_ROW_WARPS: rows path, a warp a row
+SOFTMAX_CLUSTER_THREADS = 256  # SMC_THREADS: threads of a cluster-path block
+SOFTMAX_CLUSTER_ELEMS = 16    # SMC_ELEMS: scores a thread keeps in registers
+SOFTMAX_MAX_CLUSTER = 16      # SMC_MAX_CLUSTER: blocks of a row's cluster
+# rows up to this many columns take the rows kernel (a warp a row)
+SOFTMAX_ROW_MAX_COLS = 512
+# scores a cluster-path thread aims at: T = 32768 spreads over 16 blocks
+SOFTMAX_TARGET_ELEMS = 8
+SOFTMAX_MAX_GRID_Y = 65535    # rows of clusters in flight (grid y)
+
+# csrc/attention.cu's p·V constants
+PV_THREADS = 256        # PV_THREADS
+PV_UNROLL = 4           # PV_UNROLL: value rows a packed-path thread has in flight
+PV_MAX_GROUP = 4        # PV_MAX_GROUP: queries a block accumulates
+PV_PACKED_MAX_DV = 256  # PV_PACKED_MAX_DV
+# blocks along T the plan aims at: one per SM of an H100
+PV_TARGET_BLOCKS = 132
+
+
+class SoftmaxPlan(NamedTuple):
+    """Launch plan of the fixed-point softmax of ``csrc/attention.cu``."""
+
+    cluster: int           # blocks of a row's cluster; 0: the rows kernel, a warp a row
+    chunks_per_block: int  # 16-byte chunks of the row a cluster block takes
+    regs: bool             # the chunks stay in registers (else re-read from L2)
+    vec: bool              # 16-byte loads and stores
+    blocks: int            # rows path: blocks; cluster path: rows in flight (grid y)
+
+
+def softmax_plan(r: int, t: int, x_bytes: int, ptr: int) -> SoftmaxPlan:
+    """Launch plan of the softmax of a contiguous ``(r, t)`` matrix of
+    ``x_bytes``-byte scores (1 or 4) at address ``ptr``.
+
+    Rows of at most SOFTMAX_ROW_MAX_COLS columns take a warp each,
+    SOFTMAX_ROW_WARPS rows a block.  A longer row takes a thread-block
+    cluster: its 16-byte chunks (4 int32 or 16 int8 scores) split over
+    ``cluster`` blocks, as many as give a thread about SOFTMAX_TARGET_ELEMS
+    scores and at most SOFTMAX_MAX_CLUSTER; ``regs`` when a block's chunks
+    fit its threads' registers (SOFTMAX_CLUSTER_ELEMS scores a thread), else
+    each pass loops over them.  ``vec`` (16-byte loads and stores) needs a
+    16-byte aligned base and ``t`` a multiple of a chunk."""
+    if t <= SOFTMAX_ROW_MAX_COLS:
+        return SoftmaxPlan(0, 0, False, False, max(1, -(-r // SOFTMAX_ROW_WARPS)))
+    per_chunk = 16 // x_bytes
+    chunks = -(-t // per_chunk)
+    cluster = min(SOFTMAX_MAX_CLUSTER, max(1, -(-t // (SOFTMAX_CLUSTER_THREADS * SOFTMAX_TARGET_ELEMS))))
+    per_block = -(-chunks // cluster)
+    cluster = -(-chunks // per_block)
+    regs = per_block <= SOFTMAX_CLUSTER_THREADS * (SOFTMAX_CLUSTER_ELEMS // per_chunk)
+    vec = ptr % 16 == 0 and t % per_chunk == 0
+    return SoftmaxPlan(cluster, per_block, regs, vec, min(r, SOFTMAX_MAX_GRID_Y))
+
+
+class PvPlan(NamedTuple):
+    """Launch plan of the p·V kernel of ``csrc/attention.cu``."""
+
+    packed: bool         # the packed kernel (16-byte value loads, every thread on a row)
+    group: int           # queries a block accumulates (1, 2 or 4); grid y takes the groups
+    rows_per_step: int   # rows of T a block's threads cover at once
+    rows_per_block: int  # rows of T a block takes, a multiple of rows_per_step
+    blocks: int          # grid x: blocks along T, each writing one row of partial sums
+    npad: int            # words of a block's partial sums: m·dv rounded up to 4
+
+
+def pv_plan(m: int, t: int, dv: int, p_bytes: int, v_bytes: int, ptrs: Tuple[int, int]) -> PvPlan:
+    """Launch plan of ``(m, t) · (t, dv)`` for contiguous ``p_bytes``- and
+    ``v_bytes``-byte operands (1 or 4) at addresses ``ptrs = (p, v)``.
+
+    The packed kernel takes int32 p and int8 v whose rows split into 16-byte
+    pieces, ``dv // 16`` of them dividing a warp's 32 lanes (dv 16 to
+    PV_PACKED_MAX_DV), v 16-byte aligned: a block then covers PV_THREADS //
+    (dv // 16) rows at a step, every thread on one.  The generic kernel
+    takes the rest: PV_THREADS // min(dv, PV_THREADS) rows at a step, a
+    thread a column.  A block accumulates ``group`` queries (1, 2, else
+    PV_MAX_GROUP); T is split into as many steps a block as leave about
+    PV_TARGET_BLOCKS blocks."""
+    _, v_ptr = ptrs
+    lanes = dv // 16
+    packed = (p_bytes == 4 and v_bytes == 1 and dv % 16 == 0 and 0 < dv <= PV_PACKED_MAX_DV
+              and 32 % lanes == 0 and v_ptr % 16 == 0)
+    group = m if m <= 2 else PV_MAX_GROUP
+    rows_per_step = PV_THREADS // lanes if packed else PV_THREADS // min(dv, PV_THREADS)
+    steps = -(-t // rows_per_step)
+    per_block = max(1, -(-steps // PV_TARGET_BLOCKS))
+    blocks = max(1, -(-steps // per_block))
+    return PvPlan(packed, group, rows_per_step, per_block * rows_per_step, blocks, -(-(m * dv) // 4) * 4)
+
+
+# the p·V kernel's ticket, one per device: a zeroed int32 that every launch
+# leaves at zero.  Allocated at the device's first eager call, before any
+# graph capture; serves one stream at a time.
+_pv_tickets: Dict[int, torch.Tensor] = {}
+
+
+def _pv_ticket(dev: torch.device) -> torch.Tensor:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    ticket = _pv_tickets.get(index)
+    if ticket is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("attention_pv allocates its ticket at its first eager call on a device: "
+                               "call it once before capturing a CUDA graph")
+        ticket = torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", index))
+        _pv_tickets[index] = ticket
+    return ticket
 
 
 def _elem_bytes(t: torch.Tensor, table=_BYTES) -> int:
@@ -103,14 +209,17 @@ def _softmax(x: torch.Tensor, sigma: int) -> torch.Tensor:
     out = torch.empty((r, t), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    _build.launch("softmax_fixedpoint", dev, x.data_ptr(), out.data_ptr(), r, t, sigma, xb)
+    plan = softmax_plan(r, t, xb, x.data_ptr())
+    _build.launch("softmax_fixedpoint", dev, x.data_ptr(), out.data_ptr(), r, t, sigma, xb, plan.cluster,
+                  plan.chunks_per_block, int(plan.regs), int(plan.vec), plan.blocks)
     count_launch("softmax_fixedpoint")
     return out
 
 
 def _pv(p: torch.Tensor, v: torch.Tensor, shift: int) -> torch.Tensor:
     """``(p (M, T) · v (T, Dv)) >> shift → (M, Dv)`` int32; the CUDA kernel
-    for CUDA tensors."""
+    for CUDA tensors, one launch that ends on the device's ticket
+    (:func:`_pv_ticket`), so calls on one device go to one stream at a time."""
     dev = kernel_device(p, v)
     if dev.type == "cpu":
         return _pv_plain(p, v, shift)
@@ -123,14 +232,16 @@ def _pv(p: torch.Tensor, v: torch.Tensor, shift: int) -> torch.Tensor:
         return out
     if t == 0:
         return out.zero_()
-    chunks = -(-t // PV_CHUNK)
-    _index_range(chunks * m * dv)
-    partial = torch.empty((chunks, m, dv), dtype=torch.int32, device=dev)
+    plan = pv_plan(m, t, dv, pb, vb, (p.data_ptr(), v.data_ptr()))
+    _index_range(plan.blocks * plan.npad)
+    partial = torch.empty((plan.blocks, plan.npad), dtype=torch.int32, device=dev)
+    ticket = _pv_ticket(dev)
     # a shift outside [0, 31] fills with the sign, as XLA and PyTorch do (C++
     # leaves it undefined): an arithmetic >> 31
     sh = shift if 0 <= shift <= 31 else 31
-    _build.launch("attention_pv", dev, p.data_ptr(), v.data_ptr(), partial.data_ptr(),
-                  out.data_ptr(), m, t, dv, PV_CHUNK, sh, pb, vb)
+    _build.launch("attention_pv", dev, p.data_ptr(), v.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
+                  out.data_ptr(), m, t, dv, sh, pb, vb, int(plan.packed), plan.group, plan.rows_per_block,
+                  plan.blocks, plan.npad)
     count_launch("attention_pv")
     return out
 

@@ -4,8 +4,8 @@
 //
 // Replaces the Pallas bodies of src/repro/kernels/attention.py:
 //   _qk_kernel (48, attention_qk)          → qk_* below
-//   _softmax_kernel (88, softmax_fixedpoint) → softmax_kernel
-//   _pv_kernel (145, attention_pv)          → pv_partial + pv_finalize
+//   _softmax_kernel (88, softmax_fixedpoint) → softmax_rows, softmax_cluster
+//   _pv_kernel (145, attention_pv)          → pv_packed, pv_generic
 //   _gemv_kernel (182, decode_gemv)         → gemv_*
 //   _kv_append_kernel (218, kv_append)      → kv_append_*
 // Each computes what the TPU kernel computes; the blocking is Hopper's own.
@@ -24,15 +24,30 @@
 //  * qk: a tall GEMV.  One thread per cache row, each row read once (16-byte
 //    loads when D % 16 == 0), up to 8 queries per thread accumulated with
 //    __dp4a on int8; the query words are broadcast reads that stay in L1.
-//  * softmax: one block per row, three passes (max, Σw, write), the row
-//    re-read from L1/L2.  The normaliser q = 2^(FI+F) // Σw is an exact
-//    integer floor division, as in the oracle: the Pallas body's restoring
-//    division shifts Σw left by up to FI bits in int32 and wraps once a row
-//    holds 2^17 near-equal scores.  With one row (M = 1) only one block runs.
-//  * pv: a reduction over a long T for only M·Dv outputs, so T is split into
-//    chunks, one block each, writing uint32 partial sums; a second kernel
-//    adds the partials (order-free mod 2^32, so bit-exact) and applies the
-//    shift to the full sum, never to a partial.
+//  * softmax: a row max, a sum of exponentials Σw and a write, with the
+//    normaliser q = 2^(FI+F) // Σw an exact integer floor division, as in the
+//    oracle (the Pallas body's restoring division shifts Σw left by up to FI
+//    bits in int32 and wraps once a row holds 2^17 near-equal scores).  The
+//    decode step has one row of T = 32768, which one block on one SM would
+//    walk alone, so a long row (attention.softmax_plan) gets a thread-block
+//    cluster of up to 16 blocks on 16 SMs: each block loads its slice with
+//    16-byte loads into registers, and the max, then Σw, are reduced by warp
+//    shuffles and through the cluster's distributed shared memory, one
+//    cluster barrier each (both order-free: a max and a uint32 sum, so
+//    bit-exact).  Each
+//    exponential is computed once and written with 16-byte stores.  A row
+//    longer than the cluster's registers hold loops over its slices and
+//    recomputes from L2; short rows take a warp each, 8 rows a block.
+//  * pv: a reduction over a long T for only M·Dv outputs.  One launch
+//    (attention.pv_plan): blocks split T, and on the packed path (int32 p,
+//    int8 v, Dv/16 dividing 32, v 16-byte aligned) every thread loads 16
+//    columns of a value row at a time, 4 rows in flight, for up to 4 queries
+//    in registers; a block reduces across a warp's rows by shuffles and
+//    across warps in shared memory and writes uint32 partial sums.  The last
+//    block to take the launch's ticket adds every block's partials
+//    (order-free mod 2^32, so bit-exact), applies the shift once to the full
+//    sum, never to a partial, and returns the ticket to zero.  Every other
+//    operand mix takes the generic kernel, which ends the same way.
 //  * decode_gemv: (M, K) weights × (K,) activation, a GEMV bound by the
 //    weight bytes (Qwen2-0.5B's tied LM head, (151936, 896) int8, moves
 //    136.1 MB: 40.6 µs).  One warp per output row, its lanes on neighbouring
@@ -45,7 +60,11 @@
 //    tensor (Programs replay the append, so the input is never written).
 //    Every nonzero selector entry is honoured.  int8 caches go 16 bytes a
 //    thread when D % 16 == 0.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -59,6 +78,18 @@ __device__ __forceinline__ uint32_t widen(T v) {
 }
 
 __device__ __forceinline__ int32_t as_i32(uint32_t v) { return static_cast<int32_t>(v); }
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int32_t warp_max(int32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
 // ---------------------------------------------------------------------------
 // attention_qk: out (M, T) = q (M, D) · k (T, D)ᵀ
@@ -142,7 +173,12 @@ bool aligned(const void* p, size_t bytes) {
 // softmax_fixedpoint: out (R, T) int32 probabilities with F fraction bits
 // ---------------------------------------------------------------------------
 
-constexpr int SM_THREADS = 512;
+constexpr int SM_ROW_WARPS = 8;      // rows path: a warp a row, 8 rows a block
+constexpr int SMC_THREADS = 256;     // cluster path: threads of a block
+constexpr int SMC_WARPS = SMC_THREADS / 32;
+constexpr int SMC_ELEMS = 16;        // cluster path: scores a thread keeps in registers
+constexpr int SMC_MAX_CLUSTER = 16;  // blocks of a row's cluster (above 8: non-portable)
+constexpr int SMC_PORTABLE_CLUSTER = 8;
 
 // The unnormalized exponential of one score, in the oracle's int32 recipe.
 // `lo` is the clamp bound -2^(F+sigma) (the host keeps F + sigma <= 31).
@@ -166,40 +202,214 @@ __device__ __forceinline__ int32_t floor_div(int32_t n, int32_t s) {
   return static_cast<int32_t>(q * s == n ? q : q - 1);
 }
 
+__device__ __forceinline__ int32_t softmax_out(int32_t w, int32_t qn) {
+  return as_i32(static_cast<uint32_t>(w) * static_cast<uint32_t>(qn)) >> FI;
+}
+
+// Short rows: a warp a row, three passes over it (max, Σw, write), the row
+// re-read from L1.
 template <typename TX>
-__global__ void __launch_bounds__(SM_THREADS)
-softmax_kernel(const TX* __restrict__ x, int32_t* __restrict__ out, int t, int sigma, int lo) {
-  __shared__ int32_t red[SM_THREADS];
-  const TX* xr = x + static_cast<size_t>(blockIdx.x) * t;
-  int32_t* orow = out + static_cast<size_t>(blockIdx.x) * t;
-  const int tid = threadIdx.x;
-
+__global__ void __launch_bounds__(32 * SM_ROW_WARPS)
+softmax_rows(const TX* __restrict__ x, int32_t* __restrict__ out, int r, int t, int sigma, int lo) {
+  const int row = blockIdx.x * SM_ROW_WARPS + (threadIdx.x >> 5);
+  if (row >= r) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const TX* xr = x + static_cast<size_t>(row) * t;
+  int32_t* orow = out + static_cast<size_t>(row) * t;
   int32_t mx = INT32_MIN;
-  for (int j = tid; j < t; j += SM_THREADS) mx = max(mx, static_cast<int32_t>(xr[j]));
-  red[tid] = mx;
-  __syncthreads();
-  for (int h = SM_THREADS / 2; h > 0; h >>= 1) {
-    if (tid < h) red[tid] = max(red[tid], red[tid + h]);
-    __syncthreads();
-  }
-  mx = red[0];
-  __syncthreads();
-
+  for (int j = lane; j < t; j += 32) mx = max(mx, static_cast<int32_t>(xr[j]));
+  mx = warp_max(mx);
   uint32_t s = 0u;
-  for (int j = tid; j < t; j += SM_THREADS)
+  for (int j = lane; j < t; j += 32)
     s += static_cast<uint32_t>(softmax_w(static_cast<int32_t>(xr[j]), mx, sigma, lo));
-  red[tid] = as_i32(s);
-  __syncthreads();
-  for (int h = SM_THREADS / 2; h > 0; h >>= 1) {
-    if (tid < h) red[tid] = as_i32(static_cast<uint32_t>(red[tid]) + static_cast<uint32_t>(red[tid + h]));
-    __syncthreads();
-  }
-  const int32_t qn = floor_div(1 << (FI + F), red[0]);
+  const int32_t qn = floor_div(1 << (FI + F), as_i32(warp_sum(s)));
+  for (int j = lane; j < t; j += 32) orow[j] = softmax_out(softmax_w(static_cast<int32_t>(xr[j]), mx, sigma, lo), qn);
+}
 
-  for (int j = tid; j < t; j += SM_THREADS) {
-    const int32_t w = softmax_w(static_cast<int32_t>(xr[j]), mx, sigma, lo);
-    orow[j] = as_i32(static_cast<uint32_t>(w) * static_cast<uint32_t>(qn)) >> FI;
+// A 16-byte chunk of a row, widened: 4 int32 or 16 int8 scores.
+__device__ __forceinline__ void unpack(const int4 raw, int32_t (&v)[4]) {
+  v[0] = raw.x;
+  v[1] = raw.y;
+  v[2] = raw.z;
+  v[3] = raw.w;
+}
+
+__device__ __forceinline__ int32_t sbyte(int32_t word, int k) {  // signed byte k of a word
+  return as_i32(static_cast<uint32_t>(word) << (24 - 8 * k)) >> 24;
+}
+
+__device__ __forceinline__ void unpack(const int4 raw, int32_t (&v)[16]) {
+  const int32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = sbyte(w[k >> 2], k & 3);
+}
+
+// Chunk c of a row: one 16-byte load when `vec` (the row 16-byte aligned,
+// T a multiple of a chunk), else element loads, INT32_MIN past the row's end.
+template <typename TX, int VEC>
+__device__ __forceinline__ void load_chunk(const TX* __restrict__ xr, int c, int t, int vec, int32_t (&v)[VEC]) {
+  if (vec) {
+    unpack(__ldg(reinterpret_cast<const int4*>(xr) + c), v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) v[k] = c * VEC + k < t ? static_cast<int32_t>(xr[c * VEC + k]) : INT32_MIN;
   }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_chunk(int32_t* __restrict__ orow, int c, int t, int vec, const int32_t (&o)[VEC]) {
+  if (vec) {
+    int4* dst = reinterpret_cast<int4*>(orow + static_cast<size_t>(c) * VEC);
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) dst[q] = make_int4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      if (c * VEC + k < t) orow[c * VEC + k] = o[k];
+  }
+}
+
+// One value a thread → its max (MAX) or uint32 sum over the whole cluster,
+// returned to every thread: warp shuffles; each warp's result stored into
+// slot rank · SMC_WARPS + warp of `slots` in every block of the cluster
+// (distributed shared memory); one cluster barrier; then every warp reduces
+// its own block's copy.  No block reads another's shared memory, so none
+// waits for the others at its end.  A row takes one `slots` array per
+// reduction: a block writes a reduction's array again only after the row's
+// next barrier, which every block reaches after it has read that array.
+template <bool MAX>
+__device__ __forceinline__ int32_t cluster_reduce(int32_t v, int32_t* slots, cg::cluster_group& cluster) {
+  const int lane = threadIdx.x & 31;
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  v = MAX ? warp_max(v) : as_i32(warp_sum(static_cast<uint32_t>(v)));
+  if (lane < blocks)
+    *cluster.map_shared_rank(slots + cluster.block_rank() * SMC_WARPS + (threadIdx.x >> 5), lane) = v;
+  cluster.sync();
+  int32_t acc = MAX ? INT32_MIN : 0;
+  for (int i = lane; i < blocks * SMC_WARPS; i += 32)
+    acc = MAX ? max(acc, slots[i]) : as_i32(static_cast<uint32_t>(acc) + static_cast<uint32_t>(slots[i]));
+  return MAX ? warp_max(acc) : as_i32(warp_sum(static_cast<uint32_t>(acc)));
+}
+
+// Long rows: a cluster of gridDim.x blocks a row (row blockIdx.y, then every
+// gridDim.y-th), block rank b on the 16-byte chunks [b·cpb, (b+1)·cpb) of it,
+// chunk c + k·SMC_THREADS to thread c.  REGS: a thread keeps its scores, then
+// their exponentials, in registers (at most SMC_ELEMS); else each pass
+// re-reads its chunks (from L2) and the write recomputes the exponentials.
+template <typename TX, bool REGS>
+__global__ void __launch_bounds__(SMC_THREADS)
+softmax_cluster(const TX* __restrict__ x, int32_t* __restrict__ out, int r, int t, int sigma, int lo, int vec,
+                int chunks_per_block) {
+  constexpr int VEC = 16 / sizeof(TX);
+  constexpr int NV = REGS ? SMC_ELEMS / VEC : 1;
+  __shared__ int32_t max_slots[SMC_MAX_CLUSTER * SMC_WARPS];  // every warp's max, from every block
+  __shared__ int32_t sum_slots[SMC_MAX_CLUSTER * SMC_WARPS];  // and its Σw
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nchunks = (t + VEC - 1) / VEC;
+  const int c0 = static_cast<int>(cluster.block_rank()) * chunks_per_block + threadIdx.x;
+  const int c1 = min(nchunks, static_cast<int>(cluster.block_rank()) * chunks_per_block + chunks_per_block);
+  for (int row = blockIdx.y; row < r; row += gridDim.y) {
+    const TX* xr = x + static_cast<size_t>(row) * t;
+    int32_t* orow = out + static_cast<size_t>(row) * t;
+    int32_t v[NV][VEC];
+    int32_t mx = INT32_MIN;
+    if constexpr (REGS) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int c = c0 + k * SMC_THREADS;
+        if (c < c1) {
+          load_chunk<TX, VEC>(xr, c, t, vec, v[k]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) v[k][e] = INT32_MIN;
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) mx = max(mx, v[k][e]);
+      }
+    } else {
+      for (int c = c0; c < c1; c += SMC_THREADS) {
+        load_chunk<TX, VEC>(xr, c, t, vec, v[0]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) mx = max(mx, v[0][e]);
+      }
+    }
+    mx = cluster_reduce<true>(mx, max_slots, cluster);
+
+    uint32_t s = 0u;
+    if constexpr (REGS) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int c = c0 + k * SMC_THREADS;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          v[k][e] = softmax_w(v[k][e], mx, sigma, lo);
+          if (c < c1 && c * VEC + e < t) s += static_cast<uint32_t>(v[k][e]);
+        }
+      }
+    } else {
+      for (int c = c0; c < c1; c += SMC_THREADS) {
+        load_chunk<TX, VEC>(xr, c, t, vec, v[0]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (c * VEC + e < t) s += static_cast<uint32_t>(softmax_w(v[0][e], mx, sigma, lo));
+      }
+    }
+    const int32_t qn = floor_div(1 << (FI + F), cluster_reduce<false>(as_i32(s), sum_slots, cluster));
+
+    int32_t o[VEC];
+    if constexpr (REGS) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int c = c0 + k * SMC_THREADS;
+        if (c < c1) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[e] = softmax_out(v[k][e], qn);
+          store_chunk<VEC>(orow, c, t, vec, o);
+        }
+      }
+    } else {
+      for (int c = c0; c < c1; c += SMC_THREADS) {
+        load_chunk<TX, VEC>(xr, c, t, vec, v[0]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) o[e] = softmax_out(softmax_w(v[0][e], mx, sigma, lo), qn);
+        store_chunk<VEC>(orow, c, t, vec, o);
+      }
+    }
+  }
+}
+
+// A cluster launch of softmax_cluster<TX, REGS> (cudaLaunchKernelEx with a
+// cluster-dimension attribute); a cluster above 8 blocks opts in to the
+// non-portable size once per instance.
+template <typename TX, bool REGS>
+int launch_softmax_cluster(cudaStream_t s, const void* x, void* out, int r, int t, int sigma, int lo, int vec,
+                           int chunks_per_block, int cluster, int rows) {
+  void (*kernel)(const TX*, int32_t*, int, int, int, int, int, int) = softmax_cluster<TX, REGS>;
+  static bool opted_in = false;
+  if (cluster > SMC_PORTABLE_CLUSTER && !opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, rows, 1);
+  cfg.blockDim = dim3(SMC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TX*>(x), static_cast<int32_t*>(out), r,
+                                           t, sigma, lo, vec, chunks_per_block);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: the status is returned here
+    return static_cast<int>(e);
+  }
+  return REPRO_LAUNCH_STATUS();
 }
 
 // ---------------------------------------------------------------------------
@@ -207,42 +417,202 @@ softmax_kernel(const TX* __restrict__ x, int32_t* __restrict__ out, int t, int s
 // ---------------------------------------------------------------------------
 
 constexpr int PV_THREADS = 256;
-constexpr int FIN_THREADS = 256;
+constexpr int PV_WARPS = PV_THREADS / 32;
+constexpr int PV_UNROLL = 4;           // value rows a packed-path thread loads before it multiplies
+constexpr int PV_MAX_GROUP = 4;        // queries a block accumulates (blockIdx.y picks the group)
+constexpr int PV_PACKED_MAX_DV = 256;  // packed path: Dv / 16 threads a row, dividing 32
 
-template <typename TP, typename TV>
-__global__ void __launch_bounds__(PV_THREADS)
-pv_partial(const TP* __restrict__ p, const TV* __restrict__ v, uint32_t* __restrict__ partial,
-           int m, int t, int dv, int chunk) {
-  const int t0 = blockIdx.x * chunk;
-  const int t1 = min(t, t0 + chunk);
-  const int n = m * dv;
-  uint32_t* part = partial + static_cast<size_t>(blockIdx.x) * n;
-  for (int idx = threadIdx.x; idx < n; idx += PV_THREADS) {
-    const int mi = idx / dv, j = idx % dv;
-    const TP* pr = p + static_cast<size_t>(mi) * t;
-    uint32_t acc = 0u;
-    for (int r = t0; r < t1; ++r) acc += widen(pr[r]) * widen(v[static_cast<size_t>(r) * dv + j]);
-    part[idx] = acc;
+struct PvArgs {
+  const void* p;
+  const void* v;
+  uint32_t* partial;     // blocks along T × npad words
+  unsigned int* ticket;  // 0 at every launch's start and end
+  int32_t* out;
+  int m, t, dv;
+  int rows_per_block;
+  int npad;  // M·Dv rounded up to a multiple of 4
+  int shift;
+};
+
+// Takes a ticket: an atomic add of 1 at device scope with acquire-release
+// order, so that the block's writes before it (ordered by a block barrier)
+// are visible to whoever takes a later ticket, and the earlier takers'
+// writes to this thread (a cheaper fence than __threadfence's sequential
+// consistency).
+__device__ __forceinline__ unsigned int ticket_acq_rel(unsigned int* ticket) {
+  unsigned int old;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;\n" : "=r"(old) : "l"(ticket) : "memory");
+  return old;
+}
+
+// The launch's last step.  Every block has written its uint32 partial sums
+// (row blockIdx.x of `partial`); the last block to take the ticket adds the
+// rows, mod 2^32 in any order, applies the arithmetic shift to the full sums,
+// writes out and sets the ticket back to 0.  The ticket is the wrapper's, one
+// per device, and serves one stream at a time.
+__device__ void pv_finish(const PvArgs& a) {
+  __shared__ bool last;
+  __shared__ uint4 red[PV_THREADS];
+  const int tid = threadIdx.x;
+  __syncthreads();  // the block's partials are written
+  if (tid == 0)     // release them (with the barrier, for the whole block); acquire the others'
+    last = ticket_acq_rel(a.ticket) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  const int nq = a.npad / 4, n = a.m * a.dv;
+  const uint4* part = reinterpret_cast<const uint4*>(a.partial);
+  const int lanes = nq < PV_THREADS ? PV_THREADS / nq : 1;  // threads adding one quad of outputs
+  const int per_round = PV_THREADS / lanes;
+  for (int base = 0; base < nq; base += per_round) {
+    const int q = base + tid % per_round, g = tid / per_round;
+    uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+    if (q < nq && g < lanes) {
+#pragma unroll 4
+      for (int b = g; b < static_cast<int>(gridDim.x); b += lanes) {
+        const uint4 w = __ldcg(part + static_cast<size_t>(b) * nq + q);  // from L2: other SMs wrote it
+        acc.x += w.x;
+        acc.y += w.y;
+        acc.z += w.z;
+        acc.w += w.w;
+      }
+    }
+    red[tid] = acc;
+    __syncthreads();
+    if (g == 0 && q < nq) {
+      for (int j = 1; j < lanes; ++j) {
+        const uint4 w = red[tid + j * per_round];
+        acc.x += w.x;
+        acc.y += w.y;
+        acc.z += w.z;
+        acc.w += w.w;
+      }
+      const uint32_t sums[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * q + e < n) a.out[4 * q + e] = as_i32(sums[e]) >> a.shift;
+    }
+    __syncthreads();
   }
+  if (tid == 0) *a.ticket = 0u;
 }
 
-__global__ void __launch_bounds__(FIN_THREADS)
-pv_finalize(const uint32_t* __restrict__ partial, int32_t* __restrict__ out, int n, int chunks,
-            int shift) {
-  const int idx = blockIdx.x * FIN_THREADS + threadIdx.x;
-  if (idx >= n) return;
-  uint32_t acc = 0u;
-  for (int c = 0; c < chunks; ++c) acc += partial[static_cast<size_t>(c) * n + idx];
-  out[idx] = as_i32(acc) >> shift;
+// int32 p, int8 v, Dv / 16 dividing 32, v 16-byte aligned: a thread takes 16
+// columns of a value row (one 16-byte load), Dv / 16 threads a row, so a
+// block covers PV_THREADS / (Dv / 16) rows at a step with every thread busy;
+// PV_UNROLL rows are in flight before any is multiplied.  G queries
+// (from blockIdx.y · G) are accumulated in registers.
+template <int G>
+__global__ void __launch_bounds__(PV_THREADS) pv_packed(const PvArgs a) {
+  __shared__ uint32_t warp_part[PV_WARPS][G * PV_PACKED_MAX_DV];
+  const int32_t* p = static_cast<const int32_t*>(a.p);
+  const int4* v16 = static_cast<const int4*>(a.v);
+  const int lanes = a.dv >> 4;                // threads a row
+  const int c = threadIdx.x & (lanes - 1);    // this thread's 16 columns
+  const int step = PV_THREADS / lanes;        // rows a block covers at once
+  const int m0 = blockIdx.y * G, mg = min(G, a.m - m0);
+  const int r0 = blockIdx.x * a.rows_per_block, r1 = min(a.t, r0 + a.rows_per_block);
+  uint32_t acc[G][16];
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[i][e] = 0u;
+  for (int r = r0 + threadIdx.x / lanes; r < r1; r += PV_UNROLL * step) {
+    int4 vv[PV_UNROLL];
+    uint32_t pp[PV_UNROLL][G];
+#pragma unroll
+    for (int u = 0; u < PV_UNROLL; ++u) {
+      const int row = r + u * step;
+      const bool ok = row < r1;
+      vv[u] = ok ? __ldg(v16 + static_cast<size_t>(row) * lanes + c) : make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        pp[u][i] = ok && i < mg ? static_cast<uint32_t>(__ldg(p + static_cast<size_t>(m0 + i) * a.t + row)) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < PV_UNROLL; ++u) {
+      const int32_t w[4] = {vv[u].x, vv[u].y, vv[u].z, vv[u].w};
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const uint32_t ve = static_cast<uint32_t>(sbyte(w[e >> 2], e & 3));
+#pragma unroll
+        for (int i = 0; i < G; ++i) acc[i][e] += pp[u][i] * ve;
+      }
+    }
+  }
+  // across the warp's rows: the threads on the same columns are `lanes` apart
+  for (int o = lanes; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane < lanes) {  // lane == c: the warp's first row
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) warp_part[warp][i * a.dv + 16 * c + e] = acc[i][e];
+  }
+  __syncthreads();
+  // across the block's warps, into this block's partial sums
+  for (int idx = threadIdx.x; idx < mg * a.dv; idx += PV_THREADS) {
+    uint32_t s = 0u;
+#pragma unroll
+    for (int w = 0; w < PV_WARPS; ++w) s += warp_part[w][idx];
+    a.partial[static_cast<size_t>(blockIdx.x) * a.npad + static_cast<size_t>(m0) * a.dv + idx] = s;
+  }
+  pv_finish(a);
+}
+
+// Any int8/int32 mix, any Dv and alignment: a thread a column (column passes
+// when Dv > PV_THREADS) and PV_THREADS / min(Dv, PV_THREADS) threads a column,
+// each on every such row of the block's range; shared memory adds a column's
+// threads.  G queries as in pv_packed.
+template <typename TP, typename TV, int G>
+__global__ void __launch_bounds__(PV_THREADS) pv_generic(const PvArgs a) {
+  __shared__ uint32_t col_part[G][PV_THREADS];
+  const TP* p = static_cast<const TP*>(a.p);
+  const TV* v = static_cast<const TV*>(a.v);
+  const int cols = min(a.dv, PV_THREADS);
+  const int lanes = PV_THREADS / cols;  // threads on one column
+  const int j0 = threadIdx.x % cols, s = threadIdx.x / cols;
+  const int m0 = blockIdx.y * G, mg = min(G, a.m - m0);
+  const int r0 = blockIdx.x * a.rows_per_block, r1 = min(a.t, r0 + a.rows_per_block);
+  for (int jb = 0; jb < a.dv; jb += cols) {
+    const int j = jb + j0;
+    uint32_t acc[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) acc[i] = 0u;
+    if (s < lanes && j < a.dv) {
+      for (int r = r0 + s; r < r1; r += lanes) {
+        const uint32_t vv = widen(v[static_cast<size_t>(r) * a.dv + j]);
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+          if (i < mg) acc[i] += widen(p[static_cast<size_t>(m0 + i) * a.t + r]) * vv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) col_part[i][threadIdx.x] = acc[i];
+    __syncthreads();
+    if (s == 0 && j < a.dv) {
+      for (int i = 0; i < mg; ++i) {
+        uint32_t sum = 0u;
+        for (int l = 0; l < lanes; ++l) sum += col_part[i][j0 + l * cols];
+        a.partial[static_cast<size_t>(blockIdx.x) * a.npad + static_cast<size_t>(m0 + i) * a.dv + j] = sum;
+      }
+    }
+    __syncthreads();
+  }
+  pv_finish(a);
 }
 
 template <typename TP, typename TV>
-void launch_pv_partial(int chunks, cudaStream_t s, const void* p, const void* v, void* partial,
-                       int m, int t, int dv, int chunk) {
-  pv_partial<TP, TV><<<chunks, PV_THREADS, 0, s>>>(static_cast<const TP*>(p),
-                                                   static_cast<const TV*>(v),
-                                                   static_cast<uint32_t*>(partial), m, t, dv,
-                                                   chunk);
+void launch_pv_generic(int group, dim3 grid, cudaStream_t s, const PvArgs& a) {
+  if (group == 1)
+    pv_generic<TP, TV, 1><<<grid, PV_THREADS, 0, s>>>(a);
+  else if (group == 2)
+    pv_generic<TP, TV, 2><<<grid, PV_THREADS, 0, s>>>(a);
+  else
+    pv_generic<TP, TV, 4><<<grid, PV_THREADS, 0, s>>>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -252,12 +622,6 @@ void launch_pv_partial(int chunks, cudaStream_t s, const void* p, const void* v,
 constexpr int GEMV_WARPS = 8;
 constexpr int GEMV_THREADS = 32 * GEMV_WARPS;
 constexpr int GEMV_STAGE_BYTES = 48 * 1024;  // static shared memory a block may take unasked
-
-__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Any int8/int32 mix, any K, any alignment: element loads.  `stage`: copy x
 // into shared memory first (the host sets it when K elements fit).
@@ -392,39 +756,79 @@ extern "C" int attention_qk(const void* q, const void* k, void* out, int m, int 
 }
 
 // x (R, T) int8 or int32; out (R, T) int32.  0 <= sigma, sigma + F <= 31.
-extern "C" int softmax_fixedpoint(const void* x, void* out, int r, int t, int sigma, int x_bytes,
-                                  void* stream) {
+// The launch plan is attention.softmax_plan's: `cluster` 0 takes the rows
+// kernel over `blocks` blocks; else a cluster of `cluster` blocks a row
+// (cudaLaunchKernelEx), `blocks` rows at once (grid y), each block on
+// `chunks_per_block` 16-byte chunks of the row, read and written 16 bytes at
+// a time when `vec` (x and out 16-byte aligned, T a multiple of a chunk),
+// kept in registers when `regs`.
+extern "C" int softmax_fixedpoint(const void* x, void* out, int r, int t, int sigma, int x_bytes, int cluster,
+                                  int chunks_per_block, int regs, int vec, int blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int lo = sigma + F == 31 ? INT32_MIN : -(1 << (sigma + F));
+  if (cluster == 0) {
+    if (x_bytes == 1)
+      softmax_rows<int8_t><<<blocks, 32 * SM_ROW_WARPS, 0, s>>>(static_cast<const int8_t*>(x),
+                                                                static_cast<int32_t*>(out), r, t, sigma, lo);
+    else
+      softmax_rows<int32_t><<<blocks, 32 * SM_ROW_WARPS, 0, s>>>(static_cast<const int32_t*>(x),
+                                                                 static_cast<int32_t*>(out), r, t, sigma, lo);
+    return REPRO_LAUNCH_STATUS();
+  }
+  const int vec_elems = 16 / x_bytes;
+  const long long chunks = (static_cast<long long>(t) + vec_elems - 1) / vec_elems;
+  if (cluster < 0 || cluster > SMC_MAX_CLUSTER || blocks < 1 || blocks > 65535 || chunks_per_block < 1 ||
+      static_cast<long long>(cluster) * chunks_per_block < chunks ||
+      (vec && (t % vec_elems != 0 || !aligned(x, 16) || !aligned(out, 16))) ||
+      (regs && chunks_per_block > SMC_THREADS * (SMC_ELEMS / vec_elems)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (x_bytes == 1)
-    softmax_kernel<int8_t><<<r, SM_THREADS, 0, s>>>(static_cast<const int8_t*>(x),
-                                                    static_cast<int32_t*>(out), t, sigma, lo);
-  else
-    softmax_kernel<int32_t><<<r, SM_THREADS, 0, s>>>(static_cast<const int32_t*>(x),
-                                                     static_cast<int32_t*>(out), t, sigma, lo);
-  return REPRO_LAUNCH_STATUS();
+    return regs ? launch_softmax_cluster<int8_t, true>(s, x, out, r, t, sigma, lo, vec, chunks_per_block, cluster, blocks)
+                : launch_softmax_cluster<int8_t, false>(s, x, out, r, t, sigma, lo, vec, chunks_per_block, cluster,
+                                                        blocks);
+  return regs ? launch_softmax_cluster<int32_t, true>(s, x, out, r, t, sigma, lo, vec, chunks_per_block, cluster, blocks)
+              : launch_softmax_cluster<int32_t, false>(s, x, out, r, t, sigma, lo, vec, chunks_per_block, cluster,
+                                                       blocks);
 }
 
-// p (M, T), v (T, Dv): int8 or int32; one block per `chunk` rows of T,
-// each writing M·Dv words of `partial` (ceil(T / chunk)·M·Dv in all);
-// out (M, Dv) int32.  0 <= shift <= 31.
-extern "C" int attention_pv(const void* p, const void* v, void* partial, void* out, int m, int t,
-                            int dv, int chunk, int shift, int p_bytes, int v_bytes, void* stream) {
+// p (M, T), v (T, Dv): int8 or int32 (bytes 1 or 4), row-major; out (M, Dv)
+// int32.  The launch plan is attention.pv_plan's: the packed kernel or the
+// generic one, `group` queries a block (1, 2 or 4; grid y takes the groups),
+// `rows_per_block` rows of T a block and `blocks` blocks along T.
+// `partial` holds blocks × npad words (npad: M·Dv rounded up to a multiple
+// of 4; 16-byte aligned); `ticket` is a word that is 0 at every launch's
+// start and end.  0 <= shift <= 31.
+extern "C" int attention_pv(const void* p, const void* v, void* partial, void* ticket, void* out, int m, int t,
+                            int dv, int shift, int p_bytes, int v_bytes, int packed, int group, int rows_per_block,
+                            int blocks, int npad, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunks = (t + chunk - 1) / chunk;
-  const int n = m * dv;
-  if (p_bytes == 1 && v_bytes == 1)
-    launch_pv_partial<int8_t, int8_t>(chunks, s, p, v, partial, m, t, dv, chunk);
-  else if (p_bytes == 1)
-    launch_pv_partial<int8_t, int32_t>(chunks, s, p, v, partial, m, t, dv, chunk);
-  else if (v_bytes == 1)
-    launch_pv_partial<int32_t, int8_t>(chunks, s, p, v, partial, m, t, dv, chunk);
-  else
-    launch_pv_partial<int32_t, int32_t>(chunks, s, p, v, partial, m, t, dv, chunk);
-  const int status = REPRO_LAUNCH_STATUS();
-  if (status != 0) return status;
-  pv_finalize<<<(n + FIN_THREADS - 1) / FIN_THREADS, FIN_THREADS, 0, s>>>(
-      static_cast<const uint32_t*>(partial), static_cast<int32_t*>(out), n, chunks, shift);
+  const int lanes = dv / 16;
+  const bool packs = p_bytes == 4 && v_bytes == 1 && dv % 16 == 0 && dv <= PV_PACKED_MAX_DV && lanes > 0 &&
+                     32 % lanes == 0 && aligned(v, 16);
+  const int groups = group > 0 ? (m + group - 1) / group : 0;
+  if ((packed && !packs) || (group != 1 && group != 2 && group != PV_MAX_GROUP) || groups > 65535 ||
+      npad % 4 != 0 || npad < m * dv || !aligned(partial, 16) || blocks < 1 || rows_per_block < 1 ||
+      static_cast<long long>(blocks) * rows_per_block < t)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(blocks, groups);
+  const PvArgs a{p, v, static_cast<uint32_t*>(partial), static_cast<unsigned int*>(ticket),
+                 static_cast<int32_t*>(out), m, t, dv, rows_per_block, npad, shift};
+  if (packed) {
+    if (group == 1)
+      pv_packed<1><<<grid, PV_THREADS, 0, s>>>(a);
+    else if (group == 2)
+      pv_packed<2><<<grid, PV_THREADS, 0, s>>>(a);
+    else
+      pv_packed<PV_MAX_GROUP><<<grid, PV_THREADS, 0, s>>>(a);
+  } else if (p_bytes == 1 && v_bytes == 1) {
+    launch_pv_generic<int8_t, int8_t>(group, grid, s, a);
+  } else if (p_bytes == 1) {
+    launch_pv_generic<int8_t, int32_t>(group, grid, s, a);
+  } else if (v_bytes == 1) {
+    launch_pv_generic<int32_t, int8_t>(group, grid, s, a);
+  } else {
+    launch_pv_generic<int32_t, int32_t>(group, grid, s, a);
+  }
   return REPRO_LAUNCH_STATUS();
 }
 

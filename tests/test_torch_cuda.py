@@ -593,6 +593,21 @@ SOFTMAX = {
     "in_frac-28": lambda: (ints((2, 500), -2**30, 2**30, 20), 28),
     "full-range": lambda: (ints((4, 777), I32_MIN, I32_MAX, 21), 10),
     "int8-rows": lambda: (i8((5, 300), 22), 5),
+    # the cluster path's edges (attention.softmax_plan)
+    "one-query-T32768-frac13": lambda: (tatt._qk_plain(i8((1, 64), 120), i8((32768, 64), 121)), 13),
+    "T1": lambda: (ints((1, 1), -50, 50, 122), 13),
+    "T-below-a-warp": lambda: (ints((3, 20), -2**20, 2**20, 123), 13),
+    "64-rows-of-T8": lambda: (ints((64, 8), -2**16, 2**16, 124), 13),
+    "rows-path-widest-512": lambda: (ints((9, 512), -2**18, 2**18, 125), 13),
+    "cluster-of-one-T513": lambda: (ints((3, 513), -2**18, 2**18, 126), 13),
+    "cluster-ragged-T4099": lambda: (ints((3, 4099), -2**20, 2**20, 127), 13),
+    "registers-full-T65536": lambda: (ints((1, 65536), -2**20, 2**20, 128), 13),
+    "past-registers-T70000": lambda: (ints((2, 70000), -2**20, 2**20, 129), 13),
+    "row-2^20": lambda: (ints((1, 2**20), -2**20, 2**20, 130), 13),
+    "int8-long-rows": lambda: (i8((2, 32768), 131), 5),
+    "int8-past-registers": lambda: (i8((1, 70000), 132), 5),
+    "int8-ragged-long-row": lambda: (i8((2, 4097), 133), 5),
+    "full-range-long-rows": lambda: (ints((2, 32768), I32_MIN, I32_MAX, 134), 10),
 }
 
 
@@ -610,6 +625,19 @@ def test_softmax_kernel_matches_plain(card, case):
         assert not want.any()  # the oracle's exact divide, not the Pallas body's 64
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8])
+def test_softmax_kernel_reads_a_misaligned_row(card, dtype):
+    """A view 4 bytes (int32) or 1 byte (int8) off 16-byte alignment takes
+    the cluster path's element loads."""
+    x = ints((2, 8192), -2**20, 2**20, 135) if dtype == torch.int32 else i8((2, 8192), 136)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=card)
+    buf[1:] = x.to(card).reshape(-1)
+    view = buf[1:].view(2, 8192)
+    assert not tatt.softmax_plan(2, 8192, view.element_size(), view.data_ptr()).vec
+    sigma = tref.softmax_sigma(13)
+    assert torch.equal(tatt._softmax(view, sigma).cpu(), tatt._softmax_plain(x, sigma))
+
+
 # name → (p, v, shift)
 PV = {
     "gqa-7-T32768-shift6": lambda: (ints((7, 32768), 0, 64, 23), i8((32768, 64), 24), 6),
@@ -618,6 +646,25 @@ PV = {
     "negative-shift-minus1": lambda: (ints((2, 50), -1000, 1000, 29), ints((50, 3), -1000, 1000, 30), -1),
     "int32-wrap-shift31": lambda: (ints((2, 600), I32_MIN, I32_MAX, 31), ints((600, 6), I32_MIN, I32_MAX, 32), 31),
     "int8-p-T-ragged": lambda: (i8((2, 513), 33), i8((513, 7), 34), 0),
+    # the packed path (attention.pv_plan) and its edges
+    "one-query-T32768-shift6": lambda: (ints((1, 32768), 0, 64, 140), i8((32768, 64), 141), 6),
+    "two-queries-T32768": lambda: (ints((2, 32768), 0, 64, 142), i8((32768, 64), 143), 6),
+    "9-queries-three-groups": lambda: (ints((9, 1000), 0, 64, 144), i8((1000, 64), 145), 6),
+    "T1": lambda: (ints((1, 1), 0, 64, 146), i8((1, 64), 147), 6),
+    "T-below-a-warp": lambda: (ints((2, 5), 0, 64, 148), i8((5, 64), 149), 6),
+    "T-ragged-1000": lambda: (ints((1, 1000), 0, 64, 150), i8((1000, 64), 151), 6),
+    "T-ragged-32767": lambda: (ints((1, 32767), 0, 64, 152), i8((32767, 64), 153), 6),
+    "int32-wrap-packed-shift0": lambda: (ints((2, 3000), I32_MIN, I32_MAX, 154), i8((3000, 64), 155), 0),
+    "int32-wrap-packed-shift31": lambda: (ints((2, 3000), I32_MIN, I32_MAX, 156), i8((3000, 64), 157), 31),
+    "int32-wrap-packed-shift40": lambda: (ints((2, 3000), I32_MIN, I32_MAX, 158), i8((3000, 64), 159), 40),
+    "Dv16-packed": lambda: (ints((3, 777), 0, 64, 160), i8((777, 16), 161), 6),
+    "Dv32-packed": lambda: (ints((1, 2048), 0, 64, 162), i8((2048, 32), 163), 6),
+    "Dv128-packed": lambda: (ints((5, 2048), 0, 64, 164), i8((2048, 128), 165), 6),
+    "Dv256-packed": lambda: (ints((4, 999), 0, 64, 166), i8((999, 256), 167), 6),
+    "Dv48-generic": lambda: (ints((2, 700), 0, 64, 168), i8((700, 48), 169), 6),
+    "Dv300-generic": lambda: (ints((2, 400), 0, 64, 170), i8((400, 300), 171), 6),
+    "int32-v-T32768": lambda: (ints((1, 32768), 0, 64, 172), ints((32768, 64), -2**20, 2**20, 173), 6),
+    "int8-p-int8-v-Dv64": lambda: (i8((3, 4096), 174), i8((4096, 64), 175), 2),
 }
 
 
@@ -629,6 +676,63 @@ def test_pv_kernel_matches_plain(card, case):
     torch.cuda.synchronize()
     assert tapi.launch_counts() == {"attention_pv": 1}
     assert torch.equal(got.cpu(), tatt._pv_plain(p, v, shift))
+
+
+def test_pv_kernel_reads_a_value_cache_off_by_one_byte(card):
+    """A v view one byte off 16-byte alignment takes the generic kernel."""
+    p, v = ints((1, 4096), 0, 64, 176), i8((4096, 64), 177)
+    buf = torch.empty(v.numel() + 1, dtype=torch.int8, device=card)
+    buf[1:] = v.to(card).reshape(-1)
+    view = buf[1:].view(4096, 64)
+    dp = p.to(card)
+    assert not tatt.pv_plan(1, 4096, 64, 4, 1, (dp.data_ptr(), view.data_ptr())).packed
+    assert torch.equal(tatt._pv(dp, view, 6).cpu(), tatt._pv_plain(p, v, 6))
+
+
+def test_pv_ticket_returns_to_zero_between_calls_and_graph_replays(card):
+    """Two calls of different shapes back to back on one stream, then three
+    replays of a captured call, each equal to the plain version: every
+    launch finds the device's ticket at zero and leaves it there."""
+    cases = [(ints((1, 32768), 0, 64, 178), i8((32768, 64), 179)), (ints((7, 999), 0, 64, 180), i8((999, 64), 181))]
+    dev_cases = [(p.to(card), v.to(card)) for p, v in cases]
+    outs = [tatt._pv(p, v, 6) for p, v in dev_cases]  # no synchronize between them
+    for (p, v), got in zip(cases, outs):
+        assert torch.equal(got.cpu(), tatt._pv_plain(p, v, 6))
+    assert int(tatt._pv_ticket(card).item()) == 0
+    (p, v), (dp, dv_) = cases[0], dev_cases[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tatt._pv(dp, dv_, 6)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tatt._pv(dp, dv_, 6)
+    want = tatt._pv_plain(p, v, 6)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured.cpu(), want)
+        assert int(tatt._pv_ticket(card).item()) == 0
+
+
+def test_pv_call_is_one_device_kernel(card):
+    """The packed path's call at the decode shape is one kernel on the
+    device: no finalize pass, no memset, no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p, v = ints((1, 32768), 0, 64, 182).to(card), i8((32768, 64), 183).to(card)
+    assert tatt.pv_plan(1, 32768, 64, 4, 1, (p.data_ptr(), v.data_ptr())).packed
+    tatt._pv(p, v, 6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tatt._pv(p, v, 6)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "pv_packed" in kernels[0], kernels
 
 
 def _selector(t, rows, dtype):
