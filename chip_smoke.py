@@ -59,7 +59,10 @@ Phases, any failure of which exits non-zero:
    Phase 2 also holds the four attention kernels against their plain
    versions at the decode shapes (GQA groups of 7 included) and at edges
    (a 131072-long equal row, shift 40, int32 caches, multi-hot and all-zero
-   selectors), the softmax and p·V at the edges of their launch plans (each
+   selectors), the KV append at the edges of its launch plan (selected rows
+   at the first and last rows of blocks, every row selected, a ragged T,
+   D 16 and 48, an int32 selector; a cache off 16 bytes on the generic
+   kernel), the softmax and p·V at the edges of their launch plans (each
    call held to the path its case names: the rows kernel at T = 1 to 512 and
    64 rows of T = 8; the cluster's registers at T = 513 to 65536, ragged T
    and views off 16 bytes with element loads; its loop past the registers
@@ -69,7 +72,10 @@ Phases, any failure of which exits non-zero:
    ticket (two shapes back to back, three CUDA-graph replays) and one device
    kernel a p·V call (profiler), decode_gemv, htree_reduce and rglru_scan at theirs (an
    int32 wrap, a ragged K, misaligned int8 views, N = 1 and 2 in each
-   dtype, T = 1, a ragged W), and the row reduction and the elementwise
+   dtype; for the scan T = 1, T one short of and one past a stage, T = 8192,
+   W = 1, 3 and 4, ragged last groups, B · W below a group, a and b off 16
+   bytes on 4-byte copies, ±0 and subnormal operands, each call held to the
+   copies its plan names), and the row reduction and the elementwise
    kernels at the edges of their launch plans (every lane-group size,
    misaligned views, INT32_MIN and NaN rows, n from 1 to 255, channels-last
    operands whose layout the result keeps), and the int32 GEMM and H-tree at
@@ -104,7 +110,7 @@ Phases, any failure of which exits non-zero:
    and the decode layer, each from an idle card (median of 20); time
    decode_gemv, rglru_scan and htree_reduce at phase 3g's inputs, beside
    their bounds, plain versions and, for the int32 H-tree, ``torch.sum`` in
-   paired rounds, warm and cold;
+   paired rounds, warm and cold (the scan and the other H-trees cold once);
    the pool and elementwise kernels beside their library calls in paired
    rounds (each read once a round, in alternating order; medians), warm and
    with cold inputs (rotated over copies worth more than twice the L2);
@@ -754,11 +760,55 @@ def attention_kernel_checks(torch, att, ref, smoke, dev, seed):
         got = run(*[a.to(dev) for a in args])
         torch.cuda.synchronize()
         smoke.check(kernel, case, got, plain(*args), exact=True)
+    kv_append_edge_checks(torch, att, smoke, dev, seed + 50)
     # the oracle's exact divide gives 0 on the long equal row, where the
     # Pallas body's shifted restoring division wraps and gives 64
     if att._softmax_plain(equal_row, sigma).any():
         smoke.failures.append("softmax_fixedpoint: the plain version is not 0 on the equal 131072 row")
     softmax_pv_edge_checks(torch, att, ref, smoke, dev, seed + 100)
+
+
+def kv_append_edge_checks(torch, att, smoke, dev, seed):
+    """Phase 2 for the KV append's launch plan (attention.kv_plan): each
+    case against its plain version (on a CPU copy) and held to the kernel its
+    case names: selected rows at the first and last row of a block's rows,
+    every row selected, a T that is not a multiple of a block's rows, D 16
+    and 48, an int32 selector, a cache one byte off 16-byte alignment."""
+    g = torch.Generator().manual_seed(seed)
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    def sel(t, rows, dtype=torch.int8):
+        s = torch.zeros(t, dtype=dtype)
+        s[list(rows)] = 1
+        return s
+
+    def offset(x):  # a copy one byte past a 16-byte boundary
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:] = x.to(dev).reshape(-1)
+        return buf[1:].view(x.shape)
+
+    block_rows = att.KV_THREADS * 16 // 64  # rows of a vector-kernel block at D = 64
+    cases = [  # (case, path, cache, new, selector, cache off 16 bytes)
+        ("first and last rows of blocks", "vec", i8((32768, 64)), i8((64,)),
+         sel(32768, [0, block_rows - 1, block_rows, 2 * block_rows - 1, 32768 - block_rows, 32767]), False),
+        ("every row selected", "vec", i8((4096, 64)), i8((64,)), sel(4096, range(4096)), False),
+        ("T not a multiple of a block's rows", "vec", i8((1000, 64)), i8((64,)), sel(1000, [0, 959, 960, 999]),
+         False),
+        ("D 16", "vec", i8((5000, 16)), i8((16,)), sel(5000, [0, 255, 256, 4999]), False),
+        ("D 48", "vec", i8((3000, 48)), i8((48,)), sel(3000, [0, 84, 85, 2999]), False),
+        ("int32 selector", "vec", i8((32768, 64)), i8((64,)), sel(32768, [7, 30000], torch.int32), False),
+        ("cache off 16 bytes", "generic", i8((4096, 64)), i8((64,)), sel(4096, [0, 4095]), True),
+    ]
+    for case, path, cache, new, s, off in cases:
+        dc, dn, ds = (offset(cache) if off else cache.to(dev)), new.to(dev), s.to(dev)
+        vec = att.kv_plan(*cache.shape, 1, 1, (dc.data_ptr(), dn.data_ptr(), 0)).vec
+        if vec != (path == "vec"):
+            smoke.failures.append(f"kv_append [{case}]: the plan's vector kernel is {vec}, not {path == 'vec'}")
+        got = att._kv_append(dc, dn, ds)
+        torch.cuda.synchronize()
+        smoke.check("kv_append", f"{path}: {case}", got, att._kv_append_plain(cache, new, s), exact=True)
 
 
 def softmax_path(att, x):
@@ -1305,6 +1355,70 @@ def entry_kernel_checks(torch, att, ht, rg, smoke, dev, seed):
         got = run(*(card_args or [a.to(dev) for a in cpu_args]))
         torch.cuda.synchronize()
         smoke.check(kernel, case, got, plain(*cpu_args), exact=True)
+    rglru_edge_checks(torch, rg, smoke, dev, seed + 50)
+
+
+def rglru_edge_checks(torch, rg, smoke, dev, seed):
+    """Phase 2 for the RG-LRU scan's launch plan (rglru_scan.rglru_plan):
+    each case bit-equal to the plain version on a CPU copy, ±0 included, and
+    held to the copies its case names: T = 1, T one short of and one past a
+    stage, T = 8192, W = 1, 3 and 4, a ragged last group, B · W below a
+    group, a and b 4 bytes off 16-byte alignment (4-byte copies), and ±0 and
+    subnormal operands (a build that flushed subnormals would differ)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def gates(shape):
+        bsz, _, w = shape
+        return (torch.sigmoid(torch.randn(shape, generator=g)), torch.randn(shape, generator=g),
+                torch.randn((bsz, w), generator=g))
+
+    def subnormal(shape):
+        bsz, _, w = shape
+
+        def draw(shp, scale):
+            kind = torch.randint(0, 4, shp, generator=g)
+            vals = torch.randn(shp, generator=g) * scale
+            return torch.where(kind == 0, 0.0, torch.where(kind == 1, -0.0, vals))
+
+        return draw(shape, 0.5).abs(), draw(shape, 2.0**-135), draw((bsz, w), 2.0**-130)
+
+    def offset(x):  # a copy 4 bytes past a 16-byte boundary
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:] = x.to(dev).reshape(-1)
+        return buf[1:].view(x.shape)
+
+    steps = rg.SCAN_STEPS
+    cases = [  # (case, shape, 16-byte copies, a and b off 16 bytes, operands)
+        ("T = 1", (4, 1, 2560), True, False, gates),
+        ("T one short of a stage", (2, steps - 1, 64), True, False, gates),
+        ("T one past a stage", (2, steps + 1, 64), True, False, gates),
+        ("ragged last group W = 40", (2, 40, 40), True, False, gates),
+        ("T = 8192", (1, 8192, 40), True, False, gates),
+        ("W = 1", (3, 50, 1), False, False, gates),
+        ("W = 3", (2, 50, 3), False, False, gates),
+        ("W = 4", (2, 50, 4), True, False, gates),
+        ("ragged last group W = 300", (2, 37, 300), True, False, gates),
+        ("ragged last group W = 513", (3, 260, 513), False, False, gates),
+        ("B * W below a group", (3, 33, 4), True, False, gates),
+        ("a and b off 16 bytes", (2, 100, 2560), False, True, gates),
+        ("±0 and subnormals", (2, 70, 48), True, False, subnormal),
+        ("±0 and subnormals, 4-byte copies", (2, 70, 50), False, False, subnormal),
+    ]
+    tiny = torch.finfo(torch.float32).tiny
+    for case, shape, vec, off, make in cases:
+        a, b, h0 = make(shape)
+        da, db = (offset(a), offset(b)) if off else (a.to(dev), b.to(dev))
+        if rg.rglru_plan(*shape, (da.data_ptr(), db.data_ptr())).vec != vec:
+            smoke.failures.append(f"rglru_scan [{case}]: the plan's 16-byte copies are not {vec}")
+        got = rg._scan(da, db, h0.to(dev))
+        torch.cuda.synchronize()
+        want = rg._scan_plain(a, b, h0)
+        path = "16-byte copies" if vec else "4-byte copies"
+        smoke.check("rglru_scan", f"{path}: {case}", got, want, exact=True)
+        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+            smoke.failures.append(f"rglru_scan [{case}]: the bits differ from the plain version's (±0)")
+        if make is subnormal and not ((want.abs() < tiny) & (want != 0)).any():
+            smoke.failures.append(f"rglru_scan [{case}]: the plain version holds no subnormal output")
 
 
 def pool_ewise_edge_checks(torch, conv, ewise, smoke, dev, seed):
@@ -1520,7 +1634,7 @@ def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
             "launches_by_path": {name: r["launches"]}, "shapes": r["shapes"], "dtypes": r["dtypes"],
             "bytes": nbytes, "ops": ops,
         })
-        if kernel == "htree_reduce" and not paired:  # a warm reading can sit in the 50 MB L2
+        if kernel in ("htree_reduce", "rglru_scan") and not paired:  # a warm reading can sit in the 50 MB L2
             cold = cold_timer(torch, run[kernel], args)
             rows[-1]["cold_ms"] = median(sorted(cold() for _ in range(3)))
             print(f"kernel {name}: cold L2 {rows[-1]['cold_ms'] * 1e3:.2f} us, "

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The decode step's softmax (K7) and p·V (K8) kernels of two source trees,
-read in turns on one card, so that a change is timed against its parent.
+"""The decode step's KV append (K10), softmax (K7) and p·V (K8) kernels and
+the RG-LRU scan (K11) of two source trees, read in turns on one card, so
+that a change is timed against its parent.
 
 Run from the repository root on a machine with one CUDA card::
 
@@ -11,9 +12,11 @@ Run from the repository root on a machine with one CUDA card::
 imported (the parent's first, then the change's, each keeping its own module
 objects); each tree builds its kernels into its own ``build/``.  The inputs
 are the serving path's T = 32768 call at Qwen2-0.5B's attention width
-(``chip_smoke.DECODE_CFG``: head_dim 64, int8 caches, scores at in_frac 13),
-one query, random caches from seed 4.  The script checks that both trees'
-softmax and p·V outputs are bit-equal to the plain versions, then reads, in
+(``chip_smoke.DECODE_CFG``: head_dim 64, int8 caches, scores at in_frac 13,
+an int8 one-hot selector on the last row), one query, random caches from
+seed 4, and the RG-LRU scan at ``chip_smoke.RGLRU_SHAPE`` (RecurrentGemma-2B's
+width, a = sigmoid(normal), b and h0 normal).  The script checks that both
+trees' outputs are bit-equal to the plain versions, then reads, in
 ``chip_smoke.PAIRED_ROUNDS`` rounds of both trees in turns (the parent first
 in every other round), the median device time of:
 
@@ -37,9 +40,9 @@ SEED = 4
 
 
 def load_tree(src: str):
-    """``repro_torch.kernels.attention`` of the tree at ``src``, its kernels
-    built; the tree's modules leave ``sys.modules`` again, so that another
-    tree can be imported beside it."""
+    """``repro_torch.kernels.attention`` and ``rglru_scan`` of the tree at
+    ``src``, its kernels built; the tree's modules leave ``sys.modules``
+    again, so that another tree can be imported beside it."""
     def drop():
         for name in [n for n in sys.modules if n == "repro_torch" or n.startswith("repro_torch.")]:
             del sys.modules[name]
@@ -47,13 +50,13 @@ def load_tree(src: str):
     drop()
     sys.path.insert(0, str(Path(src).resolve()))
     try:
-        from repro_torch.kernels import _build, attention
+        from repro_torch.kernels import _build, attention, rglru_scan
 
         _build.build_all()
     finally:
         sys.path.pop(0)
         drop()
-    return attention
+    return attention, rglru_scan
 
 
 def main() -> int:
@@ -71,7 +74,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs  # its timers and decode configuration
 
-    trees = {"parent": load_tree(args.parent), "change": load_tree(args.src)}
+    loaded = {"parent": load_tree(args.parent), "change": load_tree(args.src)}
+    trees = {name: att for name, (att, _) in loaded.items()}
+    scans = {name: rg for name, (_, rg) in loaded.items()}
     dev = torch.device("cuda", 0)
     ref = trees["change"].ref
     sigma = ref.softmax_sigma(cs.DECODE_CFG["score_frac"])
@@ -91,26 +96,35 @@ def main() -> int:
            "parent": str(args.parent), "src": str(args.src), "shapes": {"scores": list(scores.shape),
                                                                           "v": list(vc.shape)}}
     want_sm, want_pv = probs.cpu(), trees["change"]._pv_plain(probs.cpu(), vc.cpu(), shift)
+    gs = torch.Generator().manual_seed(SEED + 1)
+    bsz, _, w = cs.RGLRU_SHAPE
+    ga = torch.sigmoid(torch.randn(cs.RGLRU_SHAPE, generator=gs)).to(dev)
+    gb, gh = torch.randn(cs.RGLRU_SHAPE, generator=gs).to(dev), torch.randn((bsz, w), generator=gs).to(dev)
+    want_kv = trees["change"]._kv_append_plain(kc.cpu(), k_new.cpu(), onehot.cpu())
+    want_scan = scans["change"]._scan(ga[:1].cpu(), gb[:1].cpu(), gh[:1].cpu())  # batch row 0, plain on the CPU
     out["bit_equal"] = {name: {"softmax": torch.equal(a._softmax(scores, sigma).cpu(), want_sm),
-                               "pv": torch.equal(a._pv(probs, vc, shift).cpu(), want_pv)}
+                               "pv": torch.equal(a._pv(probs, vc, shift).cpu(), want_pv),
+                               "kv_append": torch.equal(a._kv_append(kc, k_new, onehot).cpu(), want_kv),
+                               "rglru_scan": torch.equal(scans[name]._scan(ga, gb, gh)[:1].cpu(), want_scan)}
                         for name, a in trees.items()}
 
+    def paired(pair):
+        """Medians and rounds of the change's and the parent's timers read in turns."""
+        sums, _ = cs.paired_rounds([pair], cs.PAIRED_ROUNDS)
+        return {"change_ms": cs.median(sorted(sums["kernel"])), "parent_ms": cs.median(sorted(sums["library"])),
+                "change_rounds": sums["kernel"], "parent_rounds": sums["library"],
+                "change_faster_rounds": sum(c < p for c, p in zip(sums["kernel"], sums["library"]))}
+
     kernels = {
-        "softmax_fixedpoint": (lambda a: (lambda x: a._softmax(x, sigma)), (scores,)),
-        "attention_pv": (lambda a: (lambda p, v: a._pv(p, v, shift)), (probs, vc)),
+        "kv_append": (lambda n: trees[n]._kv_append, (kc, k_new, onehot)),
+        "softmax_fixedpoint": (lambda n: (lambda x: trees[n]._softmax(x, sigma)), (scores,)),
+        "attention_pv": (lambda n: (lambda p, v: trees[n]._pv(p, v, shift)), (probs, vc)),
+        "rglru_scan": (lambda n: scans[n]._scan, (ga, gb, gh)),
     }
     for kernel, (make, kargs) in kernels.items():
-        fns = {name: make(a) for name, a in trees.items()}
-        row = {}
-        for temp in ("warm", "cold"):
-            if temp == "warm":
-                pair = tuple(cs.graph_timer(torch, lambda fn=fns[n]: fn(*kargs)) for n in ("change", "parent"))
-            else:
-                pair = tuple(cs.cold_timer(torch, fns[n], kargs) for n in ("change", "parent"))
-            sums, _ = cs.paired_rounds([pair], cs.PAIRED_ROUNDS)
-            row[temp] = {"change_ms": cs.median(sorted(sums["kernel"])), "parent_ms": cs.median(sorted(sums["library"])),
-                         "change_rounds": sums["kernel"], "parent_rounds": sums["library"],
-                         "change_faster_rounds": sum(c < p for c, p in zip(sums["kernel"], sums["library"]))}
+        fns = {name: make(name) for name in trees}
+        row = {"warm": paired(tuple(cs.graph_timer(torch, lambda fn=fns[n]: fn(*kargs)) for n in ("change", "parent"))),
+               "cold": paired(tuple(cs.cold_timer(torch, fns[n], kargs) for n in ("change", "parent")))}
         row["eager"] = {n: cs.cuda_ms(torch, lambda fn=fns[n]: fn(*kargs)) for n in ("change", "parent")}
         out[kernel] = row
 

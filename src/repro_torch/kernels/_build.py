@@ -72,12 +72,16 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "softmax_fixedpoint": ("attention", (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "attention_pv": ("attention", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "decode_gemv": ("attention", (_P, _P, _P, _I, _I, _I, _I, _P)),
-    "kv_append": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # the KV append takes its plan (attention.kv_plan: 16-byte chunks,
+    # blocks) after the element sizes
+    "kv_append": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     # the H-tree takes its launch plan (htree_reduce.htree_plan) after the extents
     "htree_reduce_f32": ("htree_reduce", (_P, _P, _I, _I, _I, _I, _I, _P)),
     "htree_reduce_bf16": ("htree_reduce", (_P, _P, _I, _I, _I, _I, _I, _P)),
     "htree_reduce_i32": ("htree_reduce", (_P, _P, _I, _I, _I, _I, _I, _P)),
-    "rglru_scan_f32": ("rglru_scan", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    # the RG-LRU scan takes its launch plan (rglru_scan.rglru_plan: channels
+    # a group, 16-byte copies, blocks) after the extents
+    "rglru_scan_f32": ("rglru_scan", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

@@ -16,9 +16,9 @@ its plain version for CPU tensors:
 
 Operands are int8 or int32 (the selector also bool); int8 operands reach
 the kernels as int8 and are widened in registers.  Everything is integer:
-int32 arithmetic wraps, every ``>>`` is arithmetic.  The softmax and p·V
-kernels take launch plans computed here (:func:`softmax_plan`,
-:func:`pv_plan`).
+int32 arithmetic wraps, every ``>>`` is arithmetic.  The softmax, p·V and
+KV-append kernels take launch plans computed here (:func:`softmax_plan`,
+:func:`pv_plan`, :func:`kv_plan`).
 """
 from __future__ import annotations
 
@@ -53,6 +53,10 @@ PV_MAX_GROUP = 4        # PV_MAX_GROUP: queries a block accumulates
 PV_PACKED_MAX_DV = 256  # PV_PACKED_MAX_DV
 # blocks along T the plan aims at: one per SM of an H100
 PV_TARGET_BLOCKS = 132
+
+# csrc/attention.cu's kv_append constants
+KV_THREADS = 256        # KV_THREADS
+KV_MAX_GRID = 132 * 32  # the generic kernel's grid-stride cap (repro_grid)
 
 
 class SoftmaxPlan(NamedTuple):
@@ -122,6 +126,29 @@ def pv_plan(m: int, t: int, dv: int, p_bytes: int, v_bytes: int, ptrs: Tuple[int
     per_block = max(1, -(-steps // PV_TARGET_BLOCKS))
     blocks = max(1, -(-steps // per_block))
     return PvPlan(packed, group, rows_per_step, per_block * rows_per_step, blocks, -(-(m * dv) // 4) * 4)
+
+
+class KvPlan(NamedTuple):
+    """Launch plan of the KV-cache append of ``csrc/attention.cu``."""
+
+    vec: bool    # a 16-byte chunk a thread (int8, D % 16 == 0, aligned); else an element a thread
+    blocks: int
+
+
+def kv_plan(t: int, d: int, cache_bytes: int, new_bytes: int, ptrs: Tuple[int, int, int]) -> KvPlan:
+    """Launch plan of appending to a contiguous ``(t, d)`` cache of
+    ``cache_bytes``-byte elements a ``new_bytes``-byte row, with ``ptrs =
+    (cache, new, out)``.
+
+    An int8 cache and row with 16-byte rows (D % 16 == 0) and every base
+    16-byte aligned take the vector kernel, one chunk (its selector byte
+    beside it) a thread, KV_THREADS a block; the rest the generic kernel,
+    an element a thread, grid-stride over at most KV_MAX_GRID blocks."""
+    n = t * d
+    cache_ptr, new_ptr, out_ptr = ptrs
+    if cache_bytes == 1 and new_bytes == 1 and d % 16 == 0 and (cache_ptr | new_ptr | out_ptr) % 16 == 0:
+        return KvPlan(True, max(1, -(-(n // 16) // KV_THREADS)))
+    return KvPlan(False, max(1, min(-(-n // KV_THREADS), KV_MAX_GRID)))
 
 
 # the p·V kernel's ticket, one per device: a zeroed int32 that every launch
@@ -278,8 +305,10 @@ def _kv_append(cache: torch.Tensor, new: torch.Tensor, onehot: torch.Tensor) -> 
     out = torch.empty_like(cache)
     if out.numel() == 0:
         return out
-    _build.launch("kv_append", dev, cache.data_ptr(), new.data_ptr(), onehot.data_ptr(),
-                  out.data_ptr(), t, d, cb, nb, sb)
+    ptrs = (cache.data_ptr(), new.data_ptr(), out.data_ptr())
+    plan = kv_plan(t, d, cb, nb, ptrs)
+    _build.launch("kv_append", dev, ptrs[0], ptrs[1], onehot.data_ptr(), ptrs[2], t, d, cb, nb, sb,
+                  int(plan.vec), plan.blocks)
     count_launch("kv_append")
     return out
 

@@ -58,8 +58,20 @@
 //    the wrap makes the order free.
 //  * kv_append: a copy of the cache with the selected rows replaced, a new
 //    tensor (Programs replay the append, so the input is never written).
-//    Every nonzero selector entry is honoured.  int8 caches go 16 bytes a
-//    thread when D % 16 == 0.
+//    Every nonzero selector entry is honoured.  The serving path's call, a
+//    (32768, 64) int8 cache with an int8 one-hot selector, moves 4.23 MB
+//    (1.26 µs at 3.35 TB/s), less than one launch (about 1.6–1.9 µs in graph
+//    replay): what costs is round trips, not bytes.  A thread that loads
+//    its row's selector byte and only then the cache chunk or the new row
+//    puts two dependent trips on every thread, so `kv_append_i8_vec` (an
+//    int8 cache and row, D % 16 == 0, 16-byte aligned: attention.kv_plan)
+//    loads a 16-byte chunk, its selector byte and the row's chunk together
+//    and selects once all three have arrived.  One chunk a thread in 512
+//    blocks (one wave) beat 2, 4 and 8 chunks a thread in 128–256 blocks,
+//    and a bulk-copy design (a block's 16 KB run of rows copied into shared
+//    memory and out again by the copy engine, selected rows patched between)
+//    lost to the four-chunk kernel on this card.  Every other operand mix takes
+//    `kv_append_generic`, an element a thread.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -703,33 +715,39 @@ kv_append_generic(const TC* __restrict__ cache, const TN* __restrict__ nw,
   }
 }
 
-// int8 cache and int8 row, D % 16 == 0, 16-byte aligned: 16 bytes a thread.
+// int8 cache and row, D % 16 == 0, 16-byte aligned: a 16-byte chunk a
+// thread, loaded together with its row's selector byte and the row's chunk
+// of `nw` (an L1 hit after the first), and selected without a branch, so no
+// load waits on another and none can be sunk into a branch.
 template <typename TS>
 __global__ void __launch_bounds__(KV_THREADS)
-kv_append_i8_vec16(const int4* __restrict__ cache, const int4* __restrict__ nw,
-                   const TS* __restrict__ sel, int4* __restrict__ out, int n16, int d16) {
-  const int stride = gridDim.x * KV_THREADS;
-  for (int i = blockIdx.x * KV_THREADS + threadIdx.x; i < n16; i += stride) {
-    const int row = i / d16;
-    out[i] = sel[row] != 0 ? nw[i - row * d16] : cache[i];
-  }
+kv_append_i8_vec(const int4* __restrict__ cache, const int4* __restrict__ nw,
+                 const TS* __restrict__ sel, int4* __restrict__ out, int n16, int d16) {
+  const int i = blockIdx.x * KV_THREADS + threadIdx.x;
+  if (i >= n16) return;
+  const int row = i / d16;
+  const int4 c = cache[i];
+  const int4 v = nw[i - row * d16];
+  const int m = -static_cast<int>(sel[row] != 0);  // all ones on a selected row
+  out[i] = make_int4(c.x ^ ((c.x ^ v.x) & m), c.y ^ ((c.y ^ v.y) & m), c.z ^ ((c.z ^ v.z) & m),
+                     c.w ^ ((c.w ^ v.w) & m));
 }
 
 template <typename TC, typename TN, typename TS>
-void launch_kv_generic(cudaStream_t s, const void* cache, const void* nw, const void* sel,
+void launch_kv_generic(int blocks, cudaStream_t s, const void* cache, const void* nw, const void* sel,
                        void* out, int n, int d) {
-  kv_append_generic<TC, TN, TS><<<repro_grid(n, KV_THREADS), KV_THREADS, 0, s>>>(
+  kv_append_generic<TC, TN, TS><<<blocks, KV_THREADS, 0, s>>>(
       static_cast<const TC*>(cache), static_cast<const TN*>(nw), static_cast<const TS*>(sel),
       static_cast<TC*>(out), n, d);
 }
 
 template <typename TC, typename TN>
-void launch_kv_by_sel(int sel_bytes, cudaStream_t s, const void* cache, const void* nw,
+void launch_kv_by_sel(int sel_bytes, int blocks, cudaStream_t s, const void* cache, const void* nw,
                       const void* sel, void* out, int n, int d) {
   if (sel_bytes == 1)
-    launch_kv_generic<TC, TN, int8_t>(s, cache, nw, sel, out, n, d);
+    launch_kv_generic<TC, TN, int8_t>(blocks, s, cache, nw, sel, out, n, d);
   else
-    launch_kv_generic<TC, TN, int32_t>(s, cache, nw, sel, out, n, d);
+    launch_kv_generic<TC, TN, int32_t>(blocks, s, cache, nw, sel, out, n, d);
 }
 
 }  // namespace
@@ -833,30 +851,36 @@ extern "C" int attention_pv(const void* p, const void* v, void* partial, void* t
 }
 
 // cache (T, D) and out: int8 or int32 (cache_bytes); nw (D,): int8 or int32;
-// sel (T,): 1-byte (int8, bool) or int32.  out must not alias cache.
-extern "C" int kv_append(const void* cache, const void* nw, const void* sel, void* out, int t,
-                         int d, int cache_bytes, int new_bytes, int sel_bytes, void* stream) {
+// sel (T,): 1-byte (int8, bool) or int32.  out must not alias cache.  The
+// launch plan is attention.kv_plan's: `vec` takes kv_append_i8_vec (int8
+// cache and row, D % 16 == 0, cache, row and out 16-byte aligned), a chunk
+// a thread; else the generic kernel; `blocks` blocks.
+extern "C" int kv_append(const void* cache, const void* nw, const void* sel, void* out, int t, int d,
+                         int cache_bytes, int new_bytes, int sel_bytes, int vec, int blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = t * d;
-  if (cache_bytes == 1 && new_bytes == 1 && d % 16 == 0 && aligned(cache, 16) && aligned(nw, 16) &&
-      aligned(out, 16)) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec) {
     const int n16 = n / 16;
+    if (cache_bytes != 1 || new_bytes != 1 || d % 16 != 0 || !aligned(cache, 16) || !aligned(nw, 16) ||
+        !aligned(out, 16) || static_cast<long long>(blocks) * KV_THREADS < n16)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (sel_bytes == 1)
-      kv_append_i8_vec16<int8_t><<<repro_grid(n16, KV_THREADS), KV_THREADS, 0, s>>>(
-          static_cast<const int4*>(cache), static_cast<const int4*>(nw),
-          static_cast<const int8_t*>(sel), static_cast<int4*>(out), n16, d / 16);
+      kv_append_i8_vec<int8_t><<<blocks, KV_THREADS, 0, s>>>(
+          static_cast<const int4*>(cache), static_cast<const int4*>(nw), static_cast<const int8_t*>(sel),
+          static_cast<int4*>(out), n16, d / 16);
     else
-      kv_append_i8_vec16<int32_t><<<repro_grid(n16, KV_THREADS), KV_THREADS, 0, s>>>(
-          static_cast<const int4*>(cache), static_cast<const int4*>(nw),
-          static_cast<const int32_t*>(sel), static_cast<int4*>(out), n16, d / 16);
+      kv_append_i8_vec<int32_t><<<blocks, KV_THREADS, 0, s>>>(
+          static_cast<const int4*>(cache), static_cast<const int4*>(nw), static_cast<const int32_t*>(sel),
+          static_cast<int4*>(out), n16, d / 16);
   } else if (cache_bytes == 1 && new_bytes == 1) {
-    launch_kv_by_sel<int8_t, int8_t>(sel_bytes, s, cache, nw, sel, out, n, d);
+    launch_kv_by_sel<int8_t, int8_t>(sel_bytes, blocks, s, cache, nw, sel, out, n, d);
   } else if (cache_bytes == 1) {
-    launch_kv_by_sel<int8_t, int32_t>(sel_bytes, s, cache, nw, sel, out, n, d);
+    launch_kv_by_sel<int8_t, int32_t>(sel_bytes, blocks, s, cache, nw, sel, out, n, d);
   } else if (new_bytes == 1) {
-    launch_kv_by_sel<int32_t, int8_t>(sel_bytes, s, cache, nw, sel, out, n, d);
+    launch_kv_by_sel<int32_t, int8_t>(sel_bytes, blocks, s, cache, nw, sel, out, n, d);
   } else {
-    launch_kv_by_sel<int32_t, int32_t>(sel_bytes, s, cache, nw, sel, out, n, d);
+    launch_kv_by_sel<int32_t, int32_t>(sel_bytes, blocks, s, cache, nw, sel, out, n, d);
   }
   return REPRO_LAUNCH_STATUS();
 }

@@ -3,68 +3,157 @@
 // Replaces the Pallas body of src/repro/kernels/rglru_scan.py:
 //   _kernel (25, rglru_scan) → rglru_scan_kernel below.
 // The Pallas grid walks T in order and carries h in VMEM scratch from one
-// step to the next; blocks on this card run in no order, so a thread owns
-// one (b, w) channel and walks all of T itself, h in a register.
+// step to the next; blocks on this card run in no order, so one warp owns a
+// channel group (one b, `group` contiguous w) and walks all of T itself, each
+// channel's h in a register of its lane.
 //
 // Numerics: the Pallas body's a·h + b is one fused multiply-add (rounded
 // once), so the update is __fmaf_rn, written out: the result does not
-// depend on nvcc's --fmad default.  Each channel is a sequential chain, so
-// the output is the same bit for bit at any launch shape.
+// depend on nvcc's --fmad default, and subnormals are kept (no -ftz).  Each
+// channel is a sequential chain, so the output is the same bit for bit at
+// any launch shape; T is never split.
 //
 // Bound on this card: bytes.  a, b and the output are read or written once
 // (12 bytes per element; (4, 2048, 2560) moves 251.7 MB, 75.1 µs at
-// 3.35 TB/s) for one fma each.  Loads coalesce across w (neighbouring
-// threads, neighbouring channels).  They do not depend on h, so each thread
-// loads PREFETCH steps of a and b before it computes them, keeping many
-// loads in flight.  Blocks are small so that B·W channels spread over every
-// SM.
+// 3.35 TB/s) for one fma each.  The loads do not depend on h, but each
+// chain step does on the last: a thread that loads a few steps, computes
+// them and only then loads the next makes one memory round trip every few
+// steps (a loaded round trip is about 1 µs), and keeps too few bytes in
+// flight to reach the bandwidth (Little's law at 3.35 TB/s and ~1 µs asks
+// for about 26 KB in flight an SM).  So each warp keeps a ring of
+// SCAN_STAGES stages of SCAN_STEPS steps × `group` channels of a and b in
+// shared memory, filled by cp.async (16-byte copies when W % 4 == 0 and a, b
+// are 16-byte aligned, else 4-byte ones), SCAN_STAGES - 1 stages ahead of the
+// chain: 24 KB in flight a 32-channel group, about 58 KB an SM at the
+// phase-3g shape.  Before each stage's chain, its lanes read the stage into
+// registers, so no shared-memory latency sits between dependent fmas; the
+// outputs of a step go out as one coalesced 128-byte row of the group.
+// 32-channel groups give 320 warps over 132 SMs at (4, 2048, 2560), all
+// resident at once (32 KB of shared memory each): the busiest SM holds 3
+// against a mean of 2.42, which costs nothing while the card's bandwidth,
+// not an SM, is the limit.  On this card 32-channel groups of 32-step
+// stages beat 16-channel groups and 8- or 16-step stages (whose per-stage
+// waits and copy issue sit on the chain's warp), and 4 to 6 stages tied.
+// A ragged last stage of T and a ragged last group of W are masked: their
+// copies write zeros, and steps past T or channels past W are not computed.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 64;
-constexpr int PREFETCH = 8;
+constexpr int SCAN_THREADS = 32;  // one warp a channel group
+constexpr int SCAN_GROUP = 32;    // channels a group (at most a warp's lanes)
+constexpr int SCAN_STEPS = 32;    // steps of T a stage
+constexpr int SCAN_STAGES = 4;    // stages of the ring; SCAN_STAGES - 1 in flight
 
-__global__ void __launch_bounds__(THREADS)
+// Copies stage `s` (steps s·SCAN_STEPS ...) of a and b into `slot`, laid out
+// [a | b][step][channel]; steps past T and channels past `nch` write zeros.
+template <bool VEC>
+__device__ __forceinline__ void load_stage(float* slot, const float* __restrict__ a,
+                                           const float* __restrict__ b, size_t row0, int s, int t,
+                                           int w, int group, int nch) {
+  constexpr int PER = VEC ? 4 : 1;  // channels a copy
+  const int per_row = group / PER;
+  const int per_arr = SCAN_STEPS * per_row;
+  const int t0 = s * SCAN_STEPS;
+  for (int i = threadIdx.x; i < 2 * per_arr; i += SCAN_THREADS) {
+    const int arr = i / per_arr, r = i - arr * per_arr;
+    const int step = r / per_row, c = (r - step * per_row) * PER;
+    const bool valid = t0 + step < t && c < nch;
+    const float* src = (arr ? b : a) + (valid ? row0 + static_cast<size_t>(t0 + step) * w + c : 0);
+    const uint32_t dst = smem_addr(slot + (arr * SCAN_STEPS + step) * group + c);
+    if constexpr (VEC)
+      cp16(dst, src, valid);
+    else
+      cp4(dst, src, valid);
+  }
+  cp_commit();
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(SCAN_THREADS)
 rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  const float* __restrict__ h0, float* __restrict__ out,
-                  int bsz, int t, int w) {
-  const long long ch = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (ch >= static_cast<long long>(bsz) * w) return;
-  const int bi = static_cast<int>(ch / w), wi = static_cast<int>(ch % w);
-  const size_t base = static_cast<size_t>(bi) * t * w + wi;
-  float h = h0[ch];
-  int s = 0;
-  for (; s + PREFETCH <= t; s += PREFETCH) {
-    float av[PREFETCH], bv[PREFETCH];
+                  const float* __restrict__ h0, float* __restrict__ out, int t, int w, int group,
+                  int groups_per_row) {
+  extern __shared__ float4 ring4[];  // [SCAN_STAGES][2][SCAN_STEPS][group]
+  float* ring = reinterpret_cast<float*>(ring4);
+  const int lane = threadIdx.x;
+  const int bi = blockIdx.x / groups_per_row;
+  const int w0 = (blockIdx.x - bi * groups_per_row) * group;
+  const int nch = min(group, w - w0);
+  const size_t row0 = static_cast<size_t>(bi) * t * w + w0;  // element (bi, 0, w0)
+  const int slot_floats = 2 * SCAN_STEPS * group;
+  const int stages = (t + SCAN_STEPS - 1) / SCAN_STEPS;
+
+  float h = lane < nch ? h0[static_cast<size_t>(bi) * w + w0 + lane] : 0.0f;
+  // the prologue: SCAN_STAGES - 1 stages in flight (empty groups past T)
+  for (int s = 0; s < SCAN_STAGES - 1; ++s) {
+    if (s < stages)
+      load_stage<VEC>(ring + s * slot_floats, a, b, row0, s, t, w, group, nch);
+    else
+      cp_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    cp_wait<SCAN_STAGES - 2>();  // this lane's copies of stage s have landed
+    __syncwarp();                // and every lane's; stage s - 1's slot is free
+    const int next = s + SCAN_STAGES - 1;
+    if (next < stages)
+      load_stage<VEC>(ring + (next % SCAN_STAGES) * slot_floats, a, b, row0, next, t, w, group, nch);
+    else
+      cp_commit();
+    if (lane < nch) {
+      const float* slot = ring + (s % SCAN_STAGES) * slot_floats;
+      float av[SCAN_STEPS], bv[SCAN_STEPS];
 #pragma unroll
-    for (int j = 0; j < PREFETCH; ++j) {
-      const size_t off = base + static_cast<size_t>(s + j) * w;
-      av[j] = __ldg(a + off);
-      bv[j] = __ldg(b + off);
-    }
+      for (int j = 0; j < SCAN_STEPS; ++j) {
+        av[j] = slot[j * group + lane];
+        bv[j] = slot[(SCAN_STEPS + j) * group + lane];
+      }
+      const int t0 = s * SCAN_STEPS;
+      float* o = out + row0 + static_cast<size_t>(t0) * w + lane;
+      if (t0 + SCAN_STEPS <= t) {
 #pragma unroll
-    for (int j = 0; j < PREFETCH; ++j) {
-      h = __fmaf_rn(av[j], h, bv[j]);
-      out[base + static_cast<size_t>(s + j) * w] = h;
+        for (int j = 0; j < SCAN_STEPS; ++j) {
+          h = __fmaf_rn(av[j], h, bv[j]);
+          o[static_cast<size_t>(j) * w] = h;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < SCAN_STEPS; ++j) {
+          if (t0 + j < t) {
+            h = __fmaf_rn(av[j], h, bv[j]);
+            o[static_cast<size_t>(j) * w] = h;
+          }
+        }
+      }
     }
   }
-  for (; s < t; ++s) {
-    const size_t off = base + static_cast<size_t>(s) * w;
-    h = __fmaf_rn(__ldg(a + off), h, __ldg(b + off));
-    out[off] = h;
-  }
+  cp_wait<0>();
 }
 
 }  // namespace
 
-// a, b, out (B, T, W) float32 row-major; h0 (B, W) float32.
-extern "C" int rglru_scan_f32(const void* a, const void* b, const void* h0, void* out, int bsz,
-                              int t, int w, void* stream) {
-  const long long channels = static_cast<long long>(bsz) * w;
-  const unsigned int blocks = static_cast<unsigned int>((channels + THREADS - 1) / THREADS);
-  rglru_scan_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<const float*>(h0),
-      static_cast<float*>(out), bsz, t, w);
+// a, b, out (B, T, W) float32 row-major; h0 (B, W) float32.  The launch plan
+// is rglru_scan.rglru_plan's: `group` channels a warp (1 to 32, never across
+// a row of B), 16-byte copies when `vec` (W and `group` multiples of 4, a and
+// b 16-byte aligned), and one block for each of the B · ceil(W / group)
+// groups.
+extern "C" int rglru_scan_f32(const void* a, const void* b, const void* h0, void* out, int bsz, int t, int w,
+                              int group, int vec, int blocks, void* stream) {
+  const int groups_per_row = group > 0 ? (w + group - 1) / group : 0;
+  if (group < 1 || group > SCAN_THREADS || bsz < 1 || t < 1 || w < 1 ||
+      static_cast<long long>(bsz) * groups_per_row != blocks ||
+      (vec && (w % 4 != 0 || group % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+               reinterpret_cast<uintptr_t>(b) % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(SCAN_STAGES) * 2 * SCAN_STEPS * group * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* fa = static_cast<const float*>(a);
+  const auto* fb = static_cast<const float*>(b);
+  const auto* fh = static_cast<const float*>(h0);
+  auto* fo = static_cast<float*>(out);
+  if (vec)
+    rglru_scan_kernel<true><<<blocks, SCAN_THREADS, smem, s>>>(fa, fb, fh, fo, t, w, group, groups_per_row);
+  else
+    rglru_scan_kernel<false><<<blocks, SCAN_THREADS, smem, s>>>(fa, fb, fh, fo, t, w, group, groups_per_row);
   return REPRO_LAUNCH_STATUS();
 }

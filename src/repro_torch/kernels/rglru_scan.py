@@ -9,16 +9,52 @@ The Pallas body computes ``a·h + b`` as one fused multiply-add, rounded
 once; a multiply then an add differs by up to 1 ulp a step, and the chain
 carries it on.  So the kernel calls ``__fmaf_rn`` and the plain version
 computes an exact fma on the CPU (:func:`fma_f32`): the card, the CPU and
-the JAX package's body agree bit for bit.  The registry's oracle is the JAX
-package's associative scan (``ref.rglru_scan_ref``), which sums in another
-order.  float32 only, on either device.
+the JAX package's body agree bit for bit.  Subnormals are kept on the card
+(no flush to zero) and by the plain version; XLA on the CPU flushes them,
+so there the JAX body differs once a chain reaches one.  The registry's
+oracle is the JAX package's associative scan (``ref.rglru_scan_ref``),
+which sums in another order.  float32 only, on either device.  The kernel
+takes a launch plan computed here (:func:`rglru_plan`).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.api import count_launch, kernel_device, register_kernel
+
+
+# csrc/rglru_scan.cu's constants
+SCAN_THREADS = 32  # SCAN_THREADS: one warp a channel group
+SCAN_GROUP = 32    # SCAN_GROUP: channels a group
+SCAN_STEPS = 32    # SCAN_STEPS: steps of T a stage
+SCAN_STAGES = 4    # SCAN_STAGES: stages of the shared-memory ring
+
+
+class ScanPlan(NamedTuple):
+    """Launch plan of the RG-LRU scan of ``csrc/rglru_scan.cu``."""
+
+    group: int   # channels a group: one warp, one b, contiguous w
+    steps: int   # steps of T a stage
+    stages: int  # stages of the ring, all but one in flight
+    vec: bool    # 16-byte copies (else 4-byte ones)
+    blocks: int  # one a group: B · ceil(W / group)
+
+
+def rglru_plan(bsz: int, t: int, w: int, ptrs: Tuple[int, int]) -> ScanPlan:
+    """Launch plan of the scan of contiguous ``(bsz, t, w)`` float32 ``a``
+    and ``b`` at addresses ``ptrs = (a, b)``.
+
+    A group is SCAN_GROUP channels of one row of B (fewer when W is
+    narrower), so a group never spans two rows; the last group of a row may
+    be ragged.  16-byte copies need every group to start on a 4-channel
+    boundary and a, b 16-byte aligned: W and the group multiples of 4."""
+    del t  # every group walks all of T
+    group = max(1, min(SCAN_GROUP, w))
+    vec = w % 4 == 0 and group % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    return ScanPlan(group, SCAN_STEPS, SCAN_STAGES, vec, bsz * -(-w // group))
 
 
 def fma_f32(a: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,8 +101,9 @@ def _scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
+    plan = rglru_plan(bsz, t, w, (a.data_ptr(), b.data_ptr()))
     _build.launch("rglru_scan_f32", dev, a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(),
-                  bsz, t, w)
+                  bsz, t, w, plan.group, int(plan.vec), plan.blocks)
     count_launch("rglru_scan")
     return out
 

@@ -741,25 +741,51 @@ def _selector(t, rows, dtype):
     return s
 
 
-# name → (cache, new, selector)
+# name → (cache, new, selector, whether attention.kv_plan takes the vector
+# kernel, cache off 16 bytes)
 KV = {
-    "int8-T32768-one-hot": lambda: (i8((32768, 64), 35), i8((64,), 36), _selector(32768, [5000], torch.int8)),
-    "int8-T32768-all-zero": lambda: (i8((32768, 64), 37), i8((64,), 38), _selector(32768, [], torch.int8)),
-    "int8-T32768-two-hot": lambda: (i8((32768, 64), 39), i8((64,), 40), _selector(32768, [0, 32767], torch.int8)),
+    "int8-T32768-one-hot": lambda: (i8((32768, 64), 35), i8((64,), 36), _selector(32768, [5000], torch.int8),
+                                    True, False),
+    "int8-T32768-all-zero": lambda: (i8((32768, 64), 37), i8((64,), 38), _selector(32768, [], torch.int8),
+                                     True, False),
+    "int8-T32768-two-hot": lambda: (i8((32768, 64), 39), i8((64,), 40),
+                                    _selector(32768, [0, 32767], torch.int8), True, False),
     "int32-cache": lambda: (ints((1000, 64), I32_MIN, I32_MAX, 41), ints((64,), I32_MIN, I32_MAX, 42),
-                            _selector(1000, [999], torch.int8)),
+                            _selector(1000, [999], torch.int8), False, False),
     "int8-cache-int32-row": lambda: (i8((100, 64), 43), ints((64,), I32_MIN, I32_MAX, 44),
-                                     _selector(100, [7, 8], torch.int32)),
-    "int8-D5-bool-selector": lambda: (i8((50, 5), 45), i8((5,), 46), _selector(50, [4], torch.bool)),
+                                     _selector(100, [7, 8], torch.int32), False, False),
+    "int8-D5-bool-selector": lambda: (i8((50, 5), 45), i8((5,), 46), _selector(50, [4], torch.bool), False,
+                                      False),
+    # the vector kernel's edges: rows at the first and last row of a block
+    # (64 rows at D = 64), every row, a T that is not a multiple of a block's
+    # rows, D 16 and 48, an int32 selector, and a cache off 16 bytes (generic)
+    "int8-block-edges": lambda: (i8((32768, 64), 184), i8((64,), 185),
+                                 _selector(32768, [0, 63, 64, 127, 32704, 32767], torch.int8), True, False),
+    "int8-every-row": lambda: (i8((4096, 64), 186), i8((64,), 187), _selector(4096, range(4096), torch.int8),
+                               True, False),
+    "int8-T-ragged-1000": lambda: (i8((1000, 64), 188), i8((64,), 189), _selector(1000, [0, 959, 960, 999],
+                                                                                    torch.int8), True, False),
+    "int8-D16": lambda: (i8((5000, 16), 190), i8((16,), 191), _selector(5000, [0, 255, 256, 4999], torch.int8),
+                         True, False),
+    "int8-D48": lambda: (i8((3000, 48), 192), i8((48,), 193), _selector(3000, [0, 84, 85, 2999], torch.int8),
+                         True, False),
+    "int8-int32-selector": lambda: (i8((32768, 64), 194), i8((64,), 195),
+                                    _selector(32768, [1, 30000], torch.int32), True, False),
+    "int8-cache-off-16-bytes": lambda: (i8((4096, 64), 196), i8((64,), 197), _selector(4096, [0, 4095], torch.int8),
+                                        False, True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(KV))
 def test_kv_append_kernel_matches_plain(card, case):
-    cache, new, sel = KV[case]()
-    dev_cache = cache.to(card)
+    cache, new, sel, vec, off = KV[case]()
+    dev_cache = on_card_at(cache, card, 1) if off else cache.to(card)
+    dev_new, dev_sel = new.to(card), sel.to(card)
+    plan = tatt.kv_plan(*cache.shape, cache.element_size(), new.element_size(),
+                        (dev_cache.data_ptr(), dev_new.data_ptr(), 0))
+    assert plan.vec == vec
     tapi.reset_launch_counts()
-    got = tatt._kv_append(dev_cache, new.to(card), sel.to(card))
+    got = tatt._kv_append(dev_cache, dev_new, dev_sel)
     torch.cuda.synchronize()
     assert tapi.launch_counts() == {"kv_append": 1}
     assert got.dtype == cache.dtype and got.data_ptr() != dev_cache.data_ptr()
@@ -898,25 +924,63 @@ def test_htree_kernel_matches_plain(card, case):
     assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
 
 
-# name → (B, T, W)
+def _subnormal_gates(shape, seed):
+    """a, b and h0 drawn from ±0, float32 subnormals and small normals: a
+    build that flushed subnormals to zero would differ."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shp, scale):
+        kind = rng.integers(0, 4, shp)
+        vals = np.where(kind == 0, 0.0, np.where(kind == 1, -0.0, rng.standard_normal(shp) * scale))
+        return torch.from_numpy(vals.astype(np.float32))
+
+    bsz, _, w = shape
+    return draw(shape, 0.5).abs(), draw(shape, 2.0**-135), draw((bsz, w), 2.0**-130)
+
+
+# name → ((B, T, W), whether the plan takes 16-byte copies, a and b 4 bytes
+# off 16-byte alignment, ±0 and subnormal operands); a stage is 32 steps, a
+# group 32 channels (rglru_scan.rglru_plan)
 RGLRU = {
-    "T1": (2, 1, 5),
-    "ragged-W300-T37": (2, 37, 300),
-    "ragged-W513-T260": (3, 260, 513),
-    "recurrentgemma-width-T2048": (1, 2048, 2560),
+    "T1": ((2, 1, 5), False, False, False),
+    "ragged-W300-T37": ((2, 37, 300), True, False, False),
+    "ragged-W513-T260": ((3, 260, 513), False, False, False),
+    "recurrentgemma-width-T2048": ((1, 2048, 2560), True, False, False),
+    "T-one-short-of-a-stage": ((2, 31, 64), True, False, False),
+    "T-one-past-a-stage": ((2, 33, 64), True, False, False),
+    "T8192": ((1, 8192, 40), True, False, False),
+    "W1": ((3, 50, 1), False, False, False),
+    "W3": ((2, 50, 3), False, False, False),
+    "W4": ((2, 50, 4), True, False, False),
+    "ragged-last-group-W40": ((2, 40, 40), True, False, False),
+    "B-times-W-below-a-group": ((3, 33, 4), True, False, False),
+    "off-16-bytes-W64": ((2, 100, 64), False, True, False),
+    "off-16-bytes-W300": ((2, 37, 300), False, True, False),
+    "zeros-and-subnormals": ((2, 70, 48), True, False, True),
+    "zeros-and-subnormals-4-byte-copies": ((2, 70, 50), False, False, True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(RGLRU))
 def test_rglru_kernel_matches_plain(card, case):
-    bsz, t, w = RGLRU[case]
-    a = torch.sigmoid(floats((bsz, t, w), 90))
-    b, h0 = floats((bsz, t, w), 91), floats((bsz, w), 92)
+    (bsz, t, w), vec, off, subnormal = RGLRU[case]
+    if subnormal:
+        a, b, h0 = _subnormal_gates((bsz, t, w), 99)
+        assert (b.abs() < torch.finfo(torch.float32).tiny).logical_and(b != 0).any()
+    else:
+        a = torch.sigmoid(floats((bsz, t, w), 90))
+        b, h0 = floats((bsz, t, w), 91), floats((bsz, w), 92)
+    da, db = (on_card_at(a, card, 1), on_card_at(b, card, 1)) if off else (a.to(card), b.to(card))
+    assert trg.rglru_plan(bsz, t, w, (da.data_ptr(), db.data_ptr())).vec == vec
     tapi.reset_launch_counts()
-    got = trg._scan(a.to(card), b.to(card), h0.to(card))
+    got = trg._scan(da, db, h0.to(card))
     torch.cuda.synchronize()
     assert tapi.launch_counts() == {"rglru_scan": 1}
-    assert torch.equal(got.cpu(), trg._scan_plain(a, b, h0))
+    want = trg._scan_plain(a, b, h0)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))  # ±0 too
+    if subnormal:
+        assert (want.abs() < torch.finfo(torch.float32).tiny).logical_and(want != 0).any()
     assert torch.allclose(got.cpu(), tref.rglru_scan_ref(a, b, h0), atol=1e-4, rtol=1e-4)
 
 

@@ -14,7 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import _build, api, conv, ewise  # noqa: E402
+from repro_torch.kernels import _build, api, attention, conv, ewise, rglru_scan  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 
 
@@ -28,7 +28,10 @@ def channels_last(t):
 
 
 def test_plans_mirror_the_kernels_constants():
-    for source, names in (("pool_reduce", {"THREADS": conv.POOL_THREADS}), ("ewise", {"THREADS": ewise.EWISE_THREADS})):
+    for source, names in (("pool_reduce", {"THREADS": conv.POOL_THREADS}), ("ewise", {"THREADS": ewise.EWISE_THREADS}),
+                          ("rglru_scan", {"SCAN_THREADS": rglru_scan.SCAN_THREADS, "SCAN_GROUP": rglru_scan.SCAN_GROUP,
+                                          "SCAN_STEPS": rglru_scan.SCAN_STEPS, "SCAN_STAGES": rglru_scan.SCAN_STAGES}),
+                          ("attention", {"KV_THREADS": attention.KV_THREADS})):
         text = (_build.CSRC / f"{source}.cu").read_text()
         for name, value in names.items():
             assert re.search(rf"constexpr int {name} = {value};", text), (source, name)
