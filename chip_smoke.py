@@ -75,7 +75,12 @@ Phases, any failure of which exits non-zero:
    dtype; for the scan T = 1, T one short of and one past a stage, T = 8192,
    W = 1, 3 and 4, ragged last groups, B · W below a group, a and b off 16
    bytes on 4-byte copies, ±0 and subnormal operands, each call held to the
-   copies its plan names), and the row reduction and the elementwise
+   copies its plan names), the row dot of q·Kᵀ and decode_gemv at the edges
+   of its plan (every lanes from 1 to 32 at one and 9 queries, rows split
+   over 2, 4 and 8 warps, row counts off a warp's rows, M = 1 to 9, queries
+   streamed past the registers, the grid-stride loop, int32 wrap, (512, 512)
+   int32, views one byte off on the generic kernels; each call held to the
+   path its plan names, one device kernel a call), and the row reduction and the elementwise
    kernels at the edges of their launch plans (every lane-group size,
    misaligned views, INT32_MIN and NaN rows, n from 1 to 255, channels-last
    operands whose layout the result keeps), and the int32 GEMM and H-tree at
@@ -95,7 +100,9 @@ Phases, any failure of which exits non-zero:
    of 20 calls, after warm-up; eager back-to-back calls too) beside its
    bound, its plain version and, where one PyTorch call computes the same
    function, that call (``torch._int_mm`` for a single-pair bit-sliced
-   GEMM, in paired rounds); the bit-sliced GEMM's path (every phase 3c/3d
+   GEMM, in paired rounds; transposed, ``torch._int_mm(w, x8)`` with the
+   query or activation in column 0 of a (K, 8) int8 matrix, beside q·Kᵀ at
+   the serving call and the int8 decode GEMVs, in paired rounds); the bit-sliced GEMM's path (every phase 3c/3d
    call must take the tensor cores) and, for quant_linear_relu, whose
    inputs fit in L2, a reading with them cold; the int32 GEMM's bound counts the int8 tensor-core digit products
    its inputs need (``digit_products``), with the SIMT design's IMAD bound
@@ -178,7 +185,6 @@ ATTN_REPLACES = {
 }
 # why no single PyTorch call computes the same function
 ATTN_NO_LIBRARY = {
-    "attention_qk": "no int8 or int32 GEMV on CUDA (torch._int_mm refuses M <= 16)",
     "softmax_fixedpoint": "no fixed-point softmax in PyTorch",
     "attention_pv": "no int32 matrix product on CUDA (torch._int_mm needs int8 p and M > 16)",
 }
@@ -212,7 +218,7 @@ ENTRY_REPLACES = {
     "htree_reduce": "src/repro/kernels/htree_reduce.py:25",
 }
 ENTRY_NO_LIBRARY = {
-    "decode_gemv": "no int8 or int32 GEMV on CUDA (torch._int_mm refuses N = 1)",
+    "decode_gemv": "int32 operands: no int32 matrix product on CUDA (torch._int_mm takes int8)",
     "rglru_scan": "no linear-recurrence scan in PyTorch",
     "htree_reduce": "torch.sum adds floats in another order",
 }
@@ -1185,6 +1191,29 @@ def launch_floor(torch, dev):
     return median(sorted(graph_ms(torch, lambda: x.add_(1)) for _ in range(5)))
 
 
+def int_mm_yardstick(torch, smoke, kernel, case, run, w, x, want):
+    """The library call beside a row dot ``w (rows, K) · x (K,)`` of int8:
+    ``torch._int_mm(w, x8)``, with ``x8`` the (K, 8) int8 matrix holding
+    ``x`` in column 0 and zeros elsewhere, built here outside the timed call
+    (``_int_mm`` refuses 16 rows or fewer in its first operand, so the
+    untransposed call cannot take a GEMV).  Column 0 is checked bit-equal to
+    ``want``; then kernel (``run``) and library are read in PAIRED_ROUNDS
+    paired rounds, warm.  Returns ``(kernel ms, library ms, reason)``: the
+    medians, or ``(None, None, the card's message)`` when ``_int_mm`` refuses
+    the shape."""
+    x8 = torch.zeros((x.shape[0], 8), dtype=torch.int8, device=w.device)
+    x8[:, 0] = x
+    try:
+        lib = torch._int_mm(w, x8)
+    except RuntimeError as e:  # the yardstick's own refusal, recorded; the kernel is timed elsewhere
+        return None, None, f"torch._int_mm refused: {str(e).splitlines()[0]}"
+    smoke.check(kernel, f"{case} torch._int_mm library call (column 0)", lib[:, 0].reshape(want.shape), want,
+                exact=True)
+    sums, _ = paired_rounds([(graph_timer(torch, run), graph_timer(torch, lambda: torch._int_mm(w, x8)))],
+                            PAIRED_ROUNDS)
+    return median(sorted(sums["kernel"])), median(sorted(sums["library"])), None
+
+
 def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s, floor_ms):
     """Phase 4 for the attention kernels: each at the serving path's inputs
     of its T = 32768 request (checked once more against its plain version),
@@ -1222,13 +1251,19 @@ def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s, floor_ms):
                 plain[kernel](*cpu_args)
                 samples.append((time.perf_counter() - t) * 1e3)
             p_ms = median(sorted(samples))
-        lib_ms = None
+        lib_ms, lib_name, lib_reason = None, None, ATTN_NO_LIBRARY.get(kernel)
         if kernel == "kv_append":
             cache, new, sel = args
             sel_b, new_c = (sel != 0)[:, None], new.to(cache.dtype)[None, :]
             lib = torch.where(sel_b, new_c, cache)
             smoke.check(kernel, "torch.where library call", lib, plain[kernel](*cpu_args), exact=True)
-            lib_ms = graph_ms(torch, lambda: torch.where(sel_b, new_c, cache))
+            lib_ms, lib_name = graph_ms(torch, lambda: torch.where(sel_b, new_c, cache)), "torch.where"
+        elif kernel == "attention_qk":  # M = 1: the scores are the cache's GEMV by q
+            q, k = args
+            paired_ms, lib_ms, lib_reason = int_mm_yardstick(torch, smoke, kernel, "serving path", lambda: run[kernel](q, k),
+                                                             k, q[0], plain[kernel](*cpu_args))
+            if paired_ms is not None:
+                k_ms, lib_name = paired_ms, "torch._int_mm (transposed, paired rounds)"
         nbytes = sum(width(a) for a in args) + width(path_out)
         if kernel == "attention_qk":  # int8 products: the int8 peak, two operations a multiply-add
             ops, rate = 2 * args[0].shape[0] * args[1].shape[0] * args[0].shape[1], INT8_OPS_PER_S
@@ -1249,8 +1284,7 @@ def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s, floor_ms):
             "bound_by": "operations" if b_ops > b_bytes else "bytes", "library_ms": lib_ms,
             "eager_ms": k_eager, "cold_ms": k_cold, "launch_floor_ms": floor_ms,
             "plain_device": "cuda" if kernel in plain_on_card else "cpu",
-            "library": "torch.where" if lib_ms is not None else None,
-            "library_none_reason": ATTN_NO_LIBRARY.get(kernel),
+            "library": lib_name, "library_none_reason": lib_reason,
             "launches_per_step": STEP_LAUNCHES[kernel], "main_path_max_abs_err": err,
             "shapes": [list(a.shape) for a in args], "dtypes": [str(a.dtype) for a in args],
             "bytes": nbytes, "ops": ops,
@@ -1356,6 +1390,7 @@ def entry_kernel_checks(torch, att, ht, rg, smoke, dev, seed):
         torch.cuda.synchronize()
         smoke.check(kernel, case, got, plain(*cpu_args), exact=True)
     rglru_edge_checks(torch, rg, smoke, dev, seed + 50)
+    rowdot_edge_checks(torch, att, smoke, dev, seed + 70)
 
 
 def rglru_edge_checks(torch, rg, smoke, dev, seed):
@@ -1493,6 +1528,100 @@ def pool_ewise_edge_checks(torch, conv, ewise, smoke, dev, seed):
                                   f"{card_args[0].stride()}")
 
 
+def rowdot_edge_checks(torch, att, smoke, dev, seed):
+    """Phase 2 for the row-dot launch plan (attention.rowdot_plan) through
+    both of its wrappers, each case against its plain version (on a CPU
+    copy) and held to the path its case names (row dot with its lanes and
+    split, or the generic kernel): every lanes from 1 to 32 (K = 16 · lanes
+    int8) at one and at 9 queries, rows split over 2, 4 and 8 warps, row
+    counts that are not a multiple of a warp's rows, M = 1 to 9 queries, the
+    queries streamed past the registers, the grid-stride loop, int32 wrap,
+    kernels_bench's (512, 512) int32, and views one byte off; and one call
+    of each wrapper on each path launches one device kernel, the one its
+    plan names (profiler)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    def i32(shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32)
+
+    def off8(t):  # int8: a copy on the card one byte off a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=torch.int8, device=dev)
+        return buf[1:].view(t.shape).copy_(t)
+
+    def off4(t):  # int32: one element (4 bytes) off
+        buf = torch.empty(t.numel() + 1, dtype=torch.int32, device=dev)
+        return buf[1:].view(t.shape).copy_(t)
+
+    # (kernel, case, want: (lanes, split) or None for the generic kernel,
+    #  a (nq, K) and w (rows, K) on the CPU, which operand sits off alignment)
+    cases = []
+    for lanes, split in ((1, 1), (2, 1), (4, 1), (8, 1), (16, 1), (32, 1), (32, 2), (32, 4), (32, 8)):
+        for nq in (1, 9):
+            # split: a lane's target of chunks on every thread of the row, and
+            # one row past ROWDOT_TARGET_BLOCKS blocks' (ragged last warp), so
+            # no more threads a row are needed; a block's 8 warps take any rows
+            target = min(att.ROWDOT_TARGET_ITERS, att.ROWDOT_XREG_CHUNKS // (1 if nq == 1 else att.ROWDOT_GROUP))
+            span = lanes * split
+            rows = 37 if split == att.ROWDOT_MAX_WARPS else att.ROWDOT_TARGET_BLOCKS * 256 // span + 3
+            rows, k = (1001, 16 * lanes) if split == 1 else (rows, 16 * target * span)  # unsplit: whole rows
+            cases.append(("attention_qk" if nq > 1 or split == 1 else "decode_gemv",
+                          f"lanes {lanes} split {split}, ({nq}, {k}) x ({rows}, {k})", (lanes, split), i8((nq, k)),
+                          i8((rows, k)), None))
+    for m in range(1, 10):
+        cases.append(("attention_qk", f"M = {m}, ({m}, 64) x (1001, 64)", (4, 1), i8((m, 64)), i8((1001, 64)), None))
+    cases += [
+        ("attention_qk", "queries streamed, (3, 16384) x (100, 16384)", (32, 8), i8((3, 16384)), i8((100, 16384)),
+         None),
+        ("decode_gemv", "grid-stride loop, (1100000, 16)", (1, 1), i8((1, 16)), i8((1100000, 16)), None),
+        ("decode_gemv", "int32 wrap (300, 64)", (16, 1), i32((1, 64)), i32((300, 64)), None),
+        ("attention_qk", "int32 wrap (3, 32) x (500, 32)", (8, 1), i32((3, 32)), i32((500, 32)), None),
+        ("decode_gemv", "kernels_bench (512, 512) int32", (32, 4), i32((1, 512)), i32((512, 512)), None),
+        ("decode_gemv", "unroll 8 in registers, (37, 20000)", (32, 8), i8((1, 20000)), i8((37, 20000)), None),
+        ("decode_gemv", "unroll 2, (2000, 1024)", (32, 1), i8((1, 1024)), i8((2000, 1024)), None),
+        ("decode_gemv", "int32 unroll 2, (2000, 256)", (32, 1), i32((1, 256)), i32((2000, 256)), None),
+        ("decode_gemv", "int32 unroll 4, (5000, 256)", (16, 1), i32((1, 256)), i32((5000, 256)), None),
+        ("decode_gemv", "int32 unroll 8 in registers, (40, 8192)", (32, 8), i32((1, 8192)), i32((40, 8192)), None),
+        ("decode_gemv", "int32 streamed, (40, 16384)", (32, 8), i32((1, 16384)), i32((40, 16384)), None),
+        ("decode_gemv", "weight one byte off (128, 896)", None, i8((1, 896)), i8((128, 896)), "w"),
+        ("decode_gemv", "activation one byte off (896, 896)", None, i8((1, 896)), i8((896, 896)), "a"),
+        ("attention_qk", "cache one byte off (1001, 64)", None, i8((2, 64)), i8((1001, 64)), "w"),
+        ("attention_qk", "queries one byte off (7, 64)", None, i8((7, 64)), i8((1001, 64)), "a"),
+        ("decode_gemv", "int32 weight 4 bytes off (300, 64)", None, i32((1, 64)), i32((300, 64)), "w"),
+    ]
+    probes = {}  # (kernel, device kernel) → the first case that takes it
+    for kernel, case, want, a, w, shifted in cases:
+        move = {torch.int8: off8, torch.int32: off4}[a.dtype]
+        da = move(a) if shifted == "a" else a.to(dev)
+        dw = move(w) if shifted == "w" else w.to(dev)
+        plan = att.rowdot_plan(w.shape[0], w.shape[1], a.shape[0], dw.element_size(), da.element_size(),
+                               (dw.data_ptr(), da.data_ptr()))
+        took = (plan.lanes, plan.split) if plan.vec else None
+        if took != want:
+            smoke.failures.append(f"{kernel} [{case}]: the plan takes {took or 'the generic kernel'}, not "
+                                  f"{want or 'the generic kernel'}")
+        if case.startswith("grid-stride") and plan.blocks * plan.rows_per_step >= w.shape[0]:
+            smoke.failures.append(f"{kernel} [{case}]: the grid ({plan.blocks} blocks) walks no second step")
+        if kernel == "attention_qk":
+            call, want_out = (lambda da=da, dw=dw: att._qk(da, dw)), att._qk_plain(a, w)
+        else:
+            call, want_out = (lambda da=da, dw=dw: att._gemv(dw, da[0])), att._gemv_plain(w, a[0])
+        got = call()
+        torch.cuda.synchronize()
+        path = f"rowdot lanes {plan.lanes} split {plan.split}" if plan.vec else "generic"
+        smoke.check(kernel, f"{path}: {case}", got, want_out, exact=True)
+        device_kernel = "rowdot" if plan.vec else {"attention_qk": "qk_generic", "decode_gemv": "gemv_generic"}[kernel]
+        probes.setdefault((kernel, device_kernel), (case, call))
+    # one device kernel a call, the one the plan names (profiler)
+    for (kernel, device_kernel), (case, call) in sorted(probes.items()):
+        _, names, _ = device_profile(torch, call, 1)
+        if sum(c for c, _ in names.values()) != 1 or not any(device_kernel in n for n in names):
+            smoke.failures.append(f"{kernel} [{case}]: one call launched {sorted(names)} on the device, not one "
+                                  f"{device_kernel}")
+
+
 def entry_point_cases(torch, api, cfg, seed):
     """Phase 3g's calls, on the CPU: ``(kernel, case, entry point, operands)``
     for the decode projections, the RG-LRU scan, the H-tree reductions and
@@ -1595,7 +1724,12 @@ def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
             p_ms, p_dev = graph_ms(torch, lambda: plain[kernel](*args)), "cuda"
         else:  # T steps of a few elementwise kernels each: eager, one call after a warm-up
             p_ms, p_dev = cuda_ms(torch, lambda: plain[kernel](*args), reps=1, warmup=1), "cuda"
-        lib_ms, paired = None, {}
+        lib_ms, lib_name, lib_reason, paired = None, None, ENTRY_NO_LIBRARY[kernel], {}
+        if kernel == "decode_gemv" and all(a.dtype == torch.int8 for a in args):
+            paired_ms, lib_ms, lib_reason = int_mm_yardstick(torch, smoke, kernel, r["case"],
+                                                             lambda: run[kernel](*args), *args, r["want"])
+            if paired_ms is not None:
+                k_ms, lib_name = paired_ms, "torch._int_mm (transposed, paired rounds)"
         if kernel == "htree_reduce" and args[0].dtype == torch.int32:
             def lib(x):
                 return torch.sum(x, 0, dtype=torch.int32)
@@ -1608,7 +1742,7 @@ def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
                 sums, _ = paired_rounds([pair], PAIRED_ROUNDS)
                 paired[temp] = dict(sums, kernel_no_slower=sum(x <= y for x, y in zip(sums["kernel"], sums["library"])),
                                     ms=median(sorted(sums["kernel"])), library_ms=median(sorted(sums["library"])))
-            k_ms, lib_ms = paired["warm"]["ms"], paired["warm"]["library_ms"]
+            k_ms, lib_ms, lib_name, lib_reason = paired["warm"]["ms"], paired["warm"]["library_ms"], "torch.sum", None
         out_bytes = width(r["want"])
         nbytes = sum(width(a) for a in args) + out_bytes
         if kernel == "decode_gemv":
@@ -1629,8 +1763,7 @@ def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
                 (c["max_abs_err"] or 0.0) for c in smoke.cases if c["kernel"] == kernel),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
             "bound_by": "operations" if b_ops > b_bytes else "bytes", "library_ms": lib_ms,
-            "eager_ms": k_eager, "plain_device": p_dev, "library": "torch.sum" if lib_ms is not None else None,
-            "library_none_reason": None if lib_ms is not None else ENTRY_NO_LIBRARY[kernel],
+            "eager_ms": k_eager, "plain_device": p_dev, "library": lib_name, "library_none_reason": lib_reason,
             "launches_by_path": {name: r["launches"]}, "shapes": r["shapes"], "dtypes": r["dtypes"],
             "bytes": nbytes, "ops": ops,
         })

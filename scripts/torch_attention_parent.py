@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The decode step's KV append (K10), softmax (K7) and p·V (K8) kernels and
-the RG-LRU scan (K11) of two source trees, read in turns on one card, so
-that a change is timed against its parent.
+"""The decode step's q·Kᵀ (K6), KV append (K10), softmax (K7) and p·V (K8)
+kernels, the decode GEMV (K9) and the RG-LRU scan (K11) of two source trees,
+read in turns on one card, so that a change is timed against its parent.
 
 Run from the repository root on a machine with one CUDA card::
 
@@ -14,9 +14,11 @@ objects); each tree builds its kernels into its own ``build/``.  The inputs
 are the serving path's T = 32768 call at Qwen2-0.5B's attention width
 (``chip_smoke.DECODE_CFG``: head_dim 64, int8 caches, scores at in_frac 13,
 an int8 one-hot selector on the last row), one query, random caches from
-seed 4, and the RG-LRU scan at ``chip_smoke.RGLRU_SHAPE`` (RecurrentGemma-2B's
-width, a = sigmoid(normal), b and h0 normal).  The script checks that both
-trees' outputs are bit-equal to the plain versions, then reads, in
+seed 4, the decode GEMV at ``chip_smoke.GEMV_SHAPES`` (Qwen2-0.5B's int8
+projections and LM head) and ``chip_smoke.GEMV_BENCH`` in int32, and the
+RG-LRU scan at ``chip_smoke.RGLRU_SHAPE`` (RecurrentGemma-2B's width, a =
+sigmoid(normal), b and h0 normal).  The script checks that both trees'
+outputs are bit-equal to the plain versions, then reads, in
 ``chip_smoke.PAIRED_ROUNDS`` rounds of both trees in turns (the parent first
 in every other round), the median device time of:
 
@@ -102,10 +104,22 @@ def main() -> int:
     gb, gh = torch.randn(cs.RGLRU_SHAPE, generator=gs).to(dev), torch.randn((bsz, w), generator=gs).to(dev)
     want_kv = trees["change"]._kv_append_plain(kc.cpu(), k_new.cpu(), onehot.cpu())
     want_scan = scans["change"]._scan(ga[:1].cpu(), gb[:1].cpu(), gh[:1].cpu())  # batch row 0, plain on the CPU
-    out["bit_equal"] = {name: {"softmax": torch.equal(a._softmax(scores, sigma).cpu(), want_sm),
+    want_qk = trees["change"]._qk_plain(q.cpu(), kc.cpu())
+    gg = torch.Generator().manual_seed(SEED + 2)
+    gemvs = {name: (torch.randint(-128, 128, (m, k), generator=gg, dtype=torch.int8).to(dev),
+                    torch.randint(-128, 128, (k,), generator=gg, dtype=torch.int8).to(dev))
+             for name, (m, k) in cs.GEMV_SHAPES.items()}
+    m, k = cs.GEMV_BENCH
+    gemvs["kernels_bench_int32"] = (torch.randint(-50, 50, (m, k), generator=gg, dtype=torch.int32).to(dev),
+                                    torch.randint(-50, 50, (k,), generator=gg, dtype=torch.int32).to(dev))
+    want_gemv = {name: trees["change"]._gemv_plain(w.cpu(), x.cpu()) for name, (w, x) in gemvs.items()}
+    out["bit_equal"] = {name: {"qk": torch.equal(a._qk(q, kc).cpu(), want_qk),
+                               "softmax": torch.equal(a._softmax(scores, sigma).cpu(), want_sm),
                                "pv": torch.equal(a._pv(probs, vc, shift).cpu(), want_pv),
                                "kv_append": torch.equal(a._kv_append(kc, k_new, onehot).cpu(), want_kv),
-                               "rglru_scan": torch.equal(scans[name]._scan(ga, gb, gh)[:1].cpu(), want_scan)}
+                               "rglru_scan": torch.equal(scans[name]._scan(ga, gb, gh)[:1].cpu(), want_scan),
+                               **{f"decode_gemv[{g}]": torch.equal(a._gemv(w, x).cpu(), want_gemv[g])
+                                  for g, (w, x) in gemvs.items()}}
                         for name, a in trees.items()}
 
     def paired(pair):
@@ -116,6 +130,8 @@ def main() -> int:
                 "change_faster_rounds": sum(c < p for c, p in zip(sums["kernel"], sums["library"]))}
 
     kernels = {
+        "attention_qk": (lambda n: trees[n]._qk, (q, kc)),
+        **{f"decode_gemv[{g}]": (lambda n: trees[n]._gemv, wx) for g, wx in gemvs.items()},
         "kv_append": (lambda n: trees[n]._kv_append, (kc, k_new, onehot)),
         "softmax_fixedpoint": (lambda n: (lambda x: trees[n]._softmax(x, sigma)), (scores,)),
         "attention_pv": (lambda n: (lambda p, v: trees[n]._pv(p, v, shift)), (probs, vc)),

@@ -64,14 +64,16 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "bitslice_gemm_mma": ("bitslice_gemm", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                             _P)),
     # the attention kernels take int8 and int32 operands, named by their
-    # element size in bytes (1 or 4) after the extents; the softmax and p·V
-    # take their launch plans after those (attention.softmax_plan: cluster,
-    # chunks a block, registers, 16-byte access, blocks; attention.pv_plan:
-    # packed, queries a block, rows a block, blocks, partial words a block)
-    "attention_qk": ("attention", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # element size in bytes (1 or 4) after the extents, then their launch
+    # plans: q·Kᵀ and the GEMV attention.rowdot_plan's (row dot, lanes,
+    # split, warps, unroll, group, blocks); the softmax attention.softmax_plan's
+    # (cluster, chunks a block, registers, 16-byte access, blocks); p·V
+    # attention.pv_plan's (packed, queries a block, rows a block, blocks,
+    # partial words a block)
+    "attention_qk": ("attention", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "softmax_fixedpoint": ("attention", (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "attention_pv": ("attention", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
-    "decode_gemv": ("attention", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "decode_gemv": ("attention", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     # the KV append takes its plan (attention.kv_plan: 16-byte chunks,
     # blocks) after the element sizes
     "kv_append": ("attention", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),

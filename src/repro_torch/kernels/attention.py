@@ -16,12 +16,14 @@ its plain version for CPU tensors:
 
 Operands are int8 or int32 (the selector also bool); int8 operands reach
 the kernels as int8 and are widened in registers.  Everything is integer:
-int32 arithmetic wraps, every ``>>`` is arithmetic.  The softmax, p·V and
-KV-append kernels take launch plans computed here (:func:`softmax_plan`,
-:func:`pv_plan`, :func:`kv_plan`).
+int32 arithmetic wraps, every ``>>`` is arithmetic.  Every kernel takes a
+launch plan computed here: q·Kᵀ and the decode GEMV share one row-dot
+kernel (:func:`rowdot_plan`); the softmax, p·V and KV append have
+:func:`softmax_plan`, :func:`pv_plan` and :func:`kv_plan`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -34,6 +36,18 @@ _BYTES = {torch.int8: 1, torch.int32: 4}
 _SEL_BYTES = {**_BYTES, torch.bool: 1}
 # a row sum of exponentials (each at most 2^F) fits int32 below this many columns
 SOFTMAX_MAX_COLS = 1 << (31 - ref.SOFTMAX_F)
+
+# csrc/attention.cu's row-dot constants (q·Kᵀ and the decode GEMV)
+ROWDOT_MAX_WARPS = 8      # RD_MAX_WARPS: warps of a block, at most
+ROWDOT_UNROLL = 8         # RD_UNROLL: 16-byte weight loads a lane has in flight, at most
+ROWDOT_GROUP = 8          # RD_GROUP: queries a block accumulates (grid y takes the groups)
+ROWDOT_XREG_CHUNKS = 16   # RD_XREG_CHUNKS: activation chunks a lane keeps in registers
+# chunks a lane aims at (scripts/torch_rowdot_variants.py: on the card 2–4
+# beat 1 and 5–19), the blocks a grid aims at (one per SM of an H100), and
+# the grid's cap, above which each block walks an equal number of steps
+ROWDOT_TARGET_ITERS = 4
+ROWDOT_TARGET_BLOCKS = 132
+ROWDOT_MAX_BLOCKS = 132 * 32
 
 # csrc/attention.cu's softmax constants
 SOFTMAX_ROW_WARPS = 8         # SM_ROW_WARPS: rows path, a warp a row
@@ -57,6 +71,100 @@ PV_TARGET_BLOCKS = 132
 # csrc/attention.cu's kv_append constants
 KV_THREADS = 256        # KV_THREADS
 KV_MAX_GRID = 132 * 32  # the generic kernel's grid-stride cap (repro_grid)
+
+
+class RowdotPlan(NamedTuple):
+    """Launch plan of the row dot ``out[i][r] = Σ_j a[i][j]·w[r][j]`` of
+    ``csrc/attention.cu`` (q·Kᵀ and the decode GEMV)."""
+
+    vec: bool    # the row-dot kernel (16-byte chunks); else the generic kernel
+    lanes: int   # lanes of a warp on one row (1 to 32, a power of two)
+    split: int   # warps on one row (a power of two; lanes is 32 when above 1)
+    warps: int   # warps of a block
+    unroll: int  # 16-byte weight loads a lane issues before its first multiply (1, 2, 4, 8)
+    group: int   # queries a block accumulates: 1, or ROWDOT_GROUP with grid y over the groups
+    blocks: int  # grid x; above the rows' steps, a grid-stride loop
+
+    @property
+    def span(self) -> int:
+        """Threads on one row."""
+        return self.lanes * self.split
+
+    @property
+    def rows_per_step(self) -> int:
+        """Rows a block takes at a step of its grid-stride loop."""
+        return 32 * self.warps // self.span
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def rowdot_plan(rows: int, k: int, nq: int, w_bytes: int, a_bytes: int, ptrs: Tuple[int, int]) -> RowdotPlan:
+    """Launch plan of ``a (nq, k) · w (rows, k)ᵀ`` for contiguous operands of
+    ``a_bytes`` and ``w_bytes`` bytes an element (1 or 4) at ``ptrs = (w,
+    a)``: q·Kᵀ with w the (T, D) cache and a the (M, D) queries, the decode
+    GEMV with w the (M, K) weight and a its one (K,) activation (nq = 1).
+
+    The row-dot kernel (``vec``) takes both operands int8 or both int32,
+    16-byte rows (k · bytes % 16 == 0, k > 0) and both bases 16-byte
+    aligned; everything else the generic kernels (qk_generic a thread a row,
+    gemv_generic a warp a row), whose grids the C entries size as before, so
+    their plan holds only ``vec`` and ``group``.  On the row-dot kernel, a
+    row of C 16-byte chunks gets ``span = lanes · split`` threads, each on
+    the chunks ``slot + i · span``:
+
+    * a row of at most 32 chunks gets a lane a chunk (D = 64: 4 lanes, 8
+      rows a warp), so that a warp load reads whole rows, one contiguous run
+      (on the card 1 or 2 lanes a row were faster warm by ~0.06 µs and slower
+      cold by 0.10–0.16); a longer row starts at the least power of two that
+      leaves a lane at most ROWDOT_TARGET_ITERS chunks (K = 896: 16 lanes, 4
+      chunks; K = 4864: 128 threads, 4 warps, 3 chunks), or 2 with a group
+      of queries, so their chunks fit ROWDOT_XREG_CHUNKS registers; at most
+      a block;
+    * it doubles, up to C's power of two and a block, while the grid would
+      hold fewer than ROWDOT_TARGET_BLOCKS blocks of ROWDOT_MAX_WARPS warps;
+      then the block's warps halve, down to one row a block, until it does
+      (on the card fewer blocks were at times faster warm, by at most
+      0.15 µs, and slower cold, by up to 0.7 µs);
+    * a lane issues all its loads at once (``unroll`` ≥ its chunks) up to
+      ROWDOT_UNROLL, and keeps its activation chunks (of each of ``group``
+      queries) in registers while ``group · unroll`` ≤ ROWDOT_XREG_CHUNKS;
+      past that it streams them beside the weights with ``unroll`` at
+      ROWDOT_UNROLL;
+    * the grid gives each block one step of rows, up to ROWDOT_MAX_BLOCKS;
+      past that each block walks an equal number of steps (a grid-stride
+      loop).
+
+    Plans are cached on their inputs (the bases only by their alignment):
+    a decode step is host-bound, and computing one costs microseconds."""
+    w_ptr, a_ptr = ptrs
+    return _rowdot_plan(rows, k, nq, w_bytes, a_bytes, (w_ptr | a_ptr) % 16 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def _rowdot_plan(rows: int, k: int, nq: int, w_bytes: int, a_bytes: int, aligned: bool) -> RowdotPlan:
+    group = 1 if nq <= 1 else ROWDOT_GROUP
+    row_bytes = k * w_bytes
+    if not (w_bytes == a_bytes and k > 0 and row_bytes % 16 == 0 and aligned):
+        return RowdotPlan(False, 0, 0, 0, 0, group, 0)
+    chunks = row_bytes // 16
+    top = 32 * ROWDOT_MAX_WARPS
+    target = min(ROWDOT_TARGET_ITERS, ROWDOT_XREG_CHUNKS // group)
+    span = _pow2_ceil(chunks) if chunks <= 32 else min(top, _pow2_ceil(-(-chunks // target)))
+    while span < min(top, _pow2_ceil(chunks)) and -(-rows // (top // span)) < ROWDOT_TARGET_BLOCKS:
+        span *= 2
+    warps = ROWDOT_MAX_WARPS
+    split = max(1, span // 32)
+    while warps > split and -(-rows // (32 * warps // span)) < ROWDOT_TARGET_BLOCKS:
+        warps //= 2
+    iters = -(-chunks // span)
+    unroll = min(ROWDOT_UNROLL, _pow2_ceil(iters))
+    if group * unroll > ROWDOT_XREG_CHUNKS:
+        unroll = ROWDOT_UNROLL
+    steps = -(-rows // (32 * warps // span))
+    blocks = -(-steps // -(-steps // ROWDOT_MAX_BLOCKS))
+    return RowdotPlan(True, min(span, 32), split, warps, unroll, group, blocks)
 
 
 class SoftmaxPlan(NamedTuple):
@@ -207,7 +315,7 @@ def _pv_plain(p: torch.Tensor, v: torch.Tensor, shift: int) -> torch.Tensor:
 
 def _qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """``q (M, D) · k (T, D)ᵀ → (M, T)`` int32; the CUDA kernel for CUDA
-    tensors."""
+    tensors (the row dot of :func:`rowdot_plan`, or the generic kernel)."""
     dev = kernel_device(q, k)
     if dev.type == "cpu":
         return _qk_plain(q, k)
@@ -218,7 +326,9 @@ def _qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, t), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    _build.launch("attention_qk", dev, q.data_ptr(), k.data_ptr(), out.data_ptr(), m, t, d, qb, kb)
+    plan = rowdot_plan(t, d, m, kb, qb, (k.data_ptr(), q.data_ptr()))
+    _build.launch("attention_qk", dev, q.data_ptr(), k.data_ptr(), out.data_ptr(), m, t, d, qb, kb, int(plan.vec),
+                  plan.lanes, plan.split, plan.warps, plan.unroll, plan.group, plan.blocks)
     count_launch("attention_qk")
     return out
 
@@ -275,7 +385,7 @@ def _pv(p: torch.Tensor, v: torch.Tensor, shift: int) -> torch.Tensor:
 
 def _gemv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``w (M, K) · x (K,) → (M,)`` int32; the CUDA kernel for CUDA
-    tensors."""
+    tensors (the row dot of :func:`rowdot_plan`, or the generic kernel)."""
     dev = kernel_device(w, x)
     if dev.type == "cpu":
         return _gemv_plain(w, x)
@@ -286,7 +396,9 @@ def _gemv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m,), dtype=torch.int32, device=dev)
     if m == 0:
         return out
-    _build.launch("decode_gemv", dev, w.data_ptr(), x.data_ptr(), out.data_ptr(), m, k, wb, xb)
+    plan = rowdot_plan(m, k, 1, wb, xb, (w.data_ptr(), x.data_ptr()))
+    _build.launch("decode_gemv", dev, w.data_ptr(), x.data_ptr(), out.data_ptr(), m, k, wb, xb, int(plan.vec),
+                  plan.lanes, plan.split, plan.warps, plan.unroll, plan.group, plan.blocks)
     count_launch("decode_gemv")
     return out
 

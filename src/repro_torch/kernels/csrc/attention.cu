@@ -3,10 +3,10 @@
 // single-token decode projection, and the KV-cache row append.
 //
 // Replaces the Pallas bodies of src/repro/kernels/attention.py:
-//   _qk_kernel (48, attention_qk)          → qk_* below
+//   _qk_kernel (48, attention_qk)          → rowdot, qk_generic
 //   _softmax_kernel (88, softmax_fixedpoint) → softmax_rows, softmax_cluster
 //   _pv_kernel (145, attention_pv)          → pv_packed, pv_generic
-//   _gemv_kernel (182, decode_gemv)         → gemv_*
+//   _gemv_kernel (182, decode_gemv)         → rowdot, gemv_generic
 //   _kv_append_kernel (218, kv_append)      → kv_append_*
 // Each computes what the TPU kernel computes; the blocking is Hopper's own.
 //
@@ -21,9 +21,36 @@
 // launch latency well before that: the K or V cache is 2 MB (0.6 µs at
 // 3.35 TB/s).
 //
-//  * qk: a tall GEMV.  One thread per cache row, each row read once (16-byte
-//    loads when D % 16 == 0), up to 8 queries per thread accumulated with
-//    __dp4a on int8; the query words are broadcast reads that stay in L1.
+//  * qk and decode_gemv are one function: out[i][r] = Σ_j a[i][j]·w[r][j]
+//    mod 2^32, with w the (T, D) cache and a the (M, D) queries, or w the
+//    (M, K) weight and a the one (K,) activation.  The serving call reads a
+//    2 MB cache (0.6 µs) and the small projections 0.1–4.4 MB, less than or
+//    about one launch (1.6–1.9 µs in graph replay): what costs above the
+//    floor is dependent round trips, not bytes.  So both
+//    take `rowdot` (int8 × int8 or int32 × int32, 16-byte rows, every base
+//    16-byte aligned), laid out by attention.rowdot_plan: `lanes` lanes of a
+//    warp (and `split` warps) share a row, each on its 16-byte chunks c ≡ slot
+//    (mod lanes·split), so the warp's loads cover whole rows and sectors
+//    between them; a lane issues all (up to `unroll`) of its row's
+//    loads before its first multiply, and loads its chunks of the activation
+//    (or of each of up to 8 queries) once, beside them, into registers — no
+//    shared-memory staging and no barrier before the first load; rows too
+//    long for that stream the activation through the read-only path.  Lanes
+//    add in uint32_t by __shfl_xor_sync, split warps through shared memory
+//    (order-free mod 2^32), and after the butterfly one warp store writes a
+//    contiguous run of results.  A row of at most 32 chunks gets a lane a
+//    chunk, so a warp load reads whole rows (D = 64: 8 rows, 512 bytes,
+//    which with the cache cold in L2 beat 1–2 lanes a row); a longer row's
+//    lane aims at 4 chunks, 2 with a group of queries (on the card 2–4 beat
+//    1 and 5–19: one chunk a lane takes more blocks, many a longer chain),
+//    and the plan raises
+//    lanes·split, then lowers the warps of a block, until the grid covers
+//    the 132 SMs (or every row has a block): with the operands cold in L2 a
+//    row's bytes come from HBM, and an idle SM is bandwidth not drawn.
+//    Above 4224 blocks the grid walks the rows (grid-stride), each block an
+//    equal number of steps, so the LM head's 151936 rows keep streaming.
+//    Mixed types, ragged rows and misaligned views take qk_generic and
+//    gemv_generic.
 //  * softmax: a row max, a sum of exponentials Σw and a write, with the
 //    normaliser q = 2^(FI+F) // Σw an exact integer floor division, as in the
 //    oracle (the Pallas body's restoring division shifts Σw left by up to FI
@@ -48,14 +75,6 @@
 //    (order-free mod 2^32, so bit-exact), applies the shift once to the full
 //    sum, never to a partial, and returns the ticket to zero.  Every other
 //    operand mix takes the generic kernel, which ends the same way.
-//  * decode_gemv: (M, K) weights × (K,) activation, a GEMV bound by the
-//    weight bytes (Qwen2-0.5B's tied LM head, (151936, 896) int8, moves
-//    136.1 MB: 40.6 µs).  One warp per output row, its lanes on neighbouring
-//    16-byte chunks of the row (int8, K % 16 == 0, aligned rows: __dp4a) or
-//    on neighbouring elements (every other case); the activation is staged
-//    once per block in shared memory when it fits in 48 KB, else read
-//    through L1.  Lanes add in uint32_t and a __shfl_xor_sync tree sums them:
-//    the wrap makes the order free.
 //  * kv_append: a copy of the cache with the selected rows replaced, a new
 //    tensor (Programs replay the append, so the input is never written).
 //    Every nonzero selector entry is honoured.  The serving path's call, a
@@ -135,40 +154,6 @@ qk_generic(const TQ* __restrict__ q, const TK* __restrict__ k, int32_t* __restri
   }
 }
 
-// int8 × int8 with D % 16 == 0, q 4-byte and k 16-byte aligned: a key row is
-// loaded 16 bytes at a time, four products per __dp4a.
-__global__ void __launch_bounds__(QK_THREADS)
-qk_i8_packed(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-             int32_t* __restrict__ out, int m, int t, int d) {
-  const int m0 = blockIdx.y * QK_GROUP;
-  const int mg = min(QK_GROUP, m - m0);
-  const int words = d / 4;
-  const int* qw = reinterpret_cast<const int*>(q) + static_cast<size_t>(m0) * words;
-  const int stride = gridDim.x * QK_THREADS;
-  for (int row = blockIdx.x * QK_THREADS + threadIdx.x; row < t; row += stride) {
-    int acc[QK_GROUP];
-#pragma unroll
-    for (int i = 0; i < QK_GROUP; ++i) acc[i] = 0;
-    const int4* kr = reinterpret_cast<const int4*>(k + static_cast<size_t>(row) * d);
-    for (int w4 = 0; w4 < words / 4; ++w4) {
-      const int4 kv = kr[w4];
-#pragma unroll
-      for (int i = 0; i < QK_GROUP; ++i) {
-        if (i < mg) {
-          const int* qi = qw + i * words + 4 * w4;
-          acc[i] = __dp4a(kv.x, qi[0], acc[i]);
-          acc[i] = __dp4a(kv.y, qi[1], acc[i]);
-          acc[i] = __dp4a(kv.z, qi[2], acc[i]);
-          acc[i] = __dp4a(kv.w, qi[3], acc[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < QK_GROUP; ++i)
-      if (i < mg) out[static_cast<size_t>(m0 + i) * t + row] = acc[i];
-  }
-}
-
 template <typename TQ, typename TK>
 void launch_qk_generic(dim3 grid, cudaStream_t s, const void* q, const void* k, void* out,
                        int m, int t, int d) {
@@ -179,6 +164,190 @@ void launch_qk_generic(dim3 grid, cudaStream_t s, const void* q, const void* k, 
 
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// ---------------------------------------------------------------------------
+// rowdot: out (nq, rows) = a (nq, K) · w (rows, K)ᵀ on 16-byte rows, the
+// q·Kᵀ scores and the decode GEMV (launch plan: attention.rowdot_plan)
+// ---------------------------------------------------------------------------
+
+constexpr int RD_MAX_WARPS = 8;    // ROWDOT_MAX_WARPS: warps of a block, at most
+constexpr int RD_UNROLL = 8;       // ROWDOT_UNROLL: 16-byte weight loads a lane has in flight, at most
+constexpr int RD_GROUP = 8;        // ROWDOT_GROUP: queries a block accumulates (grid y takes the groups)
+constexpr int RD_XREG_CHUNKS = 16;  // ROWDOT_XREG_CHUNKS: activation chunks a lane keeps in registers
+
+struct RowdotArgs {
+  const int4* a;  // (nq, chunks): the queries or the activation, 16 bytes a chunk
+  const int4* w;  // (rows, chunks): the cache or the weight
+  int32_t* out;   // (nq, rows)
+  int rows, nq, chunks;
+  int lanes;      // lanes of a warp on one row: a power of two, 1 to 32
+  int split;      // warps on one row: a power of two; lanes == 32 when above 1
+  int iters;      // chunks a lane takes of its row: ceil(chunks / (lanes · split))
+};
+
+// One 16-byte chunk of a weight row times the activation's, added to acc:
+// four __dp4a on int8 (the hardware's sum wraps mod 2^32), four uint32_t
+// multiply-adds on int32.
+__device__ __forceinline__ uint32_t dot16(int4 w, int4 x, uint32_t acc, int8_t) {
+  int s = static_cast<int>(acc);
+  s = __dp4a(w.x, x.x, s);
+  s = __dp4a(w.y, x.y, s);
+  s = __dp4a(w.z, x.z, s);
+  s = __dp4a(w.w, x.w, s);
+  return static_cast<uint32_t>(s);
+}
+
+__device__ __forceinline__ uint32_t dot16(int4 w, int4 x, uint32_t acc, int32_t) {
+  return acc + static_cast<uint32_t>(w.x) * static_cast<uint32_t>(x.x) +
+         static_cast<uint32_t>(w.y) * static_cast<uint32_t>(x.y) +
+         static_cast<uint32_t>(w.z) * static_cast<uint32_t>(x.z) +
+         static_cast<uint32_t>(w.w) * static_cast<uint32_t>(x.w);
+}
+
+// A block takes blockDim.x / (lanes · split) rows at a step, grid-stride over
+// the rows.  Thread tid sits on slot tid % (lanes · split) of the step's row
+// tid / (lanes · split) and takes the row's chunks slot, slot + lanes·split,
+// ...: U weight loads are issued before the first multiply.  G: queries
+// (1, or RD_GROUP from blockIdx.y · G on).  XREG: the lane's chunks of the
+// activation (all of them: iters <= U) are loaded once, beside the first
+// weights, and kept for every row it takes; else each batch reads them
+// through the read-only path beside its weights.
+template <typename T, int U, int G, bool XREG>
+__global__ void __launch_bounds__(32 * RD_MAX_WARPS) rowdot(const RowdotArgs p) {
+  __shared__ uint32_t part[G][RD_MAX_WARPS];  // split rows: each warp's sums
+  const int span = p.lanes * p.split;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slot = tid & (span - 1);
+  const int per_step = blockDim.x / span;
+  const int m0 = blockIdx.y * G, mg = min(G, p.nq - m0);
+  const int4* a = p.a + static_cast<size_t>(m0) * p.chunks;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  int4 xr[XREG ? G * U : 1];
+  if constexpr (XREG) {
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = slot + u * span;
+        xr[i * U + u] = i < mg && c < p.chunks ? __ldg(a + static_cast<size_t>(i) * p.chunks + c) : zero;
+      }
+  }
+  for (int base = blockIdx.x * per_step; base < p.rows; base += gridDim.x * per_step) {
+    const int row = base + tid / span;
+    const bool live = row < p.rows;
+    const int4* wr = p.w + static_cast<size_t>(live ? row : 0) * p.chunks;
+    uint32_t acc[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) acc[i] = 0u;
+    for (int it = 0; it < p.iters; it += U) {
+      int4 wv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = slot + (it + u) * span;
+        wv[u] = live && c < p.chunks ? __ldg(wr + c) : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = slot + (it + u) * span;
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          int4 xv;
+          if constexpr (XREG)
+            xv = xr[i * U + u];
+          else
+            xv = i < mg && c < p.chunks ? __ldg(a + static_cast<size_t>(i) * p.chunks + c) : zero;
+          acc[i] = dot16(wv[u], xv, acc[i], T{});
+        }
+      }
+    }
+    if (p.split == 1) {
+      // the lanes of a row: a butterfly inside each aligned group of `lanes`
+      for (int o = 1; o < p.lanes; o <<= 1)
+#pragma unroll
+        for (int i = 0; i < G; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+      // every lane holds its row's sum: lane r takes row r's, and one store
+      // writes the warp's rows in a contiguous run
+      const int wrows = 32 / p.lanes;
+      const int r0 = base + warp * wrows;
+      const int src = (lane & (wrows - 1)) * p.lanes;
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const uint32_t v = __shfl_sync(0xffffffffu, acc[i], src);
+        if (lane < wrows && i < mg && r0 + lane < p.rows)
+          p.out[static_cast<size_t>(m0 + i) * p.rows + r0 + lane] = as_i32(v);
+      }
+    } else {
+      // whole warps on a row: each warp's sum into shared memory, then one
+      // thread a (query, row) adds the row's warps and stores
+#pragma unroll
+      for (int i = 0; i < G; ++i) acc[i] = warp_sum(acc[i]);
+      if (lane == 0)
+#pragma unroll
+        for (int i = 0; i < G; ++i) part[i][warp] = acc[i];
+      __syncthreads();
+      if (tid < G * per_step) {
+        const int i = tid / per_step, r = tid - i * per_step;
+        if (i < mg && base + r < p.rows) {
+          uint32_t sum = 0u;
+          for (int k = 0; k < p.split; ++k) sum += part[i][r * p.split + k];
+          p.out[static_cast<size_t>(m0 + i) * p.rows + base + r] = as_i32(sum);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <typename T>
+void launch_rowdot_t(const RowdotArgs& p, bool xreg, int unroll, int group, dim3 grid, dim3 block,
+                     cudaStream_t s) {
+  if (group == 1) {
+    if (!xreg)
+      rowdot<T, RD_UNROLL, 1, false><<<grid, block, 0, s>>>(p);
+    else if (unroll == 1)
+      rowdot<T, 1, 1, true><<<grid, block, 0, s>>>(p);
+    else if (unroll == 2)
+      rowdot<T, 2, 1, true><<<grid, block, 0, s>>>(p);
+    else if (unroll == 4)
+      rowdot<T, 4, 1, true><<<grid, block, 0, s>>>(p);
+    else
+      rowdot<T, 8, 1, true><<<grid, block, 0, s>>>(p);
+  } else {
+    if (!xreg)
+      rowdot<T, RD_UNROLL, RD_GROUP, false><<<grid, block, 0, s>>>(p);
+    else if (unroll == 1)
+      rowdot<T, 1, RD_GROUP, true><<<grid, block, 0, s>>>(p);
+    else
+      rowdot<T, 2, RD_GROUP, true><<<grid, block, 0, s>>>(p);
+  }
+}
+
+// a (nq, K) and w (rows, K), both int8 or both int32 (`bytes`), row-major,
+// 16-byte rows and bases; out (nq, rows) int32.  The plan is
+// attention.rowdot_plan's; one it does not give is refused.
+int launch_rowdot(const void* a, const void* w, void* out, int rows, int nq, int k, int bytes, int lanes,
+                  int split, int warps, int unroll, int group, int blocks, cudaStream_t s) {
+  const long long row_bytes = static_cast<long long>(k) * bytes;
+  const auto pow2 = [](int v) { return v > 0 && (v & (v - 1)) == 0; };
+  if ((bytes != 1 && bytes != 4) || k <= 0 || row_bytes % 16 != 0 || !aligned(a, 16) || !aligned(w, 16) ||
+      !pow2(lanes) || lanes > 32 || !pow2(split) || (split > 1 && lanes != 32) || !pow2(warps) ||
+      warps < split || warps > RD_MAX_WARPS || !pow2(unroll) || unroll > RD_UNROLL ||
+      (group != 1 && group != RD_GROUP) || blocks < 1 || (nq + group - 1) / group > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = static_cast<int>(row_bytes / 16);
+  const int span = lanes * split;
+  const int iters = (chunks + span - 1) / span;
+  const bool xreg = iters <= unroll && group * unroll <= RD_XREG_CHUNKS;
+  if (!xreg && unroll != RD_UNROLL) return static_cast<int>(cudaErrorInvalidValue);
+  const RowdotArgs p{static_cast<const int4*>(a), static_cast<const int4*>(w), static_cast<int32_t*>(out),
+                     rows, nq, chunks, lanes, split, iters};
+  const dim3 grid(blocks, (nq + group - 1) / group), block(32 * warps);
+  if (bytes == 1)
+    launch_rowdot_t<int8_t>(p, xreg, unroll, group, grid, block, s);
+  else
+    launch_rowdot_t<int32_t>(p, xreg, unroll, group, grid, block, s);
+  return REPRO_LAUNCH_STATUS();
 }
 
 // ---------------------------------------------------------------------------
@@ -659,36 +828,6 @@ gemv_generic(const TW* __restrict__ w, const TX* __restrict__ x, int32_t* __rest
   }
 }
 
-// int8 × int8, K % 16 == 0, w 16-byte aligned (and x too when not staged):
-// 16 bytes of the row a lane, four products per __dp4a.
-__global__ void __launch_bounds__(GEMV_THREADS)
-gemv_i8_packed(const int8_t* __restrict__ w, const int8_t* __restrict__ x, int32_t* __restrict__ out,
-               int m, int k, int stage) {
-  extern __shared__ int4 gemv_smem[];
-  const int chunks = k / 16;
-  const int4* xs = reinterpret_cast<const int4*>(x);
-  if (stage) {  // byte by byte: x itself need not be aligned
-    int8_t* buf = reinterpret_cast<int8_t*>(gemv_smem);
-    for (int j = threadIdx.x; j < k; j += GEMV_THREADS) buf[j] = x[j];
-    __syncthreads();
-    xs = gemv_smem;
-  }
-  const int lane = threadIdx.x & 31;
-  for (int row = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5); row < m; row += gridDim.x * GEMV_WARPS) {
-    const int4* wr = reinterpret_cast<const int4*>(w + static_cast<size_t>(row) * k);
-    int acc = 0;
-    for (int c = lane; c < chunks; c += 32) {
-      const int4 wv = wr[c], xv = xs[c];
-      acc = __dp4a(wv.x, xv.x, acc);
-      acc = __dp4a(wv.y, xv.y, acc);
-      acc = __dp4a(wv.z, xv.z, acc);
-      acc = __dp4a(wv.w, xv.w, acc);
-    }
-    const uint32_t sum = warp_sum(static_cast<uint32_t>(acc));
-    if (lane == 0) out[row] = as_i32(sum);
-  }
-}
-
 template <typename TW, typename TX>
 void launch_gemv_generic(unsigned int blocks, size_t smem, cudaStream_t s, const void* w, const void* x,
                          void* out, int m, int k, int stage) {
@@ -753,15 +892,20 @@ void launch_kv_by_sel(int sel_bytes, int blocks, cudaStream_t s, const void* cac
 }  // namespace
 
 // q (M, D), k (T, D): int8 (bytes 1) or int32 (bytes 4), row-major; out (M, T) int32.
-extern "C" int attention_qk(const void* q, const void* k, void* out, int m, int t, int d,
-                            int q_bytes, int k_bytes, void* stream) {
+// The launch plan is attention.rowdot_plan's: `vec` takes rowdot (q and k
+// both int8 or both int32, 16-byte rows, both 16-byte aligned) with its
+// lanes, split, warps, unroll, group and blocks; else qk_generic, a thread a
+// row and groups of QK_GROUP queries on grid y, which ignores the rest.
+extern "C" int attention_qk(const void* q, const void* k, void* out, int m, int t, int d, int q_bytes,
+                            int k_bytes, int vec, int lanes, int split, int warps, int unroll, int group,
+                            int blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    if (q_bytes != k_bytes) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_rowdot(q, k, out, t, m, d, k_bytes, lanes, split, warps, unroll, group, blocks, s);
+  }
   const dim3 grid(repro_grid(t, QK_THREADS), (m + QK_GROUP - 1) / QK_GROUP);
-  if (q_bytes == 1 && k_bytes == 1 && d % 16 == 0 && aligned(q, 4) && aligned(k, 16)) {
-    qk_i8_packed<<<grid, QK_THREADS, 0, s>>>(static_cast<const int8_t*>(q),
-                                             static_cast<const int8_t*>(k),
-                                             static_cast<int32_t*>(out), m, t, d);
-  } else if (q_bytes == 1 && k_bytes == 1) {
+  if (q_bytes == 1 && k_bytes == 1) {
     launch_qk_generic<int8_t, int8_t>(grid, s, q, k, out, m, t, d);
   } else if (q_bytes == 1) {
     launch_qk_generic<int8_t, int32_t>(grid, s, q, k, out, m, t, d);
@@ -886,25 +1030,30 @@ extern "C" int kv_append(const void* cache, const void* nw, const void* sel, voi
 }
 
 // w (M, K), x (K,): int8 (bytes 1) or int32 (bytes 4), w row-major; out (M,) int32.
-extern "C" int decode_gemv(const void* w, const void* x, void* out, int m, int k, int w_bytes,
-                           int x_bytes, void* stream) {
+// The launch plan is attention.rowdot_plan's: `vec` takes rowdot (w and x
+// both int8 or both int32, 16-byte rows, both 16-byte aligned; group 1);
+// else gemv_generic, a warp a row, x staged in shared memory when it fits
+// GEMV_STAGE_BYTES, which ignores the rest.
+extern "C" int decode_gemv(const void* w, const void* x, void* out, int m, int k, int w_bytes, int x_bytes,
+                           int vec, int lanes, int split, int warps, int unroll, int group, int blocks,
+                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = repro_grid(m, GEMV_WARPS);
+  if (vec) {
+    if (w_bytes != x_bytes || group != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_rowdot(x, w, out, m, 1, k, w_bytes, lanes, split, warps, unroll, group, blocks, s);
+  }
+  const unsigned int grid = repro_grid(m, GEMV_WARPS);
   const long long x_size = static_cast<long long>(k) * x_bytes;
   const int stage = x_size <= GEMV_STAGE_BYTES ? 1 : 0;
   const size_t smem = stage ? static_cast<size_t>((x_size + 15) / 16 * 16) : 0;
-  if (w_bytes == 1 && x_bytes == 1 && k % 16 == 0 && aligned(w, 16) && (stage || aligned(x, 16))) {
-    gemv_i8_packed<<<blocks, GEMV_THREADS, smem, s>>>(static_cast<const int8_t*>(w),
-                                                      static_cast<const int8_t*>(x),
-                                                      static_cast<int32_t*>(out), m, k, stage);
-  } else if (w_bytes == 1 && x_bytes == 1) {
-    launch_gemv_generic<int8_t, int8_t>(blocks, smem, s, w, x, out, m, k, stage);
+  if (w_bytes == 1 && x_bytes == 1) {
+    launch_gemv_generic<int8_t, int8_t>(grid, smem, s, w, x, out, m, k, stage);
   } else if (w_bytes == 1) {
-    launch_gemv_generic<int8_t, int32_t>(blocks, smem, s, w, x, out, m, k, stage);
+    launch_gemv_generic<int8_t, int32_t>(grid, smem, s, w, x, out, m, k, stage);
   } else if (x_bytes == 1) {
-    launch_gemv_generic<int32_t, int8_t>(blocks, smem, s, w, x, out, m, k, stage);
+    launch_gemv_generic<int32_t, int8_t>(grid, smem, s, w, x, out, m, k, stage);
   } else {
-    launch_gemv_generic<int32_t, int32_t>(blocks, smem, s, w, x, out, m, k, stage);
+    launch_gemv_generic<int32_t, int32_t>(grid, smem, s, w, x, out, m, k, stage);
   }
   return REPRO_LAUNCH_STATUS();
 }

@@ -870,6 +870,98 @@ def test_gemv_kernel_reads_misaligned_views(card, k):
     assert torch.equal(tatt._gemv(w.to(card), xbuf[1:]).cpu(), want)
 
 
+def _rowdot_cases():
+    """name → (wrapper, a (nq, K), w (rows, K), element offsets of (a, w) on
+    the card, the plan's (lanes, split) or None for the generic kernel)."""
+    cases = {}
+    for lanes, split in ((1, 1), (2, 1), (4, 1), (8, 1), (16, 1), (32, 1), (32, 2), (32, 4), (32, 8)):
+        for nq in (1, 9):
+            # split: a lane's target of chunks on every thread of the row, one
+            # row past ROWDOT_TARGET_BLOCKS blocks' rows (a block's 8 warps
+            # take any rows)
+            target = min(tatt.ROWDOT_TARGET_ITERS, tatt.ROWDOT_XREG_CHUNKS // (1 if nq == 1 else tatt.ROWDOT_GROUP))
+            span = lanes * split
+            rows = 37 if split == tatt.ROWDOT_MAX_WARPS else tatt.ROWDOT_TARGET_BLOCKS * 256 // span + 3
+            rows, k = (1001, 16 * lanes) if split == 1 else (rows, 16 * target * span)  # unsplit: whole rows
+            kernel = "qk" if nq > 1 or split == 1 else "gemv"
+            cases[f"{kernel}-lanes-{lanes}-split-{split}-M{nq}"] = lambda nq=nq, k=k, rows=rows, lanes=lanes, split=split, \
+                kernel=kernel: (kernel, i8((nq, k), 200 + lanes + split), i8((rows, k), 210 + lanes + split), (0, 0),
+                                (lanes, split))
+    for m in range(1, 10):
+        cases[f"qk-M{m}-T1001"] = lambda m=m: ("qk", i8((m, 64), 260 + m), i8((1001, 64), 270 + m), (0, 0), (4, 1))
+    cases.update({
+        "qk-queries-streamed": lambda: ("qk", i8((3, 16384), 280), i8((100, 16384), 281), (0, 0), (32, 8)),
+        "gemv-grid-stride-1100000x16": lambda: ("gemv", i8((1, 16), 282), i8((1100000, 16), 283), (0, 0), (1, 1)),
+        "gemv-int32-wrap-300x64": lambda: ("gemv", ints((1, 64), I32_MIN, I32_MAX, 284),
+                                           ints((300, 64), I32_MIN, I32_MAX, 285), (0, 0), (16, 1)),
+        "qk-int32-wrap": lambda: ("qk", ints((3, 32), I32_MIN, I32_MAX, 286), ints((500, 32), I32_MIN, I32_MAX, 287),
+                                  (0, 0), (8, 1)),
+        "gemv-int32-kernels-bench-512": lambda: ("gemv", ints((1, 512), -1000, 1000, 288),
+                                                 ints((512, 512), -1000, 1000, 289), (0, 0), (32, 4)),
+        "gemv-unroll-8-37x20000": lambda: ("gemv", i8((1, 20000), 300), i8((37, 20000), 301), (0, 0), (32, 8)),
+        "gemv-unroll-2-2000x1024": lambda: ("gemv", i8((1, 1024), 310), i8((2000, 1024), 311), (0, 0), (32, 1)),
+        "gemv-int32-unroll-2-2000x256": lambda: ("gemv", ints((1, 256), I32_MIN, I32_MAX, 302),
+                                                 ints((2000, 256), I32_MIN, I32_MAX, 303), (0, 0), (32, 1)),
+        "gemv-int32-unroll-4-5000x256": lambda: ("gemv", ints((1, 256), I32_MIN, I32_MAX, 304),
+                                                 ints((5000, 256), I32_MIN, I32_MAX, 305), (0, 0), (16, 1)),
+        "gemv-int32-unroll-8-40x8192": lambda: ("gemv", ints((1, 8192), I32_MIN, I32_MAX, 306),
+                                                ints((40, 8192), I32_MIN, I32_MAX, 307), (0, 0), (32, 8)),
+        "gemv-int32-streamed-40x16384": lambda: ("gemv", ints((1, 16384), I32_MIN, I32_MAX, 308),
+                                                 ints((40, 16384), I32_MIN, I32_MAX, 309), (0, 0), (32, 8)),
+        "gemv-weight-byte-off": lambda: ("gemv", i8((1, 896), 290), i8((128, 896), 291), (0, 1), None),
+        "gemv-activation-byte-off": lambda: ("gemv", i8((1, 896), 292), i8((896, 896), 293), (1, 0), None),
+        "qk-cache-byte-off": lambda: ("qk", i8((2, 64), 294), i8((1001, 64), 295), (0, 1), None),
+        "qk-queries-byte-off": lambda: ("qk", i8((7, 64), 296), i8((1001, 64), 297), (1, 0), None),
+        "gemv-int32-weight-4-bytes-off": lambda: ("gemv", ints((1, 64), I32_MIN, I32_MAX, 298),
+                                                  ints((300, 64), I32_MIN, I32_MAX, 299), (0, 1), None),
+    })
+    return cases
+
+
+ROWDOT = _rowdot_cases()
+
+
+def _rowdot_call(case, card):
+    """The case's operands on the card, its plan and its wrapper call."""
+    kernel, a, w, (oa, ow), want = ROWDOT[case]()
+    da, dw = on_card_at(a, card, oa), on_card_at(w, card, ow)
+    plan = tatt.rowdot_plan(w.shape[0], w.shape[1], a.shape[0], dw.element_size(), da.element_size(),
+                            (dw.data_ptr(), da.data_ptr()))
+    assert ((plan.lanes, plan.split) if plan.vec else None) == want
+    if kernel == "qk":
+        return plan, "attention_qk", (lambda: tatt._qk(da, dw)), tatt._qk_plain(a, w)
+    return plan, "decode_gemv", (lambda: tatt._gemv(dw, da[0])), tatt._gemv_plain(w, a[0])
+
+
+@pytest.mark.parametrize("case", sorted(ROWDOT))
+def test_rowdot_kernel_at_its_plan_edges(card, case):
+    """q·Kᵀ and the decode GEMV at the edges of attention.rowdot_plan: each
+    call takes the path its case names and equals the plain version."""
+    plan, name, call, want = _rowdot_call(case, card)
+    tapi.reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {name: 1}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["qk-M1-T1001", "gemv-lanes-32-split-2-M1", "qk-cache-byte-off",
+                                  "gemv-weight-byte-off"])
+def test_rowdot_call_is_one_device_kernel_named_by_its_plan(card, case):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plan, name, call, _ = _rowdot_call(case, card)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    want = "rowdot" if plan.vec else {"attention_qk": "qk_generic", "decode_gemv": "gemv_generic"}[name]
+    assert len(names) == 1 and want in names[0], names
+
+
 # name → (x (N, D) maker)
 HTREE = {
     "float32-N256-D65536": lambda: floats((256, 65536), 82),
