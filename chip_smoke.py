@@ -56,6 +56,12 @@ Phases, any failure of which exits non-zero:
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
    on the same slices, and the path's output the CPU path's, bit for bit.
+   Every Executor that (b) and (d)–(g) call on the card must take the graph
+   route at every call (its first call runs the ops eagerly, then captures
+   them into a CUDA graph; later calls replay it); one more replay of each
+   launches exactly the path's kernels and is bit-equal to the same
+   Executor's eager replay and to the CPU path.  The card's peak memory is
+   printed after (g).
    Phase 2 also holds the four attention kernels against their plain
    versions at the decode shapes (GQA groups of 7 included) and at edges
    (a 131072-long equal row, shift 40, int32 caches, multi-hot and all-zero
@@ -95,7 +101,11 @@ Phases, any failure of which exits non-zero:
    pairs and stacks off 16 bytes; each call must take the path its case
    names), and K1 float32 at ragged shapes in both B layouts, on split and
    unsplit plans (normals within 1e-4, integer values exact, the same bits
-   in two calls);
+   in two calls); and the Executor's graph replay on the decode step at
+   1024 rows: leaves that are views off 16 bytes (generic kernels eagerly,
+   vector kernels in the graph, bit-equal), an output kept unchanged across
+   the next call, a call inside an outer CUDA graph (the eager route) and two
+   threads on their own streams sharing one Executor;
 4. time each kernel at those inputs (CUDA events around a CUDA-graph replay
    of 20 calls, after warm-up; eager back-to-back calls too) beside its
    bound, its plain version and, where one PyTorch call computes the same
@@ -109,22 +119,29 @@ Phases, any failure of which exits non-zero:
    beside it; K1 in the decode layer (M = 1) and K1's float32 instance beside
    ``torch.matmul`` (TF32 off, paired rounds) at RESNET18's stage-3 shape;
    time 50 eager forwards one by one (median and p80), and the
-   eager forward, the traced call (re-trace included) and a held
-   ``Executor`` replay from an idle card (host clock);
+   eager forward, the traced call (re-trace included), a held
+   ``Executor``'s graph replay and the same Executor's eager replay from an
+   idle card (host clock), with the device time of the replay's copy-in;
    time the attention kernels at the serving path's T = 32768 inputs (warm
    and cold) beside the launch floor (one ``x.add_(1)`` on a one-element
    tensor in graph replay), one decode step (Program call plus the cache carry) at 4096 and 32768 rows
-   and the decode layer, each from an idle card (median of 20); time
+   and the decode layer, each from an idle card (median of 20), by graph
+   replay and by the same Executor's eager replay, with the copy-in's
+   device time, and phase 3g's held Executors the same two ways; time
    decode_gemv, rglru_scan and htree_reduce at phase 3g's inputs, beside
    their bounds, plain versions and, for the int32 H-tree, ``torch.sum`` in
    paired rounds, warm and cold (the scan and the other H-trees cold once);
    the pool and elementwise kernels beside their library calls in paired
    rounds (each read once a round, in alternating order; medians), warm and
    with cold inputs (rotated over copies worth more than twice the L2);
-5. profile three forwards, one call of each bit-sliced path, five decode
-   steps and three decode layers (torch.profiler): device time by kernel
-   name and the device's idle share, and the forward's PyTorch copies
-   (``aten::copy_``) and other glue kernels, launches and device time.
+5. profile (torch.profiler) three eager forwards and one call of each
+   Table III bit-sliced path: device time by kernel name and the device's
+   idle share, and the eager forward's PyTorch copies (``aten::copy_``) and
+   other glue kernels, launches and device time; then, in a process of its
+   own (``chip_smoke.py --replay-profiles``), the graph replays of the held
+   Executors at the same shapes: three of RESNET18, five decode steps,
+   three decode layers, one ``quant_linear_relu`` call and three calls of
+   each phase 3g Executor.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Per-call details go
@@ -132,10 +149,12 @@ to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import faulthandler
 import itertools
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -175,6 +194,11 @@ DECODE_STEPS = 8
 GQA = 7
 LAYER_DIMS = (896, 64, 4864)  # model_dim, head_dim, ff_dim
 STEP_LAUNCHES = {"kv_append": 4, "attention_qk": 1, "softmax_fixedpoint": 1, "attention_pv": 1}
+# the decode step's Program alone (without the two carry appends)
+PROGRAM_STEP_LAUNCHES = {"kv_append": 2, "attention_qk": 1, "softmax_fixedpoint": 1, "attention_pv": 1}
+# phase 2's Executor routes: the decode step at this many rows, and calls per thread
+ROUTE_CAPACITY = 1024
+ROUTE_THREAD_CALLS = 10
 LAYER_LAUNCHES = {"attention_qk": 1, "softmax_fixedpoint": 1, "attention_pv": 1, "gemm": 3, "relu": 1}
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 ATTN_REPLACES = {
@@ -640,7 +664,8 @@ def run_bitslice_path(torch, api, bm, smoke, path, run, expected, skipped=()):
     def rec(x, w, slice_bits, pairs):
         t = time.perf_counter()
         out = orig(x, w, slice_bits, pairs)
-        sink[0].append(((x, w, slice_bits, pairs), out, time.perf_counter() - t))
+        if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing: no result to hold yet
+            sink[0].append(((x, w, slice_bits, pairs), out, time.perf_counter() - t))
         return out
 
     bm._bitslice_gemm = rec
@@ -675,7 +700,7 @@ def run_bitslice_path(torch, api, bm, smoke, path, run, expected, skipped=()):
     active = set(api.active_pairs(args[0].shape[0], args[1].shape[0], skipped))
     if set(skipped) & (set(executed) | set(launched)) or not set(executed) == set(launched) == active:
         smoke.failures.append(f"{path}: executed {executed}, launched {launched}, skipped {skipped}")
-    return {"path": path, "run": run, "launches": counts, "args": args, "out": out,
+    return {"path": path, "run": run, "launches": counts, "args": args, "out": out, "plain": plain,
             "plain_ms": plain_s * 1e3, "kernel_path": kernel_path,
             "max_abs_err": err, "executed": [list(p) for p in executed],
             "launched": [list(p) for p in launched], "skipped": [list(p) for p in skipped]}
@@ -935,14 +960,17 @@ def softmax_pv_edge_checks(torch, att, ref, smoke, dev, seed):
 
 class AttentionRecorder:
     """Records every call of the four attention kernel wrappers (arguments
-    and output) while installed; launches nothing of its own."""
+    and output) while installed; launches nothing of its own.  A call made
+    while a CUDA graph is captured runs nothing: its output, a buffer of the
+    graph that each replay rewrites, goes to ``in_graph`` instead."""
 
     NAMES = {"attention_qk": "_qk", "softmax_fixedpoint": "_softmax", "attention_pv": "_pv",
              "kv_append": "_kv_append"}
 
-    def __init__(self, att):
-        self.att = att
+    def __init__(self, torch, att):
+        self.torch, self.att = torch, att
         self.calls = {k: [] for k in self.NAMES}
+        self.in_graph = {}
 
     def __enter__(self):
         self.orig = {k: getattr(self.att, f) for k, f in self.NAMES.items()}
@@ -953,13 +981,184 @@ class AttentionRecorder:
     def _wrap(self, kernel, fn):
         def rec(*args):
             out = fn(*args)
-            self.calls[kernel].append((args, out))
+            if self.torch.cuda.is_current_stream_capturing():
+                self.in_graph[kernel] = out
+            else:
+                self.calls[kernel].append((args, out))
             return out
         return rec
 
     def __exit__(self, *exc):
         for k, f in self.NAMES.items():
             setattr(self.att, f, self.orig[k])
+
+
+class ExecutorRecorder:
+    """Records every call of an Executor (held, or behind a traced function)
+    while installed: the Executor, its leaves and the route the call took
+    (``replay``, ``replay_reason``); runs nothing of its own."""
+
+    def __init__(self, api):
+        self.api = api
+        self.calls = []
+
+    def __enter__(self):
+        orig = self.orig = self.api.Executor._execute_leaves
+
+        def rec(ex, leaves):
+            out = orig(ex, leaves)
+            self.calls.append((ex, list(leaves), ex.replay, ex.replay_reason))
+            return out
+
+        self.api.Executor._execute_leaves = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.api.Executor._execute_leaves = self.orig
+
+
+def eager_call(program, ex, *args):
+    """The Executor's eager replay of ``ex(*args)`` (its route on the CPU):
+    the ops one by one through ``api.dispatch``, for timing and holding
+    beside its graph replay."""
+    leaves, _ = program.tree_flatten((args, {}))
+    return program.tree_unflatten(ex.program.out_tree, ex._eager(leaves))
+
+
+def copy_in_ms(torch, leaves):
+    """Device time (CUDA-graph replay) of the copy of ``leaves`` into static
+    buffers of their layout, the copy an Executor's graph replay starts with,
+    and its bytes."""
+    bufs = [torch.empty_like(l) for l in leaves]
+    return graph_ms(torch, lambda: torch._foreach_copy_(bufs, leaves)), sum(l.element_size() * l.numel() for l in leaves)
+
+
+def held_executor_checks(torch, api, smoke, label, recorder, expected, cpu_outputs=None):
+    """Phases 3b and 3d–3g: every call that the path made on the card of an
+    Executor took the graph route, its first call included (which ran
+    eagerly, then captured); one more graph replay of each, at the leaves of
+    its last card call, launches exactly ``expected`` and is bit-equal to the
+    same Executor's eager replay and to the CPU path: ``cpu_outputs``, else
+    its eager replay on CPU copies of the leaves."""
+    held = {}
+    for ex, leaves, route, reason in recorder.calls:
+        if any(torch.is_tensor(l) and l.is_cuda for l in leaves):
+            held.setdefault(id(ex), (ex, []))[1].append((leaves, route, reason))
+    if not held:
+        smoke.failures.append(f"{label}: no Executor was called on the card")
+    out = []
+    for ex, calls in held.values():
+        name = ex.program.name
+        off = [(i, route, why) for i, (_, route, why) in enumerate(calls) if route != "graph"]
+        if off:
+            smoke.failures.append(f"{label}: Executor {name!r} left the graph route at calls {off}")
+        leaves = calls[-1][0]
+        api.reset_launch_counts()
+        got = ex._run(leaves)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in api.launch_counts().items() if v}
+        if ex.replay != "graph" or counts != expected:
+            smoke.failures.append(f"{label}: Executor {name!r} replay took the {ex.replay} route "
+                                  f"({ex.replay_reason}) with launches {counts}, not {expected}")
+        eager = ex._eager(leaves)
+        want = cpu_outputs if cpu_outputs is not None else ex._eager([l.cpu() for l in leaves])
+        for j, (g_, e_, w_) in enumerate(zip(got, eager, want)):
+            smoke.check("program", f"{label} {name} output {j}: graph replay vs eager replay", g_, e_.cpu(), True)
+            smoke.check("program", f"{label} {name} output {j}: graph replay vs the CPU path", g_, w_, True)
+        out.append({"name": name, "card_calls": len(calls), "routes": sorted({r for _, r, _ in calls}),
+                    "replay_launches": counts})
+    return out
+
+
+def executor_route_checks(torch, api, att, pimsab_step, smoke, dev, seed):
+    """Phase 2 for the Executor's graph replay, on ``decode_program`` at
+    ROUTE_CAPACITY rows: leaves that are views off 16 bytes (the first,
+    eager call takes the generic kernels; the graph reads aligned static
+    buffers and takes the vector ones: bit-equal), one call's output kept
+    across the next call, a call inside an outer CUDA graph (the eager
+    route, into that graph), and two threads on their own streams sharing
+    the Executor.  Every output against the CPU path."""
+    cfg = pimsab_step.AttnServeConfig(**DECODE_CFG)
+    cap, d = ROUTE_CAPACITY, DECODE_CFG["head_dim"]
+    g = torch.Generator().manual_seed(seed)
+
+    def step_args():
+        onehot = torch.zeros(cap, dtype=torch.int8)
+        onehot[int(torch.randint(0, cap, (1,), generator=g))] = 1
+        return [torch.randint(-128, 128, s, generator=g, dtype=torch.int8) for s in ((cap, d), (cap, d), (1, d),
+                                                                                      (d,), (d,))] + [onehot]
+
+    sets = [step_args() for _ in range(6)]
+    ex = api.compile(pimsab_step.decode_program(cfg, cap))
+    want = [ex(*a) for a in sets]  # the CPU path: the plain versions
+
+    def off16(t):  # a view 8 bytes past a 16-byte boundary
+        v = torch.empty(t.numel() + 8, dtype=t.dtype, device=dev)[8:].view(t.shape)
+        return v.copy_(t.to(dev))
+
+    views = [off16(t) for t in sets[0]]
+    kv_generic = not att.kv_plan(cap, d, 1, 1, (views[0].data_ptr(), views[3].data_ptr(), 0)).vec
+    qk_generic = not att.rowdot_plan(cap, d, 1, 1, 1, (0, views[2].data_ptr())).vec
+    first = ex(*views)
+    api.reset_launch_counts()
+    second = ex(*views)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in api.launch_counts().items() if v}
+    (replay,) = ex._graphs.values()
+    aligned = all(b.data_ptr() % 16 == 0 for b in replay.inputs)
+    smoke.check("program", "leaves off 16 bytes: first call (eager, generic kernels) vs CPU", first, want[0], True)
+    smoke.check("program", "leaves off 16 bytes: graph replay (vector kernels) vs CPU", second, want[0], True)
+    if not (kv_generic and qk_generic and aligned) or ex.replay != "graph" or counts != PROGRAM_STEP_LAUNCHES:
+        smoke.failures.append(f"executor routes: off-16 views take generic kernels {kv_generic}/{qk_generic}, "
+                              f"static buffers aligned {aligned}, route {ex.replay} ({ex.replay_reason}), "
+                              f"replay launches {counts} (expected {PROGRAM_STEP_LAUNCHES})")
+
+    card = [[a.to(dev) for a in args] for args in sets]
+    kept = ex(*card[1])
+    before = kept.clone()
+    later = ex(*card[2])
+    torch.cuda.synchronize()
+    smoke.check("program", "an output kept across the next call is unchanged", kept, before.cpu(), True)
+    smoke.check("program", "two calls in a row: the first's output vs CPU", kept, want[1], True)
+    smoke.check("program", "two calls in a row: the second's output vs CPU", later, want[2], True)
+
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        inside = ex(*card[3])
+        nested = (ex.replay, ex.replay_reason)
+    outer.replay()
+    torch.cuda.synchronize()
+    smoke.check("program", "a call inside an outer CUDA graph, replayed, vs CPU", inside, want[3], True)
+    if nested[0] != "eager":
+        smoke.failures.append(f"executor routes: a call inside an outer capture took the {nested[0]} route")
+
+    outs, errors = {0: [], 1: []}, []
+
+    def worker(i):
+        try:
+            s = torch.cuda.Stream(dev)
+            s.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(s):
+                for _ in range(ROUTE_THREAD_CALLS):
+                    outs[i].append(ex(*card[4 + i]))
+            s.synchronize()
+        except Exception as exc:  # reported as a failure below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors or any(th.is_alive() for th in threads):
+        smoke.failures.append(f"executor routes: two threads sharing an Executor failed: {errors}")
+    for i in (0, 1):
+        for n, o in enumerate(outs[i]):
+            smoke.check("program", f"thread {i} call {n} on its own stream vs CPU", o, want[4 + i], True)
+    print(f"phase 2 Executor routes on decode_program({cap}): off-16 views eager on the generic kernels "
+          f"{kv_generic and qk_generic}, replay launches {counts}; nested call route {nested[0]}; "
+          f"{sum(map(len, outs.values()))} calls from two threads")
+    del outer
 
 
 def decode_requests(torch, seed):
@@ -1010,17 +1209,24 @@ def run_serve_path(torch, api, att, pimsab_step, smoke, dev, seed):
     """Phase 3e: the serving path on the card, then on CPU copies."""
     cfg = pimsab_step.AttnServeConfig(**DECODE_CFG)
     reqs = decode_requests(torch, seed)
-    step_counts = []
+    step_counts, probs = [], []
     last = {}
+    seen = [0]  # eager softmax calls already read
 
     def per_step(r, i):
         now = api.launch_counts()
         step_counts.append({k: v - last.get(k, 0) for k, v in now.items() if v - last.get(k, 0)})
         last.clear()
         last.update(now)
+        # the step's probabilities: its eager call's output (the first step
+        # runs eagerly, then captures), else the graph's buffer, which this
+        # step's replay wrote
+        eager = rec.calls["softmax_fixedpoint"][seen[0]:]
+        seen[0] += len(eager)
+        probs.append(eager[-1][1] if eager else rec.in_graph["softmax_fixedpoint"].clone())
 
     info0 = api.compile_cache_info()
-    with AttentionRecorder(att) as rec:
+    with AttentionRecorder(torch, att) as rec, ExecutorRecorder(api) as exs:
         api.reset_launch_counts()
         t = time.perf_counter()
         got = serve(api, pimsab_step, cfg, reqs, dev, per_step)
@@ -1050,12 +1256,11 @@ def run_serve_path(torch, api, att, pimsab_step, smoke, dev, seed):
                 smoke.failures.append(f"decode serving: context {r}/{i} has shape {tuple(g_.shape)} {g_.dtype}")
             smoke.check("decode_serving", f"request {r} (prefill {reqs[r]['length']}) step {i} context",
                         g_, w_, exact=True)
-    probs = [out for _, out in rec.calls["softmax_fixedpoint"]]
     sums = [int(p.sum()) for p in probs]
     nonzero = [int((p != 0).sum()) for p in probs]
     if len(probs) != n_steps or min(sums) < 32 or max(nonzero) < 2:
         smoke.failures.append(f"decode serving: degenerate softmax (row sums {sums}, nonzero {nonzero})")
-    return {"counts": counts, "step_counts": step_counts, "calls": rec.calls,
+    return {"counts": counts, "step_counts": step_counts, "calls": rec.calls, "executors": exs,
             "cache": {"hits": info1.hits - info0.hits, "misses": info1.misses - info0.misses},
             "first_s": first_s, "cpu_s": cpu_s, "prob_sums": sums, "prob_nonzero": nonzero}
 
@@ -1078,19 +1283,22 @@ def run_layer_path(torch, api, att, pimsab_step, smoke, dev, seed, capacity):
     gemm_calls, orig = [], conv._gemm
 
     def rec_gemm(a, b, layout="kn"):
-        gemm_calls.append((a.clone(), b.clone(), layout))
+        if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing (and a clone would join its graph)
+            gemm_calls.append((a.clone(), b.clone(), layout))
         return orig(a, b, layout)
 
     conv._gemm = rec_gemm
     try:
-        with AttentionRecorder(att) as rec:
+        with AttentionRecorder(torch, att) as rec, ExecutorRecorder(api) as exs:
             api.reset_launch_counts()
             got = ex(*card_args)
             torch.cuda.synchronize()
             counts = {k: v for k, v in api.launch_counts().items() if v}
+            again = ex(*card_args)  # the graph replay
     finally:
         conv._gemm = orig
     want = ex(*args)
+    smoke.check("decode_layer", f"capacity {capacity} graph replay output", again, want, exact=True)
     for i, (a, b, layout) in enumerate(gemm_calls):  # K1 at M = 1 against its plain version
         smoke.check("gemm", f"decode layer {capacity} call {i} {shapes_of((a, b))}", orig(a, b, layout),
                     conv._gemm_plain(a.cpu(), b.cpu(), layout), exact=True)
@@ -1103,7 +1311,7 @@ def run_layer_path(torch, api, att, pimsab_step, smoke, dev, seed, capacity):
     if int(p.sum()) < 32 or int((p != 0).sum()) < 2:
         smoke.failures.append(f"decode layer {capacity}: degenerate softmax (sum {int(p.sum())}, "
                               f"nonzero {int((p != 0).sum())})")
-    return {"ex": ex, "args": card_args, "counts": counts, "prob_sum": int(p.sum()),
+    return {"ex": ex, "args": card_args, "counts": counts, "executors": exs, "prob_sum": int(p.sum()),
             "prob_nonzero": int((p != 0).sum()), "out_absmax": int(got.abs().max()), "gemm_calls": gemm_calls}
 
 
@@ -1298,11 +1506,13 @@ def attention_timing(torch, att, ref, smoke, serve_run, imad_per_s, floor_ms):
     return rows
 
 
-def decode_latency(torch, api, pimsab_step, dev, seed, layer):
+def decode_latency(torch, api, program, pimsab_step, dev, seed, layer):
     """One decode step (the Program call and the two-row cache carry) and the
     Program call alone at 4096 and 32768 rows, and the decode layer, each
-    from an idle card (host clock, median of LATENCY_SAMPLES), beside their
-    device time (CUDA-graph replay)."""
+    from an idle card (host clock, median of LATENCY_SAMPLES), two ways: the
+    held Executor's graph replay and the same Executor's eager replay; beside
+    their device time (CUDA-graph replay of the ops) and the device time of
+    the replay's copy of the leaves into its static buffers."""
     cfg = pimsab_step.AttnServeConfig(**DECODE_CFG)
     g = torch.Generator().manual_seed(seed)
     out = {}
@@ -1314,28 +1524,46 @@ def decode_latency(torch, api, pimsab_step, dev, seed, layer):
                            for s in ((1, d), (d,), (d,)))
         onehot = torch.zeros(cap, dtype=torch.int8, device=dev)
         onehot[cap - 1] = 1
+        args = (kc, vc, q, k_new, v_new, onehot)
 
-        def program():
-            return ex(kc, vc, q, k_new, v_new, onehot)
+        def program_call(run=ex):
+            return run(*args)
 
-        def step():
-            ctx = program()
+        def eager_program():
+            return eager_call(program, ex, *args)
+
+        def step(call=program_call):
+            ctx = call()
             api.kv_append(kc, k_new, onehot)
             api.kv_append(vc, v_new, onehot)
             return ctx
 
-        lat, prog_lat = sync_samples(torch, step, LATENCY_SAMPLES), sync_samples(torch, program, LATENCY_SAMPLES)
+        lat, prog_lat = sync_samples(torch, step, LATENCY_SAMPLES), sync_samples(torch, program_call, LATENCY_SAMPLES)
+        eager_lat = sync_samples(torch, lambda: step(eager_program), LATENCY_SAMPLES)
+        eager_prog = sync_samples(torch, eager_program, LATENCY_SAMPLES)
+        copy_ms, copy_bytes = copy_in_ms(torch, list(args))
         out[cap] = {"step_ms_median": median(lat), "step_ms_samples": lat,
                     "program_ms_median": median(prog_lat), "program_ms_samples": prog_lat,
+                    "eager_step_ms_median": median(eager_lat), "eager_step_ms_samples": eager_lat,
+                    "eager_program_ms_median": median(eager_prog), "eager_program_ms_samples": eager_prog,
+                    "copy_in_device_ms": copy_ms, "copy_in_bytes": copy_bytes, "replay": ex.replay,
                     "step_device_ms": graph_ms(torch, step), "step": step}
-        print(f"decode step at {cap} rows (median of {LATENCY_SAMPLES}, host clock from an idle card): "
-              f"{median(lat):.4f} ms with the cache carry, {median(prog_lat):.4f} ms the Program call "
-              f"alone; device time {out[cap]['step_device_ms'] * 1e3:.2f} us in graph replay")
-    lat = sync_samples(torch, lambda: layer["ex"](*layer["args"]), LATENCY_SAMPLES)
-    out["layer"] = {"ms_median": median(lat), "ms_samples": lat,
-                    "device_ms": graph_ms(torch, lambda: layer["ex"](*layer["args"]))}
-    print(f"decode layer at {DECODE_CAPACITY} rows: {median(lat):.4f} ms (median of {LATENCY_SAMPLES}, host "
-          f"clock from an idle card); device time {out['layer']['device_ms']:.4f} ms in graph replay")
+        print(f"decode step at {cap} rows (median of {LATENCY_SAMPLES}, host clock from an idle card): graph replay "
+              f"{median(lat):.4f} ms with the cache carry, {median(prog_lat):.4f} ms the Program call alone; eager "
+              f"replay {median(eager_lat):.4f} / {median(eager_prog):.4f} ms; copy-in {copy_ms * 1e3:.2f} us device "
+              f"time ({copy_bytes} bytes, {copy_ms / median(prog_lat):.1%} of the Program call); device time "
+              f"{out[cap]['step_device_ms'] * 1e3:.2f} us in graph replay")
+    lex, largs = layer["ex"], layer["args"]  # new names: out[cap]["step"] keeps reading ex and args
+    lat = sync_samples(torch, lambda: lex(*largs), LATENCY_SAMPLES)
+    eager_lat = sync_samples(torch, lambda: eager_call(program, lex, *largs), LATENCY_SAMPLES)
+    copy_ms, copy_bytes = copy_in_ms(torch, list(largs))
+    out["layer"] = {"ms_median": median(lat), "ms_samples": lat, "eager_ms_median": median(eager_lat),
+                    "eager_ms_samples": eager_lat, "copy_in_device_ms": copy_ms, "copy_in_bytes": copy_bytes,
+                    "device_ms": graph_ms(torch, lambda: lex(*largs))}
+    print(f"decode layer at {DECODE_CAPACITY} rows (median of {LATENCY_SAMPLES}, host clock from an idle card): "
+          f"graph replay {median(lat):.4f} ms, eager replay {median(eager_lat):.4f} ms; copy-in "
+          f"{copy_ms * 1e3:.2f} us device time ({copy_bytes} bytes, {copy_ms / median(lat):.1%} of the replay); "
+          f"device time {out['layer']['device_ms']:.4f} ms in graph replay")
     return out
 
 
@@ -1670,12 +1898,14 @@ def run_entry_points(torch, api, ref, smoke, dev, cases):
         eager = {k: v for k, v in api.launch_counts().items() if v}
         ex = api.compile(api.trace(fn, name=f"{kernel}_{case}").program_for(*args))
         api.reset_launch_counts()
-        replay = ex(*args)
-        torch.cuda.synchronize()
+        with ExecutorRecorder(api) as exs:
+            replay = ex(*args)
+            torch.cuda.synchronize()
         traced = {k: v for k, v in api.launch_counts().items() if v}
         t = time.perf_counter()
         want = fn(*cpu_args)
         cpu_s = time.perf_counter() - t
+        held = held_executor_checks(torch, api, smoke, f"phase 3g {kernel} {case}", exs, {launched: 1}, [want])
         for how, counts in (("eager", eager), ("Executor replay", traced)):
             if counts != {launched: 1}:
                 smoke.failures.append(f"{kernel} {case} {how}: launch counts {counts} != {{{launched!r}: 1}}")
@@ -1685,13 +1915,32 @@ def run_entry_points(torch, api, ref, smoke, dev, cases):
             oracle = ref.rglru_scan_ref(*args)
             smoke.check("rglru_scan_oracle", f"{case} vs the associative-scan oracle", got, oracle.cpu(), exact=False)
         results.append({"kernel": kernel, "launched": launched, "case": case, "args": args, "cpu_args": cpu_args,
-                        "want": want, "launches": eager.get(launched, 0) + traced.get(launched, 0),
+                        "want": want, "ex": ex, "held": held, "launches": eager.get(launched, 0) + traced.get(launched, 0),
                         "eager_counts": eager, "traced_counts": traced, "cpu_s": cpu_s,
                         "shapes": [list(a.shape) for a in args], "dtypes": [str(a.dtype) for a in args]})
         print(f"phase 3g {kernel} {case} {[tuple(a.shape) for a in args]}: launches eager {eager}, "
-              f"replay {traced}; bit-equal to CPU: {torch.equal(got.cpu(), want)} / "
-              f"{torch.equal(replay.cpu(), want)}; CPU call {cpu_s:.3f} s")
+              f"Executor {traced} then {held[0]['replay_launches'] if held else None} a graph replay; bit-equal to "
+              f"CPU: {torch.equal(got.cpu(), want)} / {torch.equal(replay.cpu(), want)}; CPU call {cpu_s:.3f} s")
     return results
+
+
+def entry_executor_latency(torch, program, entry):
+    """Phase 4 for phase 3g's held Executors: each call from an idle card
+    (host clock, median of LATENCY_SAMPLES), graph replay and eager replay,
+    beside the device time of the replay's copy-in."""
+    rows = {}
+    for r in entry:
+        ex, args = r["ex"], r["args"]
+        lat = sync_samples(torch, lambda: ex(*args), LATENCY_SAMPLES)
+        eager = sync_samples(torch, lambda: eager_call(program, ex, *args), LATENCY_SAMPLES)
+        copy_ms, copy_bytes = copy_in_ms(torch, list(args))
+        name = f"{r['kernel']}[{r['case']}]"
+        rows[name] = {"graph_ms_median": median(lat), "eager_ms_median": median(eager), "copy_in_device_ms": copy_ms,
+                      "copy_in_bytes": copy_bytes, "graph_ms_samples": lat, "eager_ms_samples": eager}
+        print(f"held Executor {name} (median of {LATENCY_SAMPLES}, host clock from an idle card): graph replay "
+              f"{median(lat):.4f} ms, eager replay {median(eager):.4f} ms; copy-in {copy_ms * 1e3:.2f} us device time "
+              f"({copy_bytes} bytes, {copy_ms / median(lat):.1%} of the replay)")
+    return rows
 
 
 def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
@@ -1787,14 +2036,90 @@ def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
     return rows
 
 
+def replay_profile_main() -> int:
+    """``chip_smoke.py --replay-profiles``, run by phase 5: the held
+    Executors' graph replays under torch.profiler in a process that has
+    profiled nothing before, at the main run's shapes: RESNET18 b32, the
+    decode step at DECODE_CAPACITY rows with its cache carry, the decode
+    layer, quant_linear_relu and phase 3g's Executors.  Each path is called
+    twice first (eagerly then captured; replayed).  Prints one JSON line."""
+    faulthandler.enable()
+    import torch
+
+    from repro_torch.kernels import api
+    from repro_torch.models import common, resnet
+    from repro_torch.serve import pimsab_step
+
+    dev = torch.device("cuda", 0)
+    profiles, routes = {}, {}
+
+    def run(label, fn, calls):
+        with ExecutorRecorder(api) as rec:
+            fn()
+            fn()
+            wall, names, _ = device_profile(torch, fn, calls)
+        busy = sum(ms for _, ms in names.values())
+        routes[label] = sorted({route for _, _, route, _ in rec.calls})
+        profiles[label] = {
+            "calls": calls, "wall_ms_per_call": wall / calls,
+            "device_busy_ms_per_call": busy / calls if names else None,
+            "idle_share": 1 - busy / wall if names else None,
+            "kernels": sorted(([nm, c / calls, ms / calls] for nm, (c, ms) in names.items()), key=lambda q: -q[2]),
+        }
+
+    cfg = resnet.RESNET18
+    params = resnet.ResNet(cfg, resnet.init_params(cfg, SEED, device="cpu"), device=dev).params()
+    x = resnet.make_input(cfg, BATCH, seed=SEED + 1, device="cpu").to(dev)
+    ex = api.compile(api.trace(lambda p, v: resnet.forward(cfg, p, v), name="resnet18").program_for(params, x))
+    run(f"RESNET18 b{BATCH} held Executor", lambda: ex(params, x), 3)
+
+    g = torch.Generator().manual_seed(SEED + 7)
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8).to(dev)
+
+    d, cap = DECODE_CFG["head_dim"], DECODE_CAPACITY
+    kc, vc, q, k_new, v_new = i8((cap, d)), i8((cap, d)), i8((1, d)), i8((d,)), i8((d,))
+    onehot = torch.zeros(cap, dtype=torch.int8, device=dev)
+    onehot[cap - 1] = 1
+    step_ex = api.compile(pimsab_step.decode_program(pimsab_step.AttnServeConfig(**DECODE_CFG), cap))
+
+    def step():
+        ctx = step_ex(kc, vc, q, k_new, v_new, onehot)
+        api.kv_append(kc, k_new, onehot)
+        api.kv_append(vc, v_new, onehot)
+        return ctx
+
+    run(f"decode step at {cap} rows with the cache carry", step, 5)
+    model_dim, head_dim, ff_dim = LAYER_DIMS
+    layer_args = [i8(s) for s in ((cap, head_dim), (cap, head_dim), (1, head_dim), (head_dim, model_dim),
+                                  (model_dim, ff_dim), (ff_dim, model_dim))]
+    layer_ex = api.compile(pimsab_step.decode_layer_program(
+        model_dim, head_dim, ff_dim, cap, q_bits=8, kv_bits=8, score_bits=DECODE_CFG["score_bits"],
+        score_frac=DECODE_CFG["score_frac"], w_bits=8))
+    run(f"decode layer at {cap} rows", lambda: layer_ex(*layer_args), 3)
+    mq, kq, nq = QLR
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    qx = torch.randn((mq, kq), generator=gen, device=dev)
+    qp = common.quantize_weight(torch.randn((kq, nq), generator=gen, device=dev) * 0.05, 8)
+    run("quant_linear_relu (whole call)", lambda: common.quant_linear_relu(qp, qx, api.PrecisionSpec.w8a16), 1)
+    for kernel, case, fn, cpu_args in entry_point_cases(torch, api, cfg, SEED + 9):
+        args = [a.to(dev) for a in cpu_args]
+        entry_ex = api.compile(api.trace(fn, name=f"{kernel}_{case}").program_for(*args))
+        run(f"held Executor {kernel}[{case}]", lambda: entry_ex(*args), 3)
+    print(json.dumps({"gpu": nvidia_smi("name,power.limit"), "profiles": profiles, "routes": routes}))
+    return 0
+
+
 def main() -> int:
+    faulthandler.enable()  # a crash in native code prints the Python stack that led to it
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
         return 2
 
-    from repro_torch.kernels import _build, api, conv, ewise, ref
+    from repro_torch.kernels import _build, api, conv, ewise, program, ref
     from repro_torch.kernels import attention as att
     from repro_torch.kernels import bitslice_matmul as bm
     from repro_torch.kernels import htree_reduce as ht
@@ -1936,6 +2261,7 @@ def main() -> int:
     pool_ewise_edge_checks(torch, conv, ewise, smoke, dev, SEED + 10)
     gemm_htree_edge_checks(torch, conv, ht, smoke, dev, SEED + 11)
     bitslice_f32_edge_checks(torch, conv, bm, api, smoke, dev, SEED + 13)
+    executor_route_checks(torch, api, att, pimsab_step, smoke, dev, SEED + 14)
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
@@ -1968,27 +2294,34 @@ def main() -> int:
     # ---------------- phase 3b: RESNET18 through the Program API ----------------
     traced = api.trace(lambda p, v: resnet.forward(cfg, p, v), name="resnet18")
     params = model.params()
-    api.reset_launch_counts()
-    t = time.perf_counter()
-    with torch.no_grad():
-        logits_traced = traced(params, x)
-    torch.cuda.synchronize()
-    first_traced_s = time.perf_counter() - t
-    counts = {k: v for k, v in api.launch_counts().items() if v}
-    path_launches["resnet18_traced"] = counts
-    smoke.check("program", f"traced RESNET18 batch {BATCH} logits vs eager", logits_traced,
-                logits.cpu(), True)
-    if counts != expected:
-        smoke.failures.append(f"traced RESNET18: launch counts {counts} != expected {expected}")
-    info0 = api.compile_cache_info()
-    traced(params, x)
-    ex = api.compile(traced.program_for(params, x))
-    info1 = api.compile_cache_info()
-    if (info1.hits, info1.misses) != (info0.hits + 2, info0.misses):
-        smoke.failures.append(f"traced RESNET18: compile cache {info0} → {info1}, expected two hits")
-    smoke.check("program", "held Executor replay vs eager", ex(params, x), logits.cpu(), True)
+    with ExecutorRecorder(api) as resnet_calls:
+        api.reset_launch_counts()
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits_traced = traced(params, x)
+        torch.cuda.synchronize()
+        first_traced_s = time.perf_counter() - t
+        counts = {k: v for k, v in api.launch_counts().items() if v}
+        path_launches["resnet18_traced"] = counts
+        smoke.check("program", f"traced RESNET18 batch {BATCH} logits vs eager", logits_traced,
+                    logits.cpu(), True)
+        if counts != expected:
+            smoke.failures.append(f"traced RESNET18: launch counts {counts} != expected {expected}")
+        info0 = api.compile_cache_info()
+        api.reset_launch_counts()
+        smoke.check("program", "traced call (graph replay) vs eager", traced(params, x), want, True)
+        replay_counts = {k: v for k, v in api.launch_counts().items() if v}
+        ex = api.compile(traced.program_for(params, x))
+        info1 = api.compile_cache_info()
+        if (info1.hits, info1.misses) != (info0.hits + 2, info0.misses):
+            smoke.failures.append(f"traced RESNET18: compile cache {info0} → {info1}, expected two hits")
+        if replay_counts != expected:
+            smoke.failures.append(f"traced RESNET18 replay: launch counts {replay_counts} != expected {expected}")
+        smoke.check("program", "held Executor replay vs eager", ex(params, x), logits.cpu(), True)
+    resnet_held = held_executor_checks(torch, api, smoke, "phase 3b RESNET18", resnet_calls, expected, [want])
     print(f"phase 3b traced RESNET18 b{BATCH}: {len(ex.program.ops)} ops, logits bit-equal to "
-          f"eager: {torch.equal(logits_traced, logits)}; launches {counts}; first call "
+          f"eager: {torch.equal(logits_traced, logits)}; launches {counts} (first call: eager, then captured), "
+          f"{replay_counts} a traced call's graph replay; routes {resnet_held}; first call "
           f"{first_traced_s:.3f} s; compile cache {info1.hits} hits / {info1.misses} misses")
 
     # ---------------- phase 3c: the bit-sliced GEMM at Table III ----------------
@@ -2028,12 +2361,16 @@ def main() -> int:
     qx = torch.randn((mq, kq), generator=gen, device=dev)
     qp = common.quantize_weight(torch.randn((kq, nq), generator=gen, device=dev) * 0.05, 8)
     qlr = {"cuda": (qp, qx), "cpu": ({k_: v.cpu() for k_, v in qp.items()}, qx.cpu())}
-    r = run_bitslice_path(
-        torch, api, bm, smoke, "quant_linear_relu",
-        lambda d: common.quant_linear_relu(*qlr[d], api.PrecisionSpec.w8a16),
-        {"bitslice_matmul": 1, "relu": 1})
+    with ExecutorRecorder(api) as qlr_calls:
+        r = run_bitslice_path(
+            torch, api, bm, smoke, "quant_linear_relu",
+            lambda d: common.quant_linear_relu(*qlr[d], api.PrecisionSpec.w8a16),
+            {"bitslice_matmul": 1, "relu": 1})
     if r:
         bitslice_paths.append(r)
+        qlr_held = held_executor_checks(torch, api, smoke, "phase 3d quant_linear_relu", qlr_calls,
+                                        {"bitslice_matmul": 1, "relu": 1}, [ewise._ewise_plain("relu", r["plain"])])
+        print(f"phase 3d quant_linear_relu Executor: {qlr_held}")
         # the relu kernel at the accumulator this path hands it
         smoke.check("relu", "quant_linear_relu accumulator", ewise._ewise("relu", r["out"]),
                     ewise._ewise_plain("relu", r["out"].cpu()), True)
@@ -2048,10 +2385,12 @@ def main() -> int:
     # ---------------- phase 3e: serving, the decode step at Qwen2-0.5B's attention width ----------------
     serve_run = run_serve_path(torch, api, att, pimsab_step, smoke, dev, SEED + 4)
     path_launches["decode_serving"] = serve_run["counts"]
+    serve_held = held_executor_checks(torch, api, smoke, "phase 3e decode serving", serve_run["executors"],
+                                      PROGRAM_STEP_LAUNCHES)
     print(f"phase 3e decode serving: {len(DECODE_PREFILL)} requests x {DECODE_STEPS} tokens at capacity "
           f"{DECODE_CAPACITY}; launches {serve_run['counts']}; compile cache {serve_run['cache']}; softmax "
           f"row sums {min(serve_run['prob_sums'])}-{max(serve_run['prob_sums'])}, nonzero entries "
-          f"{min(serve_run['prob_nonzero'])}-{max(serve_run['prob_nonzero'])}; first run "
+          f"{min(serve_run['prob_nonzero'])}-{max(serve_run['prob_nonzero'])}; Executor {serve_held}; first run "
           f"{serve_run['first_s']:.3f} s, CPU copies {serve_run['cpu_s']:.2f} s")
 
     # ---------------- phase 3f: the decode layer at Qwen2-0.5B's width ----------------
@@ -2059,7 +2398,10 @@ def main() -> int:
     for i, cap in enumerate((DECODE_CAPACITY, 4096)):
         layers[cap] = run_layer_path(torch, api, att, pimsab_step, smoke, dev, SEED + 5 + i, cap)
         path_launches[f"decode_layer_{cap}"] = layers[cap]["counts"]
+        layers[cap]["held"] = held_executor_checks(torch, api, smoke, f"phase 3f decode layer {cap}",
+                                                   layers[cap]["executors"], LAYER_LAUNCHES)
         print(f"phase 3f decode layer {LAYER_DIMS} capacity {cap}: launches {layers[cap]['counts']}; "
+              f"Executor {layers[cap]['held']}; "
               f"softmax row sum {layers[cap]['prob_sum']}, {layers[cap]['prob_nonzero']} nonzero; "
               f"|out| max {layers[cap]['out_absmax']}")
     torch.cuda.synchronize()
@@ -2068,6 +2410,10 @@ def main() -> int:
     entry = run_entry_points(torch, api, ref, smoke, dev, entry_point_cases(torch, api, cfg, SEED + 9))
     for r in entry:
         path_launches[f"{r['kernel']}[{r['case']}]"] = {r["launched"]: r["launches"]}
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"phase 3 peak device memory {peak_gib:.2f} GiB allocated ({torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB "
+          f"reserved now), {api.compile_cache_info().size} cached Executors")
 
     # ---------------- phase 4: timing ----------------
     library = {
@@ -2202,7 +2548,10 @@ def main() -> int:
         "eager_forward": sync_samples(torch, lambda: model(x), LATENCY_SAMPLES),
         "traced_call": sync_samples(torch, lambda: traced(params, x), LATENCY_SAMPLES),
         "executor_replay": sync_samples(torch, lambda: ex(params, x), LATENCY_SAMPLES),
+        "executor_eager_replay": sync_samples(torch, lambda: eager_call(program, ex, params, x), LATENCY_SAMPLES),
     }
+    resnet_leaves = program.tree_flatten(((params, x), {}))[0]
+    resnet_copy_ms, resnet_copy_bytes = copy_in_ms(torch, resnet_leaves)
     retrace = []
     for _ in range(LATENCY_SAMPLES):
         t = time.perf_counter()
@@ -2213,15 +2562,19 @@ def main() -> int:
         "eager_forward": forward_samples(torch, lambda: model(x), LATENCY_SAMPLES),
         "traced_call": forward_samples(torch, lambda: traced(params, x), LATENCY_SAMPLES),
         "executor_replay": forward_samples(torch, lambda: ex(params, x), LATENCY_SAMPLES),
+        "executor_eager_replay": forward_samples(torch, lambda: eager_call(program, ex, params, x), LATENCY_SAMPLES),
     }
     program_timing = {
+        "copy_in_device_ms": resnet_copy_ms, "copy_in_bytes": resnet_copy_bytes, "routes": resnet_held,
         "latency_ms_median": {k: median(v) for k, v in lat.items()},
         "back_to_back_ms_median": {k: median(v) for k, v in back_to_back.items()},
         "latency_ms_samples": lat, "back_to_back_ms_samples": back_to_back,
     }
     print(f"Program API RESNET18 b{BATCH} (median of {LATENCY_SAMPLES}, host clock from an idle "
           f"card): eager {median(lat['eager_forward']):.3f} ms, traced call "
-          f"{median(lat['traced_call']):.3f} ms, held Executor {median(lat['executor_replay']):.3f} ms, "
+          f"{median(lat['traced_call']):.3f} ms, held Executor graph replay {median(lat['executor_replay']):.3f} ms, "
+          f"its eager replay {median(lat['executor_eager_replay']):.3f} ms, copy-in {resnet_copy_ms:.4f} ms device "
+          f"time ({resnet_copy_bytes} bytes, {resnet_copy_ms / median(lat['executor_replay']):.1%} of the replay), "
           f"re-trace alone {median(lat['retrace_host']):.3f} ms host; back to back (CUDA events): "
           + ", ".join(f"{k} {median(v):.3f} ms" for k, v in back_to_back.items()))
 
@@ -2279,8 +2632,9 @@ def main() -> int:
     attention_rows = attention_timing(torch, att, ref, smoke, serve_run, imad_per_s, floor_ms)
     for row in attention_rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in path_launches.items() if row["name"] in c}
-    decode = decode_latency(torch, api, pimsab_step, dev, SEED + 7, layers[DECODE_CAPACITY])
+    decode = decode_latency(torch, api, program, pimsab_step, dev, SEED + 7, layers[DECODE_CAPACITY])
     entry_rows = entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s)
+    entry_latency = entry_executor_latency(torch, program, entry)
 
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
@@ -2310,6 +2664,8 @@ def main() -> int:
     else:
         print("profile: the profiler saw no device activity; device breakdown not measured")
     for r in bitslice_paths:
+        if r["path"] == "quant_linear_relu":  # a graph replay: profiled in the child process below
+            continue
         wall, names, _ = device_profile(torch, lambda: r["run"]("cuda"), 1)
         busy = sum(ms for _, ms in names.values())
         profile_summary[r["path"]] = {
@@ -2321,40 +2677,38 @@ def main() -> int:
             top = "; ".join(f"{nm[:40]} x{c:g} {ms:.3f} ms"
                             for nm, c, ms in profile_summary[r["path"]]["kernels"][:5])
             print(f"profile {r['path']} (one call): {wall:.3f} ms wall, {busy:.3f} ms device busy; {top}")
-
-    wall, names, _ = device_profile(torch, decode[DECODE_CAPACITY]["step"], 5)
-    busy = sum(ms for _, ms in names.values())
-    profile_summary["decode_step"] = {
-        "wall_ms_per_step": wall / 5, "device_busy_ms_per_step": busy / 5 if names else None,
-        "idle_share": 1 - busy / wall if names else None,
-        "kernels": sorted(([nm, c / 5, ms / 5] for nm, (c, ms) in names.items()), key=lambda q: -q[2]),
-    }
-    if names:
-        top = "; ".join(f"{nm[:40]} x{c:g} {ms * 1e3:.2f} us"
-                        for nm, c, ms in profile_summary["decode_step"]["kernels"][:6])
-        print(f"profile decode step at {DECODE_CAPACITY} rows (5 steps): {wall / 5:.4f} ms wall, "
-              f"{busy / 5:.4f} ms device busy, idle share {profile_summary['decode_step']['idle_share']:.3f}; "
-              f"per step: {top}")
-    layer = layers[DECODE_CAPACITY]
-    wall, names, _ = device_profile(torch, lambda: layer["ex"](*layer["args"]), 3)
-    busy = sum(ms for _, ms in names.values())
-    profile_summary["decode_layer"] = {
-        "wall_ms_per_call": wall / 3, "device_busy_ms_per_call": busy / 3 if names else None,
-        "idle_share": 1 - busy / wall if names else None,
-        "kernels": sorted(([nm, c / 3, ms / 3] for nm, (c, ms) in names.items()), key=lambda q: -q[2]),
-    }
-    if names:
-        top = "; ".join(f"{nm[:40]} x{c:g} {ms * 1e3:.2f} us"
-                        for nm, c, ms in profile_summary["decode_layer"]["kernels"][:8])
-        print(f"profile decode layer at {DECODE_CAPACITY} rows (3 calls): {wall / 3:.4f} ms wall, "
-              f"{busy / 3:.4f} ms device busy, idle share {profile_summary['decode_layer']['idle_share']:.3f}; "
-              f"per call: {top}")
+    # The Executors' graph replays are profiled in a process of their own:
+    # in this one, after its dozens of profiler sessions, a graph replay
+    # inside a session crashed the process in most runs (a fresh process
+    # never did).  The child builds the same paths at the same shapes.
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--replay-profiles"], cwd=ROOT,
+                           capture_output=True, text=True, timeout=900)
+    replay_profiles = json.loads(child.stdout.splitlines()[-1]) if child.returncode == 0 else None
+    if replay_profiles is None:
+        smoke.failures.append(f"phase 5: the graph-replay profiles' process exited {child.returncode}: "
+                              f"{child.stderr[-2000:]}")
+    else:
+        for label, summary in replay_profiles["profiles"].items():
+            profile_summary[label] = summary
+            if summary["device_busy_ms_per_call"] is None:
+                print(f"profile {label}: the profiler saw no device activity; not measured")
+                continue
+            top = "; ".join(f"{nm[:40]} x{c:g} {ms * 1e3:.2f} us" for nm, c, ms in summary["kernels"][:6])
+            print(f"profile {label} ({summary['calls']} calls, graph replay, its own process): "
+                  f"{summary['wall_ms_per_call'] * 1e3:.2f} us wall, {summary['device_busy_ms_per_call'] * 1e3:.2f} us "
+                  f"device busy, idle share {summary['idle_share']:.3f}; per call: {top}")
+        off = {k: v for k, v in replay_profiles["routes"].items() if v != ["graph"]}
+        if off:
+            smoke.failures.append(f"phase 5: Executors off the graph route in the profiling process: {off}")
     decode_summary = {
-        "step_ms_median": {cap: decode[cap]["step_ms_median"] for cap in (4096, DECODE_CAPACITY)},
-        "program_ms_median": {cap: decode[cap]["program_ms_median"] for cap in (4096, DECODE_CAPACITY)},
-        "step_device_ms": {cap: decode[cap]["step_device_ms"] for cap in (4096, DECODE_CAPACITY)},
-        "layer_ms_median": decode["layer"]["ms_median"], "layer_device_ms": decode["layer"]["device_ms"],
+        k: {cap: decode[cap][k] for cap in (4096, DECODE_CAPACITY)}
+        for k in ("step_ms_median", "program_ms_median", "eager_step_ms_median", "eager_program_ms_median",
+                  "copy_in_device_ms", "step_device_ms")
     }
+    decode_summary.update({"layer_ms_median": decode["layer"]["ms_median"],
+                           "layer_eager_ms_median": decode["layer"]["eager_ms_median"],
+                           "layer_copy_in_device_ms": decode["layer"]["copy_in_device_ms"],
+                           "layer_device_ms": decode["layer"]["device_ms"]})
     for cap in (4096, DECODE_CAPACITY):
         del decode[cap]["step"]
     registered = {name: LAUNCHED_BY.get(name, name) for name in sorted(api.registered_kernels())}
@@ -2366,13 +2720,14 @@ def main() -> int:
         "sm_count": sm_count, "max_sm_clock_hz": clock_hz, "launch_floor_ms": floor_ms, "forward_ms": fwd_ms,
         "forward_ms_p80": fwd_p80, "forward_ms_samples": fwd_samples,
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
-        "path_launches": path_launches, "program": program_timing,
+        "path_launches": path_launches, "program": program_timing, "peak_memory_gib": peak_gib,
+        "entry_executor_latency": entry_latency,
         "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows, "registered_kernels": registered,
-        "entry_points": [{k: v for k, v in r.items() if k not in ("args", "cpu_args", "want")} for r in entry],
+        "entry_points": [{k: v for k, v in r.items() if k not in ("args", "cpu_args", "want", "ex")} for r in entry],
         "decode": decode, "decode_summary": decode_summary,
-        "decode_serving": {k: serve_run[k] for k in ("counts", "step_counts", "cache", "first_s", "cpu_s",
-                                                      "prob_sums", "prob_nonzero")},
-        "decode_layer": {cap: {k: v for k, v in r.items() if k not in ("ex", "args", "gemm_calls")}
+        "decode_serving": dict({k: serve_run[k] for k in ("counts", "step_counts", "cache", "first_s", "cpu_s",
+                                                           "prob_sums", "prob_nonzero")}, executor=serve_held),
+        "decode_layer": {cap: {k: v for k, v in r.items() if k not in ("ex", "args", "gemm_calls", "executors")}
                          for cap, r in layers.items()},
         "calls": details, "cases": smoke.cases, "failures": smoke.failures,
     }, indent=1))
@@ -2391,11 +2746,13 @@ def main() -> int:
                       "forward_ms": fwd_ms, "forward_ms_p80": fwd_p80, "batch": BATCH,
                       "copies_per_forward": profile_summary["copies_per_forward"] if by_name else None,
                       "path_launches": path_launches,
-                      "program_latency_ms": program_timing["latency_ms_median"], "decode": decode_summary}))
+                      "program_latency_ms": program_timing["latency_ms_median"],
+                      "program_copy_in_ms": resnet_copy_ms, "decode": decode_summary,
+                      "peak_memory_gib": peak_gib}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(replay_profile_main() if sys.argv[1:] == ["--replay-profiles"] else main())

@@ -184,6 +184,11 @@ def _function(name: str) -> ctypes._CFuncPtr:
     return _fns[name]
 
 
+class KernelLaunchError(RuntimeError):
+    """A C entry point refused a launch (its CUDA error code is in the
+    message)."""
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` with ``args`` and the current stream of
     CUDA ``device`` (building and loading its library on the first call);
@@ -200,7 +205,7 @@ def launch(name: str, device: torch.device, *args) -> None:
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         err = _function_error_string(ENTRY_POINTS[name][0], rc)
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({err})")
+        raise KernelLaunchError(f"CUDA kernel {name} failed to launch: error {rc} ({err})")
 
 
 def _function_error_string(source: str, code: int) -> str:

@@ -19,14 +19,18 @@ tensors it runs the kernel's plain PyTorch version.  Nothing falls back from
 one to the other, and there is no backend scope.  Inside :func:`trace` a
 call is recorded instead of run.  Each kernel launch adds one to a
 per-kernel counter (:func:`launch_counts`, :func:`reset_launch_counts`), so
-a run can show which kernels it went through.
+a run can show which kernels it went through; while an Executor captures a
+CUDA graph, its launches go to a :class:`LaunchLog` instead, which each
+replay of the graph adds (:func:`recording_launches`,
+:func:`replay_launches`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -379,12 +383,73 @@ def kernel_device(*tensors: torch.Tensor) -> torch.device:
 
 _launches: Dict[str, int] = {}
 _launch_lock = threading.Lock()
+# ``.log``: the LaunchLog this thread's launches go to while it captures a
+# CUDA graph (a capture launches nothing; each replay launches it all)
+_capturing = threading.local()
+# the thread-local records kernel wrappers leave at a launch (launch_record)
+_records: List[threading.local] = []
+
+
+def launch_record() -> threading.local:
+    """A new thread-local record that a kernel wrapper sets where it
+    launches (the pair list it was given, the path it took).  A graph
+    replay sets it again as the graph's capture left it."""
+    rec = threading.local()
+    _records.append(rec)
+    return rec
+
+
+@dataclass
+class LaunchLog:
+    """What one replay of a captured CUDA graph launches: the launches per
+    kernel its capture recorded, and the values the capture left in each
+    :func:`launch_record` (in their order of creation)."""
+
+    counts: Dict[str, int]
+    records: Tuple[Dict[str, Any], ...] = ()
 
 
 def count_launch(kernel: str) -> None:
     """Called by a kernel wrapper right after it launched ``kernel``."""
+    log = getattr(_capturing, "log", None)
+    if log is not None:
+        log.counts[kernel] = log.counts.get(kernel, 0) + 1
+        return
     with _launch_lock:
         _launches[kernel] = _launches.get(kernel, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[LaunchLog]:
+    """Send this thread's launch counts and launch records to a fresh
+    :class:`LaunchLog` while the block runs (a CUDA graph capture, which
+    launches nothing); afterwards the counters and records are as they were
+    before the block."""
+    if getattr(_capturing, "log", None) is not None:
+        raise RuntimeError("this thread already records its launches (one capture at a time)")
+    log = LaunchLog({})
+    saved = [dict(r.__dict__) for r in _records]
+    for r in _records:
+        r.__dict__.clear()
+    _capturing.log = log
+    try:
+        yield log
+    finally:
+        _capturing.log = None
+        log.records = tuple(dict(r.__dict__) for r in _records)
+        for r, values in zip(_records, saved):
+            r.__dict__.clear()
+            r.__dict__.update(values)
+
+
+def replay_launches(log: LaunchLog) -> None:
+    """Account for one replay of a captured graph: add the launches its
+    capture recorded and set each launch record as the capture left it."""
+    with _launch_lock:
+        for kernel, n in log.counts.items():
+            _launches[kernel] = _launches.get(kernel, 0) + n
+    for r, values in zip(_records, log.records):
+        r.__dict__.update(values)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -455,13 +520,20 @@ def zero_slice_pairs(x_slices: Any, w_slices: Any) -> Tuple[Tuple[int, int], ...
 # The pair list handed to the most recent bit-sliced matmul on this thread
 # (the list the kernel is given and the oracle loops over); regression tests
 # assert that skipped pairs never appear here.
-_last_pairs = threading.local()
+_last_pairs = launch_record()
 
 
 def last_executed_pairs() -> Tuple[Tuple[int, int], ...]:
     """The (s, t) slice-pair list the most recent bit-sliced matmul on this
     thread executed."""
     return getattr(_last_pairs, "pairs", ())
+
+
+def note_executed_pairs(pairs: Tuple[Tuple[int, int], ...]) -> None:
+    """Record ``pairs`` as this thread's :func:`last_executed_pairs`: set by
+    :func:`matmul` (also while tracing) and by the ``bitslice_matmul``
+    kernel, so a program's replay sets it too."""
+    _last_pairs.pairs = pairs
 
 
 def bitslice_matmul_oracle(x_slices: torch.Tensor, w_slices: torch.Tensor, *,
@@ -484,7 +556,7 @@ def matmul(x: SlicedTensor, w: SlicedTensor, *,
     if x.slice_bits != w.slice_bits:
         raise ValueError(f"slice_bits mismatch: {x.slice_bits} vs {w.slice_bits}")
     all_skip = tuple(sorted(set(skip_pairs(x, w)) | set(skip)))
-    _last_pairs.pairs = active_pairs(x.n_slices, w.n_slices, all_skip)
+    note_executed_pairs(active_pairs(x.n_slices, w.n_slices, all_skip))
     acc = dispatch("bitslice_matmul", x.slices, w.slices,
                    slice_bits=x.slice_bits, skip=all_skip)
     if x.scale is None and w.scale is None:

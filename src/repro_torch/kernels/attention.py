@@ -188,7 +188,13 @@ def softmax_plan(r: int, t: int, x_bytes: int, ptr: int) -> SoftmaxPlan:
     scores and at most SOFTMAX_MAX_CLUSTER; ``regs`` when a block's chunks
     fit its threads' registers (SOFTMAX_CLUSTER_ELEMS scores a thread), else
     each pass loops over them.  ``vec`` (16-byte loads and stores) needs a
-    16-byte aligned base and ``t`` a multiple of a chunk."""
+    16-byte aligned base and ``t`` a multiple of a chunk.  Cached, as
+    :func:`rowdot_plan` is, on the base's alignment only."""
+    return _softmax_plan(r, t, x_bytes, ptr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def _softmax_plan(r: int, t: int, x_bytes: int, aligned: bool) -> SoftmaxPlan:
     if t <= SOFTMAX_ROW_MAX_COLS:
         return SoftmaxPlan(0, 0, False, False, max(1, -(-r // SOFTMAX_ROW_WARPS)))
     per_chunk = 16 // x_bytes
@@ -197,7 +203,7 @@ def softmax_plan(r: int, t: int, x_bytes: int, ptr: int) -> SoftmaxPlan:
     per_block = -(-chunks // cluster)
     cluster = -(-chunks // per_block)
     regs = per_block <= SOFTMAX_CLUSTER_THREADS * (SOFTMAX_CLUSTER_ELEMS // per_chunk)
-    vec = ptr % 16 == 0 and t % per_chunk == 0
+    vec = aligned and t % per_chunk == 0
     return SoftmaxPlan(cluster, per_block, regs, vec, min(r, SOFTMAX_MAX_GRID_Y))
 
 
@@ -223,11 +229,16 @@ def pv_plan(m: int, t: int, dv: int, p_bytes: int, v_bytes: int, ptrs: Tuple[int
     takes the rest: PV_THREADS // min(dv, PV_THREADS) rows at a step, a
     thread a column.  A block accumulates ``group`` queries (1, 2, else
     PV_MAX_GROUP); T is split into as many steps a block as leave about
-    PV_TARGET_BLOCKS blocks."""
+    PV_TARGET_BLOCKS blocks.  Cached on v's alignment, not its address."""
     _, v_ptr = ptrs
+    return _pv_plan(m, t, dv, p_bytes, v_bytes, v_ptr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def _pv_plan(m: int, t: int, dv: int, p_bytes: int, v_bytes: int, v_aligned: bool) -> PvPlan:
     lanes = dv // 16
     packed = (p_bytes == 4 and v_bytes == 1 and dv % 16 == 0 and 0 < dv <= PV_PACKED_MAX_DV
-              and 32 % lanes == 0 and v_ptr % 16 == 0)
+              and 32 % lanes == 0 and v_aligned)
     group = m if m <= 2 else PV_MAX_GROUP
     rows_per_step = PV_THREADS // lanes if packed else PV_THREADS // min(dv, PV_THREADS)
     steps = -(-t // rows_per_step)
@@ -251,10 +262,16 @@ def kv_plan(t: int, d: int, cache_bytes: int, new_bytes: int, ptrs: Tuple[int, i
     An int8 cache and row with 16-byte rows (D % 16 == 0) and every base
     16-byte aligned take the vector kernel, one chunk (its selector byte
     beside it) a thread, KV_THREADS a block; the rest the generic kernel,
-    an element a thread, grid-stride over at most KV_MAX_GRID blocks."""
-    n = t * d
+    an element a thread, grid-stride over at most KV_MAX_GRID blocks.
+    Cached on the bases' alignment, not their addresses."""
     cache_ptr, new_ptr, out_ptr = ptrs
-    if cache_bytes == 1 and new_bytes == 1 and d % 16 == 0 and (cache_ptr | new_ptr | out_ptr) % 16 == 0:
+    return _kv_plan(t, d, cache_bytes, new_bytes, (cache_ptr | new_ptr | out_ptr) % 16 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def _kv_plan(t: int, d: int, cache_bytes: int, new_bytes: int, aligned: bool) -> KvPlan:
+    n = t * d
+    if cache_bytes == 1 and new_bytes == 1 and d % 16 == 0 and aligned:
         return KvPlan(True, max(1, -(-(n // 16) // KV_THREADS)))
     return KvPlan(False, max(1, min(-(-n // KV_THREADS), KV_MAX_GRID)))
 

@@ -17,7 +17,6 @@ block size; the kernel masks the ragged edges.
 """
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -28,6 +27,8 @@ from repro_torch.kernels.api import (
     bitslice_matmul_oracle,
     count_launch,
     kernel_device,
+    launch_record,
+    note_executed_pairs,
     register_kernel,
 )
 
@@ -91,7 +92,7 @@ def bitslice_plan(sx: int, sw: int, m: int, n: int, k: int, slice_bits: int, pai
 
 # The pair list of the most recent kernel launch on this thread, in the order
 # the kernel was given it.
-_launched = threading.local()
+_launched = launch_record()
 
 
 def launched_pairs() -> Pairs:
@@ -166,4 +167,6 @@ def bitslice_matmul(
     sw, k2, n = w_slices.shape
     if k != k2:
         raise ValueError(f"inner dimensions differ: {tuple(x_slices.shape)} @ {tuple(w_slices.shape)}")
-    return _bitslice_gemm(x_slices, w_slices, slice_bits, active_pairs(sx, sw, skip))
+    pairs = active_pairs(sx, sw, skip)
+    note_executed_pairs(pairs)
+    return _bitslice_gemm(x_slices, w_slices, slice_bits, pairs)

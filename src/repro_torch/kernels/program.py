@@ -9,9 +9,10 @@ The port's counterpart of the JAX package's ``kernels/program.py``:
   shape and dtype come from running the kernel's plain oracle on ``meta``
   tensors, so tracing reads no values and launches nothing.
 * :func:`compile_program` (``api.compile``) returns a cached
-  :class:`Executor` for a Program.  The Executor replays the ops eagerly
-  through ``api.dispatch``, so each op runs on the device its operands lie
-  on: the CUDA kernels on the card, the plain versions on the CPU.
+  :class:`Executor` for a Program, the counterpart of the JAX package's
+  compiled executable.  On the card the Executor captures the ops once into
+  a CUDA graph and replays it on every later call; on the CPU it replays the
+  ops eagerly through ``api.dispatch``, which runs the plain versions.
 * The compile cache is keyed on the Program's signature — kernel names,
   operand references, static kwargs, output and slot avals, both argument
   structures, the output references and a content fingerprint per captured
@@ -33,6 +34,7 @@ from __future__ import annotations
 import contextvars
 import hashlib
 import threading
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -475,15 +477,130 @@ class CacheInfo:
     entries: Tuple[Dict[str, Any], ...] = ()
 
 
+# the device type whose operands an Executor captures into a graph (a test
+# seam, with _CudaGraph: the CPU tests drive the replay rules through a fake)
+_GRAPH_DEVICE = "cuda"
+GRAPH_REASON = "replays the CUDA graph captured at its first call on this device and leaf layout"
+
+
+class _CudaGraph:
+    """One CUDA graph of a program's ops on ``device``: the seam between the
+    :class:`Executor` and ``torch.cuda``, which the CPU tests replace."""
+
+    @staticmethod
+    def capturing() -> bool:
+        """Whether the current stream is being captured into a graph."""
+        return torch.cuda.is_current_stream_capturing()
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graph = torch.cuda.CUDAGraph()
+        self._raw = self._stream = None  # the stream of the last call
+
+    def capture(self, fn: Callable[[], List[Any]]) -> List[Any]:
+        """Capture ``fn()`` (nothing runs) on a side stream; returns its
+        outputs, the graph's own buffers, which each replay rewrites."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            # thread_local: another thread's CUDA calls do not break this capture
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outputs = fn()
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:  # the capture was invalidated by the error being raised
+                    pass
+                raise
+            self.graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        return outputs
+
+    def follow_last_call(self) -> None:
+        """Order this call after the last one, which may have run on another
+        stream: both use the same static buffers."""
+        raw = torch._C._cuda_getCurrentRawStream(self.device.index)
+        if raw != self._raw:
+            stream = torch.cuda.current_stream(self.device)
+            if self._stream is not None:
+                stream.wait_stream(self._stream)
+            self._raw, self._stream = raw, stream
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def reset(self) -> None:
+        self.graph.reset()
+
+
+@dataclass
+class _GraphReplay:
+    """A captured program: the static input buffers its graph reads (one per
+    slot leaf, of the leaf's shape, dtype and layout), the graph, its output
+    buffers and the launches it makes (``api.LaunchLog``)."""
+
+    graph: Any
+    inputs: List[torch.Tensor]
+    outputs: List[torch.Tensor]
+    log: Any
+
+    def run(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+        from repro_torch.kernels import api
+
+        self.graph.follow_last_call()
+        torch._foreach_copy_(self.inputs, leaves)
+        self.graph.replay()
+        # fresh tensors, as a jitted call returns: the next replay rewrites the buffers
+        outputs = [o.clone() for o in self.outputs]
+        api.replay_launches(self.log)
+        return outputs
+
+
+def _graph_device(leaves: List[Any], consts: Tuple[torch.Tensor, ...]) -> Tuple[Optional[torch.device], str]:
+    """The device on which a program over these operands is captured into a
+    graph, or ``None`` and the reason its ops replay eagerly instead."""
+    if not all(isinstance(l, torch.Tensor) for l in leaves):
+        return None, "a leaf is not a tensor: only tensors can be copied into a graph's input buffers"
+    devices = {t.device for t in (*leaves, *consts)}
+    if len(devices) != 1 or next(iter(devices)).type != _GRAPH_DEVICE:
+        if devices == {torch.device("cpu")}:
+            return None, "the operands lie on the CPU, where there are no CUDA graphs: the plain versions run eagerly"
+        return None, f"the operands lie on {sorted(map(str, devices))}, not on one CUDA device"
+    if _CudaGraph.capturing():
+        return None, ("the current stream is being captured into the caller's graph: the ops replay "
+                      "eagerly into that capture")
+    return next(iter(devices)), GRAPH_REASON
+
+
 class Executor:
     """A compiled Program.  Call it with the argument structure and leaf
-    avals the traced function took; it replays the ops through
-    ``api.dispatch`` on the device the arguments lie on."""
+    avals the traced function took.
+
+    On CUDA operands the first call for a device and layout of the leaves
+    replays the ops eagerly through ``api.dispatch`` (which builds the
+    kernels' libraries and launch plans and the p·V ticket) and then captures
+    them into one CUDA graph that reads static input buffers the Executor
+    owns.  Every later call copies the leaves into those buffers, replays
+    the graph and returns fresh copies of its outputs; the graph's launches
+    are added to ``api.launch_counts`` and its launch records restored on
+    every replay.  The ops replay eagerly instead, each on the device its
+    operands lie on, when the operands lie on the CPU, when the current
+    stream is already being captured (the ops then go into the caller's
+    graph), and when the capture raised (then for good on that signature,
+    with one warning).  ``replay`` (``"graph"`` or ``"eager"``) and
+    ``replay_reason`` tell the route of the last call and why.
+    """
 
     def __init__(self, program: Program, backend: str, run: Callable[[List[Any]], Any]):
         self.program = program
         self.backend = backend
-        self._run = run
+        self._eager = run
+        # (device, leaf strides) → its _GraphReplay, or why its capture failed
+        self._graphs: Dict[Tuple, Any] = {}
+        self._lock = threading.Lock()  # the static buffers serve one call at a time
+        self.replay = "eager"
+        self.replay_reason = "not called yet"
 
     def __call__(self, *args, **kwargs):
         leaves, in_tree = tree_flatten((args, kwargs))
@@ -510,6 +627,53 @@ class Executor:
     def _execute_leaves(self, leaves: List[Any]):
         return tree_unflatten(self.program.out_tree, self._run(leaves))
 
+    def _run(self, leaves: List[Any]) -> List[Any]:
+        device, reason = _graph_device(leaves, self.program.consts)
+        if device is None:
+            self.replay, self.replay_reason = "eager", reason
+            return self._eager(leaves)
+        key = (device, tuple(l.stride() for l in leaves))
+        with self._lock:
+            replay = self._graphs.get(key)
+            if replay is None:
+                outputs = self._eager(leaves)
+                replay = self._graphs[key] = self._capture(device, leaves)
+            elif isinstance(replay, _GraphReplay):
+                outputs = replay.run(leaves)
+            else:
+                outputs = self._eager(leaves)
+            if isinstance(replay, _GraphReplay):
+                self.replay, self.replay_reason = "graph", GRAPH_REASON
+            else:
+                self.replay, self.replay_reason = "eager", replay
+            return outputs
+
+    def _capture(self, device: torch.device, leaves: List[torch.Tensor]):
+        """Capture the ops over static copies of ``leaves``: a
+        :class:`_GraphReplay`, or the text of the error the capture raised."""
+        from repro_torch.kernels import _build, api
+
+        inputs = [torch.empty_like(l) for l in leaves]  # keeps a dense leaf's strides
+        graph = _CudaGraph(device)
+        try:
+            with api.recording_launches() as log:
+                outputs = graph.capture(lambda: self._eager(inputs))
+        except _build.KernelLaunchError:
+            raise
+        except RuntimeError as exc:  # e.g. an op that reads back to the host
+            reason = f"the CUDA graph capture raised {type(exc).__name__}: {exc}"
+            warnings.warn(f"Executor({self.program.name!r}): {reason}; this signature replays eagerly",
+                          RuntimeWarning, stacklevel=4)
+            return reason
+        return _GraphReplay(graph, inputs, outputs, log)
+
+    def _drop_graphs(self) -> None:
+        with self._lock:
+            for replay in self._graphs.values():
+                if isinstance(replay, _GraphReplay):
+                    replay.graph.reset()
+            self._graphs.clear()
+
 
 _cache_lock = threading.Lock()
 _cache: Dict[Any, Any] = {}
@@ -529,9 +693,13 @@ def compile_cache_info() -> CacheInfo:
 
 
 def clear_compile_cache() -> None:
-    """Empty the global compile cache and reset its hit/miss counters."""
+    """Empty the global compile cache and reset its hit/miss counters; the
+    cached Executors drop their CUDA graphs and the graphs' memory."""
     global _hits, _misses
     with _cache_lock:
+        for artifact in _cache.values():
+            if isinstance(artifact, Executor):
+                artifact._drop_graphs()
         _cache.clear()
         _cache_meta.clear()
         _hits = 0
@@ -561,8 +729,8 @@ def cached_executable(key: Any, build: Callable[[], Any],
 
 
 def _eager_run(program: Program) -> Callable[[List[Any]], List[Any]]:
-    """Replay the program's ops one by one through ``api.dispatch`` (the
-    JAX package replays them inside one ``jax.jit``)."""
+    """Replay the program's ops one by one through ``api.dispatch``: the
+    Executor's eager route, and what its CUDA graph captures."""
     from repro_torch.kernels import api
 
     def run(leaves: List[Any]) -> List[Any]:
@@ -595,8 +763,9 @@ def compile_program(program: Program, backend: Optional[str] = None, *,
     and its constants' devices, so an identical second compile is a cache
     hit.
 
-    The Executor replays the program eagerly (``backend`` ``None``, the only
-    one ported).  ``backend="pimsab"`` and ``states`` (ROADMAP Queue 1 item
+    The Executor replays a CUDA graph of the program on the card and the ops
+    eagerly on the CPU (``backend`` ``None``, the only one ported; see
+    :class:`Executor`).  ``backend="pimsab"`` and ``states`` (ROADMAP Queue 1 item
     5, ``pimsab_backend.py``) and ``chips`` other than 1 (item 10,
     ``multichip.py``) raise ``NotImplementedError``.
     """

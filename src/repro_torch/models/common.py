@@ -20,13 +20,20 @@ from repro_torch.kernels.bitslice_matmul import bitslice_matmul
 Params = Dict[str, Any]
 
 
+def _saturate_int8(x: torch.Tensor) -> torch.Tensor:
+    """Float → int8 as XLA converts: values outside int8 saturate to −128 or
+    127 (a torch cast wraps them: 200.0 → −56)."""
+    return torch.clamp(x, -128, 127).to(torch.int8)
+
+
 def quantize_weight(w: torch.Tensor, bits: int = 8) -> Params:
     """Symmetric per-output-channel integer quantization of a
-    ``(..., d_in, d_out)`` weight: ``{"w_q": int8, "w_scale": float32}``."""
+    ``(..., d_in, d_out)`` weight: ``{"w_q": int8, "w_scale": float32}``.
+    Above 8 bits the int8 values saturate, as the JAX package's do."""
     wf = w.to(torch.float32)
     qmax = 2 ** (bits - 1) - 1
     scale = api.absmax_scale(wf, -2, qmax)
-    w_q = torch.clamp(torch.round(wf / scale), -qmax - 1, qmax).to(torch.int8)
+    w_q = _saturate_int8(torch.clamp(torch.round(wf / scale), -qmax - 1, qmax))
     return {"w_q": w_q, "w_scale": scale}
 
 
@@ -35,7 +42,7 @@ def _dynamic_act_quant(x: torch.Tensor, bits: int):
     qmax = 2 ** (bits - 1) - 1
     xf = x.to(torch.float32)
     scale = api.absmax_scale(xf, -1, qmax)
-    x_q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax).to(torch.int8)
+    x_q = _saturate_int8(torch.clamp(torch.round(xf / scale), -qmax - 1, qmax))
     return x_q, scale
 
 

@@ -19,6 +19,7 @@ from repro_torch.kernels import attention as tatt  # noqa: E402
 from repro_torch.kernels import bitslice_matmul as tbm  # noqa: E402
 from repro_torch.kernels import conv, ewise  # noqa: E402
 from repro_torch.kernels import htree_reduce as tht  # noqa: E402
+from repro_torch.kernels import program as tprogram  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import rglru_scan as trg  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
@@ -1105,3 +1106,168 @@ def test_gemv_htree_rglru_traced_on_card_equal_eager(card):
         torch.cuda.synchronize()
         assert tapi.launch_counts() == {name: 1}
         assert torch.equal(got, fn(*args))
+
+
+# ---------------------------------------------------------------------------
+# the Executor's CUDA graph replay
+# ---------------------------------------------------------------------------
+
+DECODE_CFG = dict(head_dim=64, value_dim=64, kv_bits=8, q_bits=8, score_bits=22, score_frac=13)
+
+
+def _tiny_resnet_call(seed):
+    cfg = tres.TINY
+    params = tres.init_params(cfg, device="cpu")
+    x = tres.make_input(cfg, 2, seed=seed, device="cpu")
+    traced = tapi.trace(lambda p, v: tres.forward(cfg, p, v), name="tiny_replay")
+    return traced, (params, x)
+
+
+def _decode_step_call(seed, cap=64):
+    onehot = _selector(cap, [cap // 2], torch.int8)
+    args = (i8((cap, 64), seed), i8((cap, 64), seed + 1), i8((1, 64), seed + 2), i8((64,), seed + 3),
+            i8((64,), seed + 4), onehot)
+    return tps.decode_program(tps.AttnServeConfig(**DECODE_CFG), cap), args
+
+
+def _decode_layer_call(seed):
+    prog = tps.decode_layer_program(128, 64, 256, 256, q_bits=8, kv_bits=8, score_bits=22, score_frac=13, w_bits=8)
+    args = (i8((256, 64), seed), i8((256, 64), seed + 1), i8((1, 64), seed + 2), i8((64, 128), seed + 3),
+            i8((128, 256), seed + 4), i8((256, 128), seed + 5))
+    return prog, args
+
+
+def eager_call_output(ex, args):
+    """The Executor's eager replay of ``ex(*args)``."""
+    leaves, _ = tprogram.tree_flatten((args, {}))
+    return tprogram.tree_unflatten(ex.program.out_tree, ex._eager(leaves))
+
+
+def _to(tree, dev):
+    leaves, td = tprogram.tree_flatten(tree)
+    return tprogram.tree_unflatten(td, [a.to(dev) for a in leaves])
+
+
+@pytest.mark.parametrize("path", ["tiny-resnet", "decode-step-64", "decode-layer"])
+def test_executor_graph_replay_equals_eager_and_cpu_and_counts_launches(card, path):
+    tapi.clear_compile_cache()
+    if path == "tiny-resnet":
+        traced, cpu_args = _tiny_resnet_call(100)
+        prog = traced.program_for(*cpu_args)
+    else:
+        prog, cpu_args = (_decode_step_call if path == "decode-step-64" else _decode_layer_call)(101)
+    ex = tapi.compile(prog)
+    want = ex(*cpu_args)
+    assert ex.replay == "eager" and "CPU" in ex.replay_reason
+    args = _to(cpu_args, card)
+    tapi.reset_launch_counts()
+    first = ex(*args)  # eagerly, then captured
+    torch.cuda.synchronize()
+    eager_counts = tapi.launch_counts()
+    assert ex.replay == "graph", ex.replay_reason
+    for _ in range(3):
+        tapi.reset_launch_counts()
+        got = ex(*args)
+        torch.cuda.synchronize()
+        assert tapi.launch_counts() == eager_counts
+        assert torch.equal(got.cpu(), want) and torch.equal(first.cpu(), want)
+    assert torch.equal(eager_call_output(ex, args).cpu(), want)
+
+
+def test_executor_inside_an_outer_capture_replays_eagerly(card):
+    tapi.clear_compile_cache()
+    prog, cpu_args = _decode_step_call(110, cap=256)
+    ex = tapi.compile(prog)
+    want = ex(*cpu_args)
+    args = [a.to(card) for a in cpu_args]
+    ex(*args)  # the first call: builds the plans and the p·V ticket, then captures
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        inside = ex(*args)
+        route = ex.replay, ex.replay_reason
+    assert route[0] == "eager" and "being captured" in route[1]
+    for _ in range(2):
+        outer.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(inside.cpu(), want)
+    ex(*args)
+    assert ex.replay == "graph"
+
+
+def test_executor_on_views_off_16_bytes_equals_its_aligned_replay(card):
+    """The eager call's views are off 16 bytes (generic kernels), the graph's
+    static buffers aligned (vector kernels): the outputs are equal."""
+    tapi.clear_compile_cache()
+    prog, cpu_args = _decode_step_call(120, cap=1024)
+    ex = tapi.compile(prog)
+    want = ex(*cpu_args)
+
+    def off16(t):
+        return torch.empty(t.numel() + 8, dtype=t.dtype, device=card)[8:].view(t.shape).copy_(t.to(card))
+
+    views = [off16(a) for a in cpu_args]
+    assert not tatt.kv_plan(1024, 64, 1, 1, (views[0].data_ptr(), views[3].data_ptr(), 0)).vec
+    first = ex(*views)
+    (replay,) = ex._graphs.values()
+    assert all(b.data_ptr() % 16 == 0 for b in replay.inputs)
+    second = ex(*views)
+    torch.cuda.synchronize()
+    assert ex.replay == "graph"
+    assert torch.equal(first.cpu(), want) and torch.equal(second.cpu(), want)
+
+
+def test_executor_outputs_are_fresh_and_threads_may_share_it(card):
+    import threading
+
+    tapi.clear_compile_cache()
+    sets = [_decode_step_call(130 + 10 * i, cap=512) for i in range(4)]
+    ex = tapi.compile(sets[0][0])
+    wants = [ex(*a) for _, a in sets]
+    card_sets = [[a.to(card) for a in args] for _, args in sets]
+    ex(*card_sets[0])
+    kept = ex(*card_sets[1])
+    later = ex(*card_sets[2])
+    torch.cuda.synchronize()
+    assert torch.equal(kept.cpu(), wants[1]) and torch.equal(later.cpu(), wants[2])
+    outs, errors = {0: [], 1: []}, []
+
+    def worker(i):
+        try:
+            s = torch.cuda.Stream(card)
+            s.wait_stream(torch.cuda.current_stream(card))
+            with torch.cuda.stream(s):
+                for _ in range(10):
+                    outs[i].append(ex(*card_sets[2 + i]))
+            s.synchronize()
+        except Exception as exc:  # asserted below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads) and errors == []
+    for i in (0, 1):
+        assert len(outs[i]) == 10 and all(torch.equal(o.cpu(), wants[2 + i]) for o in outs[i])
+
+
+def test_executor_graph_survives_a_profiler_session(card):
+    """A graph captured before a torch.profiler session replays after it,
+    on the graph route and bit-equal to the CPU path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tapi.clear_compile_cache()
+    prog, cpu_args = _decode_step_call(140, cap=256)
+    ex = tapi.compile(prog)
+    want = ex(*cpu_args)
+    args = [a.to(card) for a in cpu_args]
+    ex(*args)  # eagerly, then captured
+    y = torch.zeros(1000, device=card)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        y.add_(1)
+        torch.cuda.synchronize()
+    for _ in range(2):
+        got = ex(*args)
+        torch.cuda.synchronize()
+        assert ex.replay == "graph" and torch.equal(got.cpu(), want)
