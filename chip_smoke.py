@@ -52,6 +52,20 @@ Phases, any failure of which exits non-zero:
       float32; ``api.maxpool2d`` at this ResNet's stem (``pool_max``, which
       RESNET18 does not run).  The RG-LRU output also within 1e-4 of the
       associative-scan oracle.
+   h. the eager pimsab backend (``api.use_backend("pimsab")``: the PIMSAB
+      compiler and bit-serial simulator, numpy on the host) with operands
+      on the card: each of the 15 registry kernels at the inputs of
+      ``tests/test_pimsab_conformance.py`` (its result on the card, no
+      launch counted, integers bit-equal to the card kernel on the same
+      operands, floats within the conformance tolerance); the three
+      ``large_shapes`` workloads modeled on the full PIMSAB machine, their
+      modeled, serialized and overlapped cycles and instruction counts
+      equal to ``BENCH_kernels.json``; the paper-scale int_matmul
+      (256×1024×1024, seeds 50 and 51) run bit-exactly on
+      ``FUNCTIONAL_CFG_LARGE`` and bit-equal to K1, with its host wall time;
+      the eager MICRO residual network bit-equal to its forward on the
+      card; a pimsab call during a CUDA graph capture refused.  It prints
+      each kernel's modeled cycles and host seconds.
 
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
@@ -247,6 +261,18 @@ ENTRY_NO_LIBRARY = {
     "htree_reduce": "torch.sum adds floats in another order",
 }
 
+# Phase 3h, the eager pimsab backend (src/repro_torch/kernels/pimsab_backend.py):
+# the float tolerances of tests/test_pimsab_conformance.py (the fixed-point
+# lowerings against float kernels), the paper-scale int_matmul of its slow
+# tier (x (256, 1024) and w (1024, 1024) int8-range, seeds 50 and 51), the
+# MICRO residual network of tests/test_resnet_e2e.py, and the tuning budget
+# under which benchmarks/kernels_bench.py models its large_shapes rows.
+PIMSAB_TOL = {"htree_reduce": 5e-3, "rglru_scan": 5e-2}
+PIMSAB_MATMUL = ((256, 1024), (1024, 1024), 50, 51)
+PIMSAB_MICRO = dict(in_channels=2, input_hw=8, stem_channels=4, stem_pool="max",
+                    stage_channels=(4,), blocks_per_stage=(1,), num_classes=5)
+PIMSAB_TUNE = dict(budget=96, beam=4, seed=0)
+
 # K1's float32 instance beside torch.matmul (TF32 off) at RESNET18's stage-3
 # GEMM shape in float32: (M, K, N).  No path runs it (the forward is int32).
 F32_GEMM = (2048, 2304, 256)
@@ -298,9 +324,10 @@ class Smoke:
         self.failures = []
         self.cases = []
 
-    def check(self, kernel, case, got, want, exact):
+    def check(self, kernel, case, got, want, exact, tol=None):
         """Compare a kernel's output (on the card) with its plain version's
-        (on the CPU); record the case, and a failure on disagreement."""
+        (on the CPU), float outputs within ``tol`` (default the float kernel
+        tolerance); record the case, and a failure on disagreement."""
         torch = self.torch
         got = got.cpu()
         ok = got.shape == want.shape and got.dtype == want.dtype
@@ -315,7 +342,8 @@ class Smoke:
             if exact:
                 ok = torch.equal(got, want)
             else:
-                ok = bool((diff <= FLOAT_ATOL + FLOAT_RTOL * want.double().abs()).all())
+                atol = rtol = FLOAT_ATOL if tol is None else tol
+                ok = bool((diff <= atol + rtol * want.double().abs()).all())
         self.cases.append({"kernel": kernel, "case": case, "ok": ok, "max_abs_err": err,
                            "exact": exact, "shape": list(got.shape), "dtype": str(got.dtype)})
         if not ok:
@@ -2036,6 +2064,177 @@ def entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s):
     return rows
 
 
+def pimsab_cases(torch, np):
+    """Phase 3h's calls: ``(kernel, call, CPU operands)`` for each registry
+    kernel at tests/test_pimsab_conformance.py's inputs, drawn with numpy
+    from its seeds; ``call(api, *operands)`` runs it through the API."""
+
+    def ints(shape, lo, hi, seed):
+        return torch.from_numpy(np.random.default_rng(seed).integers(lo, hi, shape).astype(np.int32))
+
+    def normal(shape, seed):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32))
+
+    def matmul(api, x, w):
+        return api.matmul(api.SlicedTensor.from_int(x, 8), api.SlicedTensor.from_int(w, 8))
+
+    onehot = torch.zeros(8, dtype=torch.int32)
+    onehot[5] = 1
+    a = torch.from_numpy((1.0 / (1.0 + np.exp(-normal((2, 8, 24), 3).double().numpy()))).astype(np.float32))
+    return [
+        ("bitslice_matmul", matmul, (ints((16, 32), -100, 100, 0), ints((32, 8), -100, 100, 1))),
+        ("htree_reduce", lambda api, x: api.htree_reduce(x), (normal((16, 32), 2),)),
+        ("rglru_scan", lambda api, a, b, h: api.rglru_scan(a, b, h), (a, normal((2, 8, 24), 4), normal((2, 24), 5))),
+        ("ewise_add", lambda api, x, y: api.ewise_add(x, y), (ints((8, 32), -500, 500, 6), ints((8, 32), -500, 500, 7))),
+        ("relu", lambda api, x: api.relu(x), (ints((8, 32), -500, 500, 8),)),
+        ("conv2d", lambda api, x, w: api.conv2d(x, w, stride=2, padding=1),
+         (ints((2, 3, 8, 8), -8, 8, 20), ints((4, 3, 3, 3), -100, 100, 21))),
+        ("int_matmul", lambda api, x, w: api.int_matmul(x, w), (ints((8, 32), -200, 200, 22), ints((32, 8), -200, 200, 23))),
+        ("maxpool2d", lambda api, x: api.maxpool2d(x, window=2), (ints((2, 4, 8, 8), -500, 500, 24),)),
+        ("avgpool2d", lambda api, x: api.avgpool2d(x, window=2), (ints((2, 4, 8, 8), -500, 500, 25),)),
+        ("global_avgpool", lambda api, x: api.global_avgpool(x), (ints((2, 8, 4, 4), -500, 500, 26),)),
+        ("attention_qk", lambda api, q, k: api.attention_qk(q, k), (ints((2, 8), -10, 10, 27), ints((4, 8), -10, 10, 28))),
+        ("softmax_fixedpoint", lambda api, x: api.softmax_fixedpoint(x, in_frac=7), (ints((4, 8), -400, 400, 29),)),
+        ("attention_pv", lambda api, p, v: api.attention_pv(p, v), (ints((2, 8), 0, 64, 30), ints((8, 4), -100, 100, 31))),
+        ("decode_gemv", lambda api, w, x: api.decode_gemv(w, x), (ints((8, 16), -50, 50, 32), ints((16,), -20, 20, 33))),
+        ("kv_append", lambda api, c, n, o: api.kv_append(c, n, o),
+         (ints((8, 4), -100, 100, 34), ints((4,), -100, 100, 35), onehot)),
+    ]
+
+
+def large_shape_workloads():
+    """benchmarks/kernels_bench.py's large_shapes workloads, restated on the
+    port's DSL: the paper-scale GEMM and the 64k-element add and relu."""
+    from repro_torch.core.compiler.tensor_dsl import Loop, Ref, Workload
+
+    return [
+        Workload(name="matmul_256x1024x1024_i8",
+                 loops=(Loop("x", 256, "data"), Loop("y", 1024, "data"), Loop("k", 1024, "reduce")),
+                 out=Ref("c", ("x", "y"), prec=32),
+                 ins=(Ref("a", ("x", "k"), prec=9), Ref("b", ("k", "y"), prec=9)), op="mac", acc_prec=32),
+        Workload(name="ewise_add_65536_i16", loops=(Loop("i", 65536, "data"),), out=Ref("y", ("i",), prec=17),
+                 ins=(Ref("xa", ("i",), prec=16), Ref("xb", ("i",), prec=16)), op="map_add", acc_prec=17),
+        Workload(name="relu_65536_i16", loops=(Loop("i", 65536, "data"),), out=Ref("y", ("i",), prec=16),
+                 ins=(Ref("xa", ("i",), prec=16), Ref("z", ("i",), prec=16, is_const=True, const_value=0)),
+                 op="relu", acc_prec=16),
+    ]
+
+
+def run_pimsab_phase(torch, np, api, pb, resnet, smoke, dev):
+    """Phase 3h: the eager pimsab backend with operands on the card.  Each
+    registry kernel under ``api.use_backend("pimsab")`` (its result on the
+    card, no launch counted) against the card kernel on the same operands;
+    the large_shapes rows modeled on the full machine against
+    BENCH_kernels.json; the paper-scale int_matmul on FUNCTIONAL_CFG_LARGE
+    bit-equal to K1; the eager MICRO network bit-equal to its forward on the
+    card; a call during a CUDA graph capture refused."""
+    out = {"kernels": []}
+    cases = pimsab_cases(torch, np)
+    runs = []
+    api.reset_launch_counts()
+    for name, call, cpu_ops in cases:
+        ops = [o.to(dev) for o in cpu_ops]
+        api.clear_sim_report_log()
+        t = time.perf_counter()
+        with api.use_backend("pimsab"):
+            got = call(api, *ops)
+        wall = time.perf_counter() - t
+        runs.append((name, call, ops, got, api.sim_report_log(), wall))
+    counts = {k: v for k, v in api.launch_counts().items() if v}
+    if counts:
+        smoke.failures.append(f"phase 3h: pimsab calls counted launches {counts}")
+    for name, call, ops, got, log, wall in runs:
+        want = call(api, *ops)  # the card kernel on the same operands
+        torch.cuda.synchronize()
+        if got.device != want.device:
+            smoke.failures.append(f"phase 3h {name}: result on {got.device}, operands on {want.device}")
+        if [r.kernel for r in log] != [name]:
+            smoke.failures.append(f"phase 3h {name}: reports {[r.kernel for r in log]}")
+        tol = PIMSAB_TOL.get(name)
+        err = smoke.check(f"pimsab:{name}", "conformance input vs the card kernel", got, want.cpu(),
+                          exact=tol is None, tol=tol)
+        rep = log[-1] if log else None
+        out["kernels"].append({"kernel": name, "modeled_cycles": rep.total_cycles if rep else None,
+                               "functional_instrs": rep.functional_instrs if rep else None,
+                               "host_s": wall, "max_abs_err_vs_card": err, "shapes": [list(o.shape) for o in ops]})
+
+    pinned = {r["workload"]: r for r in json.loads((ROOT / "BENCH_kernels.json").read_text())["large_shapes"]}
+    out["large_shapes"] = []
+    for w in large_shape_workloads():
+        t = time.perf_counter()
+        rep = pb.timing_report(w, kernel=w.name, tune=api.TuneConfig(**PIMSAB_TUNE))
+        row = {"workload": w.name, "modeled_cycles": rep.total_cycles, "serialized_cycles": rep.serialized_cycles,
+               "overlapped_cycles": rep.overlapped_cycles, "instrs": rep.instrs, "host_s": time.perf_counter() - t}
+        want = pinned.get(w.name, {})
+        if any(row[k] != want.get(k) for k in ("modeled_cycles", "serialized_cycles", "overlapped_cycles", "instrs")):
+            smoke.failures.append(f"phase 3h large_shapes {w.name}: {row} != BENCH_kernels.json {want}")
+        out["large_shapes"].append(row)
+
+    (xs, ws, sx, sw) = PIMSAB_MATMUL
+    x = torch.from_numpy(np.random.default_rng(sx).integers(-128, 128, xs).astype(np.int32)).to(dev)
+    w = torch.from_numpy(np.random.default_rng(sw).integers(-128, 128, ws).astype(np.int32)).to(dev)
+    api.reset_launch_counts()
+    t = time.perf_counter()
+    with pb.functional_config(pb.FUNCTIONAL_CFG_LARGE), api.use_backend("pimsab"):
+        got = api.int_matmul(x, w, x_bits=8, w_bits=8)
+        rep = api.last_sim_report()
+    wall = time.perf_counter() - t
+    if api.launch_counts():
+        smoke.failures.append(f"phase 3h paper-scale int_matmul counted launches {api.launch_counts()}")
+    want = api.int_matmul(x, w)  # K1
+    torch.cuda.synchronize()
+    smoke.check("pimsab:int_matmul", f"paper scale {xs}x{ws} on FUNCTIONAL_CFG_LARGE vs K1", got, want.cpu(), True)
+    out["paper_scale_int_matmul"] = {"shape": [*xs, ws[1]], "host_s": wall, "modeled_cycles": rep.total_cycles,
+                                     "functional_instrs": rep.functional_instrs,
+                                     "bit_equal_to_k1": torch.equal(got.cpu(), want.cpu())}
+
+    cfg = resnet.ResNetConfig(**PIMSAB_MICRO)
+    model = resnet.ResNet(cfg, seed=SEED, device=dev)
+    xin = resnet.make_input(cfg, 1, seed=SEED + 1, device=dev)
+    api.clear_sim_report_log()
+    api.reset_launch_counts()
+    t = time.perf_counter()
+    with torch.no_grad(), api.use_backend("pimsab"):
+        logits = model(xin)
+    wall = time.perf_counter() - t
+    log = api.sim_report_log()
+    if api.launch_counts():
+        smoke.failures.append(f"phase 3h MICRO ResNet counted launches {api.launch_counts()}")
+    if [r.kernel for r in log] != resnet.layer_names(cfg):
+        smoke.failures.append(f"phase 3h MICRO ResNet reports {[r.kernel for r in log]}")
+    with torch.no_grad():
+        want = model(xin)
+    smoke.check("pimsab:resnet", "MICRO eager logits vs the card's forward", logits, want.cpu(), True)
+    out["micro_resnet"] = {"host_s": wall, "layers": len(log), "modeled_cycles": sum(r.total_cycles for r in log),
+                           "logits_device": str(logits.device)}
+
+    graph, refused = torch.cuda.CUDAGraph(), None
+    y = torch.zeros(8, dtype=torch.int32, device=dev)
+    stream = torch.cuda.Stream(dev)
+    try:
+        with torch.cuda.graph(graph, stream=stream), api.use_backend("pimsab"):
+            api.relu(y)
+    except api.PimsabTracerError as exc:
+        refused = str(exc)
+    torch.cuda.synchronize()
+    if refused is None:
+        smoke.failures.append("phase 3h: a pimsab call during a CUDA graph capture was not refused")
+    out["capture_refused"] = refused is not None
+
+    kernel_line = {r["kernel"]: [r["modeled_cycles"], round(r["host_s"], 4)] for r in out["kernels"]}
+    print(f"phase 3h pimsab per kernel [modeled cycles, host s]: {json.dumps(kernel_line)}")
+    print(f"phase 3h pimsab large_shapes: " + "; ".join(
+        f"{r['workload']} {r['modeled_cycles']:g}/{r['serialized_cycles']:g}/{r['overlapped_cycles']:g} cycles, "
+        f"{r['instrs']} instrs, {r['host_s']:.2f} s" for r in out["large_shapes"]))
+    pm = out["paper_scale_int_matmul"]
+    print(f"phase 3h pimsab paper-scale int_matmul {pm['shape']}: {pm['host_s']:.1f} s host wall, "
+          f"{pm['modeled_cycles']:g} modeled cycles, bit-equal to K1: {pm['bit_equal_to_k1']}")
+    print(f"phase 3h pimsab MICRO ResNet eager: {out['micro_resnet']['layers']} layers, "
+          f"{out['micro_resnet']['host_s']:.2f} s host wall, logits on {out['micro_resnet']['logits_device']}; "
+          f"capture refused: {out['capture_refused']}")
+    return out
+
+
 def replay_profile_main() -> int:
     """``chip_smoke.py --replay-profiles``, run by phase 5: the held
     Executors' graph replays under torch.profiler in a process that has
@@ -2119,7 +2318,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
         return 2
 
-    from repro_torch.kernels import _build, api, conv, ewise, program, ref
+    import numpy as np
+
+    from repro_torch.kernels import _build, api, conv, ewise, pimsab_backend, program, ref
     from repro_torch.kernels import attention as att
     from repro_torch.kernels import bitslice_matmul as bm
     from repro_torch.kernels import htree_reduce as ht
@@ -2414,6 +2615,9 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"phase 3 peak device memory {peak_gib:.2f} GiB allocated ({torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB "
           f"reserved now), {api.compile_cache_info().size} cached Executors")
+
+    # ---------------- phase 3h: the eager pimsab backend, operands on the card ----------------
+    pimsab = run_pimsab_phase(torch, np, api, pimsab_backend, resnet, smoke, dev)
 
     # ---------------- phase 4: timing ----------------
     library = {
@@ -2729,7 +2933,7 @@ def main() -> int:
                                                            "prob_sums", "prob_nonzero")}, executor=serve_held),
         "decode_layer": {cap: {k: v for k, v in r.items() if k not in ("ex", "args", "gemm_calls", "executors")}
                          for cap, r in layers.items()},
-        "calls": details, "cases": smoke.cases, "failures": smoke.failures,
+        "pimsab": pimsab, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
     }, indent=1))
 
     if smoke.failures:

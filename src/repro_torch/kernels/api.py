@@ -16,8 +16,12 @@ The port's counterpart of the JAX package's ``kernels/api.py``:
 Dispatch goes by the device of the operands.  On CUDA tensors an
 implementation launches its hand-written kernel (``csrc/``) or raises; on CPU
 tensors it runs the kernel's plain PyTorch version.  Nothing falls back from
-one to the other, and there is no backend scope.  Inside :func:`trace` a
-call is recorded instead of run.  Each kernel launch adds one to a
+one to the other.  The one backend scope, ``use_backend("pimsab")``, sends
+every call to the kernel's lowering onto the PIMSAB architecture model
+(:mod:`repro_torch.kernels.pimsab_backend`: compiler, ISA and bit-serial
+simulator on the host), whose modeled cycles and energy
+:func:`last_sim_report` returns; its results return to the operands' device.
+Inside :func:`trace` a call is recorded instead of run.  Each kernel launch adds one to a
 per-kernel counter (:func:`launch_counts`, :func:`reset_launch_counts`), so
 a run can show which kernels it went through; while an Executor captures a
 CUDA graph, its launches go to a :class:`LaunchLog` instead, which each
@@ -27,6 +31,8 @@ replay of the graph adds (:func:`recording_launches`,
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import dataclasses
 import math
 import threading
 from dataclasses import dataclass
@@ -59,6 +65,19 @@ __all__ = [
     "get_kernel",
     "registered_kernels",
     "dispatch",
+    "BACKENDS",
+    "current_backend",
+    "use_backend",
+    "on_device",
+    "register_pimsab_impl",
+    "PimsabTracerError",
+    "last_sim_report",
+    "sim_report_log",
+    "clear_sim_report_log",
+    "last_verify_report",
+    "profile_timelines",
+    "TuneConfig",
+    "tuning",
     "resolve_device",
     "kernel_device",
     "count_launch",
@@ -110,7 +129,9 @@ compile = compile_program
 def static_value(arr: Any) -> Any:
     """The operand itself when its values exist (a tensor on the CPU or a
     card, an ndarray or a Python scalar), else ``None``: a trace placeholder
-    (:class:`~repro_torch.kernels.program.ProgramValue`) or a meta tensor."""
+    (:class:`~repro_torch.kernels.program.ProgramValue`) or a meta tensor.
+    The eager pimsab backend reads only operands with values; it refuses the
+    others with :class:`PimsabTracerError`."""
     if arr is None or isinstance(arr, _program.ProgramValue):
         return None
     if isinstance(arr, torch.Tensor):
@@ -288,11 +309,13 @@ class SlicedTensor:
 @dataclass(frozen=True)
 class KernelDef:
     """One registered kernel: its implementation (CUDA kernel on the card,
-    plain version on the CPU) and its oracle."""
+    plain version on the CPU), its oracle, and its lowering onto the PIMSAB
+    architecture model (attached separately by :func:`register_pimsab_impl`)."""
 
     name: str
     impl: Callable[..., Any]
     oracle: Callable[..., Any]
+    pimsab: Optional[Callable[..., Any]] = None
 
 
 _REGISTRY: Dict[str, KernelDef] = {}
@@ -305,7 +328,25 @@ def register_kernel(name: str, *, oracle: Callable[..., Any]):
 
     def deco(fn: Callable[..., Any]) -> Callable[..., Any]:
         with _registry_lock:
-            _REGISTRY[name] = KernelDef(name=name, impl=fn, oracle=oracle)
+            prev = _REGISTRY.get(name)
+            _REGISTRY[name] = KernelDef(name=name, impl=fn, oracle=oracle,
+                                        pimsab=prev.pimsab if prev else None)
+        return fn
+
+    return deco
+
+
+def register_pimsab_impl(name: str):
+    """Decorator: attach the architecture-simulator lowering to kernel
+    ``name`` (which must already be registered)."""
+
+    def deco(fn: Callable[..., Any]) -> Callable[..., Any]:
+        with _registry_lock:
+            try:
+                kd = _REGISTRY[name]
+            except KeyError:
+                raise KeyError(f"cannot attach pimsab impl: kernel {name!r} not registered") from None
+            _REGISTRY[name] = dataclasses.replace(kd, pimsab=fn)
         return fn
 
     return deco
@@ -326,6 +367,8 @@ def _ensure_registered() -> None:
     import repro_torch.kernels.ewise  # noqa: F401
     import repro_torch.kernels.htree_reduce  # noqa: F401
     import repro_torch.kernels.rglru_scan  # noqa: F401
+    # last: attaches the simulator lowering to the kernels registered above
+    import repro_torch.kernels.pimsab_backend  # noqa: F401
 
     _bootstrapped = True
 
@@ -468,16 +511,97 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
+BACKENDS = ("pimsab",)
+
+_backend_stack: contextvars.ContextVar[Tuple[str, ...]] = contextvars.ContextVar(
+    "repro_torch_kernel_backend_stack", default=()
+)
+
+
+def current_backend() -> Optional[str]:
+    """The innermost active backend scope (context-local): ``"pimsab"``, or
+    ``None`` outside any scope, where each kernel runs on its operands'
+    device."""
+    stack = _backend_stack.get()
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def use_backend(name: str) -> Iterator[str]:
+    """Send every registry kernel call in the block to the ``"pimsab"``
+    backend: the kernel's lowering onto the PIMSAB compiler and bit-serial
+    simulator.  Nests and is context-local (a scope entered on one thread or
+    async task does not leak into another).  The port has no other backend
+    scope: outside it a kernel runs on the device its operands lie on."""
+    if name not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {name!r}: the port has no backend scope but "
+            f"{BACKENDS}; outside it each kernel runs on the device its operands lie on"
+        )
+    token = _backend_stack.set(_backend_stack.get() + (name,))
+    try:
+        yield name
+    finally:
+        _backend_stack.reset(token)
+
+
+@contextlib.contextmanager
+def on_device() -> Iterator[None]:
+    """Leave every backend scope for the block: its kernel calls run on the
+    device their operands lie on.  An Executor runs its ops so, as the JAX
+    package binds an Executor to its backend at compile time."""
+    token = _backend_stack.set(())
+    try:
+        yield
+    finally:
+        _backend_stack.reset(token)
+
+
+class PimsabTracerError(ValueError):
+    """A pimsab-backend kernel was reached with operands that hold no values
+    (a meta tensor or a trace placeholder), or while the current CUDA stream
+    is captured into a graph.  Raised before lowering starts, naming the
+    kernel; the call never falls back to the device."""
+
+
+def _require_concrete_operands(name: str, args: Tuple[Any, ...]) -> None:
+    for i, a in enumerate(args):
+        if isinstance(a, (torch.Tensor, _program.ProgramValue)) and static_value(a) is None:
+            raise PimsabTracerError(
+                f"kernel {name!r} on the 'pimsab' backend needs operands that "
+                f"hold values, but operand {i} is a {type(a).__name__} without "
+                "them (a meta tensor or a trace placeholder). Run the kernel "
+                "eagerly on CPU or CUDA tensors; api.trace programs do not "
+                "lower to pimsab yet (ROADMAP Queue 1 item 5c)."
+            )
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise PimsabTracerError(
+            f"kernel {name!r} on the 'pimsab' backend copies its operands to "
+            "the host, which a CUDA graph capture on the current stream cannot "
+            "hold; call it outside the capture"
+        )
+
+
 def dispatch(name: str, *args, **kwargs):
-    """Run kernel ``name`` on the device its tensor operands lie on: its
-    kernel wrappers launch the hand-written kernel for CUDA tensors and run
-    the plain version for CPU ones (see :func:`kernel_device`).  Inside
-    :func:`trace` the call is recorded into the Program under construction
-    instead."""
+    """Run kernel ``name``: inside ``use_backend("pimsab")`` on its lowering
+    onto the PIMSAB architecture model, else on the device its tensor
+    operands lie on: its kernel wrappers launch the hand-written kernel for
+    CUDA tensors and run the plain version for CPU ones (see
+    :func:`kernel_device`).  Inside :func:`trace` the call is recorded into
+    the Program under construction instead."""
     ctx = _program.active_trace()
     if ctx is not None:
         return ctx.record(name, args, kwargs)
-    return get_kernel(name).impl(*args, **kwargs)
+    k = get_kernel(name)
+    if current_backend() == "pimsab":
+        if k.pimsab is None:
+            raise NotImplementedError(
+                f"kernel {name!r} has no pimsab lowering "
+                "(register one with api.register_pimsab_impl)"
+            )
+        _require_concrete_operands(name, args)
+        return k.pimsab(*args, **kwargs)
+    return k.impl(*args, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -721,3 +845,55 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
     float32 ``a, b (B, T, W)`` from ``h0 (B, W)``, each step one fused
     multiply-add."""
     return dispatch("rglru_scan", a, b, h0)
+
+
+# ---------------------------------------------------------------------------
+# the pimsab backend's reports (repro_torch.kernels.pimsab_backend)
+# ---------------------------------------------------------------------------
+
+
+def last_sim_report():
+    """The :class:`~repro_torch.kernels.pimsab_backend.SimReport` of the most
+    recent pimsab-backend kernel call on this thread (``None`` before any):
+    modeled ``total_cycles`` (the overlapped makespan), ``serialized_cycles``,
+    ``overlapped_cycles``, energy, the instruction mix, the mapping."""
+    from repro_torch.kernels import pimsab_backend
+
+    return pimsab_backend.last_sim_report()
+
+
+def sim_report_log():
+    """Bounded ring of recent pimsab :class:`SimReport` s on this thread,
+    oldest first (the last entry is :func:`last_sim_report`)."""
+    from repro_torch.kernels import pimsab_backend
+
+    return pimsab_backend.sim_report_log()
+
+
+def clear_sim_report_log():
+    """Empty this thread's :func:`sim_report_log` ring."""
+    from repro_torch.kernels import pimsab_backend
+
+    return pimsab_backend.clear_sim_report_log()
+
+
+def last_verify_report():
+    """Static-verifier :class:`~repro_torch.core.compiler.verify.VerifyReport`
+    tuple of the most recent pimsab compile on this thread (empty before
+    any)."""
+    from repro_torch.kernels import pimsab_backend
+
+    return pimsab_backend.last_verify_report()
+
+
+def profile_timelines(enable: bool = True):
+    """Context manager: pimsab timing runs inside it record per-instruction
+    scheduling intervals on their :class:`SimReport` (``report.timeline``)."""
+    from repro_torch.kernels import pimsab_backend
+
+    return pimsab_backend.profile_timelines(enable)
+
+
+# Mapping autotuner of the timing model, scope-wide via ``with
+# api.tuning(...):`` (the eager pimsab calls inside tune their timing stream).
+from repro_torch.core.compiler.autotune import TuneConfig, tuning  # noqa: E402

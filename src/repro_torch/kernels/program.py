@@ -12,7 +12,9 @@ The port's counterpart of the JAX package's ``kernels/program.py``:
   :class:`Executor` for a Program, the counterpart of the JAX package's
   compiled executable.  On the card the Executor captures the ops once into
   a CUDA graph and replays it on every later call; on the CPU it replays the
-  ops eagerly through ``api.dispatch``, which runs the plain versions.
+  ops eagerly through ``api.dispatch``, which runs the plain versions.  An
+  Executor runs its ops on their device in any backend scope
+  (``api.on_device``).
 * The compile cache is keyed on the Program's signature — kernel names,
   operand references, static kwargs, output and slot avals, both argument
   structures, the output references and a content fingerprint per captured
@@ -25,9 +27,11 @@ sorted order, ``None`` a node without leaves, and registered classes
 ``tree_flatten``; slot numbers therefore match the JAX package's.  Avals are
 ``(shape, numpy dtype name)`` pairs such as ``((4, 8), "int32")``.
 
-The JAX package's pimsab lowering, its resident KV state and multi-chip
-sharding are not ported yet: ``compile_program`` raises
-``NotImplementedError`` for them.
+The eager pimsab backend is ported (``api.use_backend("pimsab")``,
+:mod:`repro_torch.kernels.pimsab_backend`), but not its Program lowering:
+``compile_program`` raises ``NotImplementedError`` for ``backend="pimsab"``
+and inside the pimsab scope (ROADMAP Queue 1 item 5c), for ``states`` (the
+resident KV state, item 5c too) and for ``chips`` other than 1 (item 10).
 """
 from __future__ import annotations
 
@@ -729,8 +733,9 @@ def cached_executable(key: Any, build: Callable[[], Any],
 
 
 def _eager_run(program: Program) -> Callable[[List[Any]], List[Any]]:
-    """Replay the program's ops one by one through ``api.dispatch``: the
-    Executor's eager route, and what its CUDA graph captures."""
+    """Replay the program's ops one by one through ``api.dispatch``, outside
+    any backend scope (``api.on_device``: on their device): the Executor's
+    eager route, and what its CUDA graph captures."""
     from repro_torch.kernels import api
 
     def run(leaves: List[Any]) -> List[Any]:
@@ -744,8 +749,9 @@ def _eager_run(program: Program) -> Callable[[List[Any]], List[Any]]:
                 return program.consts[i]
             return env[i]
 
-        for idx, op in enumerate(program.ops):
-            env[idx] = api.dispatch(op.kernel, *(resolve(r) for r in op.inputs), **dict(op.kwargs))
+        with api.on_device():
+            for idx, op in enumerate(program.ops):
+                env[idx] = api.dispatch(op.kernel, *(resolve(r) for r in op.inputs), **dict(op.kwargs))
         return [resolve(r) for r in program.out_refs]
 
     return run
@@ -764,15 +770,20 @@ def compile_program(program: Program, backend: Optional[str] = None, *,
     hit.
 
     The Executor replays a CUDA graph of the program on the card and the ops
-    eagerly on the CPU (``backend`` ``None``, the only one ported; see
-    :class:`Executor`).  ``backend="pimsab"`` and ``states`` (ROADMAP Queue 1 item
-    5, ``pimsab_backend.py``) and ``chips`` other than 1 (item 10,
+    eagerly on the CPU (``backend`` ``None``; see :class:`Executor`), in any
+    backend scope.  The eager pimsab backend is ported, its Program lowering
+    is not: ``backend="pimsab"``, a compile inside ``api.use_backend("pimsab")``
+    and ``states`` (ROADMAP Queue 1 item 5c, ``compile_traced_program`` in
+    ``pimsab_backend.py``) and ``chips`` other than 1 (item 10,
     ``multichip.py``) raise ``NotImplementedError``.
     """
-    if backend == "pimsab":
+    from repro_torch.kernels import api
+
+    if backend == "pimsab" or (backend is None and api.current_backend() == "pimsab"):
         raise NotImplementedError(
-            "the pimsab backend is not ported yet (ROADMAP Queue 1 item 5: "
-            "repro_torch/kernels/pimsab_backend.py)"
+            "the pimsab Program lowering is not ported yet (ROADMAP Queue 1 item 5c: "
+            "compile_traced_program in repro_torch/kernels/pimsab_backend.py); "
+            "the eager pimsab backend is: call the kernels under api.use_backend('pimsab')"
         )
     if backend is not None:
         raise ValueError(
@@ -786,8 +797,8 @@ def compile_program(program: Program, backend: Optional[str] = None, *,
         )
     if states:
         raise NotImplementedError(
-            "ResidentState binding belongs to the pimsab backend, which is not "
-            "ported yet (ROADMAP Queue 1 item 5: repro_torch/kernels/pimsab_backend.py)"
+            "ResidentState binding belongs to the pimsab Program lowering, which is "
+            "not ported yet (ROADMAP Queue 1 item 5c: repro_torch/kernels/pimsab_backend.py)"
         )
     key = ("program", program.signature(), tuple(str(c.device) for c in program.consts))
     return cached_executable(key, lambda: Executor(program, "eager", run=_eager_run(program)),

@@ -1271,3 +1271,51 @@ def test_executor_graph_survives_a_profiler_session(card):
         got = ex(*args)
         torch.cuda.synchronize()
         assert ex.replay == "graph" and torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the eager pimsab backend with operands on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel", ["conv2d", "relu", "htree_reduce", "kv_append"])
+def test_pimsab_takes_card_operands_and_returns_to_the_card(card, kernel):
+    """Under ``use_backend("pimsab")`` card operands go to the simulator on
+    the host and the result comes back to the card, equal to the card
+    kernel's (integers bit for bit, the fixed-point H-tree within the
+    conformance tolerance), with no launch counted."""
+    cases = {
+        "conv2d": ((ints((2, 3, 8, 8), -8, 8, 20), ints((4, 3, 3, 3), -100, 100, 21)),
+                   lambda x, w: tapi.conv2d(x, w, stride=2, padding=1)),
+        "relu": ((ints((8, 32), -500, 500, 8),), tapi.relu),
+        "htree_reduce": ((floats((16, 32), 2),), tapi.htree_reduce),
+        "kv_append": ((ints((8, 4), -100, 100, 34), ints((4,), -100, 100, 35),
+                       torch.eye(8, dtype=torch.int32)[5]), tapi.kv_append),
+    }
+    cpu_ops, fn = cases[kernel]
+    ops = [o.to(card) for o in cpu_ops]
+    tapi.reset_launch_counts()
+    with tapi.use_backend("pimsab"):
+        got = fn(*ops)
+    assert tapi.launch_counts() == {}
+    assert got.device == card and got.is_contiguous()
+    assert tapi.last_sim_report().kernel == kernel
+    want = fn(*ops)
+    torch.cuda.synchronize()
+    if got.is_floating_point():
+        torch.testing.assert_close(got, want, atol=5e-3, rtol=5e-3)
+    else:
+        assert torch.equal(got, want)
+    with tapi.use_backend("pimsab"):
+        assert torch.equal(fn(*cpu_ops), got.cpu())  # the same on CPU operands
+
+
+def test_pimsab_call_during_a_cuda_graph_capture_is_refused(card):
+    x = ints((8, 32), -500, 500, 8).to(card)
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(card)
+    with pytest.raises(tapi.PimsabTracerError, match="CUDA graph capture"):
+        with torch.cuda.graph(graph, stream=stream), tapi.use_backend("pimsab"):
+            tapi.relu(x)
+    torch.cuda.synchronize()
+    with tapi.use_backend("pimsab"):
+        assert torch.equal(tapi.relu(x).cpu(), torch.clamp_min(x.cpu(), 0))
