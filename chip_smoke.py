@@ -66,6 +66,23 @@ Phases, any failure of which exits non-zero:
       the eager MICRO residual network bit-equal to its forward on the
       card; a pimsab call during a CUDA graph capture refused.  It prints
       each kernel's modeled cycles and host seconds.
+   i. the pimsab Program lowering (``api.compile(prog, "pimsab")`` and
+      ``api.trace`` under the scope: one fused WorkloadGraph run on the
+      host's simulator) with operands on the card, no launch counted, each
+      step's host seconds printed: the ``matmul → ewise_add → relu`` chain
+      of ``benchmarks/kernels_bench.py`` (seed 0, tuning budget 96) with its
+      output on the card, bit-equal to the card Executor's graph replay of
+      the same Program, its report equal to ``BENCH_kernels.json``'s
+      ``program`` row, the second compile a cache hit; the traced TINY
+      ResNet under ``benchmarks/e2e_resnet.py``'s tuning (budget 256, params
+      from seed 0, input from seed 1), its logits bit-equal to the card
+      Executor's graph replay (K1, K2, K3 and K5), its report equal to
+      ``e2e.tiny``; RESNET18 through ``timing_program_report``, tuned, equal
+      to ``e2e.resnet18``; ``decode_program(AttnServeConfig(), 4)`` with its
+      caches bound as ``ResidentState`` (``states=``), three steps bit-equal
+      to the card Executor's (K6, K7, K8, K10) and the handles equal to the
+      card's caches carried by ``api.kv_append``, its ``state:`` edges
+      present; a pimsab Executor called during a CUDA graph capture refused.
 
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
@@ -272,6 +289,12 @@ PIMSAB_MATMUL = ((256, 1024), (1024, 1024), 50, 51)
 PIMSAB_MICRO = dict(in_channels=2, input_hw=8, stem_channels=4, stem_pool="max",
                     stage_channels=(4,), blocks_per_stage=(1,), num_classes=5)
 PIMSAB_TUNE = dict(budget=96, beam=4, seed=0)
+# phase 3i: benchmarks/e2e_resnet.py's DEFAULT_TUNE for the e2e rows, and the
+# resident-state decode step of tests/test_serve_pimsab.py (capacity 4, the
+# default AttnServeConfig) over this many steps
+E2E_TUNE = dict(budget=256, beam=4, seed=0)
+PIMSAB_STATE_CAPACITY = 4
+PIMSAB_STATE_STEPS = 3
 
 # K1's float32 instance beside torch.matmul (TF32 off) at RESNET18's stage-3
 # GEMM shape in float32: (M, K, N).  No path runs it (the forward is int32).
@@ -2235,6 +2258,261 @@ def run_pimsab_phase(torch, np, api, pb, resnet, smoke, dev):
     return out
 
 
+def pimsab_e2e_per_layer(rep):
+    """``benchmarks/e2e_resnet.py``'s ``per_layer`` rows of a report."""
+    return [{k: p[k] for k in ("node", "kernel", "total_cycles", "serialized_cycles", "dram_cycles")}
+            for p in rep.per_kernel]
+
+
+def pinned_equal(row, pinned):
+    """``row`` equal to the pinned ``BENCH_kernels.json`` row, as JSON, but
+    for ``energy_j`` within 1e-12 relative: a float sum whose last bit
+    depends on the host's numpy, for the JAX package too."""
+    row, pinned = json.loads(json.dumps(row)), dict(pinned)
+    if "energy_j" in row or "energy_j" in pinned:
+        a, b = row.pop("energy_j", None), pinned.pop("energy_j", None)
+        if a is None or b is None or abs(a - b) > 1e-12 * abs(b):
+            return False
+    return row == pinned
+
+
+def run_pimsab_program_phase(torch, np, api, pb, resnet, pimsab_step, smoke, dev):
+    """Phase 3i: the pimsab Program lowering with operands on the card.  The
+    bench chain, the traced TINY, RESNET18 timing-only and the resident-state
+    decode step, each against the card Executor's graph replay of the same
+    Program (or BENCH_kernels.json's rows), no launch counted on the pimsab
+    side; a pimsab Executor called during a CUDA graph capture refused."""
+    bench = json.loads((ROOT / "BENCH_kernels.json").read_text())
+    out = {}
+
+    def no_launch(label):
+        counts = {k: v for k, v in api.launch_counts().items() if v}
+        if counts:
+            smoke.failures.append(f"phase 3i {label}: pimsab calls counted launches {counts}")
+
+    def graph_replay(ex, *args):
+        ex(*args)  # eager, then captured
+        got = ex(*args)
+        torch.cuda.synchronize()
+        if ex.replay != "graph":
+            smoke.failures.append(f"phase 3i: card Executor {ex.program.name!r} took the {ex.replay} route "
+                                  f"({ex.replay_reason})")
+        return got
+
+    # (a) the bench chain: benchmarks/kernels_bench.py program_mode, restated
+    rng = np.random.default_rng(0)
+    x, w, y = (torch.from_numpy(rng.integers(-100, 100, s).astype(np.int32)).to(dev)
+               for s in ((16, 8), (8, 16), (16, 16)))
+    xs, ws = api.SlicedTensor.from_int(x, 8), api.SlicedTensor.from_int(w, 8)
+
+    def chain(xs, ws, y):
+        return api.relu(api.ewise_add(api.matmul(xs, ws), y))
+
+    tune = api.TuneConfig(**PIMSAB_TUNE)
+    api.reset_launch_counts()
+    t = time.perf_counter()
+    eager_reports = []
+    with api.tuning(tune), api.use_backend("pimsab"):
+        acc = api.matmul(xs, ws)
+        eager_reports.append(api.last_sim_report())
+        s_ = api.ewise_add(acc, y)
+        eager_reports.append(api.last_sim_report())
+        eager = api.relu(s_)
+        eager_reports.append(api.last_sim_report())
+    traced = api.trace(chain, name="bench_matmul_add_relu")
+    before = api.compile_cache_info()
+    with api.tuning(tune), api.use_backend("pimsab"):
+        got = traced(xs, ws, y)
+        rep = api.last_sim_report()
+        pim = api.compile(traced.program_for(xs, ws, y))
+    after = api.compile_cache_info()
+    chain_s = time.perf_counter() - t
+    no_launch("bench chain")
+    card = graph_replay(api.compile(traced.program_for(xs, ws, y)), xs, ws, y)
+    if got.device != dev or pim.replay != "pimsab":
+        smoke.failures.append(f"phase 3i bench chain: output on {got.device}, route {pim.replay}")
+    smoke.check("pimsab:program", "bench chain vs the card Executor's graph replay", got, card.cpu(), True)
+    eager_dram = sum(r.cycles["dram"] for r in eager_reports)
+    row = {
+        "chain": list(rep.kernels),
+        "bit_exact_vs_eager": bool(torch.equal(got, eager)),
+        "modeled_cycles": rep.total_cycles,
+        "serialized_cycles": rep.serialized_cycles,
+        "overlapped_cycles": rep.overlapped_cycles,
+        "critical_path": {k: round(v, 1) for k, v in rep.critical_path.items()},
+        "utilization": {k: round(v, 4) for k, v in rep.utilization.items()},
+        "dram_cycles": rep.cycles["dram"],
+        "eager_dram_cycles_sum": eager_dram,
+        "eager_modeled_cycles_sum": sum(r.total_cycles for r in eager_reports),
+        "dram_cycle_win": eager_dram - rep.cycles["dram"],
+        "elided_dram_bits": rep.elided_dram_bits,
+        "resident_edges": list(rep.resident_edges),
+        "per_kernel_cycles": {p["kernel"]: p["total_cycles"] for p in rep.per_kernel},
+        "autotune": dict(rep.autotune),
+        "compile_cache": {"second_compile_was_hit": after.hits > before.hits,
+                          "misses_added": after.misses - before.misses},
+    }
+    if not pinned_equal(row, bench["program"]):
+        smoke.failures.append(f"phase 3i bench chain: {row} != BENCH_kernels.json program {bench['program']}")
+    out["program"] = {"host_s": chain_s, "modeled_cycles": rep.total_cycles, "dram_cycles": rep.cycles["dram"],
+                      "row_equal": pinned_equal(row, bench["program"])}
+    print(f"phase 3i pimsab bench chain: {chain_s:.3f} s host wall (3 eager calls, trace, tuned compile, run), "
+          f"{rep.total_cycles:g} modeled cycles, DRAM {rep.cycles['dram']:g} against {eager_dram:g} eager; "
+          f"BENCH_kernels.json program row equal: {out['program']['row_equal']}")
+
+    # (b) the traced TINY: benchmarks/e2e_resnet.py run_tiny, restated
+    cfg = resnet.TINY
+    params = resnet.init_params(cfg, seed=0, device=dev)
+    xin = resnet.make_input(cfg, batch=1, seed=1, device=dev)
+    traced = api.trace(lambda p, v: resnet.forward(cfg, p, v), name="resnet_tiny")
+    api.reset_launch_counts()
+    before = api.compile_cache_info()
+    t = time.perf_counter()
+    with api.tuning(api.TuneConfig(**E2E_TUNE)), api.use_backend("pimsab"):
+        logits = traced(params, xin)
+        rep = api.last_sim_report()
+        api.compile(traced.program_for(params, xin))
+    tiny_s = time.perf_counter() - t
+    after = api.compile_cache_info()
+    no_launch("TINY")
+    card_ex = api.compile(traced.program_for(params, xin))
+    card = graph_replay(card_ex, params, xin)
+    api.reset_launch_counts()
+    card_ex(params, xin)
+    torch.cuda.synchronize()
+    tiny_launches = {k: v for k, v in api.launch_counts().items() if v}
+    expected = {}
+    for name in resnet.layer_names(cfg):
+        expected[LAUNCHED_BY[name]] = expected.get(LAUNCHED_BY[name], 0) + 1
+    if tiny_launches != expected:
+        smoke.failures.append(f"phase 3i TINY card Executor replay launches {tiny_launches} != {expected}")
+    if logits.device != dev:
+        smoke.failures.append(f"phase 3i TINY: logits on {logits.device}")
+    smoke.check("pimsab:resnet", "traced TINY vs the card Executor's graph replay", logits, card.cpu(), True)
+    row = {
+        "config": "TINY",
+        "layers": len(rep.kernels),
+        "kernels": list(rep.kernels),
+        "bit_exact_vs_oracle": bool(torch.equal(logits, card)),
+        "modeled_cycles": rep.total_cycles,
+        "serialized_cycles": rep.serialized_cycles,
+        "overlapped_cycles": rep.overlapped_cycles,
+        "dram_cycles": rep.cycles["dram"],
+        "modeled_seconds": rep.modeled_seconds,
+        "energy_j": rep.energy_j,
+        "cycle_breakdown": {k: round(v, 4) for k, v in rep.cycle_breakdown.items()},
+        "utilization": {k: round(v, 4) for k, v in rep.utilization.items()},
+        "resident_edges": list(rep.resident_edges),
+        "elided_dram_bits": rep.elided_dram_bits,
+        "per_layer": pimsab_e2e_per_layer(rep),
+        "autotune": dict(rep.autotune),
+        "compile_cache": {"second_compile_was_hit": after.hits > before.hits,
+                          "misses_added": after.misses - before.misses},
+    }
+    tiny_equal = pinned_equal(row, bench["e2e"]["tiny"])
+    if not tiny_equal:
+        smoke.failures.append(f"phase 3i TINY: {row} != BENCH_kernels.json e2e.tiny")
+    out["tiny"] = {"host_s": tiny_s, "layers": row["layers"], "modeled_cycles": rep.total_cycles,
+                   "resident_edges": len(rep.resident_edges), "row_equal": tiny_equal,
+                   "card_executor_launches": tiny_launches}
+    print(f"phase 3i pimsab traced TINY: {tiny_s:.3f} s host wall (trace, tuned compile, run, second compile), "
+          f"{row['layers']} layers, {rep.total_cycles:g} modeled cycles, {len(rep.resident_edges)} resident edges; "
+          f"logits bit-equal to the card Executor ({tiny_launches} a replay): {torch.equal(logits, card)}; "
+          f"e2e.tiny equal: {tiny_equal}")
+
+    # (c) RESNET18, timing-only: benchmarks/e2e_resnet.py run_resnet18_timing, restated
+    cfg = resnet.RESNET18
+    api.reset_launch_counts()
+    t = time.perf_counter()
+    prog = api.trace(lambda p, v: resnet.forward(cfg, p, v), name="resnet18").trace(
+        resnet.init_params(cfg, seed=0, device=dev), resnet.make_input(cfg, batch=1, seed=1, device=dev))
+    rep = pb.timing_program_report(prog, tune=api.TuneConfig(**E2E_TUNE))
+    rn18_s = time.perf_counter() - t
+    no_launch("RESNET18 timing")
+    row = {
+        "config": "RESNET18",
+        "layers": len(rep.kernels),
+        "modeled_cycles": rep.total_cycles,
+        "serialized_cycles": rep.serialized_cycles,
+        "overlapped_cycles": rep.overlapped_cycles,
+        "dram_cycles": rep.cycles["dram"],
+        "modeled_seconds": rep.modeled_seconds,
+        "energy_j": rep.energy_j,
+        "cycle_breakdown": {k: round(v, 4) for k, v in rep.cycle_breakdown.items()},
+        "resident_edges": len(rep.resident_edges),
+        "elided_dram_bits": rep.elided_dram_bits,
+        "per_layer": pimsab_e2e_per_layer(rep),
+        "autotune": dict(rep.autotune),
+    }
+    rn18_equal = pinned_equal(row, bench["e2e"]["resnet18"])
+    if not rn18_equal:
+        smoke.failures.append(f"phase 3i RESNET18 timing: {row} != BENCH_kernels.json e2e.resnet18")
+    out["resnet18_timing"] = {"host_s": rn18_s, "layers": row["layers"], "modeled_cycles": rep.total_cycles,
+                              "resident_edges": row["resident_edges"], "row_equal": rn18_equal}
+    print(f"phase 3i pimsab RESNET18 timing-only: {rn18_s:.3f} s host wall (trace, tuned timing compile), "
+          f"{row['layers']} layers, {rep.total_cycles:g} modeled cycles, {row['resident_edges']} resident edges; "
+          f"e2e.resnet18 equal: {rn18_equal}")
+
+    # (d) the decode step with its caches bound as ResidentState
+    scfg, cap = pimsab_step.AttnServeConfig(), PIMSAB_STATE_CAPACITY
+    k_st, v_st = pimsab_step.kv_states(scfg, cap)
+    prog = pimsab_step.decode_program(scfg, cap)
+    card_ex = api.compile(prog)
+    kc = torch.zeros((cap, scfg.head_dim), dtype=torch.int8, device=dev)
+    vc = torch.zeros((cap, scfg.value_dim), dtype=torch.int8, device=dev)
+    rng = np.random.default_rng(0)
+    state_s, state_ok = 0.0, True
+    for pos in range(PIMSAB_STATE_STEPS):
+        q = torch.from_numpy(rng.integers(-7, 8, (1, scfg.head_dim)).astype(np.int8)).to(dev)
+        kn = torch.from_numpy(rng.integers(-15, 16, scfg.head_dim).astype(np.int8)).to(dev)
+        vn = torch.from_numpy(rng.integers(-100, 100, scfg.value_dim).astype(np.int8)).to(dev)
+        onehot = torch.zeros(cap, dtype=torch.int8, device=dev)
+        onehot[pos] = 1
+        api.reset_launch_counts()
+        t = time.perf_counter()
+        pim = api.compile(prog, "pimsab", states={0: k_st, 1: v_st})
+        got = pim(k_st.placeholder().to(dev), v_st.placeholder().to(dev), q, kn, vn, onehot)
+        state_s += time.perf_counter() - t
+        no_launch(f"decode step {pos}")
+        want = card_ex(kc, vc, q, kn, vn, onehot)
+        kc, vc = api.kv_append(kc, kn, onehot), api.kv_append(vc, vn, onehot)
+        torch.cuda.synchronize()
+        smoke.check("pimsab:program", f"resident-state decode step {pos} vs the card Executor", got, want.cpu(), True)
+        smoke.check("pimsab:program", f"K handle after step {pos} vs the card's cache", k_st.value,
+                    kc.cpu().to(torch.int64), True)
+        smoke.check("pimsab:program", f"V handle after step {pos} vs the card's cache", v_st.value,
+                    vc.cpu().to(torch.int64), True)
+        state_ok = state_ok and got.device == dev and torch.equal(got, want)
+    rep = api.last_sim_report()
+    state_edges = [e for e in rep.resident_edges if "state:" in e]
+    if len(state_edges) != 4:
+        smoke.failures.append(f"phase 3i decode step: state edges {state_edges}")
+    if card_ex.replay != "graph":
+        smoke.failures.append(f"phase 3i decode step: the card Executor took the {card_ex.replay} route")
+    out["resident_state"] = {"host_s": state_s, "steps": PIMSAB_STATE_STEPS, "state_edges": state_edges,
+                             "bit_equal": state_ok, "modeled_cycles": rep.total_cycles}
+    print(f"phase 3i pimsab resident-state decode_program(AttnServeConfig(), {cap}): {state_s:.3f} s host wall "
+          f"for {PIMSAB_STATE_STEPS} steps (compile hit + run each), outputs bit-equal to the card Executor: "
+          f"{state_ok}; state edges {state_edges}")
+
+    # (e) a pimsab Executor called during a CUDA graph capture
+    z = torch.zeros(8, dtype=torch.int32, device=dev)
+    pim = api.compile(api.trace(lambda v: api.relu(v), name="pimsab_capture").program_for(z), "pimsab")
+    graph, refused = torch.cuda.CUDAGraph(), None
+    stream = torch.cuda.Stream(dev)
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            pim(z)
+    except api.PimsabTracerError as exc:
+        refused = str(exc)
+    torch.cuda.synchronize()
+    if refused is None:
+        smoke.failures.append("phase 3i: a pimsab Executor called during a CUDA graph capture was not refused")
+    out["capture_refused"] = refused is not None
+    print(f"phase 3i pimsab Executor during a CUDA graph capture refused: {out['capture_refused']}")
+    return out
+
+
 def replay_profile_main() -> int:
     """``chip_smoke.py --replay-profiles``, run by phase 5: the held
     Executors' graph replays under torch.profiler in a process that has
@@ -2618,6 +2896,11 @@ def main() -> int:
 
     # ---------------- phase 3h: the eager pimsab backend, operands on the card ----------------
     pimsab = run_pimsab_phase(torch, np, api, pimsab_backend, resnet, smoke, dev)
+
+    # ---------------- phase 3i: the pimsab Program lowering, operands on the card ----------------
+    pimsab["program_lowering"] = run_pimsab_program_phase(torch, np, api, pimsab_backend, resnet, pimsab_step,
+                                                          smoke, dev)
+    path_launches["pimsab_tiny_card_executor"] = pimsab["program_lowering"]["tiny"]["card_executor_launches"]
 
     # ---------------- phase 4: timing ----------------
     library = {

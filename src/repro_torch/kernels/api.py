@@ -21,7 +21,9 @@ every call to the kernel's lowering onto the PIMSAB architecture model
 (:mod:`repro_torch.kernels.pimsab_backend`: compiler, ISA and bit-serial
 simulator on the host), whose modeled cycles and energy
 :func:`last_sim_report` returns; its results return to the operands' device.
-Inside :func:`trace` a call is recorded instead of run.  Each kernel launch adds one to a
+A Program compiled inside the scope (or with ``backend="pimsab"``) lowers as
+one fused graph onto the same model.  Inside :func:`trace` a call is
+recorded instead of run.  Each kernel launch adds one to a
 per-kernel counter (:func:`launch_counts`, :func:`reset_launch_counts`), so
 a run can show which kernels it went through; while an Executor captures a
 CUDA graph, its launches go to a :class:`LaunchLog` instead, which each
@@ -571,8 +573,8 @@ def _require_concrete_operands(name: str, args: Tuple[Any, ...]) -> None:
                 f"kernel {name!r} on the 'pimsab' backend needs operands that "
                 f"hold values, but operand {i} is a {type(a).__name__} without "
                 "them (a meta tensor or a trace placeholder). Run the kernel "
-                "eagerly on CPU or CUDA tensors; api.trace programs do not "
-                "lower to pimsab yet (ROADMAP Queue 1 item 5c)."
+                "on CPU or CUDA tensors, or capture the chain with api.trace: "
+                "a traced program compiled for pimsab executes with values."
             )
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise PimsabTracerError(

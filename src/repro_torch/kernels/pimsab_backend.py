@@ -1,10 +1,9 @@
-"""The ``"pimsab"`` kernel backend of the port, eager half: registry calls →
-tensor DSL → §V compiler → ISA → functional bit-serial simulator.
+"""The ``"pimsab"`` kernel backend of the port: registry calls → tensor DSL →
+§V compiler → ISA → functional bit-serial simulator.
 
-The port's counterpart of the eager half of the JAX package's
-``kernels/pimsab_backend.py``.  Inside ``api.use_backend("pimsab")`` every
-registry kernel call lowers onto the paper's architecture model instead of
-running on the operands' device:
+The port's counterpart of the JAX package's ``kernels/pimsab_backend.py``.
+Inside ``api.use_backend("pimsab")`` every registry kernel call lowers onto
+the paper's architecture model instead of running on the operands' device:
 
 1. the operand shapes/precisions become a :class:`tensor_dsl.Workload`
    (gemm → ``mac``, reduction → constant-operand ``mac`` through the RF
@@ -30,9 +29,25 @@ numbers attach to the call through :func:`last_sim_report` (thread-local).
 
 Operands must hold values: ``api.dispatch`` refuses meta tensors, trace
 placeholders and calls made while the current CUDA stream is captured with
-``api.PimsabTracerError``.  The Program lowering (one fused
-``WorkloadGraph`` per traced program, CRAM-resident edges, ``ResidentState``)
-is not ported yet (ROADMAP Queue 1 item 5c).
+``api.PimsabTracerError``.
+
+**Program lowering and DRAM elision.**  A traced ``api.Program`` compiled for
+the pimsab backend (``api.compile(prog, "pimsab")``, or any compile inside
+the scope) lowers through :func:`compile_traced_program` into one
+``tensor_dsl.WorkloadGraph``, compiled as a single fused ISA stream for the
+functional machine (execution) and the full-scale machine (the report).  On
+a producer→consumer edge whose boundary value lives in the raw integer
+domain, the compiler keeps the value CRAM-resident and elides the producer's
+``DramStore`` and the consumer's ``DramLoad``; fixed-point (float)
+boundaries keep the DRAM round trip, so program execution stays bit-exact
+against the same kernels run eagerly.  Program lowering sizes integer
+precision from the *dtype* (a cached Executor replays fresh values), eager
+lowering from the values: results are identical, modeled cycles differ
+slightly.  :func:`execute_traced_program` runs the fused stream on the host
+every call (a pimsab Executor never captures a CUDA graph and launches no
+card kernel) and binds ``ResidentState`` handles (``states=``) to reserved
+wordlines; :func:`timing_program_report` models network shapes beyond
+functional simulation.
 """
 from __future__ import annotations
 
@@ -55,13 +70,14 @@ from repro_torch.core.compiler.allocation import (
     softmax_out_prec,
 )
 from repro_torch.core.compiler import autotune
-from repro_torch.core.compiler.codegen import compile_workload
-from repro_torch.core.compiler.tensor_dsl import Loop, Ref, Workload
-from repro_torch.core.compiler.verify import VerifyReport, verify_compiled
+from repro_torch.core.compiler.codegen import CompiledGraph, compile_graph, compile_workload
+from repro_torch.core.compiler.tensor_dsl import GraphEdge, Loop, Ref, Workload, WorkloadGraph
+from repro_torch.core.compiler.verify import VerifyReport, verify_compiled, verify_graph
 from repro_torch.core.machine import PIMSAB, PimsabConfig
 from repro_torch.core.simulator import Simulator
 from repro_torch.kernels import ref
 from repro_torch.kernels.api import PimsabTracerError, register_pimsab_impl, static_value
+from repro_torch.kernels.program import _dtype_name
 
 # the lowerings attach to already-registered kernels: importing the kernel
 # modules here makes a direct `import repro_torch.kernels.pimsab_backend`
@@ -87,6 +103,14 @@ __all__ = [
     "execute_workload",
     "run_functional_stream",
     "timing_report",
+    "ValueMeta",
+    "OpLowering",
+    "StateBinding",
+    "CompiledTracedProgram",
+    "compile_traced_program",
+    "compile_timing_program",
+    "execute_traced_program",
+    "timing_program_report",
 ]
 
 # Functional machine: a small mesh so bit-exact bit-serial execution stays
@@ -1210,3 +1234,1169 @@ def _kv_append_pimsab(cache, new, onehot, **_) -> torch.Tensor:
     )
     return _to_torch(out.reshape(t, d).astype(cv.dtype), cache)
 
+# ===========================================================================
+# Program lowering: traced kernel chains → one fused WorkloadGraph
+# ===========================================================================
+
+
+@dataclass(frozen=True)
+class ValueMeta:
+    """How a node's raw CRAM value relates to its logical value at a graph
+    boundary: ``prec`` CRAM bits, ``frac`` fixed-point fraction bits (0 = raw
+    integer domain), and the logical numpy dtype/shape."""
+
+    shape: Tuple[int, ...]
+    prec: int
+    frac: int
+    kind: str   # "int" | "fixed"
+    dtype: str  # logical numpy dtype of the finalized value
+
+
+@dataclass(frozen=True)
+class InDesc:
+    """One program-node input as its lowering sees it: the logical aval, plus
+    the producer's ValueMeta when the input is a *chainable* node output."""
+
+    aval: Tuple[Tuple[int, ...], str]
+    meta: Optional[ValueMeta] = None
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.aval[0])
+
+    @property
+    def np_dtype(self) -> np.dtype:
+        # numpy has no bfloat16: _as_numpy widens it to float32 (exactly)
+        return np.dtype("float32" if self.aval[1] == "bfloat16" else self.aval[1])
+
+    @property
+    def is_int(self) -> bool:
+        if self.meta is not None:
+            return self.meta.kind == "int"
+        return np.issubdtype(self.np_dtype, np.integer)
+
+
+@dataclass
+class OpLowering:
+    """One program node lowered to a Workload + its value-plane glue.
+
+    ``chained`` maps a canonical buffer ("in_a"/"in_b") to the input position
+    the lowering constructed *in chain precision* — the mapping layer may
+    still drop the edge to a DRAM round-trip, in which case the same buffer
+    simply loads the producer's finalized value at that precision.
+    ``bind(vals)`` quantizes concrete input values into data-plane arrays
+    (positions the executor knows are CRAM-resident arrive as ``None``);
+    ``finalize(raw, state)`` turns the collected plane output back into the
+    logical value.
+    """
+
+    workload: Workload
+    out_meta: ValueMeta
+    chainable: bool
+    chained: Dict[str, int]
+    bind: Callable[[List[Optional[np.ndarray]]], Tuple[Dict[str, Optional[np.ndarray]], Optional[np.ndarray], Any]]
+    finalize: Callable[[np.ndarray, Any], np.ndarray]
+
+
+_PROGRAM_LOWERINGS: Dict[str, Callable[..., OpLowering]] = {}
+
+
+def _program_lowering(name: str):
+    def deco(fn):
+        _PROGRAM_LOWERINGS[name] = fn
+        return fn
+    return deco
+
+
+def _dtype_bits(dt: np.dtype) -> int:
+    """Signature-stable integer precision: the dtype's width (program mode
+    cannot calibrate from values — a cached executor replays fresh ones)."""
+    return np.dtype(dt).itemsize * 8
+
+
+def _int_in_prec(d: InDesc) -> int:
+    return d.meta.prec if d.meta is not None else _dtype_bits(d.np_dtype)
+
+
+@_program_lowering("bitslice_matmul")
+def _pl_bitslice_matmul(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    slice_bits = int(kwargs.get("slice_bits", 8))
+    skip = tuple(kwargs.get("skip", ()))
+    (sx, mm, kk) = ins[0].shape
+    (sw, kk2, nn) = ins[1].shape
+    assert kk == kk2, (kk, kk2)
+    pa = sx * slice_bits + 1
+    pb = sw * slice_bits + 1
+    out_prec = min(adaptive_precision(pa, pb, kk, "mac"), 32)
+    w = Workload(
+        name=node,
+        loops=(Loop("x", mm, "data"), Loop("y", nn, "data"), Loop("k", kk, "reduce")),
+        out=Ref("c", ("x", "y"), prec=32),
+        ins=(Ref("a", ("x", "k"), prec=pa), Ref("b", ("k", "y"), prec=pb)),
+        op="mac",
+        acc_prec=32,
+    )
+
+    def bind(vals):
+        x_int, w_int = _dead_slice_ints(
+            np.asarray(vals[0]), np.asarray(vals[1]), skip, slice_bits
+        )
+        return {"a": x_int, "b": w_int}, None, None
+
+    def finalize(raw, _state):
+        return raw.reshape(mm, nn).astype(np.int32)
+
+    return OpLowering(
+        workload=w,
+        out_meta=ValueMeta((mm, nn), out_prec, 0, "int", "int32"),
+        chainable=True,
+        chained={},
+        bind=bind,
+        finalize=finalize,
+    )
+
+
+@_program_lowering("ewise_add")
+def _pl_ewise_add(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    assert ins[0].shape == ins[1].shape, (ins[0].shape, ins[1].shape)
+    shape = ins[0].shape
+    n = int(np.prod(shape)) if shape else 1
+    is_int = ins[0].is_int and ins[1].is_int
+    if is_int:
+        pa, pb = _int_in_prec(ins[0]), _int_in_prec(ins[1])
+        # Cap chain precision at int32: with 32-bit operands the CRAM add at
+        # prec 32 drops the carry-out, i.e. wraps mod 2^32 — exactly the
+        # oracle's int32 semantics.  An uncapped 33-bit sum holds the *true*
+        # value, which a CRAM-resident consumer would then read (the DRAM
+        # round-trip wraps in finalize, a resident edge does not), making
+        # graph mode diverge from eager on overflow.
+        out_prec = min(max(pa, pb) + 1, 32)
+        chained = {
+            buf: pos for buf, pos in (("in_a", 0), ("in_b", 1))
+            if ins[pos].meta is not None
+        }
+        out_dtype = ins[0].aval[1]
+
+        def bind(vals):
+            arrays = {}
+            for key, v in zip(("a", "b"), vals):
+                arrays[key] = None if v is None else np.asarray(v).reshape(n).astype(np.int64)
+            return arrays, None, None
+
+        def finalize(raw, _state):
+            return raw.reshape(shape).astype(np.dtype(out_dtype))
+
+        meta = ValueMeta(shape, out_prec, 0, "int", out_dtype)
+        chainable = True
+    else:
+        pa = pb = 16
+        out_prec = pa + 1
+        chained = {}
+
+        def bind(vals):
+            (xq, yq), frac = _to_fixed_shared(
+                [np.asarray(v).reshape(n) for v in vals], pa
+            )
+            return {"a": xq, "b": yq}, None, frac
+
+        def finalize(raw, frac):
+            return (raw.reshape(shape).astype(np.float64) / (1 << frac)).astype(np.float32)
+
+        meta = ValueMeta(shape, out_prec, -1, "fixed", "float32")
+        chainable = False
+    w = Workload(
+        name=node,
+        loops=(Loop("i", n, "data"),),
+        out=Ref("y", ("i",), prec=out_prec),
+        ins=(Ref("a", ("i",), prec=pa), Ref("b", ("i",), prec=pb)),
+        op="map_add",
+        acc_prec=out_prec,
+    )
+    return OpLowering(w, meta, chainable, chained, bind, finalize)
+
+
+@_program_lowering("relu")
+def _pl_relu(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    shape = ins[0].shape
+    n = int(np.prod(shape)) if shape else 1
+    is_int = ins[0].is_int
+    if is_int:
+        pa = _int_in_prec(ins[0])
+        chained = {"in_a": 0} if ins[0].meta is not None else {}
+        out_dtype = ins[0].aval[1]
+
+        def bind(vals):
+            v = vals[0]
+            return (
+                {"a": None if v is None else np.asarray(v).reshape(n).astype(np.int64)},
+                None,
+                None,
+            )
+
+        def finalize(raw, _state):
+            return raw.reshape(shape).astype(np.dtype(out_dtype))
+
+        meta = ValueMeta(shape, pa, 0, "int", out_dtype)
+        chainable = True
+    else:
+        pa = 16
+        chained = {}
+
+        def bind(vals):
+            xq, frac = _to_fixed(np.asarray(vals[0]).reshape(n), pa)
+            return {"a": xq}, None, frac
+
+        def finalize(raw, frac):
+            return (raw.reshape(shape).astype(np.float64) / (1 << frac)).astype(np.float32)
+
+        meta = ValueMeta(shape, pa, -1, "fixed", "float32")
+        chainable = False
+    w = Workload(
+        name=node,
+        loops=(Loop("i", n, "data"),),
+        out=Ref("y", ("i",), prec=pa),
+        ins=(
+            Ref("a", ("i",), prec=pa),
+            Ref("z", (), prec=pa, is_const=True, const_value=0),
+        ),
+        op="relu",
+        acc_prec=pa,
+    )
+    return OpLowering(w, meta, chainable, chained, bind, finalize)
+
+
+@_program_lowering("htree_reduce")
+def _pl_htree_reduce(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    nred, dd = ins[0].shape
+    is_int = ins[0].is_int
+    if is_int:
+        pa = _int_in_prec(ins[0])
+        out_prec = min(adaptive_precision(pa, 2, nred, "mac"), 32)
+        out_dtype = ins[0].aval[1]
+
+        def bind(vals):
+            return {"a": np.asarray(vals[0]).astype(np.int64)}, None, None
+
+        def finalize(raw, _state):
+            return raw.reshape(dd).astype(np.dtype(out_dtype))
+
+        meta = ValueMeta((dd,), out_prec, 0, "int", out_dtype)
+        chainable = True
+    else:
+        pa = 16
+        out_prec = min(adaptive_precision(pa, 2, nred, "mac"), 32)
+
+        def bind(vals):
+            xq, frac = _to_fixed(np.asarray(vals[0]), pa)
+            return {"a": xq}, None, frac
+
+        def finalize(raw, frac):
+            return (raw.reshape(dd).astype(np.float64) / (1 << frac)).astype(np.float32)
+
+        meta = ValueMeta((dd,), out_prec, -1, "fixed", "float32")
+        chainable = False
+    w = Workload(
+        name=node,
+        loops=(Loop("d", dd, "data"), Loop("n", nred, "reduce")),
+        out=Ref("y", ("d",), prec=32),
+        ins=(
+            Ref("a", ("n", "d"), prec=pa),
+            Ref("one", (), prec=2, is_const=True, const_value=1),
+        ),
+        op="mac",
+        acc_prec=32,
+    )
+    return OpLowering(w, meta, chainable, {}, bind, finalize)
+
+
+@_program_lowering("rglru_scan")
+def _pl_rglru_scan(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    bsz, tt, ww = ins[0].shape
+    # signature-stable conservative fixed-point format (no value calibration:
+    # a cached executor must replay with fresh trajectories)
+    pa, fa = 16, 14
+    fb, ph = 12, 24
+
+    def bind(vals):
+        av, bv, hv = (np.asarray(v) for v in vals)
+        quant = lambda v: _quantize(v, fb, ph)
+        arrays = {
+            "a": _quantize(av, fa, pa).transpose(0, 2, 1),
+            "b": quant(bv).transpose(0, 2, 1),
+        }
+        return arrays, quant(hv), None
+
+    def finalize(raw, _state):
+        hs = raw.reshape(bsz, ww, tt).transpose(0, 2, 1)
+        return (hs.astype(np.float64) / (1 << fb)).astype(np.float32)
+
+    w = Workload(
+        name=node,
+        loops=(Loop("b", bsz, "data"), Loop("w", ww, "data"), Loop("t", tt, "reduce")),
+        out=Ref("h", ("b", "w"), prec=ph),
+        ins=(
+            Ref("a", ("b", "w", "t"), prec=pa, frac=fa),
+            Ref("b", ("b", "w", "t"), prec=ph),
+        ),
+        op="scan_mac",
+        acc_prec=ph,
+    )
+    meta = ValueMeta((bsz, tt, ww), ph, -1, "fixed", "float32")
+    return OpLowering(w, meta, False, {}, bind, finalize)
+
+
+def _pl_int_in_bits(d: InDesc, hint) -> int:
+    """Program-mode integer precision: the static hint, else the producer's
+    ValueMeta precision, else the dtype width — same [2, 32] clamp as the
+    eager path (:func:`_clamp_bits`)."""
+    return _clamp_bits(int(hint) if hint is not None else _int_in_prec(d))
+
+
+def _pl_gemm(node: str, ins: List[InDesc], kwargs: Dict[str, Any], kk: int,
+             bind, finalize, out_shape: Tuple[int, ...],
+             workload_fn) -> OpLowering:
+    """Shared raw-integer gemm program lowering (conv2d / int_matmul).
+
+    ``workload_fn(pa, pb)`` builds the Workload from the operand precisions
+    derived HERE — one derivation feeds both the workload's input Refs and
+    the advertised ``out_meta``, so the precision the residency check
+    (`_edge_prec_ok`) sees can never diverge from what the compiler plans.
+    """
+    if not (ins[0].is_int and ins[1].is_int):
+        raise NotImplementedError(
+            f"{node}: the pimsab program lowering runs the raw-integer gemm "
+            "path; quantize float operands first"
+        )
+    pa = _pl_int_in_bits(ins[0], kwargs.get("x_bits"))
+    pb = _pl_int_in_bits(ins[1], kwargs.get("w_bits"))
+    out_prec = min(adaptive_precision(pa, pb, kk, "mac"), 32)
+    return OpLowering(
+        workload=workload_fn(pa, pb),
+        out_meta=ValueMeta(out_shape, out_prec, 0, "int", "int32"),
+        chainable=True,
+        chained={},
+        bind=bind,
+        finalize=finalize,
+    )
+
+
+@_program_lowering("conv2d")
+def _pl_conv2d(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    stride = int(kwargs.get("stride", 1))
+    padding = int(kwargs.get("padding", 0))
+    n, c, h, hw = ins[0].shape
+    oc, c2, kh, kw = ins[1].shape
+    assert c == c2, (c, c2)
+    oh, ow = ref.conv2d_out_hw(h, hw, kh, kw, stride, padding)
+    kk = c * kh * kw
+
+    def bind(vals):
+        patches = ref.im2col(_cpu_tensor(vals[0]), kh, kw, stride, padding).numpy().astype(np.int64)
+        wmat = np.asarray(vals[1]).reshape(oc, kk).T.astype(np.int64)
+        return {"a": patches.reshape(n, oh * ow, kk), "b": wmat}, None, None
+
+    def finalize(raw, _state):
+        return raw.reshape(n, oc, oh, ow).astype(np.int32)
+
+    return _pl_gemm(
+        node, ins, kwargs, kk, bind, finalize, (n, oc, oh, ow),
+        lambda pa, pb: _conv_workload(node, n, oc, oh * ow, kk, pa, pb),
+    )
+
+
+@_program_lowering("int_matmul")
+def _pl_int_matmul(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    mm, kk = ins[0].shape
+    kk2, nn = ins[1].shape
+    assert kk == kk2, (kk, kk2)
+
+    def bind(vals):
+        return (
+            {"a": np.asarray(vals[0]).astype(np.int64),
+             "b": np.asarray(vals[1]).astype(np.int64)},
+            None, None,
+        )
+
+    def finalize(raw, _state):
+        return raw.reshape(mm, nn).astype(np.int32)
+
+    return _pl_gemm(
+        node, ins, kwargs, kk, bind, finalize, (mm, nn),
+        lambda pa, pb: _gemm_workload(node, mm, nn, kk, pa, pb),
+    )
+
+
+@_program_lowering("maxpool2d")
+def _pl_maxpool2d(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    window = int(kwargs.get("window", 2))
+    stride = int(kwargs.get("stride") or window)
+    n, c, h, w = ins[0].shape
+    oh, ow = ref.conv2d_out_hw(h, w, window, window, stride, 0)
+    d = n * c * oh * ow
+    kk = window * window
+    is_int = ins[0].is_int
+    if is_int:
+        pa = _pl_int_in_bits(ins[0], None)
+        out_dtype = ins[0].aval[1]
+
+        def bind(vals):
+            patches = ref.pool_patches(_cpu_tensor(vals[0]), window, stride).numpy()
+            return {"a": patches.astype(np.int64)}, None, None
+
+        def finalize(raw, _state):
+            return raw.reshape(n, c, oh, ow).astype(np.dtype(out_dtype))
+
+        meta = ValueMeta((n, c, oh, ow), pa, 0, "int", out_dtype)
+        chainable = True
+    else:
+        pa = 16
+
+        def bind(vals):
+            patches = ref.pool_patches(_cpu_tensor(vals[0]), window, stride).numpy()
+            xq, frac = _to_fixed(patches, pa)
+            return {"a": xq}, None, frac
+
+        def finalize(raw, frac):
+            return (raw.reshape(n, c, oh, ow).astype(np.float64) / (1 << frac)).astype(np.float32)
+
+        meta = ValueMeta((n, c, oh, ow), pa, -1, "fixed", "float32")
+        chainable = False
+    wl = _maxpool_workload(node, d, kk, pa)
+    return OpLowering(wl, meta, chainable, {}, bind, finalize)
+
+
+def _pl_avgpool_common(node: str, d: int, kk: int, in_desc: InDesc,
+                       out_shape: Tuple[int, ...], patches_of) -> OpLowering:
+    if not in_desc.is_int:
+        raise NotImplementedError(
+            f"{node}: pimsab average pooling runs the integer floor-divide "
+            "path; quantize float operands first"
+        )
+    shift = _pool_shift(kk, node)
+    pa = _pl_int_in_bits(in_desc, None)
+    wl = _avgpool_workload(node, d, kk, pa, shift)
+    stored_prec = wl.out.prec  # sum precision minus the shift
+
+    def bind(vals):
+        return {"a": patches_of(np.asarray(vals[0])).astype(np.int64)}, None, None
+
+    def finalize(raw, _state):
+        return raw.reshape(out_shape).astype(np.int32)
+
+    # chainable with the *stored* precision: a downstream consumer sizes its
+    # input from the value that actually crosses the boundary.  Residency is
+    # still impossible (the accumulator holds the un-shifted sum, and the
+    # precision check `_edge_prec_ok` sees stored_prec != out_prec), so the
+    # DRAM round-trip is always kept — by construction, not by luck.
+    meta = ValueMeta(out_shape, stored_prec, 0, "int", "int32")
+    return OpLowering(wl, meta, True, {}, bind, finalize)
+
+
+@_program_lowering("avgpool2d")
+def _pl_avgpool2d(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    window = int(kwargs.get("window", 2))
+    n, c, h, w = ins[0].shape
+    oh, ow = ref.conv2d_out_hw(h, w, window, window, window, 0)
+    return _pl_avgpool_common(
+        node, n * c * oh * ow, window * window, ins[0], (n, c, oh, ow),
+        lambda xv: ref.pool_patches(_cpu_tensor(xv), window, window).numpy(),
+    )
+
+
+@_program_lowering("global_avgpool")
+def _pl_global_avgpool(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    n, c, h, w = ins[0].shape
+    return _pl_avgpool_common(
+        node, n * c, h * w, ins[0], (n, c),
+        lambda xv: xv.reshape(n * c, h * w),
+    )
+
+
+def _pl_require_int(node: str, *descs: InDesc) -> None:
+    if not all(d.is_int for d in descs):
+        raise NotImplementedError(
+            f"{node}: the pimsab program lowering runs the raw-integer path; "
+            "quantize float operands first"
+        )
+
+
+@_program_lowering("attention_qk")
+def _pl_attention_qk(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    _pl_require_int(node, ins[0], ins[1])
+    mm, dd = ins[0].shape
+    tt, dd2 = ins[1].shape
+    assert dd == dd2, (dd, dd2)
+    pa = _pl_int_in_bits(ins[0], kwargs.get("q_bits"))
+    pb = _pl_int_in_bits(ins[1], kwargs.get("k_bits"))
+    out_prec = min(adaptive_precision(pa, pb, dd, "mac"), 32)
+    out_bits = kwargs.get("out_bits")
+    # `out_bits` is the caller's profiled score envelope (§V-C adaptive
+    # precision): it narrows what downstream lowerings (softmax's scratch
+    # layout) size against, not the accumulator itself
+    meta_prec = min(out_prec, _clamp_bits(out_bits)) if out_bits else out_prec
+
+    def bind(vals):
+        a = np.asarray(vals[0]).astype(np.int64)
+        # the DRAM path wants the shared operand as (k, y) = Kᵀ; the resident
+        # path (vals[1] is None) reads the kv_append layout in place, which
+        # already holds key row y's fields on lane y
+        b = None if vals[1] is None else np.asarray(vals[1]).astype(np.int64).T
+        return {"a": a, "b": b}, None, None
+
+    def finalize(raw, _state):
+        return raw.reshape(mm, tt).astype(np.int32)
+
+    return OpLowering(
+        workload=_gemm_workload(node, mm, tt, dd, pa, pb),
+        out_meta=ValueMeta((mm, tt), meta_prec, 0, "int", "int32"),
+        chainable=True,
+        chained={"in_b": 1} if ins[1].meta is not None else {},
+        bind=bind,
+        finalize=finalize,
+    )
+
+
+@_program_lowering("softmax_fixedpoint")
+def _pl_softmax_fixedpoint(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    _pl_require_int(node, ins[0])
+    if kwargs.get("in_frac") is None:
+        raise ValueError(f"{node}: softmax_fixedpoint needs the in_frac kwarg")
+    in_frac = int(kwargs["in_frac"])
+    r, t = ins[0].shape
+    pin = max(_pl_int_in_bits(ins[0], kwargs.get("in_bits")),
+              in_frac + SOFTMAX_K)
+    wl = _softmax_workload(node, r, t, pin, in_frac)
+
+    def bind(vals):
+        return {"x": np.asarray(vals[0]).astype(np.int64)}, None, None
+
+    def finalize(raw, _state):
+        return raw.reshape(r, t).astype(np.int32)
+
+    return OpLowering(
+        workload=wl,
+        out_meta=ValueMeta((r, t), softmax_out_prec(), 0, "int", "int32"),
+        chainable=True,
+        chained={},
+        bind=bind,
+        finalize=finalize,
+    )
+
+
+@_program_lowering("attention_pv")
+def _pl_attention_pv(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    _pl_require_int(node, ins[0], ins[1])
+    mm, tt = ins[0].shape
+    tt2, nn = ins[1].shape
+    assert tt == tt2, (tt, tt2)
+    shift = int(kwargs.get("shift", SOFTMAX_F))
+    pa = _pl_int_in_bits(ins[0], kwargs.get("p_bits"))
+    pb = _pl_int_in_bits(ins[1], kwargs.get("v_bits"))
+    wl = _pv_workload(node, mm, nn, tt, pa, pb, shift)
+
+    def bind(vals):
+        # the V cache is never chained: kv_append leaves lane t holding row
+        # t's head-dim fields, but this reduction wants lane y to hold column
+        # y's *time* fields — a transposed layout, so V always round-trips
+        # DRAM (the KV-residency contract documented in docs/serving.md)
+        return (
+            {"a": np.asarray(vals[0]).astype(np.int64),
+             "b": np.asarray(vals[1]).astype(np.int64)},
+            None, None,
+        )
+
+    def finalize(raw, _state):
+        return raw.reshape(mm, nn).astype(np.int32)
+
+    return OpLowering(
+        workload=wl,
+        out_meta=ValueMeta((mm, nn), wl.out.prec, 0, "int", "int32"),
+        chainable=True,
+        chained={},
+        bind=bind,
+        finalize=finalize,
+    )
+
+
+@_program_lowering("decode_gemv")
+def _pl_decode_gemv(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    _pl_require_int(node, ins[0], ins[1])
+    mm, kk = ins[0].shape
+    (kk2,) = ins[1].shape
+    assert kk == kk2, (kk, kk2)
+    pa = _pl_int_in_bits(ins[0], kwargs.get("w_bits"))
+    pb = _pl_int_in_bits(ins[1], kwargs.get("x_bits"))
+    out_prec = min(adaptive_precision(pa, pb, kk, "mac"), 32)
+    # the eager path bakes the activation into RF constants (its values are
+    # in hand); a compiled program replays with fresh activations, so the
+    # vector becomes the broadcast shared operand of a width-1 gemm instead
+    wl = _gemm_workload(node, mm, 1, kk, pa, pb)
+
+    def bind(vals):
+        return (
+            {"a": np.asarray(vals[0]).astype(np.int64),
+             "b": np.asarray(vals[1]).astype(np.int64).reshape(kk, 1)},
+            None, None,
+        )
+
+    def finalize(raw, _state):
+        return raw.reshape(mm).astype(np.int32)
+
+    return OpLowering(
+        workload=wl,
+        out_meta=ValueMeta((mm,), out_prec, 0, "int", "int32"),
+        chainable=True,
+        chained={},
+        bind=bind,
+        finalize=finalize,
+    )
+
+
+@_program_lowering("kv_append")
+def _pl_kv_append(node: str, ins: List[InDesc], kwargs: Dict[str, Any]) -> OpLowering:
+    _pl_require_int(node, ins[0], ins[1])
+    tt, dd = ins[0].shape
+    (dd2,) = ins[1].shape
+    (tt2,) = ins[2].shape
+    assert dd == dd2 and tt == tt2, (ins[0].shape, ins[1].shape, ins[2].shape)
+    prec = max(_pl_int_in_bits(ins[0], kwargs.get("bits")),
+               _pl_int_in_bits(ins[1], kwargs.get("bits")))
+    out_dtype = ins[0].aval[1]
+    wl = _kv_append_workload(node, tt, dd, prec)
+
+    def bind(vals):
+        # vals[0] is None when the cache is a CRAM-resident ResidentState:
+        # the executor seeded the reserved wordlines and in_a issues no loads
+        cache = None if vals[0] is None else np.asarray(vals[0]).astype(np.int64)
+        ov = np.asarray(vals[2]).astype(np.int64)
+        _check_onehot(node, ov)
+        return (
+            {"cache": cache, "new": np.asarray(vals[1]).astype(np.int64),
+             "onehot": ov},
+            None, None,
+        )
+
+    def finalize(raw, _state):
+        return raw.reshape(tt, dd).astype(np.dtype(out_dtype))
+
+    return OpLowering(
+        workload=wl,
+        out_meta=ValueMeta((tt, dd), prec, 0, "int", out_dtype),
+        chainable=True,
+        chained={},
+        bind=bind,
+        finalize=finalize,
+    )
+
+
+# ---------------------------------------------------------------------------
+# graph assembly, compilation, execution
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StateBinding:
+    """One :class:`~repro_torch.kernels.program.ResidentState` bound into a
+    compiled program: the slot that names it, the ``kv_append`` node that
+    updates it, and the reserved wordline region ``[start, end)`` its rows
+    occupy on the state tile (lane t holds the ``shape[1]`` fields of cache
+    row t at ``prec`` bits each)."""
+
+    slot: int
+    name: str
+    shape: Tuple[int, int]
+    prec: int
+    node: str
+    node_idx: int
+    start: int
+    end: int
+
+
+def _plan_states(program, node_names, lowerings, cram_rows: int,
+                 state_slots) -> Tuple[StateBinding, ...]:
+    """Derive the persistent-state layout of a program: one reserved region
+    per state, stacked down from the top of the wordline space, plus the
+    unique updater node whose in_a/out pin to it.  Structural errors (no
+    updater, a second reader, spec mismatch) raise — they are programming
+    errors in the traced function, not mapping declines."""
+    if not state_slots:
+        return ()
+    bindings: List[StateBinding] = []
+    base = cram_rows
+    for slot in sorted(state_slots):
+        name, shape, prec = state_slots[slot]
+        if len(shape) != 2:
+            raise ValueError(
+                f"ResidentState {name!r} must be 2-D (rows, fields), got {shape}"
+            )
+        updaters = [
+            i for i, op in enumerate(program.ops)
+            if op.inputs and op.inputs[0] == ("slot", slot)
+            and lowerings[i].workload.op == "kv_append"
+        ]
+        if len(updaters) != 1:
+            raise ValueError(
+                f"ResidentState {name!r} (slot {slot}) needs exactly one "
+                f"kv_append node reading it as the cache operand, found "
+                f"{len(updaters)}"
+            )
+        i = updaters[0]
+        others = [
+            node_names[j] for j, op in enumerate(program.ops)
+            if j != i and ("slot", slot) in op.inputs
+        ]
+        if others:
+            raise ValueError(
+                f"ResidentState {name!r} is also read by {others}: a CRAM-"
+                "resident state is only visible through its updater's output"
+            )
+        wl = lowerings[i].workload
+        got = (wl.total_out_elems(), wl.reduce_extent(), wl.out.prec)
+        if got != (shape[0], shape[1], prec):
+            raise ValueError(
+                f"ResidentState {name!r} spec (rows, fields, prec)="
+                f"{(shape[0], shape[1], prec)} does not match its updater's "
+                f"lowering {got}"
+            )
+        base -= shape[1] * prec
+        bindings.append(StateBinding(
+            slot=slot, name=name, shape=(shape[0], shape[1]), prec=prec,
+            node=node_names[i], node_idx=i, start=base, end=base + shape[1] * prec,
+        ))
+    if base < 0:
+        raise ValueError(
+            f"persistent-state regions need {cram_rows - base} wordlines, "
+            f"exceeding the {cram_rows}-row CRAM"
+        )
+    return tuple(bindings)
+
+
+@dataclass
+class CompiledTracedProgram:
+    """An ``api.Program`` lowered once for both machines: the functional
+    fused stream (bit-exact execution) and the static aggregated report from
+    the full-scale timing stream."""
+
+    program: Any                      # repro_torch.kernels.program.Program
+    node_names: Tuple[str, ...]
+    lowerings: Tuple[OpLowering, ...]
+    cg_fn: CompiledGraph
+    report: SimReport
+    cfg_fn: PimsabConfig
+    verify_reports: Tuple[VerifyReport, ...] = ()  # (functional, timing) when verified
+    states: Tuple[StateBinding, ...] = ()  # ResidentState layout (may be declined)
+    cg_t: Optional[CompiledGraph] = None  # timing stream (multi-chip re-steps it)
+    cfg_t: Optional[PimsabConfig] = None
+
+
+def _build_graph(program) -> Tuple[List[str], List[OpLowering], WorkloadGraph]:
+    """Assemble the WorkloadGraph of a traced Program: one node per captured
+    kernel call (in trace order — already topological), one edge per
+    node-valued input.  Shared by the functional compile and the timing-only
+    path (network shapes beyond bit-serial simulation)."""
+    node_names: List[str] = [f"n{i}.{op.kernel}" for i, op in enumerate(program.ops)]
+    lowerings: List[OpLowering] = []
+    edges: List[GraphEdge] = []
+    for i, op in enumerate(program.ops):
+        lower = _PROGRAM_LOWERINGS.get(op.kernel)
+        if lower is None:
+            raise NotImplementedError(
+                f"kernel {op.kernel!r} has no program lowering for the pimsab "
+                "backend (add one to pimsab_backend._PROGRAM_LOWERINGS)"
+            )
+        descs: List[InDesc] = []
+        for (kind, j) in op.inputs:
+            if kind == "node":
+                lw = lowerings[j]
+                descs.append(InDesc(
+                    aval=(lw.out_meta.shape, lw.out_meta.dtype),
+                    meta=lw.out_meta if lw.chainable else None,
+                ))
+            elif kind == "slot":
+                descs.append(InDesc(aval=program.slot_avals[j]))
+            else:
+                c = program.consts[j]
+                descs.append(InDesc(aval=(tuple(c.shape), _dtype_name(c.dtype))))
+        low = lower(node_names[i], descs, dict(op.kwargs))
+        lowerings.append(low)
+        chained_pos = set(low.chained.values())
+        pos_to_buf = {pos: buf for buf, pos in low.chained.items()}
+        for pos, (kind, j) in enumerate(op.inputs):
+            if kind != "node":
+                continue
+            buf = pos_to_buf.get(pos) or ("in_a" if pos == 0 else "in_b" if pos == 1 else f"in{pos}")
+            edges.append(GraphEdge(
+                src=node_names[j], dst=node_names[i], dst_input=buf,
+                resident_ok=pos in chained_pos,
+            ))
+
+    outputs = tuple(dict.fromkeys(
+        node_names[j] for (kind, j) in program.out_refs if kind == "node"
+    ))
+    graph = WorkloadGraph(
+        name=program.name,
+        nodes=tuple(low.workload for low in lowerings),
+        edges=tuple(edges),
+        outputs=outputs,
+    )
+    return node_names, lowerings, graph
+
+
+def compile_traced_program(
+    program,
+    cfg_fn: Optional[PimsabConfig] = None,
+    cfg_timing: Optional[PimsabConfig] = None,
+    *,
+    verify: bool = True,
+    state_slots=None,
+    tune: Any = None,
+) -> CompiledTracedProgram:
+    """Lower a traced Program into one WorkloadGraph and compile it for the
+    functional machine (execution) and the full-scale machine (report).
+
+    ``verify=True`` (the default) statically verifies *both* fused streams —
+    liveness/def-use, schedule-hazard races, precision-overflow lint — and
+    raises :class:`~repro_torch.core.compiler.verify.VerifierError` on any error;
+    the pair of reports attaches as ``.verify_reports`` (also surfaced via
+    :func:`last_verify_report`) so cache introspection can read the plan
+    notes (residency/double-buffer declines) of the compiled artifact.
+
+    ``state_slots`` maps a slot index to a ``(name, (rows, fields), prec)``
+    ResidentState spec: the slot's ``kv_append`` updater is pinned to a
+    reserved wordline region so the cache append updates CRAM in place (the
+    mapping layer may still decline — cost- or capacity-gated — in which
+    case the state transparently falls back to a host-side round-trip).
+
+    ``tune`` (``True`` or a :class:`~repro_torch.core.compiler.autotune.TuneConfig`;
+    ``None`` inherits an enclosing :func:`autotune.tuning` scope) runs the
+    graph-level mapping autotuner over the **timing** lowering only: the
+    functional stream keeps the heuristic plan, so execution stays
+    bit-exact while the modeled schedule takes the searched winner.  The
+    search provenance lands in ``report.autotune``."""
+    cfg_fn = cfg_fn or _functional_cfg()
+    cfg_t = cfg_timing or TIMING_CFG
+    assert cfg_fn.cram_rows == cfg_t.cram_rows, "state layout needs equal CRAMs"
+    node_names, lowerings, graph = _build_graph(program)
+    state_bindings = _plan_states(
+        program, node_names, lowerings, cfg_fn.cram_rows, state_slots
+    )
+    pins = {
+        b.node: {"in_a": [(b.start, b.end)], "out": [(b.start, b.end)]}
+        for b in state_bindings
+    }
+    cg_fn = compile_graph(graph, cfg_fn, state_pins=pins or None)
+    tc = autotune.resolve(tune) if tune is not None else autotune.active()
+    tuned_prov: Dict[str, Any] = {}
+    if tc is not None:
+        tg = autotune.tune_graph(graph, cfg_t, tc, state_pins=pins or None)
+        cg_t = compile_graph(graph, cfg_t, gm=tg.gm)
+        tuned_prov = tg.provenance
+    else:
+        cg_t = compile_graph(graph, cfg_t, state_pins=pins or None)
+    vreports: Tuple[VerifyReport, ...] = ()
+    if verify:
+        vreports = (verify_graph(cg_fn, cfg_fn), verify_graph(cg_t, cfg_t))
+        _tls.verify_reports = vreports
+        for vr in vreports:
+            vr.raise_on_error()
+    state_edges = tuple(
+        edge for b in state_bindings if b.node in cg_t.gm.state_pins
+        for edge in (f"state:{b.name}->{b.node}", f"{b.node}->state:{b.name}")
+    )
+    report = _program_report(
+        program, cg_t, cfg_t,
+        functional_instrs=len(cg_fn.program), state_edges=state_edges,
+        tuned_prov=tuned_prov,
+    )
+    return CompiledTracedProgram(
+        program=program,
+        node_names=tuple(node_names),
+        lowerings=tuple(lowerings),
+        cg_fn=cg_fn,
+        report=report,
+        cfg_fn=cfg_fn,
+        verify_reports=vreports,
+        states=state_bindings,
+        cg_t=cg_t,
+        cfg_t=cfg_t,
+    )
+
+
+def timing_program_report(
+    program, cfg_timing: Optional[PimsabConfig] = None, *, verify: bool = True,
+    tune: Any = None,
+) -> SimReport:
+    """Timing-only program lowering: compile the fused WorkloadGraph for the
+    full-scale machine and run the analytic model, skipping the functional
+    compile entirely.  This is how network shapes far beyond bit-serial
+    functional simulation (the paper-shaped ResNet18 config) still get their
+    modeled end-to-end cycles/energy and per-layer breakdown.  ``verify=True``
+    (the default) statically verifies the full-scale stream first and raises
+    on any error.  ``tune`` opts the graph plan into the mapping autotuner
+    (``None`` inherits an enclosing :func:`autotune.tuning` scope)."""
+    _, report = compile_timing_program(
+        program, cfg_timing, verify=verify, tune=tune
+    )
+    return report
+
+
+def compile_timing_program(
+    program, cfg_timing: Optional[PimsabConfig] = None, *, verify: bool = True,
+    tune: Any = None,
+) -> Tuple[CompiledGraph, SimReport]:
+    """:func:`timing_program_report` that also returns the compiled stream —
+    the multi-chip layer re-steps per-chip copies of it on a shared clock."""
+    cfg_t = cfg_timing or TIMING_CFG
+    _, _, graph = _build_graph(program)
+    tc = autotune.resolve(tune) if tune is not None else autotune.active()
+    tuned_prov: Dict[str, Any] = {}
+    if tc is not None:
+        tg = autotune.tune_graph(graph, cfg_t, tc)
+        cg_t = compile_graph(graph, cfg_t, gm=tg.gm)
+        tuned_prov = tg.provenance
+    else:
+        cg_t = compile_graph(graph, cfg_t)
+    if verify:
+        vrep = verify_graph(cg_t, cfg_t)
+        _tls.verify_reports = (vrep,)
+        vrep.raise_on_error()
+    report = _program_report(program, cg_t, cfg_t, functional_instrs=0,
+                             tuned_prov=tuned_prov)
+    return cg_t, report
+
+
+def _program_report(
+    program, cg_t: CompiledGraph, cfg: PimsabConfig, functional_instrs: int,
+    state_edges: Tuple[str, ...] = (),
+    tuned_prov: Optional[Dict[str, Any]] = None,
+) -> SimReport:
+    """Aggregated timing/energy over the fused stream, attributed per node
+    via the codegen segments, with the cross-kernel DRAM-traffic breakdown.
+    ``total_cycles`` per node is its *makespan* share (segment boundaries are
+    timeline barriers, so shares are well-defined and sum to the total);
+    ``cycles`` stays the charged per-category delta."""
+    sim = Simulator(cfg, record_timeline=_profiling())
+    per_kernel: List[Dict[str, Any]] = []
+    prev: Dict[str, float] = {}
+    prev_makespan = 0.0
+    for (node, start, end), op in zip(cg_t.segments, program.ops):
+        for ins in cg_t.program[start:end]:
+            sim.step(ins)
+        snap = dict(sim.res.cycles)
+        delta = {k: snap.get(k, 0.0) - prev.get(k, 0.0) for k in snap}
+        per_kernel.append({
+            "kernel": op.kernel,
+            "node": node,
+            "cycles": delta,
+            "total_cycles": sim.res.makespan - prev_makespan,
+            "serialized_cycles": sum(delta.values()),
+            "dram_cycles": delta.get("dram", 0.0),
+        })
+        prev = snap
+        prev_makespan = sim.res.makespan
+    res = sim.res
+    gm = cg_t.gm
+    traffic: Dict[str, Dict[str, float]] = {}
+    for w in gm.graph.nodes:
+        eff = dict(gm.mappings[w.name].dram_split)
+        for stream in list(eff):
+            if f"{w.name}:{stream}" in gm.elided_bits:
+                eff[stream] = 0.0
+        traffic[w.name] = eff
+    return SimReport(
+        kernel="program",
+        workload=program.name,
+        total_cycles=res.total_cycles,
+        cycles=dict(res.cycles),
+        cycle_breakdown=res.breakdown(),
+        energy_pj=dict(res.energy.pj),
+        energy_j=res.energy.total_j,
+        modeled_seconds=res.seconds(cfg),
+        instrs=res.instrs,
+        instr_mix=dict(Counter(type(i).__name__ for i in cg_t.program)),
+        mapping=gm.to_json(),
+        functional_instrs=functional_instrs,
+        serialized_cycles=res.serialized_cycles,
+        overlapped_cycles=res.overlapped_cycles,
+        critical_path=dict(res.critical_path),
+        utilization=res.utilization(),
+        timeline=tuple(res.timeline) if res.timeline else (),
+        kernels=program.kernels,
+        per_kernel=tuple(per_kernel),
+        dram_traffic=traffic,
+        elided_dram_bits=gm.total_elided_bits,
+        resident_edges=tuple(f"{e.src}->{e.dst}" for e in gm.resident) + state_edges,
+        autotune=dict(tuned_prov or {}),
+    )
+
+
+def execute_traced_program(
+    ctp: CompiledTracedProgram, leaves: List[Any], states=None
+) -> List[Any]:
+    """Run the fused functional stream with fresh slot values on the host;
+    returns the program's output leaves and stashes the aggregated report
+    for :func:`last_sim_report`.  Slot leaves are read through
+    :func:`_as_numpy` (a card tensor is copied to the host); a node output
+    returns as a fresh tensor of its ``out_meta`` dtype on the device of the
+    first tensor leaf (the CPU when there is none), a slot output as the
+    leaf itself and a constant output as the captured constant.
+
+    ``states`` maps slot index → ResidentState handle, one per binding in
+    ``ctp.states``.  Handles of CRAM-resident (accepted) states are seeded
+    into the reserved wordlines before the stream and harvested back after
+    it — the slot's *leaf* value is ignored, the handle is the source of
+    truth.  Declined states fall back transparently: the handle's value
+    streams through DRAM and the updater's finalized output is written back.
+    ``ResidentState.value`` is an int64 CPU tensor on both sides."""
+    import dataclasses
+
+    program = ctp.program
+    gm = ctp.cg_fn.gm
+    cfg = ctp.cfg_fn
+    idx_of = {n: i for i, n in enumerate(ctp.node_names)}
+    planes: Dict[str, _DataPlane] = {}
+    bind_states: Dict[int, Any] = {}
+    values: Dict[int, np.ndarray] = {}
+
+    state_by_node: Dict[str, Tuple[StateBinding, Any]] = {}
+    state_by_slot: Dict[int, Tuple[StateBinding, Any]] = {}
+    for b in ctp.states:
+        h = (states or {}).get(b.slot)
+        if h is None:
+            raise ValueError(
+                f"program {program.name!r} was compiled with ResidentState "
+                f"{b.name!r} on slot {b.slot}, but no handle was bound for it"
+            )
+        if (h.name, tuple(h.shape), int(h.prec)) != (b.name, b.shape, b.prec):
+            raise ValueError(
+                f"state handle {h.name!r} {(tuple(h.shape), int(h.prec))} does "
+                f"not match the compiled spec {b.name!r} {(b.shape, b.prec)}"
+            )
+        state_by_node[b.node] = (b, h)
+        state_by_slot[b.slot] = (b, h)
+    # a state is CRAM-resident only if the mapping layer accepted its pins
+    accepted = {n: bh for n, bh in state_by_node.items() if n in gm.state_pins}
+
+    sim = Simulator(cfg, functional=True)
+
+    def _seed_state(b: StateBinding, h) -> None:
+        vals = _as_numpy(h.value).astype(np.int64)
+        for j in range(b.shape[1]):
+            _write_lanes(sim, 0, b.start + j * b.prec, vals[:, j], b.prec)
+
+    def _harvest_state(b: StateBinding) -> np.ndarray:
+        return np.stack(
+            [_read_lanes(sim, 0, b.start + j * b.prec, b.prec, b.shape[0])
+             for j in range(b.shape[1])],
+            axis=1,
+        )
+
+    def slot_value(j: int) -> np.ndarray:
+        if j in state_by_slot:
+            # state-bound slot: the handle, never the leaf (the leaf is an
+            # aval-matching placeholder)
+            return _as_numpy(state_by_slot[j][1].value)
+        v = static_value(leaves[j])
+        if v is None:
+            raise PimsabTracerError(
+                f"program {program.name!r} executed on the pimsab backend "
+                f"needs operands that hold values, but input leaf {j} is a "
+                f"{type(leaves[j]).__name__} without them (a meta tensor or a "
+                "trace placeholder)"
+            )
+        return _as_numpy(v)
+
+    def node_value(j: int) -> np.ndarray:
+        if j not in values:
+            node = ctp.node_names[j]
+            if node in accepted:
+                # state updater with elided stores: the value lives in the
+                # reserved wordlines, not on the data plane
+                b, _h = accepted[node]
+                values[j] = ctp.lowerings[j].finalize(
+                    _harvest_state(b), bind_states.get(j)
+                )
+                return values[j]
+            plane = planes.get(node)
+            if plane is None:
+                raise RuntimeError(
+                    f"value of {node} requested before its stores executed "
+                    "(graph not topologically ordered?)"
+                )
+            values[j] = ctp.lowerings[j].finalize(plane.out, bind_states.get(j))
+        return values[j]
+
+    def resolve(r) -> np.ndarray:
+        kind, j = r
+        if kind == "slot":
+            return slot_value(j)
+        if kind == "const":
+            return _as_numpy(program.consts[j])
+        return node_value(j)
+
+    def bind_node(i: int) -> _DataPlane:
+        node = ctp.node_names[i]
+        low = ctp.lowerings[i]
+        resident_pos = {
+            pos for buf, pos in low.chained.items() if gm.is_resident(node, buf)
+        }
+        if "in_a" in gm.state_elides(node):
+            resident_pos.add(0)  # the updater's cache input reads CRAM in place
+        vals = [
+            None if pos in resident_pos else resolve(r)
+            for pos, r in enumerate(program.ops[i].inputs)
+        ]
+        arrays, h0, state = low.bind(vals)
+        bind_states[i] = state
+        plane = _DataPlane(low.workload, gm.mappings[node], cfg, arrays, h0=h0)
+        planes[node] = plane
+        return plane
+
+    def plane_for(tag: str) -> Tuple[_DataPlane, str, int]:
+        node, stream = tag.split(":", 1)
+        plane = planes.get(node)
+        if plane is None:
+            plane = bind_node(idx_of[node])
+        return plane, stream, idx_of[node]
+
+    for b, h in accepted.values():
+        _seed_state(b, h)
+    for ins in ctp.cg_fn.program:
+        if isinstance(ins, isa.DramLoad) and ins.tag:
+            plane, stream, i = plane_for(ins.tag)
+            m = gm.mappings[ctp.node_names[i]]
+            stripped = dataclasses.replace(ins, tag=stream)
+            for t in (ins.tiles or range(m.tiles_used)):
+                slab, prec = plane.load(stripped, t)
+                _write_lanes(sim, t, ins.cram_addr, slab, prec)
+        sim.step(ins)
+        if isinstance(ins, isa.DramStore) and ins.tag and ins.tag.endswith(":out"):
+            plane, stream, i = plane_for(ins.tag)
+            m = gm.mappings[ctp.node_names[i]]
+            stripped = dataclasses.replace(ins, tag=stream)
+            for t in (ins.tiles or range(m.tiles_used)):
+                plane.collect(
+                    stripped, t,
+                    lambda addr, prec, _t=t: _read_lanes(sim, _t, addr, prec, m.lanes_used),
+                )
+    # write the post-step cache back into every handle: harvested from the
+    # reserved wordlines when resident, or the updater's finalized output
+    # when the mapping declined residency
+    for node, (b, h) in state_by_node.items():
+        if node in accepted:
+            value = _harvest_state(b)
+        else:
+            value = node_value(b.node_idx)
+        h.value = torch.from_numpy(np.asarray(value, np.int64).reshape(b.shape).copy())
+    like = next((l for l in leaves if isinstance(l, torch.Tensor)), None)
+    out_leaves = []
+    for (kind, j) in program.out_refs:
+        if kind == "node":
+            dtype = np.dtype(ctp.lowerings[j].out_meta.dtype)
+            out_leaves.append(_to_torch(np.asarray(node_value(j), dtype), like))
+        elif kind == "slot":
+            out_leaves.append(leaves[j])
+        else:
+            out_leaves.append(program.consts[j])
+    _stash_report(ctp.report)
+    return out_leaves

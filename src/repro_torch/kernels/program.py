@@ -10,16 +10,31 @@ The port's counterpart of the JAX package's ``kernels/program.py``:
   tensors, so tracing reads no values and launches nothing.
 * :func:`compile_program` (``api.compile``) returns a cached
   :class:`Executor` for a Program, the counterpart of the JAX package's
-  compiled executable.  On the card the Executor captures the ops once into
-  a CUDA graph and replays it on every later call; on the CPU it replays the
-  ops eagerly through ``api.dispatch``, which runs the plain versions.  An
-  Executor runs its ops on their device in any backend scope
-  (``api.on_device``).
+  compiled executable, for one of two targets:
+
+  - the device (``backend`` ``None`` outside any scope): on the card the
+    Executor captures the ops once into a CUDA graph and replays it on every
+    later call; on the CPU it replays the ops eagerly through
+    ``api.dispatch``, which runs the plain versions.  Such an Executor runs
+    its ops on their device in any backend scope (``api.on_device``);
+  - ``"pimsab"`` (``backend="pimsab"``, or any compile inside
+    ``api.use_backend("pimsab")``): the chain becomes one
+    ``tensor_dsl.WorkloadGraph`` compiled jointly
+    (:func:`repro_torch.kernels.pimsab_backend.compile_traced_program`):
+    integer producer→consumer intermediates stay CRAM-resident and the
+    DRAM store/load pair at the boundary is elided.  The Executor runs the
+    fused stream on the host's functional simulator every call, in any
+    scope, and carries the aggregated ``SimReport``, the verifier reports
+    and the bound ``ResidentState`` handles (``states=``).
+
 * The compile cache is keyed on the Program's signature — kernel names,
   operand references, static kwargs, output and slot avals, both argument
   structures, the output references and a content fingerprint per captured
   constant — equal, field for field, to the JAX package's for the same
-  traced function.  :func:`compile_cache_info` counts hits and misses.
+  traced function, plus the target: the constants' devices for the device
+  target, and, as the JAX package keys it, the functional machine config,
+  ``verify``, the state specs and the resolved ``TuneConfig`` for pimsab.
+  :func:`compile_cache_info` counts hits and misses.
 
 Argument structures are flattened as ``jax.tree_util`` does: dict keys in
 sorted order, ``None`` a node without leaves, and registered classes
@@ -27,11 +42,8 @@ sorted order, ``None`` a node without leaves, and registered classes
 ``tree_flatten``; slot numbers therefore match the JAX package's.  Avals are
 ``(shape, numpy dtype name)`` pairs such as ``((4, 8), "int32")``.
 
-The eager pimsab backend is ported (``api.use_backend("pimsab")``,
-:mod:`repro_torch.kernels.pimsab_backend`), but not its Program lowering:
-``compile_program`` raises ``NotImplementedError`` for ``backend="pimsab"``
-and inside the pimsab scope (ROADMAP Queue 1 item 5c), for ``states`` (the
-resident KV state, item 5c too) and for ``chips`` other than 1 (item 10).
+Multi-chip sharding is not ported: ``compile_program`` raises
+``NotImplementedError`` for ``chips`` other than 1 (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -429,12 +441,21 @@ def trace(fn: Callable[..., Any], *, name: Optional[str] = None) -> TracedFuncti
 
 class ResidentState:
     """A persistent integer ``(rows, fields)`` tensor stored at ``prec`` bits
-    per field — the serve engine's KV cache, which the JAX package keeps
-    resident in the simulated machine across program executions.
+    per field, which the pimsab backend keeps CRAM-resident across program
+    executions — the serve engine's KV cache.
 
-    The port holds the handle and its host mirror ``.value`` (an int64 CPU
-    tensor); binding it to a compile (``states=``) belongs to the pimsab
-    backend, which is not ported yet, and raises there."""
+    Bind it to a traced program's slot with
+    ``compile_program(prog, "pimsab", states={slot_index: handle})``: the
+    compiler reserves a wordline region for it, pins the slot's
+    ``kv_append`` updater to that region (the append updates CRAM in place,
+    no DRAM traffic for the cache), and the Executor seeds and harvests the
+    region around each run.  ``.value`` (an int64 CPU tensor) mirrors the
+    logical cache after the most recent execution, so parking a request's
+    cache is reading and reassigning ``.value``.  The slot still takes an
+    aval-matching argument at call time (:meth:`placeholder`), whose
+    contents are ignored.  When the mapping layer declines residency (see the
+    compile's N-PLAN notes), the value streams through DRAM instead: the
+    same results."""
 
     def __init__(self, name: str, shape: Tuple[int, int], prec: int,
                  dtype: str = "int8", init: Optional[Any] = None):
@@ -472,8 +493,12 @@ class ResidentState:
 @dataclass(frozen=True)
 class CacheInfo:
     """Compile-cache counters plus one record per cached Executor,
-    ``{"name", "backend", "kernels", "verify"}`` (``verify`` is ``None``: the
-    static verifier belongs to the pimsab backend)."""
+    ``{"name", "backend", "kernels", "verify"}``.  For a pimsab Executor
+    ``verify`` summarizes the static verifier of its compile — ``ok``, the
+    error and warning counts and the ``N-PLAN`` notes on why residency or
+    double buffering was declined — and ``autotune`` holds the tuner's
+    provenance when the compile was tuned; ``verify`` is ``None`` for a
+    device Executor and for a compile with ``verify=False``."""
 
     hits: int
     misses: int
@@ -485,6 +510,8 @@ class CacheInfo:
 # seam, with _CudaGraph: the CPU tests drive the replay rules through a fake)
 _GRAPH_DEVICE = "cuda"
 GRAPH_REASON = "replays the CUDA graph captured at its first call on this device and leaf layout"
+PIMSAB_REASON = ("runs the fused WorkloadGraph on the host's functional simulator every call; "
+                 "a pimsab Executor never captures a CUDA graph")
 
 
 class _CudaGraph:
@@ -494,7 +521,7 @@ class _CudaGraph:
     @staticmethod
     def capturing() -> bool:
         """Whether the current stream is being captured into a graph."""
-        return torch.cuda.is_current_stream_capturing()
+        return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -594,17 +621,37 @@ class Executor:
     graph), and when the capture raised (then for good on that signature,
     with one warning).  ``replay`` (``"graph"`` or ``"eager"``) and
     ``replay_reason`` tell the route of the last call and why.
+
+    A pimsab Executor (``backend == "pimsab"``) takes neither route: every
+    call runs ``pimsab_backend.execute_traced_program`` on the host
+    (``replay`` is ``"pimsab"``), whatever the scope and wherever the leaves
+    lie, and a call while the current CUDA stream is captured raises
+    ``api.PimsabTracerError``.  It carries the aggregated ``report``
+    (a ``SimReport``), the ``verify_reports`` of its compile and the
+    ``states`` it seeds and harvests (:meth:`bind_states`).
     """
 
-    def __init__(self, program: Program, backend: str, run: Callable[[List[Any]], Any]):
+    def __init__(self, program: Program, backend: str, run: Callable[[List[Any]], Any],
+                 report: Optional[Any] = None, verify_reports: Tuple[Any, ...] = ()):
         self.program = program
         self.backend = backend
         self._eager = run
+        self.report = report  # aggregated SimReport (pimsab), else None
+        self.verify_reports = verify_reports  # VerifyReports (pimsab, verify=True)
+        self.states: Optional[Dict[int, ResidentState]] = None
         # (device, leaf strides) → its _GraphReplay, or why its capture failed
         self._graphs: Dict[Tuple, Any] = {}
         self._lock = threading.Lock()  # the static buffers serve one call at a time
         self.replay = "eager"
         self.replay_reason = "not called yet"
+
+    def bind_states(self, states: Dict[int, ResidentState]) -> None:
+        """Swap in the ResidentState handles the next calls seed and harvest.
+
+        The compiled artifact is keyed on state specs, not handles, so one
+        Executor serves many requests: rebind each request's caches before
+        its step (spec-compatible handles only; the run checks them)."""
+        self.states = dict(states)
 
     def __call__(self, *args, **kwargs):
         leaves, in_tree = tree_flatten((args, kwargs))
@@ -632,6 +679,8 @@ class Executor:
         return tree_unflatten(self.program.out_tree, self._run(leaves))
 
     def _run(self, leaves: List[Any]) -> List[Any]:
+        if self.backend == "pimsab":
+            return self._run_pimsab(leaves)
         device, reason = _graph_device(leaves, self.program.consts)
         if device is None:
             self.replay, self.replay_reason = "eager", reason
@@ -651,6 +700,18 @@ class Executor:
             else:
                 self.replay, self.replay_reason = "eager", replay
             return outputs
+
+    def _run_pimsab(self, leaves: List[Any]) -> List[Any]:
+        from repro_torch.kernels import api
+
+        if _CudaGraph.capturing():
+            raise api.PimsabTracerError(
+                f"Executor({self.program.name!r}) runs on the 'pimsab' backend, which copies "
+                "its operands to the host; a CUDA graph capture on the current stream cannot "
+                "hold that: call it outside the capture"
+            )
+        self.replay, self.replay_reason = "pimsab", PIMSAB_REASON
+        return self._eager(leaves)
 
     def _capture(self, device: torch.device, leaves: List[torch.Tensor]):
         """Capture the ops over static copies of ``leaves``: a
@@ -758,48 +819,99 @@ def _eager_run(program: Program) -> Callable[[List[Any]], List[Any]]:
 
 
 def _executor_meta(ex: Executor) -> Dict[str, Any]:
-    return {"name": ex.program.name, "backend": ex.backend,
-            "kernels": list(ex.program.kernels), "verify": None}
+    """The :class:`CacheInfo` entry for a freshly compiled Executor: identity
+    plus the static-verifier summary (error/warning counts and the N-PLAN
+    notes recording why residency/double-buffering was declined)."""
+    entry: Dict[str, Any] = {"name": ex.program.name, "backend": ex.backend,
+                             "kernels": list(ex.program.kernels), "verify": None}
+    if ex.verify_reports:
+        entry["verify"] = {
+            "ok": all(r.ok for r in ex.verify_reports),
+            "errors": sum(len(r.errors) for r in ex.verify_reports),
+            "warnings": sum(len(r.warnings) for r in ex.verify_reports),
+            "notes": sorted({(d.node, d.message) for r in ex.verify_reports for d in r.notes}),
+        }
+    if ex.report is not None and getattr(ex.report, "autotune", None):
+        entry["autotune"] = dict(ex.report.autotune)
+    return entry
 
 
 def compile_program(program: Program, backend: Optional[str] = None, *,
+                    verify: bool = True,
                     states: Optional[Dict[int, ResidentState]] = None,
+                    tune: Any = None,
                     chips: Optional[int] = None) -> Executor:
-    """Return the :class:`Executor` of ``program``, cached on its signature
-    and its constants' devices, so an identical second compile is a cache
-    hit.
+    """Return the :class:`Executor` of ``program`` for ``backend`` (default:
+    the active scope), cached so that an identical second compile is a
+    cache hit.
 
-    The Executor replays a CUDA graph of the program on the card and the ops
-    eagerly on the CPU (``backend`` ``None``; see :class:`Executor`), in any
-    backend scope.  The eager pimsab backend is ported, its Program lowering
-    is not: ``backend="pimsab"``, a compile inside ``api.use_backend("pimsab")``
-    and ``states`` (ROADMAP Queue 1 item 5c, ``compile_traced_program`` in
-    ``pimsab_backend.py``) and ``chips`` other than 1 (item 10,
-    ``multichip.py``) raise ``NotImplementedError``.
+    ``backend`` ``None`` outside any scope gives a device Executor, cached
+    on the signature and the constants' devices: it replays a CUDA graph of
+    the program on the card and the ops eagerly on the CPU (see
+    :class:`Executor`), in any backend scope; ``verify`` and ``tune`` do
+    nothing there, and ``states`` raises.
+
+    ``"pimsab"`` (explicit, or any compile inside ``api.use_backend(
+    "pimsab")``) lowers the program into one fused ``WorkloadGraph``
+    (:func:`repro_torch.kernels.pimsab_backend.compile_traced_program`),
+    cached as the JAX package caches it, on (signature, backend, functional
+    machine config, ``verify``, state specs, resolved ``TuneConfig``).
+    ``verify=True`` runs the static verifier over both fused streams and
+    raises ``VerifierError`` on any error; its summary lands on the cache
+    entry.  ``states`` maps a slot index to a :class:`ResidentState`, whose
+    cache stays CRAM-resident across calls; spec-identical handles share
+    one Executor, which :meth:`Executor.bind_states` (done here) rebinds.
+    ``tune`` opts the timing lowering into the mapping autotuner: ``True``,
+    a ``TuneConfig``, ``False`` (off) or ``None`` (inherit an enclosing
+    ``api.tuning`` scope).
+
+    ``chips`` other than 1 (multi-chip sharding, ROADMAP Queue 1 item 10,
+    ``multichip.py``) raises ``NotImplementedError``.
     """
     from repro_torch.kernels import api
 
-    if backend == "pimsab" or (backend is None and api.current_backend() == "pimsab"):
-        raise NotImplementedError(
-            "the pimsab Program lowering is not ported yet (ROADMAP Queue 1 item 5c: "
-            "compile_traced_program in repro_torch/kernels/pimsab_backend.py); "
-            "the eager pimsab backend is: call the kernels under api.use_backend('pimsab')"
-        )
-    if backend is not None:
+    backend = backend or api.current_backend()
+    if backend is not None and backend not in api.BACKENDS:
         raise ValueError(
-            f"unknown backend {backend!r}: the port has no backend scope; "
-            "an Executor runs each op on the device its operands lie on"
+            f"unknown backend {backend!r}: the port has no backend scope but "
+            f"{api.BACKENDS}; an Executor runs each op on the device its operands lie on"
         )
     if chips is not None and int(chips) != 1:
         raise NotImplementedError(
             "multi-chip sharding is not ported yet (ROADMAP Queue 1 item 10: "
             "repro_torch/kernels/multichip.py)"
         )
-    if states:
-        raise NotImplementedError(
-            "ResidentState binding belongs to the pimsab Program lowering, which is "
-            "not ported yet (ROADMAP Queue 1 item 5c: repro_torch/kernels/pimsab_backend.py)"
-        )
-    key = ("program", program.signature(), tuple(str(c.device) for c in program.consts))
-    return cached_executable(key, lambda: Executor(program, "eager", run=_eager_run(program)),
-                             meta=_executor_meta)
+    key: Tuple = ("program", program.signature(), backend)
+    if backend == "pimsab":
+        from repro_torch.core.compiler import autotune
+        from repro_torch.kernels import pimsab_backend as pb
+
+        tc = autotune.resolve(tune) if tune is not None else autotune.active()
+        state_specs = tuple(sorted((slot, st.spec()) for slot, st in (states or {}).items()))
+        key = key + (pb._functional_cfg(), bool(verify), state_specs, tc)
+
+        def build() -> Executor:
+            compiled = pb.compile_traced_program(
+                program, verify=verify,
+                state_slots={slot: st.spec() for slot, st in states.items()} if states else None,
+                tune=tc if tc is not None else False,
+            )
+            ex = Executor(program, backend, run=None,  # set below: the run reads ex.states per call
+                          report=compiled.report, verify_reports=compiled.verify_reports)
+            ex._eager = lambda leaves: pb.execute_traced_program(compiled, leaves, states=ex.states)
+            return ex
+    else:
+        if states:
+            raise NotImplementedError(
+                "ResidentState is a pimsab-backend concept; the device Executor "
+                "replays the whole chain functionally on the operands' device"
+            )
+        key = key + (tuple(str(c.device) for c in program.consts),)
+
+        def build() -> Executor:
+            return Executor(program, "eager", run=_eager_run(program))
+
+    ex = cached_executable(key, build, meta=_executor_meta)
+    if states is not None:
+        ex.bind_states(states)
+    return ex

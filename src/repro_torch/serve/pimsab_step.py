@@ -11,10 +11,12 @@ Programs are traced per bucket ``(config, capacity)`` and cached, so every
 request of a bucket compiles to one shared Executor (``api.compile`` hits).
 The caches enter as plain slots 0 and 1; the step returns only the context,
 so a caller carries each cache from step to step itself, e.g. with
-``api.kv_append`` at the same selector.  Binding the caches as
-:class:`~repro_torch.kernels.program.ResidentState` (``decode_executor`` and
-``run_decode_step`` in the JAX package) belongs to the pimsab backend and is
-not ported.
+``api.kv_append`` at the same selector.  On the pimsab backend the caches
+bind as :class:`~repro_torch.kernels.program.ResidentState` handles instead
+(``api.compile(decode_program(cfg, capacity), "pimsab", states={0: k, 1:
+v})`` with :func:`kv_states`), kept CRAM-resident across steps; the JAX
+package's wrappers over that (``decode_executor``, ``run_decode_step``) are
+not ported yet.
 
 Weights and caches are slots, not parameters: hand both packages the same
 arrays (``torch.from_numpy``); a ``ResidentState.value`` becomes a slot

@@ -1319,3 +1319,44 @@ def test_pimsab_call_during_a_cuda_graph_capture_is_refused(card):
     torch.cuda.synchronize()
     with tapi.use_backend("pimsab"):
         assert torch.equal(tapi.relu(x).cpu(), torch.clamp_min(x.cpu(), 0))
+
+
+# ---------------------------------------------------------------------------
+# the pimsab Program lowering with operands on the card
+# ---------------------------------------------------------------------------
+
+
+def _pimsab_chain(xs, ws, y):
+    return tapi.relu(tapi.ewise_add(tapi.matmul(xs, ws), y))
+
+
+def test_pimsab_executor_takes_card_leaves_and_returns_card_tensors(card):
+    """A pimsab Executor copies card leaves to the host, runs the fused
+    stream on the simulator and returns card tensors bit-equal to the card
+    Executor's graph replay of the same Program, with no launch counted."""
+    x, w, y = ints((16, 8), -100, 100, 0), ints((8, 16), -100, 100, 1), ints((16, 16), -100, 100, 2)
+    ops = (tapi.SlicedTensor.from_int(x.to(card), 8), tapi.SlicedTensor.from_int(w.to(card), 8), y.to(card))
+    prog = tapi.trace(_pimsab_chain, name="card_pimsab_chain").program_for(*ops)
+    pim, dev = tapi.compile(prog, "pimsab"), tapi.compile(prog)
+    tapi.reset_launch_counts()
+    with tapi.use_backend("pimsab"):
+        got = pim(*ops)
+        assert tapi.launch_counts() == {}
+        again = tapi.trace(_pimsab_chain, name="card_pimsab_chain")(*ops)
+    assert tapi.launch_counts() == {} and pim.replay == "pimsab"
+    assert got.device == card and got.dtype == torch.int32 and torch.equal(again, got)
+    dev(*ops)
+    want = dev(*ops)
+    torch.cuda.synchronize()
+    assert dev.replay == "graph" and torch.equal(got, want)
+
+
+def test_pimsab_executor_call_during_a_cuda_graph_capture_is_refused(card):
+    x = ints((8, 32), -500, 500, 8).to(card)
+    pim = tapi.compile(tapi.trace(tapi.relu, name="card_pimsab_relu").program_for(x), "pimsab")
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(card)
+    with pytest.raises(tapi.PimsabTracerError, match="capture"):
+        with torch.cuda.graph(graph, stream=stream):
+            pim(x)
+    torch.cuda.synchronize()
+    assert torch.equal(pim(x).cpu(), torch.clamp_min(x.cpu(), 0))

@@ -1,9 +1,9 @@
 """The port's eager pimsab backend on its paths, against the JAX package.
 
 * The scope's boundaries: ``use_backend`` takes only ``"pimsab"``; a Program
-  compiled inside the scope raises ``NotImplementedError`` (its lowering is
-  ROADMAP Queue 1 item 5c); an Executor compiled outside runs its ops on
-  their device inside the scope and never reaches the simulator.
+  compiled inside the scope gives a pimsab Executor (the Program lowering,
+  ``tests/test_torch_pimsab_program.py``); an Executor compiled outside runs
+  its ops on their device inside the scope and never reaches the simulator.
 * The ``large_shapes`` rows of ``BENCH_kernels.json``: the three workloads
   of ``benchmarks/kernels_bench.py``, restated on the port's DSL and modeled
   by the port's ``timing_report`` on the full PIMSAB machine under the
@@ -67,16 +67,30 @@ def test_use_backend_takes_only_pimsab():
     assert tapi.current_backend() is None
 
 
+def _jblock(x, y):
+    return japi.relu(japi.ewise_add(japi.relu(x), y))
+
+
 def test_compile_inside_the_scope_raises_naming_item_5c():
-    x, y = _t(_ints((4, 8), -50, 50, 1)), _t(_ints((4, 8), -50, 50, 2))
+    """A compile inside the scope (item 5c, now ported) gives the pimsab
+    Executor that ``backend="pimsab"`` gives, and ``api.trace(...)(...)``
+    runs through it; outputs and reports equal JAX's."""
+    xn, yn = _ints((4, 8), -50, 50, 1), _ints((4, 8), -50, 50, 2)
+    x, y = _t(xn), _t(yn)
     prog = tapi.trace(_block, name="scope_block").program_for(x, y)
+    with japi.use_backend("pimsab"):
+        want = japi.trace(_jblock, name="scope_block")(jnp.asarray(xn), jnp.asarray(yn))
+    jrep = japi.last_sim_report()
     with tapi.use_backend("pimsab"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5c"):
-            tapi.compile(prog)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5c"):
-            tapi.trace(_block, name="scope_block")(x, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5c"):
-        tapi.compile(prog, backend="pimsab")
+        ex = tapi.compile(prog)
+        got = ex(x, y)
+        assert tapi.last_sim_report().to_json() == jrep.to_json()
+        traced = tapi.trace(_block, name="scope_block")(x, y)
+        assert tapi.last_sim_report().to_json() == jrep.to_json()
+    assert ex.backend == "pimsab" and ex.replay == "pimsab"
+    assert tapi.compile(prog, backend="pimsab") is ex
+    assert np.array_equal(got.numpy(), np.asarray(want)) and torch.equal(traced, got)
+    assert ex.report.to_json() == jrep.to_json()
 
 
 def test_an_executor_called_inside_the_scope_runs_on_its_device():

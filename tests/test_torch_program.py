@@ -7,8 +7,9 @@ references, static kwargs, output aval), slot avals, output references and
 captured-constant fingerprints — for the README block
 ``relu(ewise_add(matmul(xs, ws), y))``, the ``TINY`` ResNet forward and the
 ``quant_linear_relu`` chain.  The rest covers the compile cache, the
-placeholder's refusals, the Executor's argument checks, the parts not ported
-yet (pimsab, resident state, multi-chip), shape inference on ``meta``
+placeholder's refusals, the Executor's argument checks, the part not ported
+yet (multi-chip) beside the pimsab and resident-state compiles that are
+(``tests/test_torch_pimsab_program.py`` holds them in full), shape inference on ``meta``
 tensors for every registered kernel, and eager equality of traced programs
 on CPU tensors.
 """
@@ -393,15 +394,50 @@ def test_same_kernel_multiset_different_edges_do_not_collide():
     assert torch.equal(tapi.compile(p2)(x, y), torch.clamp_min(x, 0) * 2)
 
 
+def _state_step(api):
+    def step(kc, new, onehot, q):
+        return api.attention_qk(q, api.kv_append(kc, new, onehot))
+    return step
+
+
 @pytest.mark.parametrize("how", ["pimsab", "states", "chips=2"])
 def test_parts_not_ported_yet_raise_not_implemented(how):
-    _, tops = _block_operands(seed=70)
-    prog = tapi.trace(_tblock, name="unported").program_for(*tops)
-    kwargs = {"pimsab": dict(backend="pimsab"),
-              "states": dict(states={2: tapi.ResidentState("kv", (8, 8), 8)}),
-              "chips=2": dict(chips=2)}[how]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item (5|10)"):
-        tapi.compile(prog, **kwargs)
+    """Multi-chip sharding (ROADMAP Queue 1 item 10) still raises; the pimsab
+    Program lowering and ResidentState binding are ported and equal JAX's,
+    and states on the device path raise JAX's refusal."""
+    jops, tops = _block_operands(seed=70)
+    if how == "chips=2":
+        prog = tapi.trace(_tblock, name="unported").program_for(*tops)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+            tapi.compile(prog, chips=2)
+        return
+    if how == "pimsab":
+        prog = tapi.trace(_tblock, name="unported").program_for(*tops)
+        jprog = japi.trace(_jblock, name="unported").program_for(*jops)
+        ex, jex = tapi.compile(prog, "pimsab"), japi.compile(jprog, "pimsab")
+        got, want, args = ex(*tops), jex(*jops), tops
+    else:
+        rng = np.random.default_rng(70)
+        vals = [rng.integers(-8, 8, s).astype(np.int8) for s in ((8, 8), (8,), (1, 8))]
+        onehot = np.zeros(8, np.int8)
+        onehot[3] = 1
+        init = ints((8, 8), -50, 50, 71)
+        st, jst = tapi.ResidentState("kv", (8, 8), 8, init=init), japi.ResidentState("kv", (8, 8), 8, init=init)
+        args = [torch.from_numpy(a) for a in (vals[0], vals[1], onehot, vals[2])]
+        prog = tapi.trace(_state_step(tapi), name="unported_state").program_for(*args)
+        jprog = japi.trace(_state_step(japi), name="unported_state").program_for(vals[0], vals[1], onehot, vals[2])
+        with pytest.raises(NotImplementedError, match="ResidentState is a pimsab-backend concept"):
+            tapi.compile(prog, states={0: st})
+        ex, jex = tapi.compile(prog, "pimsab", states={0: st}), japi.compile(jprog, "pimsab", states={0: jst})
+        got, want = ex(*args), jex(vals[0], vals[1], onehot, vals[2])
+        np.testing.assert_array_equal(st.value.numpy(), jst.value)
+        assert st.value[3].tolist() == vals[1].tolist()
+    assert ex.backend == "pimsab" and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert ex.report.to_json() == jex.report.to_json()
+    entry = [e for e in tapi.compile_cache_info().entries if e["name"] == prog.name][-1]
+    jentry = [e for e in japi.compile_cache_info().entries if e["name"] == jprog.name][-1]
+    assert entry["verify"] == jentry["verify"]
 
 
 def test_compile_accepts_one_chip_and_refuses_unknown_backends():
