@@ -83,6 +83,24 @@ Phases, any failure of which exits non-zero:
       to the card Executor's (K6, K7, K8, K10) and the handles equal to the
       card's caches carried by ``api.kv_append``, its ``state:`` edges
       present; a pimsab Executor called during a CUDA graph capture refused.
+   j. the LLM serving path, ``repro_torch.launch.serve``'s main path at
+      Qwen2-0.5B's full width and depth (24 layers, random bfloat16 weights
+      from seed 0 served as int8): the launcher's 4 requests of 8 tokens, 16
+      new tokens each, at max_len 128 (a second engine of the same
+      signature a compile-cache hit); one 512-token prompt at max_len 1024
+      (the chunked prefill); the 4 requests again with ``quant_kv``.
+      Launches exact: the bit-sliced GEMM 7 a layer (168) in each prefill
+      and decode step, the row dot once a layer for each group of batch
+      rows ``attention.int8_scores_rows_per_call`` gives (at batch 4 one
+      group: 24) in each ``quant_kv`` decode step, nothing else; logits
+      finite; each K4 and K6 call shape of the runs bit-equal to its plain
+      version (K4 on the tensor cores); then at full width and 2 layers,
+      the card against CPU copies of the same weights (quantized weights
+      bit-equal; bfloat16 with and without ``quant_kv`` and float32 within
+      2**-7 of the largest CPU logit, greedy tokens equal where the top-2
+      margin exceeds twice that, the positions so covered counted),
+      with the tied LM head's gap under PyTorch's bfloat16 reduced-precision
+      reductions and without them.
 
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
@@ -132,7 +150,9 @@ Phases, any failure of which exits non-zero:
    pairs and stacks off 16 bytes; each call must take the path its case
    names), and K1 float32 at ragged shapes in both B layouts, on split and
    unsplit plans (normals within 1e-4, integer values exact, the same bits
-   in two calls); and the Executor's graph replay on the decode step at
+   in two calls), the bit-sliced GEMM at the LLM path's linears (phase 3j's
+   (K, N) pairs at M = 1, 4, 32 and 512, on the tensor cores); and the
+   Executor's graph replay on the decode step at
    1024 rows: leaves that are views off 16 bytes (generic kernels eagerly,
    vector kernels in the graph, bit-equal), an output kept unchanged across
    the next call, a call inside an outer CUDA graph (the eager route) and two
@@ -165,6 +185,10 @@ Phases, any failure of which exits non-zero:
    the pool and elementwise kernels beside their library calls in paired
    rounds (each read once a round, in alternating order; medians), warm and
    with cold inputs (rotated over copies worth more than twice the L2);
+   phase 3j's prefills (4 × 8, 1 × 512), decode steps (batch 4 with and
+   without ``quant_kv``, batch 1 on 1024 rows) and a whole engine run, host
+   clock from an idle card; each K4 and K6 shape of 3j beside its bound,
+   its plain version (CPU) and ``torch._int_mm`` where it takes the shape;
 5. profile (torch.profiler) three eager forwards and one call of each
    Table III bit-sliced path: device time by kernel name and the device's
    idle share, and the eager forward's PyTorch copies (``aten::copy_``) and
@@ -172,7 +196,9 @@ Phases, any failure of which exits non-zero:
    own (``chip_smoke.py --replay-profiles``), the graph replays of the held
    Executors at the same shapes: three of RESNET18, five decode steps,
    three decode layers, one ``quant_linear_relu`` call and three calls of
-   each phase 3g Executor.
+   each phase 3g Executor; and three eager LLM decode steps of 3j at batch
+   4, with and without ``quant_kv``: K4's and K6's device time and share,
+   and the device's idle share.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Per-call details go
@@ -295,6 +321,35 @@ PIMSAB_TUNE = dict(budget=96, beam=4, seed=0)
 E2E_TUNE = dict(budget=256, beam=4, seed=0)
 PIMSAB_STATE_CAPACITY = 4
 PIMSAB_STATE_STEPS = 3
+
+# Phase 3j, the LLM serving path: repro_torch.launch.serve's main path at
+# Qwen2-0.5B's full width and depth (src/repro/configs/qwen2_0_5b.py: 24
+# layers, d_model 896, 14 query and 2 KV heads of 64, d_ff 4864, the tied
+# 151936-token vocabulary padded to 153600), random bfloat16 weights from
+# seed 0 served as int8: the launcher's 4 requests of 8 tokens, 16 new tokens
+# each, at max_len 128; one 512-token prompt at max_len 1024 (longer than
+# the launcher's flash_threshold of 256: the chunked prefill); the 4
+# requests again with quant_kv.  Every quantized linear launches the
+# bit-sliced GEMM (wq, wk, wv, wo, w_gate, w_up, w_down: the (K, N) pairs of
+# LLM_KN); under quant_kv the int8 scores launch the row dot once a layer
+# for each group of batch rows (attention.int8_scores_rows_per_call).
+LLM_ARCH = "qwen2-0.5b"
+LLM_REQUESTS = 4
+LLM_NEW_TOKENS = 16
+LLM_LONG = (512, 1024)  # (prompt tokens, max_len)
+LLM_K4_PER_LAYER = 7
+LLM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+# card against CPU copies: full width at this depth, a prefill and this many
+# decode steps; tolerances relative to the largest CPU logit, set from this
+# comparison's own readings (both sides run the port's code and the kernels
+# are bit-exact; the largest gaps read were 0.0078 in bfloat16, one ulp of a
+# logit below 2, and 0.0114 in float32, an int8 activation one rounding step
+# apart, against a largest logit of about 9: 2**-7 of it is 0.07)
+LLM_CPU_LAYERS = 2
+LLM_CPU_STEPS = 3
+LLM_TOL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -7}
+LLM_TIMING_SAMPLES = 20
+LLM_PROFILE_STEPS = 3
 
 # K1's float32 instance beside torch.matmul (TF32 off) at RESNET18's stage-3
 # GEMM shape in float32: (M, K, N).  No path runs it (the forward is int32).
@@ -2513,6 +2568,434 @@ def run_pimsab_program_phase(torch, np, api, pb, resnet, pimsab_step, smoke, dev
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3j: the LLM serving path at Qwen2-0.5B's full width and depth
+# ---------------------------------------------------------------------------
+
+
+class LLMKernelRecorder:
+    """While active, records each bit-sliced GEMM and q·Kᵀ call of the LLM
+    path by (kernel, operand shapes): the count, and the first call's
+    operands and output (clones) with the path the bit-sliced GEMM took."""
+
+    def __init__(self, torch, bm, att):
+        self.torch, self.bm, self.att = torch, bm, att
+        self.calls = {}
+
+    def _note(self, key, args, out, path=None):
+        if key in self.calls:
+            self.calls[key]["count"] += 1
+            return
+        self.calls[key] = {"count": 1, "path": path, "out": out.clone(),
+                           "args": tuple(a.clone() if self.torch.is_tensor(a) else a for a in args)}
+
+    def __enter__(self):
+        bm, att = self.bm, self.att
+        self.orig = orig_b, orig_q = bm._bitslice_gemm, att._qk
+
+        def rec_b(x, w, slice_bits, pairs):
+            out = orig_b(x, w, slice_bits, pairs)
+            self._note(("bitslice_matmul", tuple(x.shape), tuple(w.shape)), (x, w, slice_bits, pairs), out,
+                       bm.launched_path())
+            return out
+
+        def rec_q(q, k):
+            out = orig_q(q, k)
+            self._note(("attention_qk", tuple(q.shape), tuple(k.shape)), (q, k), out)
+            return out
+
+        bm._bitslice_gemm, att._qk = rec_b, rec_q
+        return self
+
+    def __exit__(self, *exc):
+        self.bm._bitslice_gemm, self.att._qk = self.orig
+
+
+def llm_bitslice_checks(torch, bm, smoke, dev, seed):
+    """Phase 2 for the LLM path's quantized linears: the bit-sliced GEMM at
+    one int8 slice pair at every (K, N) of LLM_KN and M of 1 (a decode
+    token), LLM_REQUESTS (a decode step), 4 × 8 and 512 (prefills), the
+    weight a group's view of a (2, K, N) stack as the path hands it; each
+    bit-equal to its plain version and on the tensor cores."""
+    g = torch.Generator().manual_seed(seed)
+    for m in (1, LLM_REQUESTS, LLM_REQUESTS * 8, LLM_LONG[0]):
+        for k, n in LLM_KN:
+            x = torch.randint(-127, 128, (1, m, k), generator=g, dtype=torch.int8)
+            w = torch.randint(-127, 128, (2, k, n), generator=g, dtype=torch.int8)
+            got = bm._bitslice_gemm(x.to(dev), w.to(dev)[1:], 8, ((0, 0),))
+            torch.cuda.synchronize()
+            smoke.check("bitslice_matmul", f"LLM linear M={m} K={k} N={n}", got,
+                        bm._bitslice_plain(x, w[1:], 8, ((0, 0),)), exact=True)
+            if bm.launched_path() != "mma":
+                smoke.failures.append(f"bitslice_matmul LLM linear M={m} K={k} N={n}: the {bm.launched_path()} path")
+
+
+def llm_k6_calls(cfg, batch, max_len):
+    """Row-dot calls of one layer's int8 scores at ``batch`` rows of a
+    ``max_len``-row cache: one for each group of batch rows."""
+    from repro_torch.models import attention as tmattn
+
+    hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    return -(-batch // tmattn.int8_scores_rows_per_call(batch, hkv, g, max_len))
+
+
+def llm_expected(cfg, decode_steps, quant_kv, batch=LLM_REQUESTS, max_len=None):
+    """Launches of one engine run: 7 bit-sliced GEMMs a layer in the prefill
+    and in each decode step, and the row-dot calls of :func:`llm_k6_calls`
+    a layer a decode step under quant_kv (the tied LM head is a float
+    product)."""
+    per_step = LLM_K4_PER_LAYER * cfg.n_layers
+    want = {"bitslice_matmul": per_step * (1 + decode_steps)}
+    if quant_kv:
+        from repro_torch.launch import serve as serve_cli
+
+        want["attention_qk"] = cfg.n_layers * decode_steps * llm_k6_calls(cfg, batch, max_len or serve_cli.MAX_LEN)
+    return want
+
+
+def llm_step_expected(cfg, quant_kv, batch=LLM_REQUESTS, max_len=None):
+    """Launches of one decode step (see :func:`llm_expected`)."""
+    want = llm_expected(cfg, 1, quant_kv, batch, max_len)
+    want["bitslice_matmul"] = LLM_K4_PER_LAYER * cfg.n_layers
+    return want
+
+
+def llm_decode_profiles(torch, dev):
+    """For ``--replay-profiles``: LLM_PROFILE_STEPS eager decode steps of the
+    launcher's engine at batch 4 (phase 3j's weights), with and without
+    quant_kv, under torch.profiler: device time by kernel, the bit-sliced
+    GEMM's and the row dot's share of the busy time, the idle share."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer
+    from repro_torch.serve import engine as serve_engine
+
+    cfg = get_config(LLM_ARCH)
+    params = transformer.init_params(cfg, SEED, device=dev)
+    out = {}
+    for quant_kv in (False, True):
+        flags = dataclasses.replace(serve_cli.serve_flags(), quant_kv=quant_kv)
+        e = serve_engine.ServeEngine(cfg, params, flags, max_len=serve_cli.MAX_LEN)
+        batch = e.prompt_batch(serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS))
+        with torch.no_grad():
+            cache, logits = e._prefill(e.params, batch)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            wall, names, _ = device_profile(torch, lambda: e._decode(e.params, cache, tok), LLM_PROFILE_STEPS)
+        n = LLM_PROFILE_STEPS
+        busy = sum(ms for _, ms in names.values())
+
+        def part(*keys):
+            hits = [(c, ms) for nm, (c, ms) in names.items() if any(k in nm for k in keys)]
+            return sum(c for c, _ in hits) / n, sum(ms for _, ms in hits) / n
+
+        k4_calls, k4_ms = part("bitslice")
+        k6_calls, k6_ms = part("rowdot", "qk_generic")
+        out[f"decode step b{LLM_REQUESTS} quant_kv={quant_kv}"] = {
+            "steps": n, "wall_ms_per_step": wall / n, "device_busy_ms_per_step": busy / n if names else None,
+            "device_kernels_per_step": sum(c for c, _ in names.values()) / n,
+            "idle_share": 1 - busy / wall if names else None,
+            "k4_launches_per_step": k4_calls, "k4_ms_per_step": k4_ms, "k4_share_of_busy": k4_ms * n / busy if busy else None,
+            "k6_launches_per_step": k6_calls, "k6_ms_per_step": k6_ms, "k6_share_of_busy": k6_ms * n / busy if busy else None,
+            "kernels": sorted(([nm, c / n, ms / n] for nm, (c, ms) in names.items()), key=lambda q: -q[2])[:12],
+        }
+    return out
+
+
+def llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags, dtype):
+    """(c): the port at full width and LLM_CPU_LAYERS layers on the card
+    against the same port on CPU copies of the same weights: the quantized
+    weights bit-equal, the prefill and LLM_CPU_STEPS decode steps' logits
+    within LLM_TOL of the CPU's largest logit, greedy tokens equal where the
+    CPU's top-2 margin exceeds twice that.  Each decode step is fed the
+    CPU's greedy tokens.  Returns the errors."""
+    import dataclasses
+
+    c2 = dataclasses.replace(cfg, n_layers=LLM_CPU_LAYERS, dtype=dtype)
+    raw = transformer.init_params(c2, SEED, device=dev)
+    p_card = common.maybe_quantize_tree(raw, c2) if flags.quant_serve else raw
+    p_cpu = common.maybe_quantize_tree(transformer._tree_map(lambda a: a.cpu(), raw), c2) \
+        if flags.quant_serve else transformer._tree_map(lambda a: a.cpu(), raw)
+    label = f"phase 3j card vs CPU {dtype} {LLM_CPU_LAYERS} layers quant_kv={flags.quant_kv}"
+    mism = [n for n, (a, b) in enumerate(zip(transformer._tree_leaves(p_card), transformer._tree_leaves(p_cpu)))
+            if not torch.equal(a.cpu(), b)]
+    if mism:
+        smoke.failures.append(f"{label}: quantized weights differ from the CPU's at leaves {mism}")
+    toks = torch.randint(2, cfg.vocab_size, (LLM_REQUESTS, 8), generator=torch.Generator().manual_seed(SEED + 2),
+                         dtype=torch.int32)
+    rel = LLM_TOL[dtype]
+    out = {"errors": [], "atol": [], "greedy_covered": 0, "positions": 0}
+
+    def compare(step, got, want):
+        got, want = got.float().cpu(), want.float()
+        atol = rel * float(want.abs().max())
+        err = float((got - want).abs().max())
+        top2 = torch.topk(want, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * atol
+        same = torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure])
+        out["errors"].append(err)
+        out["atol"].append(atol)
+        out["greedy_covered"] += int(sure.sum())
+        out["positions"] += sure.numel()
+        finite = bool(torch.isfinite(got).all())
+        smoke.cases.append({"kernel": "llm", "case": f"{label} {step}", "ok": err <= atol and same and finite,
+                            "max_abs_err": err, "exact": False, "shape": list(got.shape), "dtype": dtype})
+        if not (err <= atol and same and finite):
+            smoke.failures.append(f"{label} {step}: max |card - cpu| {err} > {atol}, or greedy tokens differ "
+                                  f"where the margin exceeds {2 * atol}, or non-finite")
+
+    with torch.no_grad():
+        cache_d, got = transformer.prefill(p_card, c2, {"tokens": toks.to(dev)}, flags, max_len=16)
+        cache_c, want = transformer.prefill(p_cpu, c2, {"tokens": toks}, flags, max_len=16)
+        compare("prefill", got, want)
+        if dtype == "bfloat16" and not flags.quant_kv:
+            # the tied LM head (a bfloat16 cuBLAS product) with PyTorch's default
+            # reduced-precision reductions against them off, for this call only
+            matmul = torch.backends.cuda.matmul
+            saved = matmul.allow_bf16_reduced_precision_reduction
+            try:
+                matmul.allow_bf16_reduced_precision_reduction = not saved
+                _, other = transformer.prefill(p_card, c2, {"tokens": toks.to(dev)}, flags, max_len=16)
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = saved
+            out["bf16_reduced_precision_reduction"] = {
+                str(saved): out["errors"][0], str(not saved): float((other.float().cpu() - want.float()).abs().max())}
+        for step in range(LLM_CPU_STEPS):
+            nt = torch.argmax(want, -1).to(torch.int32)[:, None]
+            cache_d, got = transformer.decode_step(p_card, c2, cache_d, nt.to(dev), flags)
+            cache_c, want = transformer.decode_step(p_cpu, c2, cache_c, nt, flags)
+            compare(f"decode step {step}", got, want)
+    torch.cuda.synchronize()
+    print(f"{label}: max |card - cpu| {[f'{e:.3g}' for e in out['errors']]} against "
+          f"{[f'{a:.3g}' for a in out['atol']]} ({rel:g} of the CPU's largest logit); the greedy check "
+          f"covered {out['greedy_covered']} of {out['positions']} positions (top-2 margin above twice the limit)"
+          + (f"; bf16 reduced-precision reductions {out['bf16_reduced_precision_reduction']}"
+             if "bf16_reduced_precision_reduction" in out else ""))
+    return out
+
+
+def run_llm_phase(torch, api, bm, att, smoke, dev, gpu):
+    """Phase 3j: ``repro_torch.launch.serve``'s main path at Qwen2-0.5B's
+    full width and depth on the card (module docstring, 3j)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import attention as tmattn
+    from repro_torch.models import common, transformer
+    from repro_torch.serve import engine as serve_engine
+
+    cfg = get_config(LLM_ARCH)
+    flags = serve_cli.serve_flags()
+    flags_kv = dataclasses.replace(flags, quant_kv=True)
+    vp = cfg.padded_vocab()
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    out = {"gpu": gpu, "arch": LLM_ARCH, "init_s": time.perf_counter() - t,
+           "param_bytes": transformer.param_bytes(params), "runs": {}}
+    rec = LLMKernelRecorder(torch, bm, att)
+    path_counts = {}
+
+    def drive(label, eng, reqs, quant_kv):
+        api.reset_launch_counts()
+        with rec:
+            t = time.perf_counter()
+            done = eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = {k: v for k, v in api.launch_counts().items() if v}
+        steps = max(len(r.generated) for r in done)
+        want = llm_expected(cfg, steps - 1, quant_kv)
+        if counts != want:
+            smoke.failures.append(f"phase 3j {label}: launches {counts} != expected {want}")
+        bad = [r.rid for r in done if len(r.generated) != r.max_new_tokens
+               or not all(0 <= tok < vp for tok in r.generated)]
+        if bad:
+            smoke.failures.append(f"phase 3j {label}: requests {bad} got no full stream of tokens in the vocabulary")
+        ntok = sum(len(r.generated) for r in done)
+        for k, v in counts.items():
+            path_counts[k] = path_counts.get(k, 0) + v
+        out["runs"][label] = {"launches": counts, "expected": want, "tokens": ntok, "first_run_s": wall,
+                              "streams": [r.generated for r in done]}
+        print(f"phase 3j {label}: {len(done)} requests, {ntok} tokens, launches {counts} (expected {want}); "
+              f"first run {wall:.3f} s; req 0 {done[0].generated[:8]}")
+        return done
+
+    info0 = api.compile_cache_info()
+    eng = serve_engine.ServeEngine(cfg, params, flags, max_len=serve_cli.MAX_LEN)
+    drive("launcher 4x8", eng, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS), False)
+    again = serve_engine.ServeEngine(cfg, params, flags, max_len=serve_cli.MAX_LEN)
+    info1 = api.compile_cache_info()
+    hit = ((info1.hits, info1.misses) == (info0.hits + 2, info0.misses + 2)
+           and again._decode is eng._decode and again._prefill is eng._prefill)
+    if not hit:
+        smoke.failures.append(f"phase 3j: the second engine did not hit the compile cache ({info0} -> {info1})")
+    out["second_engine_cache_hit"] = hit
+    prompt, max_len = LLM_LONG
+    eng_long = serve_engine.ServeEngine(cfg, params, flags, max_len=max_len)
+    drive(f"1x{prompt} chunked prefill", eng_long,
+          serve_cli.make_requests(cfg, 1, LLM_NEW_TOKENS, seed=SEED + 1, prompt_len=prompt), False)
+    eng_kv = serve_engine.ServeEngine(cfg, params, flags_kv, max_len=serve_cli.MAX_LEN)
+    drive("launcher 4x8 quant_kv", eng_kv, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS), True)
+    out["path_launches"] = path_counts
+
+    # one prefill and one decode step, each with the counters reset around it
+    per_step = {}
+    steps = {}
+    for label, e, reqs in (("4x8", eng, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS)),
+                           (f"1x{prompt}", eng_long, serve_cli.make_requests(cfg, 1, 1, SEED + 1, prompt)),
+                           ("4x8 quant_kv", eng_kv, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS))):
+        batch = e.prompt_batch(reqs)
+        with torch.no_grad():
+            api.reset_launch_counts()
+            cache, logits = e._prefill(e.params, batch)
+            torch.cuda.synchronize()
+            pre = {k: v for k, v in api.launch_counts().items() if v}
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            api.reset_launch_counts()
+            cache2, logits2 = e._decode(e.params, cache, tok)
+            torch.cuda.synchronize()
+            dec = {k: v for k, v in api.launch_counts().items() if v}
+        for what, got, want in (("prefill", pre, llm_expected(cfg, 0, False)),
+                                ("decode step", dec, llm_step_expected(cfg, e.flags.quant_kv))):
+            if got != want:
+                smoke.failures.append(f"phase 3j {label} {what}: launches {got} != {want}")
+        for lg in (logits, logits2):
+            if lg.shape != (batch["tokens"].shape[0], vp) or lg.dtype != torch.bfloat16 \
+                    or not bool(torch.isfinite(lg).all()):
+                smoke.failures.append(f"phase 3j {label}: logits {tuple(lg.shape)} {lg.dtype}, finite "
+                                      f"{bool(torch.isfinite(lg).all())}")
+        per_step[label] = {"prefill": pre, "decode_step": dec}
+        steps[label] = (e, batch, cache, tok)
+    out["per_step_launches"] = per_step
+    print(f"phase 3j launches a step: {per_step}; second engine a compile-cache hit: {hit}")
+
+    # (a) K4 and K6 against their plain versions at every shape the path gave them
+    k4_keys = {("bitslice_matmul", (1, m, k), (1, k, n)) for m in (LLM_REQUESTS * 8, LLM_REQUESTS, prompt, 1)
+               for k, n in LLM_KN}
+    hd, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    rows = tmattn.int8_scores_rows_per_call(LLM_REQUESTS, hkv, g, serve_cli.MAX_LEN)
+    k6_keys = {("attention_qk", (r * hkv * g, hd), (r * serve_cli.MAX_LEN * hkv, hd))
+               for r in {min(rows, LLM_REQUESTS - lo) for lo in range(0, LLM_REQUESTS, rows)}}
+    if set(rec.calls) != k4_keys | k6_keys:
+        smoke.failures.append(f"phase 3j: kernel shapes {sorted(rec.calls)} != expected {sorted(k4_keys | k6_keys)}")
+    for key, c in sorted(rec.calls.items()):
+        args = [a.cpu() if torch.is_tensor(a) else a for a in c["args"]]
+        t = time.perf_counter()
+        plain = bm._bitslice_plain(*args) if key[0] == "bitslice_matmul" else att._qk_plain(*args)
+        c["plain_ms"] = (time.perf_counter() - t) * 1e3
+        c["max_abs_err"] = smoke.check(key[0], f"phase 3j LLM {key[1]}x{key[2]}", c["out"], plain, exact=True)
+        if key[0] == "bitslice_matmul" and c["path"] != "mma":
+            smoke.failures.append(f"phase 3j: the bit-sliced GEMM at {key[1:]} took the {c['path']} path")
+
+    # (c) card against CPU copies, full width, LLM_CPU_LAYERS layers
+    out["card_vs_cpu"] = {
+        "bfloat16": llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags, "bfloat16"),
+        "bfloat16_quant_kv": llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags_kv, "bfloat16"),
+        "float32": llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags, "float32"),
+    }
+    out["recorder"] = rec
+    out["steps"] = steps
+    return out
+
+
+def llm_timing(torch, bm, att, smoke, llm, floor_ms):
+    """Phase 4 for 3j: host-clock latencies from an idle card (prefill 4 × 8
+    and 1 × 512, the decode step at batch 4 with and without quant_kv and at
+    batch 1 on the 1024-row cache, medians), a second engine run end to
+    end; each K4 and K6 shape of the path by CUDA-graph replay and eagerly,
+    beside its bound, its plain version (CPU) and torch._int_mm where it
+    takes the shape.  Returns (summary, kernel rows)."""
+    from repro_torch.launch import serve as serve_cli
+
+    gpu = llm["gpu"]
+    lat = {}
+    with torch.no_grad():
+        for label, (e, batch, cache, tok) in llm["steps"].items():
+            n = LLM_TIMING_SAMPLES if batch["tokens"].shape[1] < 64 else max(1, LLM_TIMING_SAMPLES // 4)
+            pre = sync_samples(torch, lambda: e._prefill(e.params, batch), n)
+            dec = sync_samples(torch, lambda: e._decode(e.params, cache, tok), LLM_TIMING_SAMPLES)
+            b = batch["tokens"].shape[0]
+            lat[label] = {"prefill_ms_median": median(pre), "decode_step_ms_median": median(dec),
+                          "decode_tokens_per_s": b / median(dec) * 1e3, "prefill_ms": pre, "decode_step_ms": dec}
+            print(f"phase 4 LLM {LLM_ARCH} {label} ({gpu}): prefill {median(pre):.3f} ms, decode step "
+                  f"{median(dec):.3f} ms ({b / median(dec) * 1e3:.1f} tokens/s at batch {b}), eager, host clock "
+                  f"from an idle card, medians of {n} and {LLM_TIMING_SAMPLES}")
+        e = llm["steps"]["4x8"][0]
+        reqs = serve_cli.make_requests(e.cfg, LLM_REQUESTS, LLM_NEW_TOKENS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = e.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    ntok = sum(len(r.generated) for r in done)
+    lat["engine_run"] = {"tokens": ntok, "s": wall, "tokens_per_s": ntok / wall}
+    print(f"phase 4 LLM {LLM_ARCH} engine.run 4 requests x {LLM_NEW_TOKENS} tokens ({gpu}): {wall * 1e3:.1f} ms, "
+          f"{ntok / wall:.1f} tokens/s (second run)")
+
+    cfg = llm["steps"]["4x8"][0].cfg
+    hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    rows = []
+    for key, c in sorted(llm["recorder"].calls.items()):
+        kernel, sa, sb = key
+        call_work = None
+        if kernel == "bitslice_matmul":
+            x, w, slice_bits, pairs = c["args"]
+            run = lambda x=x, w=w, s=slice_bits, p=pairs: bm._bitslice_gemm(x, w, s, p)  # noqa: E731
+            nbytes, ops = bitslice_work(x, w, slice_bits, pairs)
+            m, k, n = x.shape[1], x.shape[2], w.shape[2]
+            name = f"bitslice_matmul[llm M={m} K={k} N={n}]"
+            lib = (lambda x0=x[0], w0=w[0]: torch._int_mm(x0, w0)) if m > 16 else None
+            lib_want = c["out"]
+            source, replaces = BITSLICE_SOURCE, BITSLICE_REPLACES
+        else:
+            q, kk = c["args"]
+            run = lambda q=q, kk=kk: att._qk(q, kk)  # noqa: E731
+            # the bound is the contraction the path needs: the call's R batch
+            # rows of (Hkv·G, d) queries each against its own (T, d) KV head
+            # (the call computes R·Hkv times those products, kept as call_work)
+            d = q.shape[1]
+            r = q.shape[0] // (hkv * g)
+            t = kk.shape[0] // (r * hkv)
+            nbytes = r * hkv * g * d + r * t * hkv * d + 4 * r * hkv * g * t
+            ops = 2 * r * hkv * g * t * d
+            call_work = {"bytes": q.numel() + kk.numel() + 4 * c["out"].numel(),
+                         "ops": 2 * q.shape[0] * kk.shape[0] * d, "batch_rows": r, "cache_rows": t}
+            name = f"attention_qk[llm quant_kv M={q.shape[0]} T={kk.shape[0]} D={d}]"
+            qt = q.t().contiguous()
+            lib = lambda kk=kk, qt=qt: torch._int_mm(kk, qt)  # noqa: E731
+            lib_want = c["out"].t()
+            source, replaces = ATTN_SOURCE, ATTN_REPLACES["attention_qk"]
+        k_timer = graph_timer(torch, run)
+        eager = cuda_ms(torch, run)
+        lib_ms = rounds = None
+        if lib is not None:
+            smoke.check(kernel, f"phase 3j {name} torch._int_mm library call", lib(), lib_want.cpu(), exact=True)
+            sums, _ = paired_rounds([(k_timer, graph_timer(torch, lib))], PAIRED_ROUNDS)
+            k_ms, lib_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
+            rounds = dict(sums, kernel_no_slower=sum(a <= b for a, b in zip(sums["kernel"], sums["library"])))
+        else:
+            k_ms = k_timer()
+        b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": c["count"],
+            "max_abs_err": c["max_abs_err"], "ms": k_ms, "plain_ms": c["plain_ms"],
+            "bound_ms": max(b_bytes, b_ops), "bound_by": "operations" if b_ops > b_bytes else "bytes",
+            "library_ms": lib_ms, "eager_ms": eager, "plain_device": "cpu", "path": "llm_serving",
+            "library": "torch._int_mm" if lib is not None else None,
+            "library_note": None if lib is not None else "torch._int_mm needs more than 16 rows in its first operand",
+            "kernel_path": c["path"], "rounds": rounds, "bytes": nbytes, "ops": ops, "call_work": call_work,
+            "launches_by_path": {"llm_serving": c["count"]}, "floors": k_ms / floor_ms,
+        })
+        print(f"kernel {name}: {k_ms * 1e3:.3f} us graph replay ({eager * 1e3:.3f} us eager; bound "
+              f"{max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
+              f"{max(b_bytes, b_ops) / k_ms:.1%}, {k_ms / floor_ms:.2f} launch floors), plain {c['plain_ms']:.2f} ms "
+              f"on the CPU, torch._int_mm {lib_ms}; {c['count']} launches on the LLM path ({gpu})")
+    return lat, rows
+
+
 def replay_profile_main() -> int:
     """``chip_smoke.py --replay-profiles``, run by phase 5: the held
     Executors' graph replays under torch.profiler in a process that has
@@ -2584,7 +3067,8 @@ def replay_profile_main() -> int:
         args = [a.to(dev) for a in cpu_args]
         entry_ex = api.compile(api.trace(fn, name=f"{kernel}_{case}").program_for(*args))
         run(f"held Executor {kernel}[{case}]", lambda: entry_ex(*args), 3)
-    print(json.dumps({"gpu": nvidia_smi("name,power.limit"), "profiles": profiles, "routes": routes}))
+    llm = llm_decode_profiles(torch, dev)
+    print(json.dumps({"gpu": nvidia_smi("name,power.limit"), "profiles": profiles, "routes": routes, "llm": llm}))
     return 0
 
 
@@ -2741,6 +3225,7 @@ def main() -> int:
     gemm_htree_edge_checks(torch, conv, ht, smoke, dev, SEED + 11)
     bitslice_f32_edge_checks(torch, conv, bm, api, smoke, dev, SEED + 13)
     executor_route_checks(torch, api, att, pimsab_step, smoke, dev, SEED + 14)
+    llm_bitslice_checks(torch, bm, smoke, dev, SEED + 15)
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
@@ -2901,6 +3386,11 @@ def main() -> int:
     pimsab["program_lowering"] = run_pimsab_program_phase(torch, np, api, pimsab_backend, resnet, pimsab_step,
                                                           smoke, dev)
     path_launches["pimsab_tiny_card_executor"] = pimsab["program_lowering"]["tiny"]["card_executor_launches"]
+
+    # ---------------- phase 3j: the LLM serving path at Qwen2-0.5B's full width ----------------
+    llm = run_llm_phase(torch, api, bm, att, smoke, dev, gpu)
+    path_launches["llm_serving"] = llm["path_launches"]
+    torch.cuda.synchronize()
 
     # ---------------- phase 4: timing ----------------
     library = {
@@ -3122,6 +3612,7 @@ def main() -> int:
     decode = decode_latency(torch, api, program, pimsab_step, dev, SEED + 7, layers[DECODE_CAPACITY])
     entry_rows = entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s)
     entry_latency = entry_executor_latency(torch, program, entry)
+    llm_latency, llm_rows = llm_timing(torch, bm, att, smoke, llm, floor_ms)
 
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
@@ -3187,6 +3678,17 @@ def main() -> int:
         off = {k: v for k, v in replay_profiles["routes"].items() if v != ["graph"]}
         if off:
             smoke.failures.append(f"phase 5: Executors off the graph route in the profiling process: {off}")
+        for label, s in replay_profiles["llm"].items():
+            profile_summary[f"LLM {LLM_ARCH} {label}"] = s
+            if s["device_busy_ms_per_step"] is None:
+                print(f"profile LLM {label}: the profiler saw no device activity; not measured")
+                continue
+            top = "; ".join(f"{nm[:40]} x{cnt:g} {ms * 1e3:.1f} us" for nm, cnt, ms in s["kernels"][:5])
+            print(f"profile LLM {LLM_ARCH} {label} ({s['steps']} eager steps, its own process; {gpu}): "
+                  f"{s['wall_ms_per_step']:.3f} ms wall, {s['device_busy_ms_per_step']:.3f} ms device busy, idle "
+                  f"share {s['idle_share']:.3f}, {s['device_kernels_per_step']:g} device kernels; K4 x{s['k4_launches_per_step']:g} {s['k4_ms_per_step']:.4f} ms "
+                  f"({s['k4_share_of_busy']:.1%} of busy), K6 x{s['k6_launches_per_step']:g} "
+                  f"{s['k6_ms_per_step']:.4f} ms ({s['k6_share_of_busy']:.1%}); per step: {top}")
     decode_summary = {
         k: {cap: decode[cap][k] for cap in (4096, DECODE_CAPACITY)}
         for k in ("step_ms_median", "program_ms_median", "eager_step_ms_median", "eager_program_ms_median",
@@ -3209,7 +3711,8 @@ def main() -> int:
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
         "path_launches": path_launches, "program": program_timing, "peak_memory_gib": peak_gib,
         "entry_executor_latency": entry_latency,
-        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows, "registered_kernels": registered,
+        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows,
+        "registered_kernels": registered,
         "entry_points": [{k: v for k, v in r.items() if k not in ("args", "cpu_args", "want", "ex")} for r in entry],
         "decode": decode, "decode_summary": decode_summary,
         "decode_serving": dict({k: serve_run[k] for k in ("counts", "step_counts", "cache", "first_s", "cpu_s",
@@ -3217,13 +3720,14 @@ def main() -> int:
         "decode_layer": {cap: {k: v for k, v in r.items() if k not in ("ex", "args", "gemm_calls", "executors")}
                          for cap, r in layers.items()},
         "pimsab": pimsab, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
+        "llm": dict({k: v for k, v in llm.items() if k not in ("recorder", "steps")}, latency=llm_latency),
     }, indent=1))
 
     if smoke.failures:
         for f in smoke.failures:
             print("FAIL", f, file=sys.stderr)
         return 1
-    path = [r for r in rows if r["launches"]] + k1_rows + bitslice_rows + attention_rows + entry_rows
+    path = [r for r in rows if r["launches"]] + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows
     off_path = [r["name"] for r in rows if not r["launches"]]
     if off_path:
         print(f"FAIL kernels launched on no path: {off_path}", file=sys.stderr)
@@ -3235,7 +3739,9 @@ def main() -> int:
                       "path_launches": path_launches,
                       "program_latency_ms": program_timing["latency_ms_median"],
                       "program_copy_in_ms": resnet_copy_ms, "decode": decode_summary,
-                      "peak_memory_gib": peak_gib}))
+                      "peak_memory_gib": peak_gib,
+                      "llm": {label: {k: v for k, v in r.items() if not isinstance(v, list)}
+                              for label, r in llm_latency.items()}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,6 @@
-"""Quantized (bit-sliced) linear layers of the PyTorch port: the port's copy
-of the linear part of the JAX package's ``models/common.py``.
+"""Shared model building blocks of the PyTorch port: the port's copy of the
+JAX package's ``models/common.py`` (norms, RoPE, SwiGLU, initializers and the
+quantized linear layers; the training loss is not ported yet).
 
 :func:`quant_linear` is one int8 product when the spec fits one slice pair
 (:func:`int_matmul`) and otherwise goes through ``api.matmul`` over
@@ -9,15 +10,80 @@ Program over that kernel and the relu kernel.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import api
 from repro_torch.kernels.api import PrecisionSpec, SlicedTensor
 from repro_torch.kernels.bitslice_matmul import bitslice_matmul
 
 Params = Dict[str, Any]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    """The torch dtype named by ``cfg.dtype``."""
+    return _DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, dtype: torch.dtype,
+               scale: Optional[float] = None, *, lead: tuple = (), device: Any) -> torch.Tensor:
+    """A ``(*lead, d_in, d_out)`` normal weight times ``scale`` (default
+    ``1/sqrt(d_in)``), drawn in float32 from ``gen`` on ``device`` (nothing
+    is drawn on the meta device) and cast to ``dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return (torch.randn((*lead, d_in, d_out), generator=gen, dtype=torch.float32, device=device) * scale).to(dtype)
+
+
+def linear_init(gen: Optional[torch.Generator], d_in: int, d_out: int, dtype: torch.dtype,
+                bias: bool = False, *, lead: tuple = (), device: Any) -> Params:
+    p: Params = {"w": dense_init(gen, d_in, d_out, dtype, lead=lead, device=device)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm, RoPE, SwiGLU
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype: torch.dtype, *, lead: tuple = (), device: Any) -> Params:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+def rope_freqs(head_dim: int, theta: float, device: Any = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: ``(..., S, H, hd)``; positions: broadcastable to ``(..., S)``."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., :, None, None].to(torch.float32) * freqs  # (..., S, 1, hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
 
 
 def _saturate_int8(x: torch.Tensor) -> torch.Tensor:
@@ -124,3 +190,27 @@ def quant_linear_relu(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] 
     raw = _matmul_relu(x_raw, w_st)
     out = raw.to(torch.float32) * x_st.scale.reshape(-1, 1) * p["w_scale"].reshape(1, -1)
     return out.reshape(*lead, -1).to(x.dtype)
+
+
+def maybe_quantize_tree(params: Params, cfg, path: str = "") -> Params:
+    """The serving form of a parameter tree: every linear ``{"w": ...}``
+    leaf-dict (2-D, or 3-D stacked over pattern groups) becomes ``{"w_q":
+    int8, "w_scale": float32}`` (plus its ``"b"``), quantized per group at
+    the config's ``weight_bits``.  Embedding and normalization weights stay
+    high-precision (they are gathered, not multiplied)."""
+    if not cfg.quant.enabled:
+        return params
+    spec = PrecisionSpec.from_quant_config(cfg.quant)
+    skip = ("embed", "norm", "scale", "lambda", "conv", "gate_bias", "router")
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            if "w" in node and node["w"].ndim in (2, 3) and not any(s in path for s in skip):
+                q = quantize_weight(node["w"], spec.weight_bits)
+                if "b" in node:
+                    q["b"] = node["b"]
+                return q
+            return {k: rec(v, f"{path}/{k}") for k, v in node.items()}
+        return node
+
+    return rec(params, path)

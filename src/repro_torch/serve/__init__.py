@@ -1,2 +1,3 @@
-"""Serving of the PyTorch port: the integer attention decode programs
+"""Serving of the PyTorch port: the batched LLM engine
+(:mod:`repro_torch.serve.engine`) and the integer attention decode programs
 (:mod:`repro_torch.serve.pimsab_step`)."""

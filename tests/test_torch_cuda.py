@@ -1360,3 +1360,81 @@ def test_pimsab_executor_call_during_a_cuda_graph_capture_is_refused(card):
             pim(x)
     torch.cuda.synchronize()
     assert torch.equal(pim(x).cpu(), torch.clamp_min(x.cpu(), 0))
+
+
+# ---------------------------------------------------------------------------
+# the LLM serving path (models/transformer.py, serve/engine.py)
+# ---------------------------------------------------------------------------
+
+# Qwen2-0.5B's quantized linears (src/repro/configs/qwen2_0_5b.py): (K, N) of
+# q/o, k/v, gate/up and down, at the path's M (one decode token, a 4-request
+# decode step, 4 × 8 prompt tokens, one 512-token prompt)
+LLM_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 32, 512])
+@pytest.mark.parametrize("k,n", LLM_KN)
+def test_bitslice_kernel_at_the_llm_shapes(card, m, k, n):
+    """K4 as a quantized linear launches it: one int8 slice pair, the weight a
+    group's view of a (G, K, N) stack, on the tensor cores, bit-equal."""
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (3, k, n)).astype(np.int8))
+    tapi.reset_launch_counts()
+    got = tcommon.int_matmul(x.to(card), w.to(card)[1])
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"bitslice_matmul": 1} and tbm.launched_path() == "mma"
+    assert torch.equal(got.cpu(), tcommon.int_matmul(x, w[1]))
+
+
+@pytest.mark.parametrize("b,t,calls", [(4, 128, 1), (1, 1024, 1), (3, 17, 1), (16, 1024, 1), (64, 1024, 4),
+                                       (33, 4096, 5)])
+def test_int8_scores_on_the_cache_view(card, b, t, calls):
+    """K6 over a (B, T, Hkv, hd) int8 cache read in place (Qwen2-0.5B: 2 KV
+    heads of 64, a GQA group of 7): one launch for each group of batch rows
+    (64 × 1024 in 4 calls of 16 rows, 33 × 4096 in 5 of at most 7), the
+    scores taken as diagonal views equal to the CPU's."""
+    from repro_torch.models import attention as tmattn
+
+    rng = np.random.default_rng(b * t)
+    kq = torch.from_numpy(rng.integers(-127, 128, (2, b, t, 2, 64)).astype(np.int8))
+    qq = torch.from_numpy(rng.integers(-127, 128, (b, 2, 7, 64)).astype(np.int8))
+    tapi.reset_launch_counts()
+    got = tmattn.int8_scores(qq.to(card), kq.to(card)[1])
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"attention_qk": calls}
+    assert torch.equal(got.cpu(), tmattn.int8_scores(qq, kq[1]))
+
+
+@pytest.mark.parametrize("quant_kv", [False, True])
+def test_reduced_decode_step_on_card_equals_cpu(card, quant_kv):
+    """A Qwen2-0.5B ``reduced_config`` prefill and two decode steps on the
+    card against the same port on CPU copies (float32: 2**-6 of the largest
+    logit, the tolerance of tests/_torch_lm_ref.py with int8 activations);
+    K4 launches 7 a layer a step, K6 one a layer a decode step under quant_kv."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import common as tc
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.runtime import RunFlags
+
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")), dtype="float32")
+    flags = RunFlags(attn_chunk=8, flash_threshold=64, quant_kv=quant_kv)
+    cpu_p = tc.maybe_quantize_tree(tt.init_params(cfg, 0, device="cpu"), cfg)
+    card_p = tt._tree_map(lambda a: a.to(card), cpu_p)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(2, 256, (2, 12)).astype(np.int32))
+    tapi.reset_launch_counts()
+    cache_d, got = tt.prefill(card_p, cfg, {"tokens": toks.to(card)}, flags, max_len=16)
+    assert tapi.launch_counts() == {"bitslice_matmul": 7 * cfg.n_layers}
+    cache_c, want = tt.prefill(cpu_p, cfg, {"tokens": toks}, flags, max_len=16)
+    for step in range(3):
+        atol = 2.0 ** -6 * float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= atol, step
+        nt = torch.argmax(want, -1).to(torch.int32)[:, None]
+        tapi.reset_launch_counts()
+        cache_d, got = tt.decode_step(card_p, cfg, cache_d, nt.to(card), flags)
+        torch.cuda.synchronize()
+        assert tapi.launch_counts() == ({"bitslice_matmul": 7 * cfg.n_layers, "attention_qk": cfg.n_layers}
+                                        if quant_kv else {"bitslice_matmul": 7 * cfg.n_layers})
+        cache_c, want = tt.decode_step(cpu_p, cfg, cache_c, nt, flags)

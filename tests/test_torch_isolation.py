@@ -7,12 +7,17 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config as tget_config  # noqa: E402
+from repro_torch.configs import reduced_config as treduced  # noqa: E402
 from repro_torch.kernels import api as tapi  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import resnet as tres  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -34,6 +39,10 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_port_module_loads_no_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.conv" in mods and "repro_torch.models.resnet" in mods
+    assert {"repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.qwen2_0_5b",
+            "repro_torch.models.runtime", "repro_torch.models.common", "repro_torch.models.attention",
+            "repro_torch.models.frontend", "repro_torch.models.transformer", "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,6 +81,10 @@ ENTRY_POINTS = {
         tres._numpy_params(tres.TINY, 0), device="cuda"),
     "ResNet": lambda: tres.ResNet(tres.TINY),
     "ResNet-cuda:0": lambda: tres.ResNet(tres.TINY, device="cuda:0"),
+    "transformer.init_params": lambda: ttf.init_params(treduced(tget_config("qwen2-0.5b"))),
+    "transformer.params_from_numpy": lambda: ttf.params_from_numpy({"embed": {"w": np.zeros((4, 2), np.float32)}}),
+    "transformer.init_cache": lambda: ttf.init_cache(treduced(tget_config("qwen2-0.5b")), 1, 8),
+    "launch.serve": lambda: tserve.main(["--arch", "qwen2-0.5b", "--reduced"]),
 }
 
 
