@@ -351,6 +351,27 @@ LLM_TOL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -7}
 LLM_TIMING_SAMPLES = 20
 LLM_PROFILE_STEPS = 3
 
+# Phase 3k, the continuous-batching scheduler and multi-chip scale-out on the
+# host's simulator, held to BENCH_kernels.json's serve and scaling sections
+# and to the card's kernels.  benchmarks/serve_bench.py's recipe (BATCH_SIZES,
+# PROMPTS, MAX_NEW_TOKENS, DEFAULT_TUNE), kernels_bench.py's SCALING_CHIPS,
+# and tests/test_multichip.py's meshes and workloads (name, shapes, seed,
+# value range of the int8 operands).
+SERVE_BATCH_SIZES = (1, 4, 16)
+SERVE_PROMPTS = ([1, 2], [2, 3], [3, 1], [1, 3])
+SERVE_MAX_NEW_TOKENS = 2
+SERVE_TUNE = dict(budget=96, beam=4, seed=0)
+SCALING_CHIPS = (1, 2, 4, 8)
+CLUSTER_MESHES = ((1, 2), (2, 2), (2, 4))
+CLUSTER_WORKLOADS = {
+    "mc_matmul_chain": (((4, 16), (16, 16), (16, 8)), 11, (4, 4, 4)),
+    "mc_conv_block": (((1, 8, 6, 6), (8, 8, 3, 3), (8, 8, 3, 3)), 12, (3, 3, 3)),
+    "mc_attn_decode": (((1, 16), (8, 16), (8, 16)), 13, (3, 3, 3)),
+    "decode_layer": (((8, 16), (8, 16), (1, 16), (16, 256), (256, 512), (512, 256)), 7, (3, 3, 3, 7, 7, 7)),
+}
+# the plans tests/test_multichip.py forces beside auto and tp
+CLUSTER_PP = {"mc_matmul_chain": (1, 2), "mc_conv_block": (1, 2), "mc_attn_decode": (1, 2), "decode_layer": (2, 2)}
+
 # K1's float32 instance beside torch.matmul (TF32 off) at RESNET18's stage-3
 # GEMM shape in float32: (M, K, N).  No path runs it (the forward is int32).
 F32_GEMM = (2048, 2304, 256)
@@ -2996,6 +3017,332 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
     return lat, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: the continuous-batching scheduler and multi-chip scale-out
+# ---------------------------------------------------------------------------
+
+
+def cluster_programs(torch, np, api, pimsab_step, dev):
+    """tests/test_multichip.py's workloads and the decode layer, traced, with
+    their seeded int8 operands on the card."""
+    def chain(x, w1, w2):
+        h = api.relu(api.int_matmul(x, w1, x_bits=4, w_bits=4))
+        return api.int_matmul(h, w2, w_bits=4)
+
+    def conv(x, w1, w2):
+        h = api.relu(api.conv2d(x, w1, padding=1, x_bits=3, w_bits=3))
+        return api.conv2d(h, w2, padding=1, w_bits=3)
+
+    def attn(q, kc, vc):
+        s = api.attention_qk(q, kc, q_bits=3, k_bits=3, out_bits=10)
+        return api.attention_pv(api.softmax_fixedpoint(s, in_frac=7), vc)
+
+    fns = {"mc_matmul_chain": chain, "mc_conv_block": conv, "mc_attn_decode": attn}
+    out = {}
+    for name, (shapes, seed, ranges) in CLUSTER_WORKLOADS.items():
+        rng = np.random.default_rng(seed)
+        args = [torch.from_numpy(rng.integers(-r, r + 1, s, dtype=np.int8)).to(dev) for s, r in zip(shapes, ranges)]
+        if name == "decode_layer":
+            prog = pimsab_step.decode_layer_program()
+        else:
+            prog = api.trace(fns[name], name=name).trace(*(torch.zeros_like(a) for a in args))
+        out[name] = (prog, args)
+    return out
+
+
+class RecordingModel:
+    """A ToyTokenModel whose ``detok`` records the batcher's every step:
+    request, cache row, context (on its device) and token."""
+
+    def __init__(self, scheduler, cfg):
+        self.inner = scheduler.ToyTokenModel(cfg)
+        self.steps, self.request = [], None
+
+    def embed(self, token):
+        return self.inner.embed(token)
+
+    def detok(self, context):
+        tok = self.inner.detok(context)
+        r = self.request
+        self.steps.append((r.rid, r.pos - 1, context, tok))
+        return tok
+
+
+def recording_batcher(scheduler, **kw):
+    """A ContinuousBatcher that tells its RecordingModel which request each
+    decode step serves."""
+    class Recording(scheduler.ContinuousBatcher):
+        def _decode_one(self, r):
+            self.model.request = r
+            super()._decode_one(r)
+
+    cfg = scheduler.AttnServeConfig()
+    return Recording(cfg, model=RecordingModel(scheduler, cfg), **kw)
+
+
+def serve_row(api, scheduler, smoke, batch, dev):
+    """benchmarks/serve_bench.py's ``_run_batch`` on the port, with every
+    step recorded: (row, host seconds, batcher)."""
+    before = api.compile_cache_info()
+    t = time.perf_counter()
+    sched = recording_batcher(scheduler, max_active=batch, buckets=(4,), tune=api.TuneConfig(**SERVE_TUNE),
+                              device=dev)
+    for i in range(batch):
+        sched.submit(SERVE_PROMPTS[i % len(SERVE_PROMPTS)], max_new_tokens=SERVE_MAX_NEW_TOKENS)
+    sched.run()
+    host_s = time.perf_counter() - t
+    after = api.compile_cache_info()
+    rep = api.last_sim_report()
+    resident = any(e.startswith("state:") for e in rep.resident_edges)
+    append_traffic = sum(t.get("a", 0.0) + t.get("out", 0.0) for node, t in rep.dram_traffic.items()
+                         if "kv_append" in node)
+    s = sched.summary()
+    row = {
+        "batch": batch,
+        "requests": batch,
+        "max_new_tokens": SERVE_MAX_NEW_TOKENS,
+        "tokens": int(s["tokens"]),
+        "steps": int(s["steps"]),
+        "modeled_seconds": s["modeled_seconds"],
+        "total_cycles": int(s["total_cycles"]),
+        "energy_j": s["energy_j"],
+        "tokens_per_sec": round(s["tokens_per_sec"], 1),
+        "joules_per_token": s["joules_per_token"],
+        "kv_resident": bool(resident and append_traffic == 0.0),
+        "autotune": dict(rep.autotune),
+        "compile_cache": {"hits_added": after.hits - before.hits, "misses_added": after.misses - before.misses},
+    }
+    off = [c.device for _, _, c, _ in sched.model.steps if c.device != dev]
+    if off:
+        smoke.failures.append(f"phase 3k serve batch {batch}: contexts on {sorted(set(map(str, off)))}, not {dev}")
+    return row, host_s, sched
+
+
+def serve_pinned_equal(row, pinned):
+    """A serve row equal to BENCH_kernels.json's, ``energy_j`` and
+    ``joules_per_token`` within 1e-12 relative (float sums pinned on another
+    host), everything else exactly."""
+    row, pinned = json.loads(json.dumps(row)), dict(pinned)
+    for key in ("energy_j", "joules_per_token"):
+        a, b = row.pop(key), pinned.pop(key, None)
+        if b is None or abs(a - b) > 1e-12 * abs(b):
+            return False
+    return row == pinned
+
+
+def replay_on_card(torch, api, pimsab_step, scheduler, smoke, sched, dev):
+    """Every request of a finished batcher replayed through the card's device
+    Executor of the same decode program (graph route), the caches carried
+    with ``api.kv_append`` and seeded as ``_prefill`` does: each context and
+    token against the batcher's, the launches counted exactly per step."""
+    cfg = sched.cfg
+    model = scheduler.ToyTokenModel(cfg)
+    card_ex = api.compile(pimsab_step.decode_program(cfg, 4))
+    steps = {(rid, pos): (ctx, tok) for rid, pos, ctx, tok in sched.model.steps}
+    n, equal, routes, bad_launches = 0, True, set(), []
+    for r in sorted(sched.retired, key=lambda r: r.rid):
+        kc = torch.zeros((r.capacity, cfg.head_dim), dtype=torch.int8, device=dev)
+        vc = torch.zeros((r.capacity, cfg.value_dim), dtype=torch.int8, device=dev)
+        for pos, t in enumerate(r.prompt):
+            _, k, v = model.embed(t)
+            kc[pos], vc[pos] = k.to(dev), v.to(dev)
+        tok = r.prompt[-1]
+        for i, want_tok in enumerate(r.generated):
+            pos = len(r.prompt) + i
+            q, k, v = (x.to(dev) for x in model.embed(tok))
+            onehot = torch.zeros(r.capacity, dtype=torch.int8, device=dev)
+            onehot[pos] = 1
+            torch.cuda.synchronize()
+            api.reset_launch_counts()
+            ctx = card_ex(kc, vc, q.reshape(1, cfg.head_dim), k, v, onehot)
+            kc, vc = api.kv_append(kc, k, onehot), api.kv_append(vc, v, onehot)
+            torch.cuda.synchronize()
+            counts = {k_: c for k_, c in api.launch_counts().items() if c}
+            if counts != STEP_LAUNCHES:
+                bad_launches.append((r.rid, pos, counts))
+            routes.add(card_ex.replay)
+            got_ctx, got_tok = steps[(r.rid, pos)]
+            smoke.check("serve:scheduler", f"batch {len(sched.retired)} request {r.rid} row {pos} context vs the "
+                        "card Executor", got_ctx, ctx.cpu(), True)
+            card_tok = model.detok(ctx)
+            equal = equal and torch.equal(got_ctx.cpu(), ctx.cpu()) and card_tok == got_tok == want_tok
+            if not card_tok == got_tok == want_tok:
+                smoke.failures.append(f"phase 3k request {r.rid} row {pos}: token {got_tok} (batcher) vs {card_tok} "
+                                      f"(card Executor) vs {want_tok} (generated)")
+            tok, n = want_tok, n + 1
+    if bad_launches:
+        smoke.failures.append(f"phase 3k card replay launches per step != {STEP_LAUNCHES}: {bad_launches[:4]}")
+    if routes - {"eager", "graph"} or "graph" not in routes:
+        smoke.failures.append(f"phase 3k card replay routes {sorted(routes)}: the graph route never ran")
+    if n != len(sched.model.steps):
+        smoke.failures.append(f"phase 3k card replay covered {n} of {len(sched.model.steps)} steps")
+    return {"steps": n, "bit_equal": equal, "launches_per_step": STEP_LAUNCHES,
+            "launches": {k: v * n for k, v in STEP_LAUNCHES.items()}, "routes": sorted(routes)}
+
+
+def scaling_rows_of(api, prog, workload):
+    """benchmarks/kernels_bench.py's ``_scaling_rows`` on the port."""
+    strong, weak = [], []
+    base = None
+    for chips in SCALING_CHIPS:
+        rep = api.cluster_timing_report(prog, chips=chips)
+        if base is None:
+            base = rep.total_cycles
+        strong.append({
+            "chips": chips,
+            "mesh": list(rep.mesh),
+            "plan": rep.plan,
+            "total_cycles": rep.total_cycles,
+            "serial_cycles": rep.serial_cycles,
+            "serialized_cycles": rep.serialized_cycles,
+            "overlapped_cycles": rep.overlapped_cycles,
+            "link_bits": rep.link_bits,
+            "speedup": round(base / rep.total_cycles, 3),
+            "notes": sorted({n.split(":", 1)[0] for n in rep.notes}),
+        })
+        if chips > 1:
+            wrep = api.weak_scaling_report(prog, chips=chips)
+            weak.append({"chips": chips, "total_cycles": wrep.total_cycles,
+                         "throughput_x": round(chips * base / wrep.total_cycles, 3)})
+    return {"workload": workload, "strong": strong, "weak": weak}
+
+
+def run_serve_scaling_phase(torch, np, api, pimsab_step, scheduler, resnet, smoke, dev, gpu):
+    """Phase 3k: the continuous-batching scheduler (ROADMAP S9) and the
+    multi-chip executors and reports (S10) with operands on the card, held to
+    BENCH_kernels.json's serve and scaling sections and to the card's
+    kernels (K6, K7, K8, K10 through the decode program's device Executor;
+    K1, K5, K6, K7, K8 through the cluster workloads').  Their own work runs
+    on the host's numpy simulator and counts no launch: every time printed
+    here is host wall time, not card time."""
+    bench = json.loads((ROOT / "BENCH_kernels.json").read_text())
+    out = {"gpu": gpu}
+
+    def no_launch(label):
+        counts = {k: v for k, v in api.launch_counts().items() if v}
+        if counts:
+            smoke.failures.append(f"phase 3k {label}: host-simulator calls counted launches {counts}")
+
+    # (1) the serve rows
+    rows, last = [], None
+    for batch, pinned in zip(SERVE_BATCH_SIZES, bench["serve"]["batches"]):
+        api.reset_launch_counts()
+        row, host_s, sched = serve_row(api, scheduler, smoke, batch, dev)
+        no_launch(f"serve batch {batch}")
+        equal = serve_pinned_equal(row, pinned)
+        if not equal:
+            smoke.failures.append(f"phase 3k serve batch {batch}: {row} != BENCH_kernels.json {pinned}")
+        rows.append({"batch": batch, "host_s": host_s, "row_equal": equal, "tokens": row["tokens"],
+                     "total_cycles": row["total_cycles"], "tokens_per_sec": row["tokens_per_sec"],
+                     "compile_cache": row["compile_cache"]})
+        print(f"phase 3k serve batch {batch}: {host_s:.3f} s host wall (numpy simulator; {gpu}), {row['tokens']} "
+              f"tokens, {row['total_cycles']} modeled cycles, {row['tokens_per_sec']} modeled tokens/s, cache "
+              f"{row['compile_cache']}; BENCH_kernels.json serve row equal: {equal}")
+        last = sched
+    out["serve"] = rows
+
+    # (2) batch 16's streams against the card's decode Executor
+    t = time.perf_counter()
+    out["serve_card_replay"] = replay_on_card(torch, api, pimsab_step, scheduler, smoke, last, dev)
+    out["serve_card_replay"]["host_s"] = time.perf_counter() - t
+    r = out["serve_card_replay"]
+    print(f"phase 3k serve batch {SERVE_BATCH_SIZES[-1]} replayed on the card's decode Executor: {r['steps']} steps "
+          f"in {r['host_s']:.3f} s host wall ({gpu}), contexts and tokens bit-equal: {r['bit_equal']}, "
+          f"launches a step {r['launches_per_step']}, routes {r['routes']}")
+
+    # (3) preemption: max_active 1 against 2 on buckets (4, 8)
+    t = time.perf_counter()
+    gens, preempted = {}, 0
+    api.reset_launch_counts()
+    for max_active in (1, 2):
+        sched = scheduler.ContinuousBatcher(max_active=max_active, buckets=(4, 8), device=dev)
+        sched.submit([1], max_new_tokens=5)
+        sched.submit([2, 3], max_new_tokens=2)
+        done = sched.run()
+        gens[max_active] = {tuple(r.prompt): list(r.generated) for r in done}
+        if max_active == 1:
+            preempted = sum(r.preemptions for r in done)
+    no_launch("preemption")
+    pre_s = time.perf_counter() - t
+    if gens[1] != gens[2] or not preempted:
+        smoke.failures.append(f"phase 3k preemption: generations {gens[1]} (pressured) vs {gens[2]} (free), "
+                              f"{preempted} preemptions")
+    out["preemption"] = {"host_s": pre_s, "lossless": gens[1] == gens[2], "preemptions": preempted}
+    print(f"phase 3k preemption on buckets (4, 8): {pre_s:.3f} s host wall ({gpu}), {preempted} preemptions, "
+          f"generations equal to the run without pressure: {gens[1] == gens[2]}")
+
+    # (4) cluster executors on card operands
+    t = time.perf_counter()
+    cases, card_launches = [], {}
+    for name, (prog, args) in cluster_programs(torch, np, api, pimsab_step, dev).items():
+        one = api.compile(prog, "pimsab")(*args)
+        card_ex = api.compile(prog)
+        card_ex(*args)
+        api.reset_launch_counts()
+        card = card_ex(*args)
+        torch.cuda.synchronize()
+        card_launches[name] = {k: v for k, v in api.launch_counts().items() if v}
+        if card_ex.replay != "graph":
+            smoke.failures.append(f"phase 3k {name}: the card Executor took the {card_ex.replay} route")
+        smoke.check(f"cluster:{name}", "one-chip pimsab Executor vs the card Executor", one, card.cpu(), True)
+        plans = [(mesh, plan) for mesh in CLUSTER_MESHES for plan in ("auto", "tp")] + [(CLUSTER_PP[name], "pp")]
+        for mesh, plan in plans:
+            api.reset_launch_counts()
+            ex = api.compile(prog, "pimsab", cluster=api.ChipCluster(mesh=mesh), plan=plan)
+            got = ex(*args)
+            no_launch(f"{name} {mesh} {plan}")
+            label = f"{mesh[0]}x{mesh[1]} {plan} (plan {ex.plan})"
+            smoke.check(f"cluster:{name}", f"{label} vs the card Executor", got, card.cpu(), True)
+            if got.device != dev:
+                smoke.failures.append(f"phase 3k {name} {label}: output on {got.device}")
+            if (name == "decode_layer" and plan != "pp" and ex.plan != "tp") or (plan == "pp" and ex.plan != "pp"):
+                smoke.failures.append(f"phase 3k {name} {label}: plan {ex.plan}")
+            cases.append({"workload": name, "mesh": list(mesh), "plan": plan, "chosen": ex.plan,
+                          "bit_equal": bool(torch.equal(got.cpu(), card.cpu())),
+                          "total_cycles": ex.report.total_cycles})
+    graph, stream, refused = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev), None
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            ex(*args)
+    except api.PimsabTracerError as exc:
+        refused = str(exc)
+    torch.cuda.synchronize()
+    if refused is None:
+        smoke.failures.append("phase 3k: a ClusterExecutor called during a CUDA graph capture was not refused")
+    cl_s = time.perf_counter() - t
+    out["cluster"] = {"host_s": cl_s, "cases": cases, "capture_refused": refused is not None,
+                      "card_executor_launches": card_launches}
+    n_equal = sum(c["bit_equal"] for c in cases)
+    print(f"phase 3k cluster executors: {len(cases)} (workload, mesh, plan) cases in {cl_s:.3f} s host wall ({gpu}), "
+          f"{n_equal} bit-equal to the card Executor's graph replay; decode layer plans "
+          f"{[c['chosen'] for c in cases if c['workload'] == 'decode_layer']}; card Executor launches a replay "
+          f"{card_launches}; call during a capture refused: {refused is not None}")
+
+    # (5) the scaling rows
+    cfg = resnet.RESNET18
+    t = time.perf_counter()
+    prog = api.trace(lambda p, v: resnet.forward(cfg, p, v), name="resnet18_scaling").trace(
+        resnet.init_params(cfg, seed=0, device=dev), resnet.make_input(cfg, batch=1, seed=1, device=dev))
+    workloads = [(prog, "resnet18"), (pimsab_step.decode_layer_program(), "decode_layer")]
+    out["scaling"] = []
+    for (wprog, workload), pinned in zip(workloads, bench["scaling"]["workloads"]):
+        api.reset_launch_counts()
+        got = scaling_rows_of(api, wprog, workload)
+        no_launch(f"scaling {workload}")
+        s_ = time.perf_counter() - t
+        equal = json.loads(json.dumps(got)) == pinned
+        if not equal:
+            smoke.failures.append(f"phase 3k scaling {workload}: {got} != BENCH_kernels.json {pinned}")
+        totals = [r["total_cycles"] for r in got["strong"]]
+        out["scaling"].append({"workload": workload, "host_s": s_, "row_equal": equal, "total_cycles": totals,
+                               "plans": [r["plan"] for r in got["strong"]]})
+        print(f"phase 3k scaling {workload} on {list(SCALING_CHIPS)} chips: {s_:.3f} s host wall ({gpu}), strong "
+              f"{totals} modeled cycles, plans {[r['plan'] for r in got['strong']]}; BENCH_kernels.json scaling "
+              f"rows equal: {equal}")
+        t = time.perf_counter()
+    return out
+
+
 def replay_profile_main() -> int:
     """``chip_smoke.py --replay-profiles``, run by phase 5: the held
     Executors' graph replays under torch.profiler in a process that has
@@ -3088,7 +3435,7 @@ def main() -> int:
     from repro_torch.kernels import htree_reduce as ht
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.models import common, resnet
-    from repro_torch.serve import pimsab_step
+    from repro_torch.serve import pimsab_step, scheduler
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3391,6 +3738,11 @@ def main() -> int:
     llm = run_llm_phase(torch, api, bm, att, smoke, dev, gpu)
     path_launches["llm_serving"] = llm["path_launches"]
     torch.cuda.synchronize()
+
+    # ---------------- phase 3k: the scheduler and multi-chip scale-out ----------------
+    serve_scaling = run_serve_scaling_phase(torch, np, api, pimsab_step, scheduler, resnet, smoke, dev, gpu)
+    path_launches["serve_card_replay"] = serve_scaling["serve_card_replay"]["launches"]
+    path_launches["cluster_card_executors"] = serve_scaling["cluster"]["card_executor_launches"]
 
     # ---------------- phase 4: timing ----------------
     library = {
@@ -3719,7 +4071,7 @@ def main() -> int:
                                                            "prob_sums", "prob_nonzero")}, executor=serve_held),
         "decode_layer": {cap: {k: v for k, v in r.items() if k not in ("ex", "args", "gemm_calls", "executors")}
                          for cap, r in layers.items()},
-        "pimsab": pimsab, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
+        "pimsab": pimsab, "serve_scaling": serve_scaling, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
         "llm": dict({k: v for k, v in llm.items() if k not in ("recorder", "steps")}, latency=llm_latency),
     }, indent=1))
 

@@ -116,6 +116,14 @@ __all__ = [
     "TraceError",
     "compile_cache_info",
     "clear_compile_cache",
+    # Multi-chip scale-out (re-exported from repro_torch.kernels.multichip)
+    "ChipCluster",
+    "ChipLink",
+    "ClusterExecutor",
+    "ClusterReport",
+    "compile_cluster",
+    "cluster_timing_report",
+    "weak_scaling_report",
 ]
 
 # ``api.compile(program)``, the documented spelling; the module-level name
@@ -899,3 +907,22 @@ def profile_timelines(enable: bool = True):
 # Mapping autotuner of the timing model, scope-wide via ``with
 # api.tuning(...):`` (the eager pimsab calls inside tune their timing stream).
 from repro_torch.core.compiler.autotune import TuneConfig, tuning  # noqa: E402
+
+# Multi-chip scale-out (``api.compile(program, "pimsab", chips=N)`` or the
+# explicit cluster/report entry points): sharded bit-exact execution over an
+# inter-chip link model, see repro_torch.kernels.multichip.
+from repro_torch.core.noc import ChipCluster, ChipLink  # noqa: E402
+
+_MULTICHIP = ("ClusterExecutor", "ClusterReport", "compile_cluster",
+              "cluster_timing_report", "weak_scaling_report")
+
+
+def __getattr__(name: str) -> Any:
+    # multichip imports pimsab_backend, which a kernel module importing this
+    # module must not reach before it registers (see _ensure_registered):
+    # the multichip names resolve on first use
+    if name in _MULTICHIP:
+        from repro_torch.kernels import multichip
+
+        return getattr(multichip, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

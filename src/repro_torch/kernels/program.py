@@ -42,8 +42,10 @@ sorted order, ``None`` a node without leaves, and registered classes
 ``tree_flatten``; slot numbers therefore match the JAX package's.  Avals are
 ``(shape, numpy dtype name)`` pairs such as ``((4, 8), "int32")``.
 
-Multi-chip sharding is not ported: ``compile_program`` raises
-``NotImplementedError`` for ``chips`` other than 1 (ROADMAP Queue 1 item 10).
+``compile_program(..., chips=N)`` or ``cluster=`` on ``"pimsab"`` shards the
+program across a ``ChipCluster`` instead
+(:func:`repro_torch.kernels.multichip.compile_cluster`), and returns a
+``ClusterExecutor`` whose results are bit-equal to the one-chip Executor's.
 """
 from __future__ import annotations
 
@@ -840,7 +842,9 @@ def compile_program(program: Program, backend: Optional[str] = None, *,
                     verify: bool = True,
                     states: Optional[Dict[int, ResidentState]] = None,
                     tune: Any = None,
-                    chips: Optional[int] = None) -> Executor:
+                    chips: Optional[int] = None,
+                    cluster: Any = None,
+                    plan: str = "auto") -> Executor:
     """Return the :class:`Executor` of ``program`` for ``backend`` (default:
     the active scope), cached so that an identical second compile is a
     cache hit.
@@ -865,8 +869,14 @@ def compile_program(program: Program, backend: Optional[str] = None, *,
     a ``TuneConfig``, ``False`` (off) or ``None`` (inherit an enclosing
     ``api.tuning`` scope).
 
-    ``chips`` other than 1 (multi-chip sharding, ROADMAP Queue 1 item 10,
-    ``multichip.py``) raises ``NotImplementedError``.
+    ``chips``/``cluster`` (pimsab only) compile the program for a multi-chip
+    :class:`~repro_torch.core.noc.ChipCluster` instead of one chip: the
+    returned :class:`~repro_torch.kernels.multichip.ClusterExecutor` runs
+    the sharded plan bit-exactly against the one-chip result.  ``plan``
+    forces ``"tp"``/``"pp"`` or leaves the cost model to choose (``"auto"``,
+    the default).  ``chips=1`` is the one-chip Executor; the device path
+    (``backend`` ``None``) and ``states`` with a cluster raise
+    ``NotImplementedError``, as the JAX package does.
     """
     from repro_torch.kernels import api
 
@@ -876,10 +886,22 @@ def compile_program(program: Program, backend: Optional[str] = None, *,
             f"unknown backend {backend!r}: the port has no backend scope but "
             f"{api.BACKENDS}; an Executor runs each op on the device its operands lie on"
         )
-    if chips is not None and int(chips) != 1:
-        raise NotImplementedError(
-            "multi-chip sharding is not ported yet (ROADMAP Queue 1 item 10: "
-            "repro_torch/kernels/multichip.py)"
+    if cluster is not None or (chips is not None and int(chips) != 1):
+        if backend != "pimsab":
+            raise NotImplementedError(
+                "chips/cluster sharding is a pimsab-backend concept; the "
+                "device Executor replays the whole program on one device"
+            )
+        if states:
+            raise NotImplementedError(
+                "ResidentState stays CRAM-resident on one chip and does not "
+                "shard across a ChipCluster; serve on chips=1"
+            )
+        from repro_torch.kernels import multichip
+
+        return multichip.compile_cluster(
+            program, chips=chips, cluster=cluster,
+            plan=plan, verify=verify, tune=tune,
         )
     key: Tuple = ("program", program.signature(), backend)
     if backend == "pimsab":

@@ -14,9 +14,9 @@ so a caller carries each cache from step to step itself, e.g. with
 ``api.kv_append`` at the same selector.  On the pimsab backend the caches
 bind as :class:`~repro_torch.kernels.program.ResidentState` handles instead
 (``api.compile(decode_program(cfg, capacity), "pimsab", states={0: k, 1:
-v})`` with :func:`kv_states`), kept CRAM-resident across steps; the JAX
-package's wrappers over that (``decode_executor``, ``run_decode_step``) are
-not ported yet.
+v})`` with :func:`kv_states`), kept CRAM-resident across steps:
+:func:`decode_executor` compiles (or cache-hits) that Executor and binds a
+request's handles, :func:`run_decode_step` runs one bound step.
 
 Weights and caches are slots, not parameters: hand both packages the same
 arrays (``torch.from_numpy``); a ``ResidentState.value`` becomes a slot
@@ -25,12 +25,12 @@ through ``to_array()``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import api
-from repro_torch.kernels.program import Program, ResidentState
+from repro_torch.kernels.program import Executor, Program, ResidentState
 
 
 @dataclass(frozen=True)
@@ -138,4 +138,43 @@ def decode_layer_program(model_dim: int = 256, head_dim: int = 16,
         torch.zeros((head_dim, model_dim), dtype=torch.int8),
         torch.zeros((model_dim, ff_dim), dtype=torch.int8),
         torch.zeros((ff_dim, model_dim), dtype=torch.int8),
+    )
+
+
+def decode_executor(cfg: AttnServeConfig, capacity: int,
+                    k_state: ResidentState, v_state: ResidentState,
+                    backend: str = "pimsab", tune: Any = None) -> Executor:
+    """Compile (or cache-hit) the bucket's decode step on ``backend`` and
+    bind the given request's cache handles.  Spec-identical handles hit the
+    same cached Executor (``api.compile_cache_info()``).
+
+    ``tune`` opts the bucket's timing plan into the mapping autotuner (as
+    ``api.compile`` takes it): the search runs once per (cfg, capacity)
+    bucket and every request decoding in that bucket replays the tuned
+    schedule."""
+    return api.compile(
+        decode_program(cfg, capacity), backend,
+        states={0: k_state, 1: v_state},
+        tune=tune,
+    )
+
+
+def run_decode_step(ex: Executor, cfg: AttnServeConfig, capacity: int,
+                    q: Any, k_new: Any, v_new: Any, pos: int) -> torch.Tensor:
+    """Execute one bound decode step: append at row ``pos`` and return the
+    ``(1, Dv)`` int32 context, on the device ``q`` lies on.  The one-hot
+    selector and the caches' placeholders are made there too (the bound
+    handles, not the placeholders, hold the caches)."""
+    q = torch.as_tensor(q, dtype=torch.int8)
+    dev = q.device
+    onehot = torch.zeros(capacity, dtype=torch.int8, device=dev)
+    onehot[pos] = 1
+    ph_k = torch.zeros((capacity, cfg.head_dim), dtype=torch.int8, device=dev)
+    ph_v = torch.zeros((capacity, cfg.value_dim), dtype=torch.int8, device=dev)
+    return ex(
+        ph_k, ph_v,
+        q.reshape(1, cfg.head_dim),
+        torch.as_tensor(k_new, dtype=torch.int8, device=dev),
+        torch.as_tensor(v_new, dtype=torch.int8, device=dev),
+        onehot,
     )

@@ -1363,6 +1363,65 @@ def test_pimsab_executor_call_during_a_cuda_graph_capture_is_refused(card):
 
 
 # ---------------------------------------------------------------------------
+# multi-chip scale-out and the continuous-batching scheduler on card operands
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("chips", [2, 4, 8])
+def test_cluster_executor_takes_card_operands_and_equals_the_card_executor(card, chips):
+    """The decode layer sharded over a cluster (``plan == "tp"``) takes card
+    operands and returns a card tensor bit-equal to the card device
+    Executor's graph replay of the same Program; no launch counted; a call
+    during a CUDA graph capture refused."""
+    rng = np.random.default_rng(7)
+    args = [torch.from_numpy(rng.integers(lo, hi, s).astype(np.int8)).to(card)
+            for lo, hi, s in ((-3, 4, (8, 16)), (-3, 4, (8, 16)), (-3, 4, (1, 16)), (-7, 8, (16, 256)),
+                              (-7, 8, (256, 512)), (-7, 8, (512, 256)))]
+    prog = tps.decode_layer_program()
+    ex, dev = tapi.compile(prog, "pimsab", chips=chips), tapi.compile(prog)
+    tapi.reset_launch_counts()
+    got = ex(*args)
+    assert tapi.launch_counts() == {} and ex.plan == "tp"
+    assert got.device == card and got.dtype == torch.int32
+    dev(*args)
+    want = dev(*args)
+    torch.cuda.synchronize()
+    assert dev.replay == "graph" and torch.equal(got, want)
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(card)
+    with pytest.raises(tapi.PimsabTracerError, match="capture"):
+        with torch.cuda.graph(graph, stream=stream):
+            ex(*args)
+    torch.cuda.synchronize()
+
+
+def test_continuous_batcher_on_the_card_returns_card_contexts(card, monkeypatch):
+    """``ContinuousBatcher(device="cuda")``: every step's context lies on the
+    card, the generations equal a CPU batcher's, no launch counted."""
+    from repro_torch.serve import scheduler as tsched
+
+    ctxs = []
+    real = tsched.run_decode_step
+
+    def spy(*a, **k):
+        ctxs.append(real(*a, **k))
+        return ctxs[-1]
+
+    monkeypatch.setattr(tsched, "run_decode_step", spy)
+    gens = {}
+    for device in ("cuda", "cpu"):
+        sched = tsched.ContinuousBatcher(max_active=2, buckets=(4, 8), device=device)
+        assert sched.device.type == device
+        sched.submit([1], max_new_tokens=5)
+        sched.submit([2, 3], max_new_tokens=2)
+        tapi.reset_launch_counts()
+        gens[device] = [(r.prompt, r.generated) for r in sched.run()]
+        assert tapi.launch_counts() == {}
+        assert ctxs and all(c.device.type == device and c.dtype == torch.int32 for c in ctxs)
+        ctxs.clear()
+    assert gens["cuda"] == gens["cpu"]
+
+
+# ---------------------------------------------------------------------------
 # the LLM serving path (models/transformer.py, serve/engine.py)
 # ---------------------------------------------------------------------------
 

@@ -18,6 +18,7 @@ from repro_torch.kernels import api as tapi  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import resnet as tres  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.serve import scheduler as tsched  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -85,6 +86,7 @@ ENTRY_POINTS = {
     "transformer.params_from_numpy": lambda: ttf.params_from_numpy({"embed": {"w": np.zeros((4, 2), np.float32)}}),
     "transformer.init_cache": lambda: ttf.init_cache(treduced(tget_config("qwen2-0.5b")), 1, 8),
     "launch.serve": lambda: tserve.main(["--arch", "qwen2-0.5b", "--reduced"]),
+    "scheduler.ContinuousBatcher": lambda: tsched.ContinuousBatcher(),
 }
 
 

@@ -7,9 +7,10 @@ references, static kwargs, output aval), slot avals, output references and
 captured-constant fingerprints — for the README block
 ``relu(ewise_add(matmul(xs, ws), y))``, the ``TINY`` ResNet forward and the
 ``quant_linear_relu`` chain.  The rest covers the compile cache, the
-placeholder's refusals, the Executor's argument checks, the part not ported
-yet (multi-chip) beside the pimsab and resident-state compiles that are
-(``tests/test_torch_pimsab_program.py`` holds them in full), shape inference on ``meta``
+placeholder's refusals, the Executor's argument checks, the parts ported
+last (the pimsab and resident-state compiles, whose full cases are in
+``tests/test_torch_pimsab_program.py``, and multi-chip sharding, in
+``tests/test_torch_multichip.py``), shape inference on ``meta``
 tensors for every registered kernel, and eager equality of traced programs
 on CPU tensors.
 """
@@ -402,14 +403,26 @@ def _state_step(api):
 
 @pytest.mark.parametrize("how", ["pimsab", "states", "chips=2"])
 def test_parts_not_ported_yet_raise_not_implemented(how):
-    """Multi-chip sharding (ROADMAP Queue 1 item 10) still raises; the pimsab
-    Program lowering and ResidentState binding are ported and equal JAX's,
-    and states on the device path raise JAX's refusal."""
+    """The parts once not ported are ported and equal JAX's: the pimsab
+    Program lowering, ResidentState binding (states on the device path raise
+    JAX's refusal) and multi-chip sharding (``chips=2`` on pimsab gives a
+    ClusterExecutor whose output, plan and report equal JAX's; on the device
+    path it raises JAX's refusal)."""
     jops, tops = _block_operands(seed=70)
     if how == "chips=2":
         prog = tapi.trace(_tblock, name="unported").program_for(*tops)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        jprog = japi.trace(_jblock, name="unported").program_for(*jops)
+        with pytest.raises(NotImplementedError, match="chips/cluster sharding is a pimsab-backend concept"):
             tapi.compile(prog, chips=2)
+        ex, jex = tapi.compile(prog, "pimsab", chips=2), japi.compile(jprog, "pimsab", chips=2)
+        assert isinstance(ex, tapi.ClusterExecutor) and ex.cluster.chips == 2 and ex.plan == jex.plan
+        got = ex(*tops)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jex(*jops)))
+        np.testing.assert_array_equal(got.numpy(), tapi.compile(prog, "pimsab")(*tops).numpy())
+        rep, jrep = ex.report.to_json(), jex.report.to_json()
+        assert rep.pop("energy_j") == pytest.approx(jrep.pop("energy_j"), rel=1e-12, abs=0)
+        assert rep == jrep
         return
     if how == "pimsab":
         prog = tapi.trace(_tblock, name="unported").program_for(*tops)
