@@ -101,6 +101,22 @@ Phases, any failure of which exits non-zero:
       margin exceeds twice that, the positions so covered counted),
       with the tied LM head's gap under PyTorch's bfloat16 reduced-precision
       reductions and without them.
+   l. the other model families (after the scheduler's phase 3k): the same
+      launcher path at RecurrentGemma-2B's full width and depth (26 layers:
+      18 RG-LRU, 8 local attention; 2.9 B random bfloat16 parameters from
+      seed 0 served as int8) over the same three runs, launches exact: the
+      bit-sliced GEMM 200 a prefill or decode step (8 an RG-LRU layer, 7 a
+      local-attention layer; the tied head is a float product), the RG-LRU
+      scan 18 a prefill (one an RG-LRU layer) and none in a decode step, the
+      row dot 8 a ``quant_kv`` decode step; each K4 and K6 shape bit-equal to
+      its plain version and every RG-LRU scan call within 1e-4 of its plain
+      version at the call's inputs; ``loss_fn`` finite; the card against CPU
+      copies of one pattern group (13 layers).  Then xLSTM-1.3B and
+      Whisper-medium (1500 frames) at full depth and DBRX-132B at 2 layers:
+      one launcher run each with exact K4 counts a run, a prefill and a
+      step, every K4 shape held, ``loss_fn`` finite (the MoE aux above 0),
+      the card against CPU copies of the first pattern groups.  Prints the
+      phase's seconds.
 
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
@@ -151,7 +167,8 @@ Phases, any failure of which exits non-zero:
    names), and K1 float32 at ragged shapes in both B layouts, on split and
    unsplit plans (normals within 1e-4, integer values exact, the same bits
    in two calls), the bit-sliced GEMM at the LLM path's linears (phase 3j's
-   (K, N) pairs at M = 1, 4, 32 and 512, on the tensor cores); and the
+   and 3l's (K, N) pairs at M = 1, 4, 32 and 512, the untied heads of
+   xLSTM, Whisper and DBRX at M = 1 and 4, on the tensor cores); and the
    Executor's graph replay on the decode step at
    1024 rows: leaves that are views off 16 bytes (generic kernels eagerly,
    vector kernels in the graph, bit-equal), an output kept unchanged across
@@ -189,6 +206,8 @@ Phases, any failure of which exits non-zero:
    without ``quant_kv``, batch 1 on 1024 rows) and a whole engine run, host
    clock from an idle card; each K4 and K6 shape of 3j beside its bound,
    its plain version (CPU) and ``torch._int_mm`` where it takes the shape;
+   the same for 3l's RecurrentGemma-2B, and the RG-LRU scan at its path's
+   shapes (4 × 8 × 2560, 1 × 512 × 2560) beside its bound and plain version;
 5. profile (torch.profiler) three eager forwards and one call of each
    Table III bit-sliced path: device time by kernel name and the device's
    idle share, and the eager forward's PyTorch copies (``aten::copy_``) and
@@ -197,8 +216,8 @@ Phases, any failure of which exits non-zero:
    Executors at the same shapes: three of RESNET18, five decode steps,
    three decode layers, one ``quant_linear_relu`` call and three calls of
    each phase 3g Executor; and three eager LLM decode steps of 3j at batch
-   4, with and without ``quant_kv``: K4's and K6's device time and share,
-   and the device's idle share.
+   4, with and without ``quant_kv``, and of 3l's RecurrentGemma-2B without:
+   K4's and K6's device time and share, and the device's idle share.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Per-call details go
@@ -350,6 +369,46 @@ LLM_CPU_STEPS = 3
 LLM_TOL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -7}
 LLM_TIMING_SAMPLES = 20
 LLM_PROFILE_STEPS = 3
+
+# Phase 3l, the families beyond decoder-only attention at full width.
+# RecurrentGemma-2B's full width and depth (src/repro/configs/
+# recurrentgemma_2b.py: 26 layers, 18 RG-LRU and 8 local-attention blocks,
+# d_model 2560, 10 query heads and 1 KV head of 256, d_ff 7680, window 2048,
+# the tied 256000-token vocabulary), random bfloat16 weights from seed 0
+# served as int8, driven as 3j drives Qwen2-0.5B: every RG-LRU prefill runs
+# the RG-LRU scan (K11) at (B, S, 2560) float32, every quantized linear K4
+# (the (K, N) pairs of FAM_KN), the local attention's int8 scores under
+# quant_kv K6 at head_dim 256.  Then xLSTM-1.3B (48 layers) and
+# Whisper-medium (24 + 24 layers, 1500 frames) at full depth and DBRX-132B
+# at 2 layers (132 B parameters do not fit one 80 GB card even as int8): one
+# launcher run each.  Each family against CPU copies of its first
+# FAM_CPU_GROUPS pattern groups (Whisper: and 2 encoder layers).
+FAM_ARCH = "recurrentgemma-2b"
+FAM_KN = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560))
+FAM_OTHERS = {"xlstm-1.3b": None, "whisper-medium": None, "dbrx-132b": 2}  # layers on the card (None: all)
+FAM_CPU_GROUPS = {"recurrentgemma-2b": 1, "xlstm-1.3b": 1, "whisper-medium": 2, "dbrx-132b": 1}
+FAM_CPU_ENC_LAYERS = 2
+# card against CPU copies: tolerances relative to the largest CPU logit, set
+# from readings (scripts/torch_family_gap_probe.py records every block output
+# on both devices: the first differences are one float32 ulp of the card's
+# exp, sigmoid, softplus and expm1 in the RG-LRU coefficients and the mLSTM
+# chunk scan, and one bfloat16 ulp of the attention products over Whisper's
+# 1500 keys; int8 re-quantization then moves a value a whole step where a
+# rounding flips, and depth adds up).  Read at these depths by this
+# comparison and by the probe (weights drawn for the cut config):
+# RecurrentGemma 0.0101 and 0.0008 (13 layers), xLSTM 0.051 and 0.026 (8),
+# Whisper 0.028 and 0.028 (2 + 2), DBRX 0.004 (1); each limit the least power
+# of two at least twice the larger
+FAM_TOL = {"recurrentgemma-2b": 2.0 ** -5, "xlstm-1.3b": 2.0 ** -3, "whisper-medium": 2.0 ** -4,
+           "dbrx-132b": 2.0 ** -6}
+# the other families' new (K, N) pairs, held at LLM_MS, and the untied heads
+# (xLSTM, Whisper, DBRX: the vocabularies padded to 51200, 53248, 100352),
+# held at M = 1 and LLM_REQUESTS: a head sees only each request's last token
+FAM_KN_CHECKS = ((2048, 8192), (4096, 4096), (4096, 8), (4096, 2048), (2048, 5504), (2752, 2048),
+                 (1024, 1024), (1024, 4096), (4096, 1024), (6144, 6144), (6144, 1024))
+FAM_HEADS = ((2048, 51200), (1024, 53248), (6144, 100352))
+# bit-sliced GEMM launches of a block's mixer (its quantized linears)
+K4_PER_MIXER = {"attn": 4, "local_attn": 4, "rglru": 5, "mlstm": 6, "slstm": 3}
 
 # Phase 3k, the continuous-batching scheduler and multi-chip scale-out on the
 # host's simulator, held to BENCH_kernels.json's serve and scaling sections
@@ -2597,11 +2656,14 @@ def run_pimsab_program_phase(torch, np, api, pb, resnet, pimsab_step, smoke, dev
 class LLMKernelRecorder:
     """While active, records each bit-sliced GEMM and q·Kᵀ call of the LLM
     path by (kernel, operand shapes): the count, and the first call's
-    operands and output (clones) with the path the bit-sliced GEMM took."""
+    operands and output (clones) with the path the bit-sliced GEMM took;
+    given the RG-LRU scan's module ``rg``, also every scan call's operands
+    and output (``scans``)."""
 
-    def __init__(self, torch, bm, att):
-        self.torch, self.bm, self.att = torch, bm, att
+    def __init__(self, torch, bm, att, rg=None):
+        self.torch, self.bm, self.att, self.rg = torch, bm, att, rg
         self.calls = {}
+        self.scans = []
 
     def _note(self, key, args, out, path=None):
         if key in self.calls:
@@ -2626,27 +2688,42 @@ class LLMKernelRecorder:
             return out
 
         bm._bitslice_gemm, att._qk = rec_b, rec_q
+        if self.rg is not None:
+            orig_s = self.orig_scan = self.rg._scan
+
+            def rec_s(a, b, h0):
+                out = orig_s(a, b, h0)
+                self.scans.append((a.clone(), b.clone(), h0.clone(), out.clone()))
+                return out
+
+            self.rg._scan = rec_s
         return self
 
     def __exit__(self, *exc):
         self.bm._bitslice_gemm, self.att._qk = self.orig
+        if self.rg is not None:
+            self.rg._scan = self.orig_scan
 
 
-def llm_bitslice_checks(torch, bm, smoke, dev, seed):
+LLM_MS = (1, LLM_REQUESTS, LLM_REQUESTS * 8, LLM_LONG[0])
+
+
+def llm_bitslice_checks(torch, bm, smoke, dev, seed, kn=LLM_KN, ms=LLM_MS, groups=2):
     """Phase 2 for the LLM path's quantized linears: the bit-sliced GEMM at
-    one int8 slice pair at every (K, N) of LLM_KN and M of 1 (a decode
-    token), LLM_REQUESTS (a decode step), 4 × 8 and 512 (prefills), the
-    weight a group's view of a (2, K, N) stack as the path hands it; each
-    bit-equal to its plain version and on the tensor cores."""
+    one int8 slice pair at every (K, N) of ``kn`` and M of ``ms`` (1: a
+    decode token, LLM_REQUESTS: a decode step, 4 × 8 and 512: prefills), the
+    weight a group's view of a (``groups``, K, N) stack as the path hands it
+    (an untied head's is a whole (1, K, N) tensor); each bit-equal to its
+    plain version and on the tensor cores."""
     g = torch.Generator().manual_seed(seed)
-    for m in (1, LLM_REQUESTS, LLM_REQUESTS * 8, LLM_LONG[0]):
-        for k, n in LLM_KN:
+    for m in ms:
+        for k, n in kn:
             x = torch.randint(-127, 128, (1, m, k), generator=g, dtype=torch.int8)
-            w = torch.randint(-127, 128, (2, k, n), generator=g, dtype=torch.int8)
-            got = bm._bitslice_gemm(x.to(dev), w.to(dev)[1:], 8, ((0, 0),))
+            w = torch.randint(-127, 128, (groups, k, n), generator=g, dtype=torch.int8)
+            got = bm._bitslice_gemm(x.to(dev), w.to(dev)[groups - 1:], 8, ((0, 0),))
             torch.cuda.synchronize()
             smoke.check("bitslice_matmul", f"LLM linear M={m} K={k} N={n}", got,
-                        bm._bitslice_plain(x, w[1:], 8, ((0, 0),)), exact=True)
+                        bm._bitslice_plain(x, w[groups - 1:], 8, ((0, 0),)), exact=True)
             if bm.launched_path() != "mma":
                 smoke.failures.append(f"bitslice_matmul LLM linear M={m} K={k} N={n}: the {bm.launched_path()} path")
 
@@ -2681,11 +2758,12 @@ def llm_step_expected(cfg, quant_kv, batch=LLM_REQUESTS, max_len=None):
     return want
 
 
-def llm_decode_profiles(torch, dev):
+def llm_decode_profiles(torch, dev, arch=LLM_ARCH, quant_kvs=(False, True)):
     """For ``--replay-profiles``: LLM_PROFILE_STEPS eager decode steps of the
-    launcher's engine at batch 4 (phase 3j's weights), with and without
-    quant_kv, under torch.profiler: device time by kernel, the bit-sliced
-    GEMM's and the row dot's share of the busy time, the idle share."""
+    launcher's engine at batch 4 (phase 3j's or 3l's weights), with and
+    without quant_kv, under torch.profiler: device time by kernel, the
+    bit-sliced GEMM's and the row dot's share of the busy time, the idle
+    share."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2693,11 +2771,11 @@ def llm_decode_profiles(torch, dev):
     from repro_torch.models import transformer
     from repro_torch.serve import engine as serve_engine
 
-    cfg = get_config(LLM_ARCH)
+    cfg = get_config(arch)
     params = transformer.init_params(cfg, SEED, device=dev)
     out = {}
-    for quant_kv in (False, True):
-        flags = dataclasses.replace(serve_cli.serve_flags(), quant_kv=quant_kv)
+    for quant_kv in quant_kvs:
+        flags = dataclasses.replace(serve_cli.serve_flags(cfg=cfg), quant_kv=quant_kv)
         e = serve_engine.ServeEngine(cfg, params, flags, max_len=serve_cli.MAX_LEN)
         batch = e.prompt_batch(serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS))
         with torch.no_grad():
@@ -2724,29 +2802,36 @@ def llm_decode_profiles(torch, dev):
     return out
 
 
-def llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags, dtype):
-    """(c): the port at full width and LLM_CPU_LAYERS layers on the card
-    against the same port on CPU copies of the same weights: the quantized
-    weights bit-equal, the prefill and LLM_CPU_STEPS decode steps' logits
-    within LLM_TOL of the CPU's largest logit, greedy tokens equal where the
-    CPU's top-2 margin exceeds twice that.  Each decode step is fed the
-    CPU's greedy tokens.  Returns the errors."""
-    import dataclasses
-
-    c2 = dataclasses.replace(cfg, n_layers=LLM_CPU_LAYERS, dtype=dtype)
-    raw = transformer.init_params(c2, SEED, device=dev)
-    p_card = common.maybe_quantize_tree(raw, c2) if flags.quant_serve else raw
-    p_cpu = common.maybe_quantize_tree(transformer._tree_map(lambda a: a.cpu(), raw), c2) \
-        if flags.quant_serve else transformer._tree_map(lambda a: a.cpu(), raw)
-    label = f"phase 3j card vs CPU {dtype} {LLM_CPU_LAYERS} layers quant_kv={flags.quant_kv}"
+def serve_params_pair(torch, common, transformer, smoke, cfg, raw, flags, label):
+    """The serving parameters of ``raw`` (on the card) on the card and on a
+    CPU copy, each quantized on its own device under ``quant_serve``; the
+    quantized weights must be bit-equal."""
+    raw_cpu = transformer._tree_map(lambda a: a.cpu(), raw)
+    p_card = common.maybe_quantize_tree(raw, cfg) if flags.quant_serve else raw
+    p_cpu = common.maybe_quantize_tree(raw_cpu, cfg) if flags.quant_serve else raw_cpu
     mism = [n for n, (a, b) in enumerate(zip(transformer._tree_leaves(p_card), transformer._tree_leaves(p_cpu)))
             if not torch.equal(a.cpu(), b)]
     if mism:
         smoke.failures.append(f"{label}: quantized weights differ from the CPU's at leaves {mism}")
+    return p_card, p_cpu
+
+
+def card_vs_cpu(torch, common, transformer, smoke, dev, cfg, raw, flags, label, rel, extra=None, pair=None):
+    """The port on the card against the same port on CPU copies of the same
+    weights ``raw`` (on the card, config ``cfg``; or the ``pair`` of
+    :func:`serve_params_pair`): the quantized weights bit-equal, the
+    prefill's and LLM_CPU_STEPS decode steps' logits within ``rel`` of the
+    CPU's largest logit, greedy tokens equal where the CPU's top-2 margin
+    exceeds twice that.  Each decode step is fed the CPU's greedy tokens;
+    ``extra`` adds CPU tensors to the prefill batch (an encoder–decoder's
+    frame embeddings).  Returns the errors."""
+    dtype = str(transformer.dtype_of(cfg)).replace("torch.", "")
+    p_card, p_cpu = pair or serve_params_pair(torch, common, transformer, smoke, cfg, raw, flags, label)
     toks = torch.randint(2, cfg.vocab_size, (LLM_REQUESTS, 8), generator=torch.Generator().manual_seed(SEED + 2),
                          dtype=torch.int32)
-    rel = LLM_TOL[dtype]
-    out = {"errors": [], "atol": [], "greedy_covered": 0, "positions": 0}
+    batch = {"tokens": toks, **(extra or {})}
+    batch_card = {k: v.to(dev) for k, v in batch.items()}
+    out = {"errors": [], "atol": [], "greedy_covered": 0, "positions": 0, "rel": rel}
 
     def compare(step, got, want):
         got, want = got.float().cpu(), want.float()
@@ -2767,25 +2852,25 @@ def llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags, dtype):
                                   f"where the margin exceeds {2 * atol}, or non-finite")
 
     with torch.no_grad():
-        cache_d, got = transformer.prefill(p_card, c2, {"tokens": toks.to(dev)}, flags, max_len=16)
-        cache_c, want = transformer.prefill(p_cpu, c2, {"tokens": toks}, flags, max_len=16)
+        cache_d, got = transformer.prefill(p_card, cfg, batch_card, flags, max_len=16)
+        cache_c, want = transformer.prefill(p_cpu, cfg, batch, flags, max_len=16)
         compare("prefill", got, want)
-        if dtype == "bfloat16" and not flags.quant_kv:
+        if dtype == "bfloat16" and not flags.quant_kv and cfg.tie_embeddings:
             # the tied LM head (a bfloat16 cuBLAS product) with PyTorch's default
             # reduced-precision reductions against them off, for this call only
             matmul = torch.backends.cuda.matmul
             saved = matmul.allow_bf16_reduced_precision_reduction
             try:
                 matmul.allow_bf16_reduced_precision_reduction = not saved
-                _, other = transformer.prefill(p_card, c2, {"tokens": toks.to(dev)}, flags, max_len=16)
+                _, other = transformer.prefill(p_card, cfg, batch_card, flags, max_len=16)
             finally:
                 matmul.allow_bf16_reduced_precision_reduction = saved
             out["bf16_reduced_precision_reduction"] = {
                 str(saved): out["errors"][0], str(not saved): float((other.float().cpu() - want.float()).abs().max())}
         for step in range(LLM_CPU_STEPS):
             nt = torch.argmax(want, -1).to(torch.int32)[:, None]
-            cache_d, got = transformer.decode_step(p_card, c2, cache_d, nt.to(dev), flags)
-            cache_c, want = transformer.decode_step(p_cpu, c2, cache_c, nt, flags)
+            cache_d, got = transformer.decode_step(p_card, cfg, cache_d, nt.to(dev), flags)
+            cache_c, want = transformer.decode_step(p_cpu, cfg, cache_c, nt, flags)
             compare(f"decode step {step}", got, want)
     torch.cuda.synchronize()
     print(f"{label}: max |card - cpu| {[f'{e:.3g}' for e in out['errors']]} against "
@@ -2794,6 +2879,92 @@ def llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags, dtype):
           + (f"; bf16 reduced-precision reductions {out['bf16_reduced_precision_reduction']}"
              if "bf16_reduced_precision_reduction" in out else ""))
     return out
+
+
+def llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags, dtype):
+    """(c): the port at full width and LLM_CPU_LAYERS layers on the card
+    against the same port on CPU copies of the same weights
+    (:func:`card_vs_cpu`)."""
+    import dataclasses
+
+    c2 = dataclasses.replace(cfg, n_layers=LLM_CPU_LAYERS, dtype=dtype)
+    raw = transformer.init_params(c2, SEED, device=dev)
+    label = f"phase 3j card vs CPU {dtype} {LLM_CPU_LAYERS} layers quant_kv={flags.quant_kv}"
+    return card_vs_cpu(torch, common, transformer, smoke, dev, c2, raw, flags, label, LLM_TOL[dtype])
+
+
+def check_recorded(torch, bm, att, smoke, rec, phase, tag, want_keys):
+    """The recorder's K4 and K6 shapes must be ``want_keys`` (any, if None); each shape's
+    first call is held bit-equal to its plain version on the CPU (timed),
+    and every bit-sliced call must have taken the tensor cores."""
+    if want_keys is not None and set(rec.calls) != want_keys:
+        smoke.failures.append(f"{phase}: kernel shapes {sorted(rec.calls)} != expected {sorted(want_keys)}")
+    for key, c in sorted(rec.calls.items()):
+        args = [a.cpu() if torch.is_tensor(a) else a for a in c["args"]]
+        t = time.perf_counter()
+        plain = bm._bitslice_plain(*args) if key[0] == "bitslice_matmul" else att._qk_plain(*args)
+        c["plain_ms"] = (time.perf_counter() - t) * 1e3
+        c["max_abs_err"] = smoke.check(key[0], f"{phase} {tag} {key[1]}x{key[2]}", c["out"], plain, exact=True)
+        if key[0] == "bitslice_matmul" and c["path"] != "mma":
+            smoke.failures.append(f"{phase}: the bit-sliced GEMM at {key[1:]} took the {c['path']} path")
+
+
+def drive_engine(torch, api, smoke, rec, phase, label, eng, reqs, vp, out, path_counts, want_of):
+    """One ``engine.run`` of ``reqs`` with the launch counters reset just
+    before it and read just after, inside the kernel recorder ``rec``: the
+    counts must equal ``want_of(decode steps)``, and every request must get
+    its full stream of tokens in the vocabulary.  Records the run in
+    ``out["runs"]`` and adds its counts to ``path_counts``."""
+    api.reset_launch_counts()
+    with rec:
+        t = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = {k: v for k, v in api.launch_counts().items() if v}
+    steps = max(len(r.generated) for r in done)
+    want = want_of(steps - 1)
+    if counts != want:
+        smoke.failures.append(f"{phase} {label}: launches {counts} != expected {want}")
+    bad = [r.rid for r in done if len(r.generated) != r.max_new_tokens
+           or not all(0 <= tok < vp for tok in r.generated)]
+    if bad:
+        smoke.failures.append(f"{phase} {label}: requests {bad} got no full stream of tokens in the vocabulary")
+    ntok = sum(len(r.generated) for r in done)
+    for k, v in counts.items():
+        path_counts[k] = path_counts.get(k, 0) + v
+    out["runs"][label] = {"launches": counts, "expected": want, "tokens": ntok, "first_run_s": wall,
+                          "streams": [r.generated for r in done]}
+    print(f"{phase} {label}: {len(done)} requests, {ntok} tokens, launches {counts} (expected {want}); "
+          f"first run {wall:.3f} s; req 0 {done[0].generated[:8]}")
+    return done
+
+
+def step_launches(torch, api, smoke, label, e, reqs, vp, want_prefill, want_decode):
+    """One prefill and one decode step of engine ``e`` on ``reqs``, each
+    with the counters reset around it and held to ``want_prefill`` and
+    ``want_decode``; the logits must be (B, vp), finite, in the config's
+    dtype.  Returns (the counts, (e, batch, cache, next tokens))."""
+    batch = e.prompt_batch(reqs)
+    with torch.no_grad():
+        api.reset_launch_counts()
+        cache, logits = e._prefill(e.params, batch)
+        torch.cuda.synchronize()
+        pre = {k: v for k, v in api.launch_counts().items() if v}
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        api.reset_launch_counts()
+        _, logits2 = e._decode(e.params, cache, tok)
+        torch.cuda.synchronize()
+        dec = {k: v for k, v in api.launch_counts().items() if v}
+    for what, got, want in (("prefill", pre, want_prefill), ("decode step", dec, want_decode)):
+        if got != want:
+            smoke.failures.append(f"{label} {what}: launches {got} != {want}")
+    dtype = e.params["embed"]["w"].dtype
+    for lg in (logits, logits2):
+        if lg.shape != (batch["tokens"].shape[0], vp) or lg.dtype != dtype or not bool(torch.isfinite(lg).all()):
+            smoke.failures.append(f"{label}: logits {tuple(lg.shape)} {lg.dtype}, finite "
+                                  f"{bool(torch.isfinite(lg).all())}")
+    return {"prefill": pre, "decode_step": dec}, (e, batch, cache, tok)
 
 
 def run_llm_phase(torch, api, bm, att, smoke, dev, gpu):
@@ -2820,29 +2991,8 @@ def run_llm_phase(torch, api, bm, att, smoke, dev, gpu):
     path_counts = {}
 
     def drive(label, eng, reqs, quant_kv):
-        api.reset_launch_counts()
-        with rec:
-            t = time.perf_counter()
-            done = eng.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        counts = {k: v for k, v in api.launch_counts().items() if v}
-        steps = max(len(r.generated) for r in done)
-        want = llm_expected(cfg, steps - 1, quant_kv)
-        if counts != want:
-            smoke.failures.append(f"phase 3j {label}: launches {counts} != expected {want}")
-        bad = [r.rid for r in done if len(r.generated) != r.max_new_tokens
-               or not all(0 <= tok < vp for tok in r.generated)]
-        if bad:
-            smoke.failures.append(f"phase 3j {label}: requests {bad} got no full stream of tokens in the vocabulary")
-        ntok = sum(len(r.generated) for r in done)
-        for k, v in counts.items():
-            path_counts[k] = path_counts.get(k, 0) + v
-        out["runs"][label] = {"launches": counts, "expected": want, "tokens": ntok, "first_run_s": wall,
-                              "streams": [r.generated for r in done]}
-        print(f"phase 3j {label}: {len(done)} requests, {ntok} tokens, launches {counts} (expected {want}); "
-              f"first run {wall:.3f} s; req 0 {done[0].generated[:8]}")
-        return done
+        return drive_engine(torch, api, smoke, rec, "phase 3j", label, eng, reqs, vp, out, path_counts,
+                            lambda steps: llm_expected(cfg, steps, quant_kv))
 
     info0 = api.compile_cache_info()
     eng = serve_engine.ServeEngine(cfg, params, flags, max_len=serve_cli.MAX_LEN)
@@ -2868,28 +3018,9 @@ def run_llm_phase(torch, api, bm, att, smoke, dev, gpu):
     for label, e, reqs in (("4x8", eng, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS)),
                            (f"1x{prompt}", eng_long, serve_cli.make_requests(cfg, 1, 1, SEED + 1, prompt)),
                            ("4x8 quant_kv", eng_kv, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS))):
-        batch = e.prompt_batch(reqs)
-        with torch.no_grad():
-            api.reset_launch_counts()
-            cache, logits = e._prefill(e.params, batch)
-            torch.cuda.synchronize()
-            pre = {k: v for k, v in api.launch_counts().items() if v}
-            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-            api.reset_launch_counts()
-            cache2, logits2 = e._decode(e.params, cache, tok)
-            torch.cuda.synchronize()
-            dec = {k: v for k, v in api.launch_counts().items() if v}
-        for what, got, want in (("prefill", pre, llm_expected(cfg, 0, False)),
-                                ("decode step", dec, llm_step_expected(cfg, e.flags.quant_kv))):
-            if got != want:
-                smoke.failures.append(f"phase 3j {label} {what}: launches {got} != {want}")
-        for lg in (logits, logits2):
-            if lg.shape != (batch["tokens"].shape[0], vp) or lg.dtype != torch.bfloat16 \
-                    or not bool(torch.isfinite(lg).all()):
-                smoke.failures.append(f"phase 3j {label}: logits {tuple(lg.shape)} {lg.dtype}, finite "
-                                      f"{bool(torch.isfinite(lg).all())}")
-        per_step[label] = {"prefill": pre, "decode_step": dec}
-        steps[label] = (e, batch, cache, tok)
+        per_step[label], steps[label] = step_launches(
+            torch, api, smoke, f"phase 3j {label}", e, reqs, vp, llm_expected(cfg, 0, False),
+            llm_step_expected(cfg, e.flags.quant_kv))
     out["per_step_launches"] = per_step
     print(f"phase 3j launches a step: {per_step}; second engine a compile-cache hit: {hit}")
 
@@ -2900,16 +3031,7 @@ def run_llm_phase(torch, api, bm, att, smoke, dev, gpu):
     rows = tmattn.int8_scores_rows_per_call(LLM_REQUESTS, hkv, g, serve_cli.MAX_LEN)
     k6_keys = {("attention_qk", (r * hkv * g, hd), (r * serve_cli.MAX_LEN * hkv, hd))
                for r in {min(rows, LLM_REQUESTS - lo) for lo in range(0, LLM_REQUESTS, rows)}}
-    if set(rec.calls) != k4_keys | k6_keys:
-        smoke.failures.append(f"phase 3j: kernel shapes {sorted(rec.calls)} != expected {sorted(k4_keys | k6_keys)}")
-    for key, c in sorted(rec.calls.items()):
-        args = [a.cpu() if torch.is_tensor(a) else a for a in c["args"]]
-        t = time.perf_counter()
-        plain = bm._bitslice_plain(*args) if key[0] == "bitslice_matmul" else att._qk_plain(*args)
-        c["plain_ms"] = (time.perf_counter() - t) * 1e3
-        c["max_abs_err"] = smoke.check(key[0], f"phase 3j LLM {key[1]}x{key[2]}", c["out"], plain, exact=True)
-        if key[0] == "bitslice_matmul" and c["path"] != "mma":
-            smoke.failures.append(f"phase 3j: the bit-sliced GEMM at {key[1:]} took the {c['path']} path")
+    check_recorded(torch, bm, att, smoke, rec, "phase 3j", "LLM", k4_keys | k6_keys)
 
     # (c) card against CPU copies, full width, LLM_CPU_LAYERS layers
     out["card_vs_cpu"] = {
@@ -2922,28 +3044,36 @@ def run_llm_phase(torch, api, bm, att, smoke, dev, gpu):
     return out
 
 
+def engine_latency(torch, steps, arch, gpu, samples=LLM_TIMING_SAMPLES):
+    """Host-clock latencies from an idle card of each engine's prefill and
+    decode step in ``steps`` (label → (engine, batch, cache, next tokens)),
+    medians of ``samples`` (a prompt of 64 tokens or more: a quarter)."""
+    lat = {}
+    with torch.no_grad():
+        for label, (e, batch, cache, tok) in steps.items():
+            n = samples if batch["tokens"].shape[1] < 64 else max(1, samples // 4)
+            pre = sync_samples(torch, lambda: e._prefill(e.params, batch), n)
+            dec = sync_samples(torch, lambda: e._decode(e.params, cache, tok), samples)
+            b = batch["tokens"].shape[0]
+            lat[label] = {"prefill_ms_median": median(pre), "decode_step_ms_median": median(dec),
+                          "decode_tokens_per_s": b / median(dec) * 1e3, "prefill_ms": pre, "decode_step_ms": dec}
+            print(f"phase 4 LLM {arch} {label} ({gpu}): prefill {median(pre):.3f} ms, decode step "
+                  f"{median(dec):.3f} ms ({b / median(dec) * 1e3:.1f} tokens/s at batch {b}), eager, host clock "
+                  f"from an idle card, medians of {n} and {samples}")
+    return lat
+
+
 def llm_timing(torch, bm, att, smoke, llm, floor_ms):
     """Phase 4 for 3j: host-clock latencies from an idle card (prefill 4 × 8
     and 1 × 512, the decode step at batch 4 with and without quant_kv and at
     batch 1 on the 1024-row cache, medians), a second engine run end to
-    end; each K4 and K6 shape of the path by CUDA-graph replay and eagerly,
-    beside its bound, its plain version (CPU) and torch._int_mm where it
-    takes the shape.  Returns (summary, kernel rows)."""
+    end; each K4 and K6 shape of the path (:func:`recorded_kernel_rows`).
+    Returns (summary, kernel rows)."""
     from repro_torch.launch import serve as serve_cli
 
     gpu = llm["gpu"]
-    lat = {}
+    lat = engine_latency(torch, llm["steps"], LLM_ARCH, gpu)
     with torch.no_grad():
-        for label, (e, batch, cache, tok) in llm["steps"].items():
-            n = LLM_TIMING_SAMPLES if batch["tokens"].shape[1] < 64 else max(1, LLM_TIMING_SAMPLES // 4)
-            pre = sync_samples(torch, lambda: e._prefill(e.params, batch), n)
-            dec = sync_samples(torch, lambda: e._decode(e.params, cache, tok), LLM_TIMING_SAMPLES)
-            b = batch["tokens"].shape[0]
-            lat[label] = {"prefill_ms_median": median(pre), "decode_step_ms_median": median(dec),
-                          "decode_tokens_per_s": b / median(dec) * 1e3, "prefill_ms": pre, "decode_step_ms": dec}
-            print(f"phase 4 LLM {LLM_ARCH} {label} ({gpu}): prefill {median(pre):.3f} ms, decode step "
-                  f"{median(dec):.3f} ms ({b / median(dec) * 1e3:.1f} tokens/s at batch {b}), eager, host clock "
-                  f"from an idle card, medians of {n} and {LLM_TIMING_SAMPLES}")
         e = llm["steps"]["4x8"][0]
         reqs = serve_cli.make_requests(e.cfg, LLM_REQUESTS, LLM_NEW_TOKENS)
         torch.cuda.synchronize()
@@ -2955,11 +3085,17 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
     lat["engine_run"] = {"tokens": ntok, "s": wall, "tokens_per_s": ntok / wall}
     print(f"phase 4 LLM {LLM_ARCH} engine.run 4 requests x {LLM_NEW_TOKENS} tokens ({gpu}): {wall * 1e3:.1f} ms, "
           f"{ntok / wall:.1f} tokens/s (second run)")
+    return lat, recorded_kernel_rows(torch, bm, att, smoke, llm["recorder"], e.cfg, floor_ms, "llm", "llm_serving",
+                                     gpu)
 
-    cfg = llm["steps"]["4x8"][0].cfg
+
+def recorded_kernel_rows(torch, bm, att, smoke, rec, cfg, floor_ms, tag, path, gpu):
+    """Each K4 and K6 shape of a recorded path by CUDA-graph replay and
+    eagerly, beside its bound, its plain version (CPU) and torch._int_mm
+    where it takes the shape: the kernel rows."""
     hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     rows = []
-    for key, c in sorted(llm["recorder"].calls.items()):
+    for key, c in sorted(rec.calls.items()):
         kernel, sa, sb = key
         call_work = None
         if kernel == "bitslice_matmul":
@@ -2967,7 +3103,7 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
             run = lambda x=x, w=w, s=slice_bits, p=pairs: bm._bitslice_gemm(x, w, s, p)  # noqa: E731
             nbytes, ops = bitslice_work(x, w, slice_bits, pairs)
             m, k, n = x.shape[1], x.shape[2], w.shape[2]
-            name = f"bitslice_matmul[llm M={m} K={k} N={n}]"
+            name = f"bitslice_matmul[{tag} M={m} K={k} N={n}]"
             lib = (lambda x0=x[0], w0=w[0]: torch._int_mm(x0, w0)) if m > 16 else None
             lib_want = c["out"]
             source, replaces = BITSLICE_SOURCE, BITSLICE_REPLACES
@@ -2984,7 +3120,7 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
             ops = 2 * r * hkv * g * t * d
             call_work = {"bytes": q.numel() + kk.numel() + 4 * c["out"].numel(),
                          "ops": 2 * q.shape[0] * kk.shape[0] * d, "batch_rows": r, "cache_rows": t}
-            name = f"attention_qk[llm quant_kv M={q.shape[0]} T={kk.shape[0]} D={d}]"
+            name = f"attention_qk[{tag} quant_kv M={q.shape[0]} T={kk.shape[0]} D={d}]"
             qt = q.t().contiguous()
             lib = lambda kk=kk, qt=qt: torch._int_mm(kk, qt)  # noqa: E731
             lib_want = c["out"].t()
@@ -2993,7 +3129,7 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
         eager = cuda_ms(torch, run)
         lib_ms = rounds = None
         if lib is not None:
-            smoke.check(kernel, f"phase 3j {name} torch._int_mm library call", lib(), lib_want.cpu(), exact=True)
+            smoke.check(kernel, f"{name} torch._int_mm library call", lib(), lib_want.cpu(), exact=True)
             sums, _ = paired_rounds([(k_timer, graph_timer(torch, lib))], PAIRED_ROUNDS)
             k_ms, lib_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
             rounds = dict(sums, kernel_no_slower=sum(a <= b for a, b in zip(sums["kernel"], sums["library"])))
@@ -3004,16 +3140,315 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": c["count"],
             "max_abs_err": c["max_abs_err"], "ms": k_ms, "plain_ms": c["plain_ms"],
             "bound_ms": max(b_bytes, b_ops), "bound_by": "operations" if b_ops > b_bytes else "bytes",
-            "library_ms": lib_ms, "eager_ms": eager, "plain_device": "cpu", "path": "llm_serving",
+            "library_ms": lib_ms, "eager_ms": eager, "plain_device": "cpu", "path": path,
             "library": "torch._int_mm" if lib is not None else None,
             "library_note": None if lib is not None else "torch._int_mm needs more than 16 rows in its first operand",
             "kernel_path": c["path"], "rounds": rounds, "bytes": nbytes, "ops": ops, "call_work": call_work,
-            "launches_by_path": {"llm_serving": c["count"]}, "floors": k_ms / floor_ms,
+            "launches_by_path": {path: c["count"]}, "floors": k_ms / floor_ms,
         })
         print(f"kernel {name}: {k_ms * 1e3:.3f} us graph replay ({eager * 1e3:.3f} us eager; bound "
               f"{max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
               f"{max(b_bytes, b_ops) / k_ms:.1%}, {k_ms / floor_ms:.2f} launch floors), plain {c['plain_ms']:.2f} ms "
-              f"on the CPU, torch._int_mm {lib_ms}; {c['count']} launches on the LLM path ({gpu})")
+              f"on the CPU, torch._int_mm {lib_ms}; {c['count']} launches on the {path} path ({gpu})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3l: the families beyond decoder-only attention at full width
+# ---------------------------------------------------------------------------
+
+
+def fam_k4(cfg, prefill):
+    """Bit-sliced GEMM launches of one prefill or decode step: each quantized
+    linear once (``models/transformer.py``): a block's mixer, a dense FFN's
+    three (the MoE experts and router are float products), the
+    cross-attention's wq and wo (and wk, wv over the encoder's output in the
+    prefill), an untied head; in the prefill also the audio adapter and each
+    encoder block's 7."""
+    n = 0
+    for kind in cfg.layer_kinds():
+        n += K4_PER_MIXER[kind]
+        if cfg.d_ff > 0 and kind in ("attn", "local_attn", "rglru") and not cfg.is_moe:
+            n += 3
+        if cfg.is_encdec:
+            n += 4 if prefill else 2
+    if cfg.is_encdec and prefill:
+        n += 1 + 7 * cfg.n_enc_layers
+    return n + (0 if cfg.tie_embeddings else 1)
+
+
+def fam_k6(cfg, batch, max_len):
+    """Row-dot calls of one quant_kv decode step: each attention layer's
+    int8 scores over its cache (a local-attention layer's holds
+    min(window, max_len) rows)."""
+    n = 0
+    for kind in cfg.layer_kinds():
+        if kind in ("attn", "local_attn"):
+            n += llm_k6_calls(cfg, batch, min(cfg.window, max_len) if kind == "local_attn" else max_len)
+    return n
+
+
+def fam_expected(cfg, decode_steps, quant_kv, batch, max_len):
+    """Launches of an engine run with ``decode_steps`` decode steps: K4 a
+    prefill and a step (:func:`fam_k4`), K11 once for each RG-LRU layer of
+    the prefill (a decode step is elementwise), K6 a quant_kv step
+    (:func:`fam_k6`)."""
+    want = {"bitslice_matmul": fam_k4(cfg, True) + decode_steps * fam_k4(cfg, False)}
+    n_rglru = sum(kind == "rglru" for kind in cfg.layer_kinds())
+    if n_rglru:
+        want["rglru_scan"] = n_rglru
+    if quant_kv and decode_steps and fam_k6(cfg, batch, max_len):
+        want["attention_qk"] = decode_steps * fam_k6(cfg, batch, max_len)
+    return want
+
+
+def fam_step_expected(cfg, quant_kv, batch, max_len):
+    """Launches of one decode step (see :func:`fam_expected`)."""
+    want = {"bitslice_matmul": fam_k4(cfg, False)}
+    if quant_kv and fam_k6(cfg, batch, max_len):
+        want["attention_qk"] = fam_k6(cfg, batch, max_len)
+    return want
+
+
+def cut_to(transformer, cfg, params, groups, enc_layers):
+    """The config and parameters of ``params``'s first ``groups`` pattern
+    groups (and first ``enc_layers`` encoder blocks): views, no copy."""
+    import dataclasses
+
+    cut = dict(params, blocks=transformer._tree_map(lambda a: a[:groups], params["blocks"]))
+    kw = {"n_layers": groups * len(cfg.block_pattern)}
+    if cfg.is_encdec:
+        cut["enc_blocks"] = transformer._tree_map(lambda a: a[:enc_layers], params["enc_blocks"])
+        kw["n_enc_layers"] = enc_layers
+    return dataclasses.replace(cfg, **kw), cut
+
+
+def fam_extra(torch, cfg, batch=LLM_REQUESTS):
+    """An encoder–decoder's frame embeddings for a card-vs-CPU check: seeded
+    normals (the engine feeds zeros), on the CPU."""
+    if not cfg.is_encdec:
+        return None
+    g = torch.Generator().manual_seed(SEED + 3)
+    return {"enc_embeds": torch.randn((batch, cfg.enc_seq_len, cfg.d_model), generator=g).to(torch.bfloat16)}
+
+
+def fam_loss(torch, transformer, smoke, cfg, params, flags, dev, label):
+    """``loss_fn`` on the card at the card's depth: a finite ce and aux (aux
+    above 0 for a mixture of experts)."""
+    g = torch.Generator().manual_seed(SEED + 4)
+    toks = torch.randint(2, cfg.vocab_size, (LLM_REQUESTS, 8), generator=g, dtype=torch.int32)
+    labels = torch.randint(0, cfg.vocab_size, (LLM_REQUESTS, 8), generator=g, dtype=torch.int32)
+    batch = {"tokens": toks.to(dev), "labels": labels.to(dev)}
+    extra = fam_extra(torch, cfg)
+    if extra:
+        batch.update({k: v.to(dev) for k, v in extra.items()})
+    with torch.no_grad():
+        loss, parts = transformer.loss_fn(params, cfg, batch, flags)
+    ce, aux = float(parts["ce"]), float(parts["aux"])
+    ok = all(map(lambda v: v == v and abs(v) != float("inf"), (float(loss), ce, aux))) and (aux > 0) == cfg.is_moe
+    if not ok:
+        smoke.failures.append(f"{label} loss_fn: loss {float(loss)}, ce {ce}, aux {aux}")
+    return {"loss": float(loss), "ce": ce, "aux": aux}
+
+
+def scan_checks(torch, rg, smoke, rec, label):
+    """Every RG-LRU scan call of the recorded runs against its plain version
+    at the call's inputs (on the card: each step one exact fma), the
+    recurrence's float32 values within 1e-4.  Returns the shapes seen with
+    their counts."""
+    shapes = {}
+    for a, b, h0, out in rec.scans:
+        shape = tuple(a.shape)
+        shapes[shape] = shapes.get(shape, 0) + 1
+        smoke.check("rglru_scan", f"{label} {shape} call {shapes[shape]}", out, rg._scan_plain(a, b, h0).cpu(),
+                    exact=False, tol=1e-4)
+    return shapes
+
+
+def run_families_phase(torch, api, bm, att, rg, smoke, dev, gpu):
+    """Phase 3l (module docstring): RecurrentGemma-2B through the launcher's
+    main path at full width and depth with K4, K6 and K11 counted and held,
+    then xLSTM-1.3B, Whisper-medium and DBRX-132B (2 layers); each against
+    CPU copies of its first pattern groups and through ``loss_fn``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import attention as tmattn
+    from repro_torch.models import common, transformer
+    from repro_torch.serve import engine as serve_engine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(FAM_ARCH)
+    flags = serve_cli.serve_flags(cfg=cfg)
+    flags_kv = dataclasses.replace(flags, quant_kv=True)
+    vp = cfg.padded_vocab()
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    out = {"gpu": gpu, "arch": FAM_ARCH, "init_s": time.perf_counter() - t,
+           "param_bytes": transformer.param_bytes(params), "runs": {}, "others": {}}
+    rec = LLMKernelRecorder(torch, bm, att, rg)
+    path_counts = {}
+
+    def drive(label, eng, reqs, quant_kv):
+        return drive_engine(torch, api, smoke, rec, "phase 3l", label, eng, reqs, vp, out, path_counts,
+                            lambda steps: fam_expected(cfg, steps, quant_kv, len(reqs), eng.max_len))
+
+    prompt, long_len = LLM_LONG
+    eng = serve_engine.ServeEngine(cfg, params, flags, max_len=serve_cli.MAX_LEN)
+    eng_long = serve_engine.ServeEngine(cfg, params, flags, max_len=long_len)
+    eng_kv = serve_engine.ServeEngine(cfg, params, flags_kv, max_len=serve_cli.MAX_LEN)
+    drive("launcher 4x8", eng, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS), False)
+    drive(f"1x{prompt} chunked prefill", eng_long,
+          serve_cli.make_requests(cfg, 1, LLM_NEW_TOKENS, seed=SEED + 1, prompt_len=prompt), False)
+    drive("launcher 4x8 quant_kv", eng_kv, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS), True)
+    out["path_launches"] = path_counts
+
+    per_step, steps = {}, {}
+    for label, e, reqs in (("4x8", eng, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS)),
+                           (f"1x{prompt}", eng_long, serve_cli.make_requests(cfg, 1, 1, SEED + 1, prompt)),
+                           ("4x8 quant_kv", eng_kv, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS))):
+        b = len(reqs)
+        per_step[label], steps[label] = step_launches(
+            torch, api, smoke, f"phase 3l {label}", e, reqs, vp, fam_expected(cfg, 0, False, b, e.max_len),
+            fam_step_expected(cfg, e.flags.quant_kv, b, e.max_len))
+    out["per_step_launches"] = per_step
+    print(f"phase 3l {FAM_ARCH} launches a step: {per_step}")
+
+    # K4 and K6 at every shape the path gave them, every K11 call
+    k4_keys = {("bitslice_matmul", (1, m, k), (1, k, n)) for m in (LLM_REQUESTS * 8, LLM_REQUESTS, prompt, 1)
+               for k, n in FAM_KN}
+    hd, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    t_rows = min(cfg.window, serve_cli.MAX_LEN)
+    rows = tmattn.int8_scores_rows_per_call(LLM_REQUESTS, hkv, g, t_rows)
+    k6_keys = {("attention_qk", (r * hkv * g, hd), (r * t_rows * hkv, hd))
+               for r in {min(rows, LLM_REQUESTS - lo) for lo in range(0, LLM_REQUESTS, rows)}}
+    check_recorded(torch, bm, att, smoke, rec, "phase 3l", FAM_ARCH, k4_keys | k6_keys)
+    for key in sorted(k6_keys & set(rec.calls)):
+        q, kk = rec.calls[key]["args"]
+        plan = att.rowdot_plan(kk.shape[0], kk.shape[1], q.shape[0], 1, 1, (kk.data_ptr(), q.data_ptr()))
+        out["k6_plan"] = plan._asdict()
+        print(f"phase 3l K6 at head_dim {hd}, q {tuple(q.shape)} x cache rows {tuple(kk.shape)}: plan {plan}")
+    scans = scan_checks(torch, rg, smoke, rec, f"phase 3l {FAM_ARCH}")
+    n_rglru = sum(kind == "rglru" for kind in cfg.layer_kinds())
+    want_scans = {(LLM_REQUESTS, 8, cfg.d_model): 2 * n_rglru, (1, prompt, cfg.d_model): n_rglru}
+    if scans != want_scans:
+        smoke.failures.append(f"phase 3l: RG-LRU scan calls {scans} != {want_scans}")
+    out["scan_calls"] = {str(k): v for k, v in scans.items()}
+    print(f"phase 3l {FAM_ARCH}: RG-LRU scan calls by shape {scans}, each held to its plain version")
+    out["loss"] = fam_loss(torch, transformer, smoke, cfg, params, flags, dev, f"phase 3l {FAM_ARCH}")
+    c_cut, p_cut = cut_to(transformer, cfg, params, FAM_CPU_GROUPS[FAM_ARCH], FAM_CPU_ENC_LAYERS)
+    label = f"phase 3l card vs CPU {FAM_ARCH} {c_cut.n_layers} layers"
+    pair = serve_params_pair(torch, common, transformer, smoke, c_cut, p_cut, flags, label)
+    out["card_vs_cpu"] = {
+        name: card_vs_cpu(torch, common, transformer, smoke, dev, c_cut, p_cut, fl,
+                          f"{label} quant_kv={fl.quant_kv}", FAM_TOL[FAM_ARCH], pair=pair)
+        for name, fl in (("bfloat16", flags), ("bfloat16_quant_kv", flags_kv))}
+    del pair
+    out["recorder"], out["steps"] = rec, steps
+    out[f"{FAM_ARCH}_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 3l {FAM_ARCH}: {out[f'{FAM_ARCH}_seconds']:.1f} s")
+    del params, p_cut, eng, eng_long, eng_kv
+    torch.cuda.empty_cache()
+
+    for arch, layers in FAM_OTHERS.items():
+        out["others"][arch] = run_other_family(torch, api, bm, att, smoke, dev, gpu, arch, layers)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 3l: {out['seconds']:.1f} s ({gpu})")
+    return out
+
+
+def run_other_family(torch, api, bm, att, smoke, dev, gpu, arch, layers):
+    """One launcher run of ``arch`` (at ``layers`` layers, or all) with K4
+    counted a run and a step and held at every shape, ``loss_fn``, and the
+    card against CPU copies of its first pattern groups."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import common, transformer
+    from repro_torch.serve import engine as serve_engine
+
+    t_arch = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    flags = serve_cli.serve_flags(cfg=cfg)
+    vp = cfg.padded_vocab()
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    out = {"arch": arch, "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers, "init_s": time.perf_counter() - t,
+           "param_bytes": transformer.param_bytes(params), "runs": {}}
+    rec = LLMKernelRecorder(torch, bm, att)
+    path_counts = {}
+    eng = serve_engine.ServeEngine(cfg, params, flags, max_len=serve_cli.MAX_LEN)
+    reqs = serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS)
+    drive_engine(torch, api, smoke, rec, f"phase 3l {arch}", "launcher 4x8", eng, reqs, vp, out, path_counts,
+                 lambda steps: fam_expected(cfg, steps, False, LLM_REQUESTS, eng.max_len))
+    out["path_launches"] = path_counts
+    out["per_step_launches"], step = step_launches(
+        torch, api, smoke, f"phase 3l {arch} 4x8", eng, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS),
+        vp, fam_expected(cfg, 0, False, LLM_REQUESTS, eng.max_len),
+        fam_step_expected(cfg, False, LLM_REQUESTS, eng.max_len))
+    check_recorded(torch, bm, att, smoke, rec, f"phase 3l {arch}", arch, None)
+    out["k4_shapes"] = {f"{k[1]}x{k[2]}": c["count"] for k, c in sorted(rec.calls.items())}
+    out["loss"] = fam_loss(torch, transformer, smoke, cfg, params, flags, dev, f"phase 3l {arch}")
+    out["latency"] = engine_latency(torch, {"4x8": step}, arch, gpu, samples=5)
+    c_cut, p_cut = cut_to(transformer, cfg, params, FAM_CPU_GROUPS[arch], FAM_CPU_ENC_LAYERS)
+    enc = f" + {c_cut.n_enc_layers} encoder" if c_cut.is_encdec else ""
+    out["card_vs_cpu"] = card_vs_cpu(torch, common, transformer, smoke, dev, c_cut, p_cut, flags,
+                                     f"phase 3l card vs CPU {arch} {c_cut.n_layers}{enc} layers", FAM_TOL[arch],
+                                     fam_extra(torch, c_cut))
+    print(f"phase 3l {arch} ({cfg.n_layers} layers{f', {cfg.n_enc_layers} encoder' if cfg.is_encdec else ''}, "
+          f"{out['param_bytes'] / 1e9:.2f} GB of weights): launches a step {out['per_step_launches']}; "
+          f"loss {out['loss']}; {time.perf_counter() - t_arch:.1f} s")
+    out["seconds"] = time.perf_counter() - t_arch
+    return out
+
+
+def families_timing(torch, bm, att, rg, smoke, fam, floor_ms):
+    """Phase 4 for 3l: RecurrentGemma-2B's prefills and decode steps (host
+    clock from an idle card, medians), each K4 and K6 shape of its path
+    (:func:`recorded_kernel_rows`), and the RG-LRU scan at the path's
+    shapes: CUDA-graph replay, eager, cold, its plain version (on the card),
+    its bound.  Returns (latencies, kernel rows)."""
+    gpu = fam["gpu"]
+    lat = engine_latency(torch, fam["steps"], FAM_ARCH, gpu)
+    cfg = fam["steps"]["4x8"][0].cfg
+    rows = recorded_kernel_rows(torch, bm, att, smoke, fam["recorder"], cfg, floor_ms, FAM_ARCH,
+                                "families_serving", gpu)
+    seen = {}
+    for a, b, h0, out in fam["recorder"].scans:
+        seen.setdefault(tuple(a.shape), (a, b, h0, []))[3].append(out)
+    for shape, (a, b, h0, outs) in sorted(seen.items()):
+        args = (a, b, h0)
+        k_ms = graph_ms(torch, lambda: rg._scan(*args))
+        eager = cuda_ms(torch, lambda: rg._scan(*args))
+        cold = cold_timer(torch, rg._scan, args)
+        cold_ms = median(sorted(cold() for _ in range(3)))
+        p_ms = cuda_ms(torch, lambda: rg._scan_plain(*args), reps=1, warmup=1)
+        nbytes = 4 * (a.numel() + b.numel() + h0.numel() + outs[0].numel())
+        ops = 2 * a.numel()  # one fma a step
+        b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        name = f"rglru_scan[{FAM_ARCH} prefill {'x'.join(map(str, shape))}]"
+        err = max((c["max_abs_err"] or 0.0) for c in smoke.cases
+                  if c["kernel"] == "rglru_scan" and c["case"].startswith(f"phase 3l {FAM_ARCH} {shape}"))
+        rows.append({
+            "name": name, "route": "cuda", "source": ENTRY_SOURCES["rglru_scan"],
+            "replaces": ENTRY_REPLACES["rglru_scan"], "launches": len(outs), "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops), "bound_by": "operations" if b_ops > b_bytes else "bytes",
+            "library_ms": None, "library_none_reason": ENTRY_NO_LIBRARY["rglru_scan"], "eager_ms": eager,
+            "cold_ms": cold_ms, "plain_device": "cuda", "path": "families_serving",
+            "launches_by_path": {"families_serving": len(outs)}, "shapes": [list(shape)], "bytes": nbytes, "ops": ops,
+            "floors": k_ms / floor_ms,
+        })
+        print(f"kernel {name}: {k_ms * 1e3:.3f} us graph replay ({eager * 1e3:.3f} us eager, cold {cold_ms * 1e3:.3f} "
+              f"us; bound {max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
+              f"{max(b_bytes, b_ops) / k_ms:.1%}, {k_ms / floor_ms:.2f} launch floors), plain {p_ms:.3f} ms on the "
+              f"card; {len(outs)} launches on the path ({gpu})")
     return lat, rows
 
 
@@ -3414,7 +3849,9 @@ def replay_profile_main() -> int:
         args = [a.to(dev) for a in cpu_args]
         entry_ex = api.compile(api.trace(fn, name=f"{kernel}_{case}").program_for(*args))
         run(f"held Executor {kernel}[{case}]", lambda: entry_ex(*args), 3)
-    llm = llm_decode_profiles(torch, dev)
+    llm = {LLM_ARCH: llm_decode_profiles(torch, dev)}
+    torch.cuda.empty_cache()
+    llm[FAM_ARCH] = llm_decode_profiles(torch, dev, FAM_ARCH, (False,))
     print(json.dumps({"gpu": nvidia_smi("name,power.limit"), "profiles": profiles, "routes": routes, "llm": llm}))
     return 0
 
@@ -3573,6 +4010,8 @@ def main() -> int:
     bitslice_f32_edge_checks(torch, conv, bm, api, smoke, dev, SEED + 13)
     executor_route_checks(torch, api, att, pimsab_step, smoke, dev, SEED + 14)
     llm_bitslice_checks(torch, bm, smoke, dev, SEED + 15)
+    llm_bitslice_checks(torch, bm, smoke, dev, SEED + 16, FAM_KN + FAM_KN_CHECKS)
+    llm_bitslice_checks(torch, bm, smoke, dev, SEED + 17, FAM_HEADS, (1, LLM_REQUESTS), groups=1)
     n_ok = sum(c["ok"] for c in smoke.cases)
     print(f"phase 2 kernels vs plain: {n_ok}/{len(smoke.cases)} cases agree")
 
@@ -3743,6 +4182,13 @@ def main() -> int:
     serve_scaling = run_serve_scaling_phase(torch, np, api, pimsab_step, scheduler, resnet, smoke, dev, gpu)
     path_launches["serve_card_replay"] = serve_scaling["serve_card_replay"]["launches"]
     path_launches["cluster_card_executors"] = serve_scaling["cluster"]["card_executor_launches"]
+
+    # ---------------- phase 3l: the MoE, recurrent and encoder-decoder families at full width ----------------
+    fam = run_families_phase(torch, api, bm, att, rg, smoke, dev, gpu)
+    path_launches["families_serving"] = fam["path_launches"]
+    for arch, o in fam["others"].items():
+        path_launches[f"families_serving[{arch}]"] = o["path_launches"]
+    torch.cuda.synchronize()
 
     # ---------------- phase 4: timing ----------------
     library = {
@@ -3965,6 +4411,7 @@ def main() -> int:
     entry_rows = entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s)
     entry_latency = entry_executor_latency(torch, program, entry)
     llm_latency, llm_rows = llm_timing(torch, bm, att, smoke, llm, floor_ms)
+    fam_latency, fam_rows = families_timing(torch, bm, att, rg, smoke, fam, floor_ms)
 
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
@@ -4030,13 +4477,13 @@ def main() -> int:
         off = {k: v for k, v in replay_profiles["routes"].items() if v != ["graph"]}
         if off:
             smoke.failures.append(f"phase 5: Executors off the graph route in the profiling process: {off}")
-        for label, s in replay_profiles["llm"].items():
-            profile_summary[f"LLM {LLM_ARCH} {label}"] = s
+        for arch, label, s in ((a, lb, v) for a, by in replay_profiles["llm"].items() for lb, v in by.items()):
+            profile_summary[f"LLM {arch} {label}"] = s
             if s["device_busy_ms_per_step"] is None:
-                print(f"profile LLM {label}: the profiler saw no device activity; not measured")
+                print(f"profile LLM {arch} {label}: the profiler saw no device activity; not measured")
                 continue
             top = "; ".join(f"{nm[:40]} x{cnt:g} {ms * 1e3:.1f} us" for nm, cnt, ms in s["kernels"][:5])
-            print(f"profile LLM {LLM_ARCH} {label} ({s['steps']} eager steps, its own process; {gpu}): "
+            print(f"profile LLM {arch} {label} ({s['steps']} eager steps, its own process; {gpu}): "
                   f"{s['wall_ms_per_step']:.3f} ms wall, {s['device_busy_ms_per_step']:.3f} ms device busy, idle "
                   f"share {s['idle_share']:.3f}, {s['device_kernels_per_step']:g} device kernels; K4 x{s['k4_launches_per_step']:g} {s['k4_ms_per_step']:.4f} ms "
                   f"({s['k4_share_of_busy']:.1%} of busy), K6 x{s['k6_launches_per_step']:g} "
@@ -4063,7 +4510,7 @@ def main() -> int:
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
         "path_launches": path_launches, "program": program_timing, "peak_memory_gib": peak_gib,
         "entry_executor_latency": entry_latency,
-        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows,
+        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows + fam_rows,
         "registered_kernels": registered,
         "entry_points": [{k: v for k, v in r.items() if k not in ("args", "cpu_args", "want", "ex")} for r in entry],
         "decode": decode, "decode_summary": decode_summary,
@@ -4073,13 +4520,15 @@ def main() -> int:
                          for cap, r in layers.items()},
         "pimsab": pimsab, "serve_scaling": serve_scaling, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
         "llm": dict({k: v for k, v in llm.items() if k not in ("recorder", "steps")}, latency=llm_latency),
+        "families": dict({k: v for k, v in fam.items() if k not in ("recorder", "steps")}, latency=fam_latency),
     }, indent=1))
 
     if smoke.failures:
         for f in smoke.failures:
             print("FAIL", f, file=sys.stderr)
         return 1
-    path = [r for r in rows if r["launches"]] + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows
+    path = [r for r in rows if r["launches"]] + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows \
+        + fam_rows
     off_path = [r["name"] for r in rows if not r["launches"]]
     if off_path:
         print(f"FAIL kernels launched on no path: {off_path}", file=sys.stderr)
@@ -4093,7 +4542,12 @@ def main() -> int:
                       "program_copy_in_ms": resnet_copy_ms, "decode": decode_summary,
                       "peak_memory_gib": peak_gib,
                       "llm": {label: {k: v for k, v in r.items() if not isinstance(v, list)}
-                              for label, r in llm_latency.items()}}))
+                              for label, r in llm_latency.items()},
+                      "families": {FAM_ARCH: {label: {k: v for k, v in r.items() if not isinstance(v, list)}
+                                              for label, r in fam_latency.items()},
+                                   **{arch: {k: v for k, v in o["latency"]["4x8"].items() if not isinstance(v, list)}
+                                      for arch, o in fam["others"].items()}},
+                      "families_seconds": fam["seconds"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

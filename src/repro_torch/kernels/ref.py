@@ -83,8 +83,10 @@ def bitslice_pairs_ref(x_slices: torch.Tensor, w_slices: torch.Tensor, slice_bit
     acc = torch.zeros((x_slices.shape[1], w_slices.shape[2]), dtype=torch.int32,
                       device=x_slices.device)
     for s, t in pairs:
-        # int8 @ int8 stays int8 in PyTorch: widen first
-        prod = x_slices[s].to(torch.int32) @ w_slices[t].to(torch.int32)
+        # int8 @ int8 stays int8 in PyTorch, and an int32 product runs without
+        # BLAS: multiply in float64, exact while K · 2**14 < 2**53, then wrap
+        # through int64 to int32
+        prod = (x_slices[s].to(torch.float64) @ w_slices[t].to(torch.float64)).to(torch.int64).to(torch.int32)
         acc = acc + (prod << (slice_bits * (s + t)))
     return acc
 

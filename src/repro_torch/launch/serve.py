@@ -3,7 +3,10 @@ batched engine over synthetic requests with int8 bit-sliced weights, and
 prints what the JAX package's ``launch/serve.py`` prints.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b            # on the card
-    python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced --device cpu
+
+Every arch of ``repro_torch.configs.list_archs()`` serves; an
+encoder–decoder one (whisper-medium) gets zero frame embeddings.
 
 ``--device`` defaults to ``cuda``, as every entry point of the port; without
 a card the CLI raises unless ``--device cpu`` is given.
@@ -27,9 +30,16 @@ PROMPT_LEN = 8
 MAX_LEN = 128
 
 
-def serve_flags(quant: bool = True) -> RunFlags:
-    """The launcher's run flags."""
-    return RunFlags(attn_chunk=64, flash_threshold=256, quant_serve=quant)
+def serve_flags(quant: bool = True, cfg=None) -> RunFlags:
+    """The launcher's run flags: the JAX launcher's (``attn_chunk`` 64,
+    ``flash_threshold`` 256), except that an encoder–decoder ``cfg`` raises
+    the threshold to its ``enc_seq_len`` so that the encoder's frames take
+    the direct attention.  At 256, whisper-medium's 1500 frames would take
+    the chunked attention, which needs a multiple of the chunk: the JAX
+    launcher fails there (an assertion), the port's would raise.  At
+    ``reduced_config`` (8 frames) the flags are the JAX launcher's."""
+    threshold = max(256, cfg.enc_seq_len) if cfg is not None and cfg.is_encdec else 256
+    return RunFlags(attn_chunk=64, flash_threshold=threshold, quant_serve=quant)
 
 
 def make_requests(cfg, n: int, new_tokens: int, seed: int = 0, prompt_len: int = PROMPT_LEN) -> List[Request]:
@@ -54,7 +64,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    flags = serve_flags(quant=not args.no_quant)
+    flags = serve_flags(quant=not args.no_quant, cfg=cfg)
     params = init_params(cfg, 0, device=dev)
     engine = ServeEngine(cfg, params, flags, max_len=MAX_LEN)
     reqs = make_requests(cfg, args.requests, args.new_tokens)

@@ -1,6 +1,6 @@
 """Shared model building blocks of the PyTorch port: the port's copy of the
-JAX package's ``models/common.py`` (norms, RoPE, SwiGLU, initializers and the
-quantized linear layers; the training loss is not ported yet).
+JAX package's ``models/common.py`` (norms, RoPE, SwiGLU, initializers, the
+quantized linear layers and the training loss).
 
 :func:`quant_linear` is one int8 product when the spec fits one slice pair
 (:func:`int_matmul`) and otherwise goes through ``api.matmul`` over
@@ -84,6 +84,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean token cross-entropy in float32; the logits of the padded
+    vocabulary (ids ≥ ``vocab``) are masked by subtracting 1e9."""
+    lf = logits.to(torch.float32)
+    if lf.shape[-1] > vocab:
+        mask = torch.zeros(lf.shape[-1], dtype=torch.float32, device=lf.device)
+        mask[vocab:] = 1e9
+        lf = lf - mask
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(logz - gold)
 
 
 def _saturate_int8(x: torch.Tensor) -> torch.Tensor:

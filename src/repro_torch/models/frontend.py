@@ -4,8 +4,7 @@
 The audio (whisper conv-mel) and vision (CLIP) frontends are not reproduced;
 callers supply precomputed frame/patch embeddings.  Only the thin adapter
 projections that fuse those embeddings into the backbone live here.  The
-audio adapter is reached only through the encoder–decoder, which the port
-does not run yet (ROADMAP S11b).
+audio adapter is reached through the encoder–decoder (whisper-medium).
 """
 from __future__ import annotations
 

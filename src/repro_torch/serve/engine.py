@@ -108,7 +108,8 @@ class ServeEngine:
     def prompt_batch(self, requests: List[Request]) -> dict:
         """The prefill batch of ``requests``: prompts left-padded with 0 to
         the longest (at least 8), plus zero patch embeddings for a vision
-        config."""
+        config and zero frame embeddings (B, enc_seq_len, d) for an
+        encoder–decoder one."""
         b = len(requests)
         s = max(max(len(r.prompt) for r in requests), 8)
         toks = np.zeros((b, s), np.int32)
@@ -118,6 +119,9 @@ class ServeEngine:
         if self.cfg.frontend == "vision":
             batch["patch_embeds"] = torch.zeros((b, self.cfg.n_patches, self.cfg.d_model),
                                                 dtype=dtype_of(self.cfg), device=self.device)
+        if self.cfg.is_encdec:
+            batch["enc_embeds"] = torch.zeros((b, self.cfg.enc_seq_len, self.cfg.d_model),
+                                              dtype=dtype_of(self.cfg), device=self.device)
         return batch
 
     def run(self, requests: List[Request]) -> List[Request]:

@@ -1497,3 +1497,72 @@ def test_reduced_decode_step_on_card_equals_cpu(card, quant_kv):
         assert tapi.launch_counts() == ({"bitslice_matmul": 7 * cfg.n_layers, "attention_qk": cfg.n_layers}
                                         if quant_kv else {"bitslice_matmul": 7 * cfg.n_layers})
         cache_c, want = tt.decode_step(cpu_p, cfg, cache_c, nt, flags)
+
+
+# ---------------------------------------------------------------------------
+# the model families beyond decoder-only attention (models/recurrent.py,
+# models/moe.py, the encoder-decoder of models/transformer.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h0_zero", [True, False], ids=["zeros", "carried"])
+@pytest.mark.parametrize("shape", [(4, 8, 2560), (1, 512, 2560)], ids=["prefill-4x8", "prefill-1x512"])
+def test_rglru_kernel_at_the_model_shapes(card, shape, h0_zero):
+    """K11 as RecurrentGemma-2B's RG-LRU prefill launches it: a = exp(log a)
+    in (0, 1), b the gated input, h0 zeros or a carried state; bit-equal to
+    its plain version, one launch."""
+    bsz, _, w = shape
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(torch.tensor(2.0)) * torch.sigmoid(floats(shape, 93)))
+    b, h0 = floats(shape, 94), (torch.zeros((bsz, w)) if h0_zero else floats((bsz, w), 95))
+    tapi.reset_launch_counts()
+    got = tapi.rglru_scan(a.to(card), b.to(card), h0.to(card))
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"rglru_scan": 1}
+    assert torch.equal(got.cpu(), trg._scan_plain(a, b, h0))
+
+
+FAMILY_K11 = {"recurrentgemma-2b": 2, "xlstm-1.3b": 0, "dbrx-132b": 0, "kimi-k2-1t-a32b": 0, "whisper-medium": 0}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_K11))
+def test_reduced_family_on_card_equals_cpu(card, arch):
+    """Each family's ``reduced_config`` in float32 with int8 weights: a
+    prefill and three decode steps on the card against the same port on CPU
+    copies, within 2**-6 of the largest logit (tests/_torch_lm_ref.py's
+    tolerance with int8 activations; the MoE combine adds in another order
+    on the card); K11 once for each RG-LRU layer of the prefill and never in
+    a decode step; loss_fn finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import common as tc
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.runtime import RunFlags
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+    flags = RunFlags(attn_chunk=8, flash_threshold=64)
+    cpu_p = tc.maybe_quantize_tree(tt.init_params(cfg, 0, device="cpu"), cfg)
+    card_p = tt._tree_map(lambda a: a.to(card), cpu_p)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(2, 256, (2, 12)).astype(np.int32))}
+    if cfg.is_encdec:
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal((2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32))
+    on_card = {k: v.to(card) for k, v in batch.items()}
+    tapi.reset_launch_counts()
+    cache_d, got = tt.prefill(card_p, cfg, on_card, flags, max_len=16)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts().get("rglru_scan", 0) == FAMILY_K11[arch]
+    cache_c, want = tt.prefill(cpu_p, cfg, batch, flags, max_len=16)
+    for step in range(4):
+        assert float((got.cpu() - want).abs().max()) <= 2.0 ** -6 * float(want.abs().max()), step
+        if step == 3:
+            break
+        nt = torch.argmax(want, -1).to(torch.int32)[:, None]
+        tapi.reset_launch_counts()
+        cache_d, got = tt.decode_step(card_p, cfg, cache_d, nt.to(card), flags)
+        torch.cuda.synchronize()
+        assert "rglru_scan" not in tapi.launch_counts() and tapi.launch_counts()["bitslice_matmul"] > 0
+        cache_c, want = tt.decode_step(cpu_p, cfg, cache_c, nt, flags)
+    labels = torch.from_numpy(rng.integers(0, 256, (2, 12)).astype(np.int32))
+    loss, parts = tt.loss_fn(card_p, cfg, dict(on_card, labels=labels.to(card)), flags)
+    assert torch.isfinite(loss) and (float(parts["aux"]) > 0) == cfg.is_moe

@@ -43,7 +43,7 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert {"repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.qwen2_0_5b",
             "repro_torch.models.runtime", "repro_torch.models.common", "repro_torch.models.attention",
             "repro_torch.models.frontend", "repro_torch.models.transformer", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.models.recurrent", "repro_torch.models.moe"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -86,6 +86,8 @@ ENTRY_POINTS = {
     "transformer.params_from_numpy": lambda: ttf.params_from_numpy({"embed": {"w": np.zeros((4, 2), np.float32)}}),
     "transformer.init_cache": lambda: ttf.init_cache(treduced(tget_config("qwen2-0.5b")), 1, 8),
     "launch.serve": lambda: tserve.main(["--arch", "qwen2-0.5b", "--reduced"]),
+    "launch.serve-recurrentgemma": lambda: tserve.main(["--arch", "recurrentgemma-2b", "--reduced"]),
+    "transformer.init_params-whisper": lambda: ttf.init_params(treduced(tget_config("whisper-medium"))),
     "scheduler.ContinuousBatcher": lambda: tsched.ContinuousBatcher(),
 }
 

@@ -302,17 +302,6 @@ def test_qwen2_slice_equals_jax(dtype, quant_serve, quant_kv):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("dbrx-132b", "mixture-of-experts"), ("kimi-k2-1t-a32b", "mixture-of-experts"),
-    ("recurrentgemma-2b", "'rglru'"), ("xlstm-1.3b", "'mlstm'"), ("whisper-medium", "encoder-decoder")])
-def test_unported_families_raise_naming_s11b(arch, what):
-    tcfg = tconfigs.reduced_config(tconfigs.get_config(arch))
-    for call in (lambda: tt.init_params(tcfg, device="cpu"), lambda: tt.init_cache(tcfg, 1, 8, device="cpu"),
-                 lambda: tt.forward({}, tcfg, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})):
-        with pytest.raises(NotImplementedError, match=f"(?s){what}.*ROADMAP S11b"):
-            call()
-
-
 def test_rules_raise_naming_s13():
     _, tcfg = configs("qwen2-0.5b", "float32")
     p = tt.init_params(tcfg, 0, device="cpu")
