@@ -117,6 +117,23 @@ Phases, any failure of which exits non-zero:
       step, every K4 shape held, ``loss_fn`` finite (the MoE aux above 0),
       the card against CPU copies of the first pattern groups.  Prints the
       phase's seconds.
+   m. training (after 3l): ``repro_torch.train.trainer.train`` at
+      RecurrentGemma-2B's full width and depth (26 layers, 2.894 B bfloat16
+      parameters from seed 0, float32 moments and master weights) at the JAX
+      launcher's batch 8 × 64 and run flags (``attn_chunk`` 64,
+      ``flash_threshold`` 256, per-block remat), TRAIN_STEPS steps, every
+      loss finite; launches exact: the RG-LRU scan 36 a step (18 RG-LRU
+      layers and their remat recompute) and its gradient kernel 18; every
+      K11 forward and gradient call of step TRAIN_RECORD_STEP bit-equal to
+      its plain version; prints the step ms (median after the first),
+      tokens/s, peak memory and launches a step.  Then the card against its
+      CPU copy at one pattern group (3 layers, full width: loss and
+      gradients), every arch of ``list_archs()`` at ``reduced_config`` one
+      train step on the card against its CPU copy, the bit-exact resume (8
+      steps straight against 4, a restore and 4 more, deterministic
+      algorithms, in a process of its own: ``chip_smoke.py
+      --train-resume``) and the CLI (``python -m repro_torch.launch.train
+      --arch recurrentgemma-2b --reduced --steps 4``, exit 0).
 
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
@@ -143,7 +160,7 @@ Phases, any failure of which exits non-zero:
    ticket (two shapes back to back, three CUDA-graph replays) and one device
    kernel a p·V call (profiler), decode_gemv, htree_reduce and rglru_scan at theirs (an
    int32 wrap, a ragged K, misaligned int8 views, N = 1 and 2 in each
-   dtype; for the scan T = 1, T one short of and one past a stage, T = 8192,
+   dtype; for the scan and its gradient kernel T = 1, T one short of and one past a stage, T = 8192,
    W = 1, 3 and 4, ragged last groups, B · W below a group, a and b off 16
    bytes on 4-byte copies, ±0 and subnormal operands, each call held to the
    copies its plan names), the row dot of q·Kᵀ and decode_gemv at the edges
@@ -208,6 +225,7 @@ Phases, any failure of which exits non-zero:
    its plain version (CPU) and ``torch._int_mm`` where it takes the shape;
    the same for 3l's RecurrentGemma-2B, and the RG-LRU scan at its path's
    shapes (4 × 8 × 2560, 1 × 512 × 2560) beside its bound and plain version;
+   the scan and its gradient kernel at 3m's 8 × 64 × 2560 the same way;
 5. profile (torch.profiler) three eager forwards and one call of each
    Table III bit-sliced path: device time by kernel name and the device's
    idle share, and the eager forward's PyTorch copies (``aten::copy_``) and
@@ -409,6 +427,38 @@ FAM_KN_CHECKS = ((2048, 8192), (4096, 4096), (4096, 8), (4096, 2048), (2048, 550
 FAM_HEADS = ((2048, 51200), (1024, 53248), (6144, 100352))
 # bit-sliced GEMM launches of a block's mixer (its quantized linears)
 K4_PER_MIXER = {"attn": 4, "local_attn": 4, "rglru": 5, "mlstm": 6, "slstm": 3}
+
+# Phase 3m, the single-device training path: src/repro/launch/train.py's
+# defaults (batch 8, seq 64, RunFlags(attn_chunk=64, flash_threshold=256),
+# remat on) through trainer.train at RecurrentGemma-2B's full width and depth
+# (26 layers, 2.894 B bfloat16 parameters from seed 0, float32 moments and
+# master weights), TRAIN_STEPS steps, the K11 calls of step TRAIN_RECORD_STEP
+# held; the card against its CPU copy at one TRAIN_CPU_PATTERN group (full
+# width: 0.9 B parameters) on a TRAIN_CPU_SHAPE batch; every arch's
+# reduced_config one step.
+# Card-vs-CPU limits (loss and the largest gradient or first-moment gap,
+# relative to the CPU's largest) set from readings.
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+TRAIN_STEPS = 5
+TRAIN_RECORD_STEP = 2
+TRAIN_CPU_PATTERN = ("rglru", "rglru", "local_attn")
+TRAIN_CPU_SHAPE = (2, 16)
+# (loss, gradients or first moments), each the least power of two at least
+# twice the largest gap read on the card: at 3 layers 1.73e-5 and 0.0094 of
+# the largest gradient (bfloat16 products summed in another order; at 13
+# layers 1.43e-4 and 0.0198); reduced configs 1.7e-5 (Whisper) and 0.013
+# (xLSTM's first moments)
+TRAIN_TOL = {"full": (2.0 ** -14, 2.0 ** -5), "reduced": (2.0 ** -14, 2.0 ** -5)}
+TRAIN_REPLACES = {
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:25",
+    # no Pallas body: JAX differentiates its associative scan
+    "rglru_scan_bwd": "src/repro/models/recurrent.py:97",
+}
+TRAIN_NO_LIBRARY = {
+    "rglru_scan": "no linear-recurrence scan in PyTorch",
+    "rglru_scan_bwd": "no linear-recurrence scan (nor its gradient) in PyTorch",
+}
 
 # Phase 3k, the continuous-batching scheduler and multi-chip scale-out on the
 # host's simulator, held to BENCH_kernels.json's serve and scaling sections
@@ -1808,8 +1858,9 @@ def entry_kernel_checks(torch, att, ht, rg, smoke, dev, seed):
 
 
 def rglru_edge_checks(torch, rg, smoke, dev, seed):
-    """Phase 2 for the RG-LRU scan's launch plan (rglru_scan.rglru_plan):
-    each case bit-equal to the plain version on a CPU copy, ±0 included, and
+    """Phase 2 for the RG-LRU scan's launch plan (rglru_scan.rglru_plan),
+    forward and gradient kernel (``rglru_scan_bwd_f32``, ∂h0 in every other
+    case): each case bit-equal to the plain version on a CPU copy, ±0 included, and
     held to the copies its case names: T = 1, T one short of and one past a
     stage, T = 8192, W = 1, 3 and 4, a ragged last group, B · W below a
     group, a and b 4 bytes off 16-byte alignment (4-byte copies), and ±0 and
@@ -1854,7 +1905,7 @@ def rglru_edge_checks(torch, rg, smoke, dev, seed):
         ("±0 and subnormals, 4-byte copies", (2, 70, 50), False, False, subnormal),
     ]
     tiny = torch.finfo(torch.float32).tiny
-    for case, shape, vec, off, make in cases:
+    for n, (case, shape, vec, off, make) in enumerate(cases):
         a, b, h0 = make(shape)
         da, db = (offset(a), offset(b)) if off else (a.to(dev), b.to(dev))
         if rg.rglru_plan(*shape, (da.data_ptr(), db.data_ptr())).vec != vec:
@@ -1868,6 +1919,28 @@ def rglru_edge_checks(torch, rg, smoke, dev, seed):
             smoke.failures.append(f"rglru_scan [{case}]: the bits differ from the plain version's (±0)")
         if make is subnormal and not ((want.abs() < tiny) & (want != 0)).any():
             smoke.failures.append(f"rglru_scan [{case}]: the plain version holds no subnormal output")
+        # the gradient kernel at the same edges: ∂a, ∂b (and ∂h0 in every
+        # other case) from an upstream gradient with ±0 where the case has them
+        up = torch.randn(shape, generator=g)
+        if make is subnormal:
+            up = torch.where(b == 0, b, up)  # ±0 where b has them
+        need_h0 = n % 2 == 0
+        dg, dhs = (offset(up), offset(want)) if off else (up.to(dev), want.to(dev))
+        if rg.rglru_plan(*shape, (da.data_ptr(), dhs.data_ptr(), h0.data_ptr(), dg.data_ptr())).vec != vec:
+            smoke.failures.append(f"rglru_scan_bwd [{case}]: the plan's 16-byte copies are not {vec}")
+        grads = rg._scan_bwd(da, h0.to(dev), dhs, dg, need_h0)
+        torch.cuda.synchronize()
+        wants = rg._scan_bwd_plain(a, h0, want, up, need_h0)
+        for name, x, y in zip(("da", "db", "dh0"), grads, wants):
+            if y is None:
+                if x is not None:
+                    smoke.failures.append(f"rglru_scan_bwd [{case}]: ∂h0 computed though not asked for")
+                continue
+            smoke.check("rglru_scan_bwd", f"{path}: {case} {name}", x, y, exact=True)
+            if not torch.equal(x.cpu().view(torch.int32), y.view(torch.int32)):
+                smoke.failures.append(f"rglru_scan_bwd [{case}] {name}: the bits differ from the plain version's")
+        if make is subnormal and not ((wants[0].abs() < tiny) & (wants[0] != 0)).any():
+            smoke.failures.append(f"rglru_scan_bwd [{case}]: the plain version holds no subnormal ∂a")
 
 
 def pool_ewise_edge_checks(torch, conv, ewise, smoke, dev, seed):
@@ -3453,6 +3526,362 @@ def families_timing(torch, bm, att, rg, smoke, fam, floor_ms):
 
 
 # ---------------------------------------------------------------------------
+# phase 3m: the single-device training path at RecurrentGemma-2B's full width
+# ---------------------------------------------------------------------------
+
+
+class ScanRecorder:
+    """While active, counts every RG-LRU scan forward (``rg._scan``) and
+    gradient (``rg._scan_bwd``) call, and keeps clones of the operands and
+    outputs of the calls whose index (per kind) falls in ``window``:
+    ``{"fwd": range, "bwd": range}``."""
+
+    def __init__(self, rg, window):
+        self.rg, self.window = rg, window
+        self.n = {"fwd": 0, "bwd": 0}
+        self.calls = {"fwd": [], "bwd": []}
+
+    def __enter__(self):
+        rg = self.rg
+        self.orig = fwd, bwd = rg._scan, rg._scan_bwd
+
+        def clone(x):
+            return None if x is None else x.detach().clone()
+
+        def rec_fwd(a, b, h0):
+            out = fwd(a, b, h0)
+            if self.n["fwd"] in self.window["fwd"]:
+                self.calls["fwd"].append((clone(a), clone(b), clone(h0), clone(out)))
+            self.n["fwd"] += 1
+            return out
+
+        def rec_bwd(a, h0, hs, g, need_h0):
+            out = bwd(a, h0, hs, g, need_h0)
+            if self.n["bwd"] in self.window["bwd"]:
+                self.calls["bwd"].append(((clone(a), clone(h0), clone(hs), clone(g), need_h0),
+                                          tuple(clone(x) for x in out)))
+            self.n["bwd"] += 1
+            return out
+
+        rg._scan, rg._scan_bwd = rec_fwd, rec_bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.rg._scan, self.rg._scan_bwd = self.orig
+
+
+def train_batch(torch, cfg, batch, seq, step, dev):
+    """The trainer's batch ``step`` (``data.pipeline.batch_at``, seed 0) on
+    ``dev``, with seeded normal frame embeddings for an encoder–decoder and
+    patch embeddings for a vision config."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import transformer
+
+    out = {k: torch.from_numpy(v) for k, v in batch_at(DataConfig(cfg.vocab_size, seq, batch), step).items()}
+    g = torch.Generator().manual_seed(SEED + 5)
+    for name, on, rows in (("enc_embeds", cfg.is_encdec, cfg.enc_seq_len),
+                           ("patch_embeds", cfg.frontend == "vision", cfg.n_patches)):
+        if on:
+            out[name] = torch.randn((batch, rows, cfg.d_model), generator=g).to(transformer.dtype_of(cfg))
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def tree_gap(torch, leaves_card, leaves_cpu):
+    """max |card - cpu| over a tree's leaves, relative to the CPU tree's
+    largest magnitude."""
+    top = max(float(x.float().abs().max()) for x in leaves_cpu if x.numel())
+    err = max(float((x.cpu().float() - y.float()).abs().max()) for x, y in zip(leaves_card, leaves_cpu) if y.numel())
+    return err / top if top else err
+
+
+def master_gap(torch, leaves_card, leaves_cpu):
+    """The largest gap of master weights beyond two float32 ulps of the CPU
+    value (AdamW's first step moves a weight by at most about lr, so
+    directions that flip between the devices differ by at most 2 lr)."""
+    worst = 0.0
+    for x, y in zip(leaves_card, leaves_cpu):
+        ulp = torch.nextafter(y.abs(), torch.tensor(float("inf"))) - y.abs()
+        worst = max(worst, float(((x.cpu() - y).abs() - 2 * ulp).clamp(min=0).max()) if y.numel() else 0.0)
+    return worst
+
+
+def run_training_phase(torch, api, rg, smoke, dev, gpu):
+    """Phase 3m (module docstring): RecurrentGemma-2B trained at full width
+    and depth through ``trainer.train`` with K11's forward and gradient
+    counted and one step's calls held bit-equal; the card against its CPU
+    copy at one pattern group; every arch's ``reduced_config`` one step on
+    both; the bit-exact resume and the CLI in processes of their own."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config, list_archs, reduced_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer, steps, trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    flags = train_cli.TRAIN_FLAGS
+    n_rglru = sum(kind == "rglru" for kind in cfg.layer_kinds())
+    per_step = {"rglru_scan": 2 * n_rglru, "rglru_scan_bwd": n_rglru}
+    rec_step = TRAIN_RECORD_STEP - 1
+    window = {"fwd": range(rec_step * per_step["rglru_scan"], (rec_step + 1) * per_step["rglru_scan"]),
+              "bwd": range(rec_step * per_step["rglru_scan_bwd"], (rec_step + 1) * per_step["rglru_scan_bwd"])}
+    out = {"gpu": gpu, "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "memory_before_gib": torch.cuda.memory_allocated(dev) / 2**30}
+    torch.cuda.reset_peak_memory_stats(dev)
+    loop = trainer.TrainLoopConfig(steps=TRAIN_STEPS, log_every=1)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    with ScanRecorder(rg, window) as rec:
+        api.reset_launch_counts()
+        t = time.perf_counter()
+        run = trainer.train(cfg, data_cfg, loop, flags, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = api.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(x.numel() for x in transformer._tree_leaves(run["state"]["params"]))
+    state_bytes = transformer.param_bytes(run["state"])
+    # one more step (after a warm one) under the profiler: device busy time,
+    # idle share and the kernels that take it
+    holder = {"state": run.pop("state")}
+    step_fn = steps.make_train_step(cfg, flags, base_lr=loop.base_lr, total_steps=loop.steps)
+    extra = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, dev)
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], extra)
+
+    prof_wall, names, _ = device_profile(torch, one_step, 1)
+    del holder
+    torch.cuda.empty_cache()
+    busy = sum(ms for _, ms in names.values())
+    top = sorted(([nm, c, ms] for nm, (c, ms) in names.items()), key=lambda q: -q[2])
+    k11 = sum(ms for nm, (_, ms) in names.items() if "rglru_scan" in nm)
+    out["profile"] = {"wall_ms": prof_wall, "device_busy_ms": busy if names else None,
+                      "idle_share": 1 - busy / prof_wall if names else None,
+                      "device_kernels": sum(c for c, _ in names.values()), "k11_ms": k11, "top": top[:12]}
+    print(f"phase 3m profile of one step: {prof_wall:.1f} ms wall, {busy:.1f} ms device busy, idle share "
+          f"{out['profile']['idle_share']}, {out['profile']['device_kernels']} device kernels, K11 {k11:.3f} ms; top: "
+          + "; ".join(f"{nm[:40]} x{c} {ms:.2f} ms" for nm, c, ms in top[:6]))
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    step_s = [h["s_per_step"] for h in hist]
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if counts != want:
+        smoke.failures.append(f"phase 3m: launches {counts} != {want} ({per_step} a step)")
+    if [h["step"] for h in hist] != list(range(1, TRAIN_STEPS + 1)) or not all(map(math.isfinite, losses)):
+        smoke.failures.append(f"phase 3m: history {hist}")
+    med = median(sorted(step_s[1:]))
+    out.update({"launches": counts, "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+                "losses": losses, "s_per_step": step_s, "step_ms_median": med * 1e3,
+                "first_step_ms": step_s[0] * 1e3, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+                "peak_memory_gib": peak / 2**30, "train_wall_s": wall, "n_params": n_params,
+                "state_gib": state_bytes / 2**30})
+    print(f"phase 3m {TRAIN_ARCH} trained ({cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters, "
+          f"{state_bytes / 2**30:.1f} GiB of train state), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps "
+          f"in {wall:.1f} s: step {med * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first {step_s[0] * 1e3:.1f} ms), "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated; {out['memory_before_gib']:.2f} GiB held before), K11 launches a step "
+          f"{out['launches_per_step']} (predicted {per_step}); losses {[f'{x:.4f}' for x in losses]} ({gpu})")
+
+    # every K11 forward and gradient call of step TRAIN_RECORD_STEP against its plain version
+    for i, (a, b, h0, hs) in enumerate(rec.calls["fwd"]):
+        smoke.check("rglru_scan", f"phase 3m step {TRAIN_RECORD_STEP} forward call {i}", hs,
+                    rg._scan_plain(a, b, h0).cpu(), exact=True)
+    for i, ((a, h0, hs, g, need_h0), got) in enumerate(rec.calls["bwd"]):
+        wants = rg._scan_bwd_plain(a, h0, hs, g, need_h0)
+        for name, x, y in zip(("da", "db", "dh0"), got, wants):
+            if y is not None:
+                smoke.check("rglru_scan_bwd", f"phase 3m step {TRAIN_RECORD_STEP} call {i} {name}", x, y.cpu(),
+                            exact=True)
+    held = (len(rec.calls["fwd"]), len(rec.calls["bwd"]))
+    if held != (per_step["rglru_scan"], per_step["rglru_scan_bwd"]):
+        smoke.failures.append(f"phase 3m: held {held} K11 calls of step {TRAIN_RECORD_STEP}, not {per_step}")
+    print(f"phase 3m: step {TRAIN_RECORD_STEP}'s {held[0]} K11 forward and {held[1]} gradient calls "
+          f"(shapes {sorted({tuple(c[0].shape) for c in rec.calls['fwd']})}) held bit-equal to their plain versions")
+    out["recorded"] = rec.calls
+
+    # the card against its CPU copy at one pattern group, full width
+    c_cut = dataclasses.replace(cfg, n_layers=len(TRAIN_CPU_PATTERN), block_pattern=TRAIN_CPU_PATTERN)
+    t = time.perf_counter()
+    params = transformer.init_params(c_cut, SEED, device=dev)
+    p_cpu = transformer._tree_map(lambda x: x.cpu(), params)
+    bsz, seq = TRAIN_CPU_SHAPE
+    batch = train_batch(torch, c_cut, bsz, seq, 0, dev)
+    loss_d, parts_d, g_d = steps._grads_of(params, c_cut, batch, flags)
+    loss_c, parts_c, g_c = steps._grads_of(p_cpu, c_cut, {k: v.cpu() for k, v in batch.items()}, flags)
+    torch.cuda.synchronize()
+    loss_gap = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    grad_gap = tree_gap(torch, optimizer.tree_leaves(g_d), optimizer.tree_leaves(g_c))
+    cut_params = sum(x.numel() for x in transformer._tree_leaves(params))
+    out["card_vs_cpu"] = {"n_layers": c_cut.n_layers, "n_params": cut_params, "batch": [bsz, seq],
+                          "loss_card": float(loss_d), "loss_cpu": float(loss_c), "loss_gap": loss_gap,
+                          "grad_gap": grad_gap, "tol": TRAIN_TOL["full"], "seconds": time.perf_counter() - t}
+    loss_tol, grad_tol = TRAIN_TOL["full"]
+    ok = loss_gap <= loss_tol and grad_gap <= grad_tol and math.isfinite(float(loss_d))
+    smoke.cases.append({"kernel": "training", "case": f"phase 3m card vs CPU {c_cut.n_layers} layers", "ok": ok,
+                        "max_abs_err": grad_gap, "exact": False, "shape": [bsz, seq], "dtype": "bfloat16"})
+    if not ok:
+        smoke.failures.append(f"phase 3m card vs CPU {c_cut.n_layers} layers: loss gap {loss_gap} (limit {loss_tol}), "
+                              f"gradient gap {grad_gap} of the largest CPU gradient (limit {grad_tol})")
+    print(f"phase 3m card vs CPU, {TRAIN_ARCH} at {c_cut.n_layers} layers ({cut_params / 1e9:.3f} B parameters), "
+          f"batch {bsz} x {seq}: loss {float(loss_d):.6f} vs {float(loss_c):.6f} (gap {loss_gap:.3g} relative), "
+          f"gradients within {grad_gap:.3g} of the largest CPU gradient (limits {loss_tol:g}, {grad_tol:g}); "
+          f"{out['card_vs_cpu']['seconds']:.1f} s")
+    del params, p_cpu, g_d, g_c
+    torch.cuda.empty_cache()
+
+    # every arch at reduced_config: one train step on the card against its CPU copy
+    out["reduced"] = {}
+    for arch in list_archs():
+        rcfg = reduced_config(get_config(arch))
+        p0 = transformer.init_params(rcfg, SEED, device="cpu")
+        cpu_state = steps.make_train_state(p0, optimizer.AdamWConfig())
+        card_state = steps.make_train_state(transformer._tree_map(lambda x: x.to(dev), p0), optimizer.AdamWConfig())
+        step = steps.make_train_step(rcfg, flags)
+        batch = train_batch(torch, rcfg, 2, 12, 0, "cpu")
+        new_c, m_c = step(cpu_state, batch)
+        new_d, m_d = step(card_state, {k: v.to(dev) for k, v in batch.items()})
+        lr = float(m_c["lr"])
+        r = {"loss_card": float(m_d["loss"]), "loss_cpu": float(m_c["loss"]),
+             "loss_gap": abs(float(m_d["loss"]) - float(m_c["loss"])) / abs(float(m_c["loss"])),
+             "m_gap": tree_gap(torch, optimizer.tree_leaves(new_d["opt"]["m"]), optimizer.tree_leaves(new_c["opt"]["m"])),
+             "master_gap_lr": master_gap(torch, optimizer.tree_leaves(new_d["opt"]["master"]),
+                                         optimizer.tree_leaves(new_c["opt"]["master"])) / lr,
+             "dtype": str(transformer.dtype_of(rcfg)).replace("torch.", "")}
+        ok = r["loss_gap"] <= TRAIN_TOL["reduced"][0] and r["m_gap"] <= TRAIN_TOL["reduced"][1] \
+            and r["master_gap_lr"] <= 2.0 and math.isfinite(r["loss_card"])
+        smoke.cases.append({"kernel": "training", "case": f"phase 3m reduced {arch}", "ok": ok,
+                            "max_abs_err": r["m_gap"], "exact": False, "shape": [2, 12], "dtype": r["dtype"]})
+        if not ok:
+            smoke.failures.append(f"phase 3m reduced {arch}: card vs CPU {r} (limit {TRAIN_TOL['reduced']}, "
+                                  f"masters within 2 lr)")
+        out["reduced"][arch] = r
+    print("phase 3m every arch at reduced_config, one train step, card vs CPU (loss gap, first-moment gap of the "
+          "largest, master gap in lr): " + "; ".join(
+              f"{a} {r['loss_gap']:.2g} {r['m_gap']:.2g} {r['master_gap_lr']:.2g}" for a, r in out["reduced"].items())
+          + f" (limits {TRAIN_TOL['reduced'][0]:g}, {TRAIN_TOL['reduced'][1]:g}, masters 2 lr)")
+
+    # the resume, deterministic, and the CLI, each in a process of its own
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-resume"], capture_output=True,
+                       text=True, timeout=600, cwd=str(ROOT), env=env)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    resume = json.loads(lines[-1]) if r.returncode == 0 and lines else {"error": r.stderr[-3000:]}
+    resume["seconds"] = time.perf_counter() - t
+    out["resume"] = resume
+    if not resume.get("equal") or resume.get("resumed_from") != 4:
+        smoke.failures.append(f"phase 3m resume: {resume}")
+    print(f"phase 3m resume on the card ({TRAIN_ARCH} reduced, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"torch.use_deterministic_algorithms): 8 steps straight against 4 + restore + 4: "
+          f"{'bit-equal' if resume.get('equal') else 'DIFFERENT'} over {resume.get('leaves')} leaves, resumed from "
+          f"{resume.get('resumed_from')}; ops without a deterministic CUDA path: {resume.get('nondeterministic_ops')}; "
+          f"{resume['seconds']:.1f} s")
+    t = time.perf_counter()
+    cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--reduced", "--steps", "4"]
+    r = subprocess.run(cli, capture_output=True, text=True, timeout=600, cwd=str(ROOT), env=env)
+    out["cli"] = {"rc": r.returncode, "stdout": r.stdout[-2000:], "seconds": time.perf_counter() - t}
+    if r.returncode != 0 or "{'step': 4, 'loss': " not in r.stdout:
+        smoke.failures.append(f"phase 3m CLI {' '.join(cli[1:])}: exit {r.returncode}, {r.stderr[-2000:]}")
+    print(f"phase 3m CLI `python -m repro_torch.launch.train --arch {TRAIN_ARCH} --reduced --steps 4`: exit "
+          f"{r.returncode}, {r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ''} "
+          f"({out['cli']['seconds']:.1f} s)")
+    out["path_launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 3m: {out['seconds']:.1f} s ({gpu})")
+    return out
+
+
+def train_resume_main() -> int:
+    """``chip_smoke.py --train-resume``, run by phase 3m with
+    ``CUBLAS_WORKSPACE_CONFIG`` set: reduced RecurrentGemma trained 8 steps
+    straight and 4, a checkpoint, a restore and 4 more on the card under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (every op
+    without a deterministic CUDA path named by its warning); prints one JSON
+    line.  The two runs' train states must be bit-equal."""
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import TRAIN_FLAGS
+    from repro_torch.train import optimizer, trainer
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    cfg = reduced_config(get_config(TRAIN_ARCH))
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with warnings.catch_warnings(record=True) as caught, tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        warnings.simplefilter("always")
+
+        def run(steps, every, sub):
+            loop = trainer.TrainLoopConfig(steps=steps, ckpt_every=every, ckpt_dir=f"{d}/{sub}", log_every=4,
+                                           schedule_steps=8)
+            return trainer.train(cfg, data_cfg, loop, TRAIN_FLAGS, device=dev)
+
+        straight = run(8, 100, "a")
+        run(4, 4, "b")
+        resumed = run(8, 100, "b")
+    a, b = optimizer.tree_leaves(straight["state"]), optimizer.tree_leaves(resumed["state"])
+    mismatched = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught if "determinis" in str(w.message)})
+    print(json.dumps({"equal": not mismatched and len(a) == len(b), "leaves": len(a), "mismatched": mismatched,
+                      "resumed_from": resumed["resumed_from"], "nondeterministic_ops": nondet,
+                      "losses": [h["loss"] for h in straight["history"]],
+                      "losses_resumed": [h["loss"] for h in resumed["history"]]}))
+    return 0
+
+
+def training_timing(torch, rg, smoke, train, floor_ms):
+    """Phase 4 for 3m: K11's forward and gradient kernels at the training
+    path's shape (the recorded step's first calls): CUDA-graph replay, eager,
+    cold, the plain version on the card, the bound.  Returns kernel rows."""
+    gpu = train["gpu"]
+    a, b, h0, _ = train["recorded"]["fwd"][0]
+    (ga, gh0, ghs, gg, need_h0), _ = train["recorded"]["bwd"][0]
+    shape = tuple(a.shape)
+    tag = f"{TRAIN_ARCH} train {'x'.join(map(str, shape))}"
+    cases = (
+        ("rglru_scan", (a, b, h0), rg._scan, rg._scan_plain, 4 * (3 * a.numel() + h0.numel()), 2 * a.numel(),
+         "phase 3m step"),
+        ("rglru_scan_bwd", (ga, gh0, ghs, gg), lambda *t: rg._scan_bwd(*t, need_h0),
+         lambda *t: rg._scan_bwd_plain(*t, need_h0), 4 * (5 * ga.numel() + gh0.numel() * (2 if need_h0 else 1)),
+         3 * ga.numel(), "phase 3m step"),
+    )
+    rows = []
+    for kernel, args, fn, plain, nbytes, ops, prefix in cases:
+        k_ms = graph_ms(torch, lambda: fn(*args))
+        eager = cuda_ms(torch, lambda: fn(*args))
+        cold = cold_timer(torch, fn, args)
+        cold_ms = median(sorted(cold() for _ in range(3)))
+        p_ms = cuda_ms(torch, lambda: plain(*args), reps=1, warmup=1)
+        b_bytes, b_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        name = f"{kernel}[{tag}]"
+        err = max((c["max_abs_err"] or 0.0) for c in smoke.cases
+                  if c["kernel"] == kernel and c["case"].startswith(prefix))
+        launches = train["launches"].get(kernel, 0)
+        rows.append({
+            "name": name, "route": "cuda", "source": ENTRY_SOURCES["rglru_scan"],
+            "replaces": TRAIN_REPLACES[kernel], "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops), "bound_by": "operations" if b_ops > b_bytes else "bytes",
+            "library_ms": None, "library_none_reason": TRAIN_NO_LIBRARY[kernel], "eager_ms": eager,
+            "cold_ms": cold_ms, "plain_device": "cuda", "path": "training",
+            "launches_by_path": {"training": launches}, "shapes": [list(shape)], "bytes": nbytes, "ops": ops,
+            "floors": k_ms / floor_ms,
+        })
+        print(f"kernel {name}: {k_ms * 1e3:.3f} us graph replay ({eager * 1e3:.3f} us eager, cold {cold_ms * 1e3:.3f} "
+              f"us; bound {max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
+              f"{max(b_bytes, b_ops) / k_ms:.1%}, {k_ms / floor_ms:.2f} launch floors), plain {p_ms:.3f} ms on the "
+              f"card; {launches} launches on the path ({gpu})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3k: the continuous-batching scheduler and multi-chip scale-out
 # ---------------------------------------------------------------------------
 
@@ -4190,6 +4619,10 @@ def main() -> int:
         path_launches[f"families_serving[{arch}]"] = o["path_launches"]
     torch.cuda.synchronize()
 
+    # ---------------- phase 3m: the training path at RecurrentGemma-2B's full width and depth ----------------
+    train = run_training_phase(torch, api, rg, smoke, dev, gpu)
+    path_launches["training"] = train["path_launches"]
+
     # ---------------- phase 4: timing ----------------
     library = {
         "gemm": None,  # PyTorch has no int32 matrix product on CUDA
@@ -4412,6 +4845,7 @@ def main() -> int:
     entry_latency = entry_executor_latency(torch, program, entry)
     llm_latency, llm_rows = llm_timing(torch, bm, att, smoke, llm, floor_ms)
     fam_latency, fam_rows = families_timing(torch, bm, att, rg, smoke, fam, floor_ms)
+    train_rows = training_timing(torch, rg, smoke, train, floor_ms)
 
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
@@ -4510,7 +4944,7 @@ def main() -> int:
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
         "path_launches": path_launches, "program": program_timing, "peak_memory_gib": peak_gib,
         "entry_executor_latency": entry_latency,
-        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows + fam_rows,
+        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows + fam_rows + train_rows,
         "registered_kernels": registered,
         "entry_points": [{k: v for k, v in r.items() if k not in ("args", "cpu_args", "want", "ex")} for r in entry],
         "decode": decode, "decode_summary": decode_summary,
@@ -4521,6 +4955,7 @@ def main() -> int:
         "pimsab": pimsab, "serve_scaling": serve_scaling, "calls": details, "cases": smoke.cases, "failures": smoke.failures,
         "llm": dict({k: v for k, v in llm.items() if k not in ("recorder", "steps")}, latency=llm_latency),
         "families": dict({k: v for k, v in fam.items() if k not in ("recorder", "steps")}, latency=fam_latency),
+        "training": {k: v for k, v in train.items() if k != "recorded"},
     }, indent=1))
 
     if smoke.failures:
@@ -4528,7 +4963,7 @@ def main() -> int:
             print("FAIL", f, file=sys.stderr)
         return 1
     path = [r for r in rows if r["launches"]] + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows \
-        + fam_rows
+        + fam_rows + train_rows
     off_path = [r["name"] for r in rows if not r["launches"]]
     if off_path:
         print(f"FAIL kernels launched on no path: {off_path}", file=sys.stderr)
@@ -4547,11 +4982,16 @@ def main() -> int:
                                               for label, r in fam_latency.items()},
                                    **{arch: {k: v for k, v in o["latency"]["4x8"].items() if not isinstance(v, list)}
                                       for arch, o in fam["others"].items()}},
-                      "families_seconds": fam["seconds"]}))
+                      "families_seconds": fam["seconds"],
+                      "training": {k: train[k] for k in ("arch", "batch", "seq", "steps", "step_ms_median",
+                                                         "tokens_per_s", "peak_memory_gib", "launches_per_step",
+                                                         "losses", "seconds")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(replay_profile_main() if sys.argv[1:] == ["--replay-profiles"] else main())
+    if sys.argv[1:] == ["--replay-profiles"]:
+        sys.exit(replay_profile_main())
+    sys.exit(train_resume_main() if sys.argv[1:] == ["--train-resume"] else main())

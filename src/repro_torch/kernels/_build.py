@@ -84,6 +84,9 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     # the RG-LRU scan takes its launch plan (rglru_scan.rglru_plan: channels
     # a group, 16-byte copies, blocks) after the extents
     "rglru_scan_f32": ("rglru_scan", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    # its backward: a, hs, h0, g, then ∂a, ∂b and ∂h0 (NULL when not
+    # needed), the extents and the same plan
+    "rglru_scan_bwd_f32": ("rglru_scan", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

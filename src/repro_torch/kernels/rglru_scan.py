@@ -15,10 +15,21 @@ so there the JAX body differs once a chain reaches one.  The registry's
 oracle is the JAX package's associative scan (``ref.rglru_scan_ref``),
 which sums in another order.  float32 only, on either device.  The kernel
 takes a launch plan computed here (:func:`rglru_plan`).
+
+The scan is differentiable (:class:`_RGLRUScan`, used by the registered
+wrapper whenever an operand needs a gradient).  The JAX package has no
+backward kernel: it differentiates its associative scan.  Here the backward
+is the reverse recurrence, a second hand-written kernel of the same source
+(``rglru_scan_bwd_f32``, launched by :func:`_scan_bwd`) with its plain
+version (:func:`_scan_bwd_plain`): given ``g_t = ∂L/∂h_t``, the carried
+gradient is ``d_{T-1} = g_{T-1}``, ``d_t = fma(a_{t+1}, d_{t+1}, g_t)``;
+then ``∂b_t = d_t``, ``∂a_t = d_t · h_{t-1}`` (``h_{-1} = h0``) and
+``∂h0 = a_0 · d_0``, each product rounded once, so the card and the CPU
+agree bit for bit here too.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -108,10 +119,76 @@ def _scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _scan_bwd_plain(a: torch.Tensor, h0: torch.Tensor, hs: torch.Tensor, g: torch.Tensor,
+                    need_h0: bool) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The backward kernel's plain version: the reverse recurrence step by
+    step, each carried step one exact fma, each product rounded once.
+    Returns ``(∂a, ∂b, ∂h0 or None)``."""
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    t_len = a.shape[1]
+    if t_len == 0:
+        return da, db, torch.zeros_like(h0) if need_h0 else None
+    d = g[:, t_len - 1].clone()
+    for t in range(t_len - 1, -1, -1):
+        if t < t_len - 1:
+            d = fma_f32(a[:, t + 1], d, g[:, t])
+        db[:, t] = d
+        da[:, t] = d * (hs[:, t - 1] if t > 0 else h0)
+    return da, db, a[:, 0] * d if need_h0 else None
+
+
+def _scan_bwd(a: torch.Tensor, h0: torch.Tensor, hs: torch.Tensor, g: torch.Tensor,
+              need_h0: bool) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The gradients of :func:`_scan` given ``g = ∂L/∂hs``: ``(∂a, ∂b, ∂h0
+    or None)`` from ``a``, ``h0`` and the forward's ``hs``; the CUDA kernel
+    for CUDA tensors, in one launch."""
+    dev = kernel_device(a, h0, hs, g)
+    if any(t.dtype != torch.float32 for t in (a, h0, hs, g)):
+        raise TypeError(f"rglru_scan's backward takes float32 operands, got {a.dtype}, {h0.dtype}, "
+                        f"{hs.dtype}, {g.dtype}")
+    if dev.type == "cpu":
+        return _scan_bwd_plain(a, h0, hs, g, need_h0)
+    bsz, t, w = a.shape
+    if a.numel() >= 2**31:
+        raise ValueError(f"extent {a.numel()} exceeds the kernels' 32-bit index range")
+    a, h0, hs, g = a.contiguous(), h0.contiguous(), hs.contiguous(), g.contiguous()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.numel() == 0:
+        return da, db, torch.zeros_like(h0) if need_h0 else None
+    dh0 = torch.empty_like(h0) if need_h0 else None
+    plan = rglru_plan(bsz, t, w, (a.data_ptr(), hs.data_ptr(), h0.data_ptr(), g.data_ptr()))
+    _build.launch("rglru_scan_bwd_f32", dev, a.data_ptr(), hs.data_ptr(), h0.data_ptr(), g.data_ptr(),
+                  da.data_ptr(), db.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+                  bsz, t, w, plan.group, int(plan.vec), plan.blocks)
+    count_launch("rglru_scan_bwd")
+    return da, db, dh0
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """:func:`_scan` with its gradient (:func:`_scan_bwd`).  The forward
+    saves ``a``, ``h0`` and ``hs``; ``b`` is not needed."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+        hs = _scan(a, b, h0)
+        ctx.save_for_backward(a, h0, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, h0, hs = ctx.saved_tensors
+        need_a, need_b, need_h0 = ctx.needs_input_grad
+        da, db, dh0 = _scan_bwd(a, h0, hs, g, need_h0)
+        return da if need_a else None, db if need_b else None, dh0
+
+
 @register_kernel("rglru_scan", oracle=ref.rglru_scan_ref)
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    """a, b: (B, T, W) fp32; h0: (B, W).  Returns hs: (B, T, W)."""
+    """a, b: (B, T, W) fp32; h0: (B, W).  Returns hs: (B, T, W),
+    differentiable in all three."""
     if a.dim() != 3 or b.shape != a.shape or tuple(h0.shape) != (a.shape[0], a.shape[2]):
         raise ValueError(f"rglru_scan takes a, b (B, T, W) and h0 (B, W), got {tuple(a.shape)}, "
                          f"{tuple(b.shape)} and {tuple(h0.shape)}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or h0.requires_grad):
+        return _RGLRUScan.apply(a, b, h0)
     return _scan(a, b, h0)

@@ -11,7 +11,8 @@ so weights carry across leaf by leaf (:func:`params_from_numpy`).  JAX's
 changes nothing.  Four entry points:
 
 * ``forward``     — full-sequence logits and the summed MoE aux loss.
-* ``loss_fn``     — the training loss (cross-entropy + 0.01 · aux).
+* ``loss_fn``     — the training loss (cross-entropy + 0.01 · aux); under
+  ``RunFlags.remat`` each block is rematerialized in the backward.
 * ``prefill``     — full-sequence forward that also returns the decode cache.
 * ``decode_step`` — one token in, logits out, and a new cache.
 
@@ -28,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import api
@@ -349,13 +351,28 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], fl
     enc_out = _encoder_out(params, cfg, flags, batch)
     positions = torch.arange(s, device=tokens.device)[None]
     aux = _zero(x.device)
+    # Remat per block, as JAX's jax.checkpoint around each block: the
+    # backward recomputes a block's intermediates from its input (RG-LRU
+    # blocks run the scan kernel again).  Only where a graph is recorded.
+    remat = flags.remat and torch.is_grad_enabled()
     for gi in range(cfg.pattern_groups()):
         gp = _group(params["blocks"], gi)
         for i, kind in enumerate(cfg.block_pattern):
-            x, _, a = _block_apply_seq(gp[f"{i:02d}_{kind}"], x, kind, cfg, flags, positions, enc_out, causal=True)
+            args = (gp[f"{i:02d}_{kind}"], x, kind, cfg, flags, positions, enc_out)
+            if remat:
+                x, a = checkpoint(_one_block, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, a = _one_block(*args)
             aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _lm_head(params, x, cfg), aux
+
+
+def _one_block(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, flags: RunFlags, positions: torch.Tensor,
+               enc_out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One causal block of :func:`forward`: (x_out, aux loss)."""
+    x, _, a = _block_apply_seq(p, x, kind, cfg, flags, positions, enc_out, causal=True)
+    return x, a
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags = DEFAULT_FLAGS,

@@ -1077,6 +1077,98 @@ def test_rglru_kernel_matches_plain(card, case):
     assert torch.allclose(got.cpu(), tref.rglru_scan_ref(a, b, h0), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("need_h0", [True, False], ids=["dh0", "no-dh0"])
+@pytest.mark.parametrize("case", sorted(RGLRU))
+def test_rglru_backward_kernel_matches_plain(card, case, need_h0):
+    """K11's gradient kernel (``rglru_scan_bwd_f32``) at the forward's edges:
+    ragged T and W, 16-byte-aligned widths and views 4 bytes off them (4-byte
+    copies), ±0 and subnormals; ∂a, ∂b and ∂h0 bit-equal to the plain
+    reverse recurrence (±0 too), one launch, the copies its plan names."""
+    (bsz, t, w), vec, off, subnormal = RGLRU[case]
+    if subnormal:
+        a, b, h0 = _subnormal_gates((bsz, t, w), 199)
+        zeros = _subnormal_gates((bsz, t, w), 198)[1]
+        g = torch.where(zeros == 0, zeros, floats((bsz, t, w), 193))  # ±0 and normals
+    else:
+        a = torch.sigmoid(floats((bsz, t, w), 190))
+        b, h0, g = floats((bsz, t, w), 191), floats((bsz, w), 192), floats((bsz, t, w), 193)
+    hs = trg._scan_plain(a, b, h0)
+    on = (lambda x: on_card_at(x, card, 1)) if off else (lambda x: x.to(card))
+    da_, hs_, g_, h0_ = on(a), on(hs), on(g), h0.to(card)
+    assert trg.rglru_plan(bsz, t, w, (da_.data_ptr(), hs_.data_ptr(), h0_.data_ptr(), g_.data_ptr())).vec == vec
+    tapi.reset_launch_counts()
+    got = trg._scan_bwd(da_, h0_, hs_, g_, need_h0)
+    torch.cuda.synchronize()
+    assert tapi.launch_counts() == {"rglru_scan_bwd": 1}
+    want = trg._scan_bwd_plain(a, h0, hs, g, need_h0)
+    for x, y in zip(got, want):
+        if y is None:
+            assert x is None
+            continue
+        assert torch.equal(x.cpu().view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 2560), (2, 37, 300), (1, 512, 2560)])
+def test_rglru_scan_autograd_on_card_equals_cpu(card, shape):
+    """``api.rglru_scan`` under autograd on the card: the forward and the
+    backward kernel once each, hs and every gradient bit-equal to the same
+    autograd on CPU copies (the plain versions)."""
+    bsz, _, w = shape
+    a, b, h0, g = torch.sigmoid(floats(shape, 194)), floats(shape, 195), floats((bsz, w), 196), floats(shape, 197)
+    leaves = {dev: [x.detach().clone().to(dev).requires_grad_() for x in (a, b, h0)] for dev in ("cpu", card)}
+    outs = {}
+    for dev, (xa, xb, xh) in leaves.items():
+        tapi.reset_launch_counts()
+        hs = tapi.rglru_scan(xa, xb, xh)
+        hs.backward(g.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tapi.launch_counts() == {"rglru_scan": 1, "rglru_scan_bwd": 1}
+        outs[dev] = [hs.detach().cpu(), xa.grad.cpu(), xb.grad.cpu(), xh.grad.cpu()]
+    for x, y in zip(outs[card], outs["cpu"]):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_recurrentgemma_train_step_on_card_equals_cpu(card):
+    """One ``make_train_step`` of RecurrentGemma at ``reduced_config`` in
+    float32 on the card against the same step on CPU copies: K11 twice a
+    RG-LRU layer in the forward (its remat recompute) and its backward once;
+    the loss within 1e-5 relative, the moments within 1e-4 of their largest
+    (cuBLAS adds in another order than the CPU's BLAS), each master weight
+    within half a step of the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.runtime import RunFlags
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import steps as tsteps
+
+    cfg = dataclasses.replace(reduced_config(get_config("recurrentgemma-2b")), dtype="float32")
+    flags = RunFlags(attn_chunk=8, flash_threshold=64)
+    params = tt.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(2, 256, (2, 12)).astype(np.int32)),
+             "labels": torch.from_numpy(rng.integers(0, 256, (2, 12)).astype(np.int32))}
+    step = tsteps.make_train_step(cfg, flags)
+    cpu_new, cpu_m = step(tsteps.make_train_state(params, topt.AdamWConfig()), batch)
+    card_state = tsteps.make_train_state(tt._tree_map(lambda x: x.to(card), params), topt.AdamWConfig())
+    tapi.reset_launch_counts()
+    new, metrics = step(card_state, {k: v.to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    n = sum(kind == "rglru" for kind in cfg.layer_kinds())
+    assert tapi.launch_counts() == {"rglru_scan": 2 * n, "rglru_scan_bwd": n}
+    assert abs(float(metrics["loss"]) - float(cpu_m["loss"])) <= 1e-5 * abs(float(cpu_m["loss"]))
+    lr = float(cpu_m["lr"])
+    for name in ("m", "v"):
+        ref = topt.tree_leaves(cpu_new["opt"][name])
+        top = max(float(x.abs().max()) for x in ref)
+        for x, y in zip(topt.tree_leaves(new["opt"][name]), ref):
+            assert float((x.cpu() - y).abs().max()) <= 1e-4 * top
+    for x, y in zip(topt.tree_leaves(new["opt"]["master"]), topt.tree_leaves(cpu_new["opt"]["master"])):
+        assert float((x.cpu() - y).abs().max()) <= lr / 2
+
+
 def test_gemv_htree_rglru_refuse_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="htree_reduce takes"):
         tht._htree(torch.zeros((4, 8), dtype=torch.int8, device=card))

@@ -15,10 +15,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.configs import reduced_config as treduced  # noqa: E402
 from repro_torch.kernels import api as tapi  # noqa: E402
+from repro_torch.data.pipeline import DataConfig as tDataConfig  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch import train as ttrain_cli  # noqa: E402
 from repro_torch.models import resnet as tres  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.serve import scheduler as tsched  # noqa: E402
+from repro_torch.train import checkpoint as tckpt  # noqa: E402
+from repro_torch.train import trainer as ttrainer  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -43,7 +47,10 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert {"repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.qwen2_0_5b",
             "repro_torch.models.runtime", "repro_torch.models.common", "repro_torch.models.attention",
             "repro_torch.models.frontend", "repro_torch.models.transformer", "repro_torch.serve.engine",
-            "repro_torch.launch.serve", "repro_torch.models.recurrent", "repro_torch.models.moe"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.models.recurrent", "repro_torch.models.moe",
+            "repro_torch.data.pipeline", "repro_torch.train.fault", "repro_torch.train.optimizer",
+            "repro_torch.train.steps", "repro_torch.train.checkpoint", "repro_torch.train.trainer",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,6 +96,10 @@ ENTRY_POINTS = {
     "launch.serve-recurrentgemma": lambda: tserve.main(["--arch", "recurrentgemma-2b", "--reduced"]),
     "transformer.init_params-whisper": lambda: ttf.init_params(treduced(tget_config("whisper-medium"))),
     "scheduler.ContinuousBatcher": lambda: tsched.ContinuousBatcher(),
+    "launch.train": lambda: ttrain_cli.main(["--arch", "recurrentgemma-2b", "--reduced", "--steps", "1"]),
+    "train.trainer.train": lambda: ttrainer.train(treduced(tget_config("qwen2-0.5b")), tDataConfig(256, 8, 2),
+                                                  ttrainer.TrainLoopConfig(steps=1)),
+    "train.checkpoint.restore": lambda: tckpt.restore("/nonexistent", {}, step=0),
 }
 
 
