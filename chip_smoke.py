@@ -133,7 +133,26 @@ Phases, any failure of which exits non-zero:
       steps straight against 4, a restore and 4 more, deterministic
       algorithms, in a process of its own: ``chip_smoke.py
       --train-resume``) and the CLI (``python -m repro_torch.launch.train
-      --arch recurrentgemma-2b --reduced --steps 4``, exit 0).
+      --arch recurrentgemma-2b --reduced --steps 4``, exit 0).  The
+      per-leaf sha256 digests of the state after step DIST_STEPS are held
+      to 3n's (their time is taken out of the step times).
+   n. sharding rules and mesh collectives, run first (after phase 1, while
+      this process holds next to nothing on the card) in a process of its
+      own (``chip_smoke.py --dist-phase``) with an NCCL process group of one
+      rank (``tcp://localhost``), destroyed once the card is idle: the
+      ("data", "model") = (1, 1) host mesh and its ``MeshRules``; the four
+      collectives through NCCL, each bit-equal to its CPU copy, their
+      ``torch.distributed`` calls printed; ``trainer.train`` at
+      RecurrentGemma-2B's full width and depth under the rules with ZeRO-1,
+      3m's batch, seed and schedule, DIST_STEPS steps, K11 launches exact,
+      its calls a step printed; the compressed mean of the tied embedding's
+      float32 gradient (655 M entries) bit-equal to its CPU copy; Qwen2-0.5B's
+      4 × 8 prefill and one decode step through ``make_prefill_step`` and
+      ``make_decode_step`` with the rules, K4 launches exact; the memory
+      model's state bytes equal to the live train state's and its params
+      bytes to the served parameters', its analytic peak beside
+      ``max_memory_allocated``.  Phase 3j holds its 4 × 8 logits, and 3m its
+      state after step DIST_STEPS (per-leaf sha256), bit-equal to these.
 
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
@@ -459,6 +478,14 @@ TRAIN_NO_LIBRARY = {
     "rglru_scan": "no linear-recurrence scan in PyTorch",
     "rglru_scan_bwd": "no linear-recurrence scan (nor its gradient) in PyTorch",
 }
+
+# Phase 3n, the sharding rules and mesh collectives on an NCCL process group
+# of one rank (a process of its own, run first): phase 3m's training for
+# DIST_STEPS steps under MeshRules with ZeRO-1, which 3m's state after the
+# same step must equal; phase 3j's 4 x 8 prefill and decode step under the
+# rules, which 3j's logits must equal.
+DIST_STEPS = 3
+DIST_TIMEOUT_S = 600
 
 # Phase 3k, the continuous-batching scheduler and multi-chip scale-out on the
 # host's simulator, held to BENCH_kernels.json's serve and scaling sections
@@ -3013,11 +3040,12 @@ def drive_engine(torch, api, smoke, rec, phase, label, eng, reqs, vp, out, path_
     return done
 
 
-def step_launches(torch, api, smoke, label, e, reqs, vp, want_prefill, want_decode):
+def step_launches(torch, api, smoke, label, e, reqs, vp, want_prefill, want_decode, digests=None):
     """One prefill and one decode step of engine ``e`` on ``reqs``, each
     with the counters reset around it and held to ``want_prefill`` and
     ``want_decode``; the logits must be (B, vp), finite, in the config's
-    dtype.  Returns (the counts, (e, batch, cache, next tokens))."""
+    dtype.  Returns (the counts, (e, batch, cache, next tokens)); the two
+    logits' sha256 go to ``digests`` (a dict) when one is given."""
     batch = e.prompt_batch(reqs)
     with torch.no_grad():
         api.reset_launch_counts()
@@ -3037,12 +3065,15 @@ def step_launches(torch, api, smoke, label, e, reqs, vp, want_prefill, want_deco
         if lg.shape != (batch["tokens"].shape[0], vp) or lg.dtype != dtype or not bool(torch.isfinite(lg).all()):
             smoke.failures.append(f"{label}: logits {tuple(lg.shape)} {lg.dtype}, finite "
                                   f"{bool(torch.isfinite(lg).all())}")
+    if digests is not None:
+        digests.update(prefill=tensor_sha256(torch, logits), decode_step=tensor_sha256(torch, logits2))
     return {"prefill": pre, "decode_step": dec}, (e, batch, cache, tok)
 
 
-def run_llm_phase(torch, api, bm, att, smoke, dev, gpu):
+def run_llm_phase(torch, api, bm, att, smoke, dev, gpu, dist_run=None):
     """Phase 3j: ``repro_torch.launch.serve``'s main path at Qwen2-0.5B's
-    full width and depth on the card (module docstring, 3j)."""
+    full width and depth on the card (module docstring, 3j); the 4 × 8
+    prefill's and decode step's logits held to phase 3n's (``dist_run``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3088,14 +3119,20 @@ def run_llm_phase(torch, api, bm, att, smoke, dev, gpu):
     # one prefill and one decode step, each with the counters reset around it
     per_step = {}
     steps = {}
+    out["logits_digests"] = {}  # the 4 x 8 step's, held to phase 3n's
     for label, e, reqs in (("4x8", eng, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS)),
                            (f"1x{prompt}", eng_long, serve_cli.make_requests(cfg, 1, 1, SEED + 1, prompt)),
                            ("4x8 quant_kv", eng_kv, serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS))):
         per_step[label], steps[label] = step_launches(
             torch, api, smoke, f"phase 3j {label}", e, reqs, vp, llm_expected(cfg, 0, False),
-            llm_step_expected(cfg, e.flags.quant_kv))
+            llm_step_expected(cfg, e.flags.quant_kv), out["logits_digests"] if label == "4x8" else None)
     out["per_step_launches"] = per_step
     print(f"phase 3j launches a step: {per_step}; second engine a compile-cache hit: {hit}")
+    if dist_run is not None:
+        serving = dist_run.get("serving", {})
+        out["dist_differ"] = hold_to_dist_digests(
+            smoke, "phase 3j", "4x8 prefill and decode step logits", out["logits_digests"],
+            serving.get("logits_digests"), serving.get("logits_shape", []), serving.get("logits_dtype", ""))
 
     # (a) K4 and K6 against their plain versions at every shape the path gave them
     k4_keys = {("bitslice_matmul", (1, m, k), (1, k, n)) for m in (LLM_REQUESTS * 8, LLM_REQUESTS, prompt, 1)
@@ -3605,7 +3642,7 @@ def master_gap(torch, leaves_card, leaves_cpu):
     return worst
 
 
-def run_training_phase(torch, api, rg, smoke, dev, gpu):
+def run_training_phase(torch, api, rg, smoke, dev, gpu, dist_run=None):
     """Phase 3m (module docstring): RecurrentGemma-2B trained at full width
     and depth through ``trainer.train`` with K11's forward and gradient
     counted and one step's calls held bit-equal; the card against its CPU
@@ -3633,13 +3670,20 @@ def run_training_phase(torch, api, rg, smoke, dev, gpu):
     torch.cuda.reset_peak_memory_stats(dev)
     loop = trainer.TrainLoopConfig(steps=TRAIN_STEPS, log_every=1)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    with ScanRecorder(rg, window) as rec:
+    with ScanRecorder(rg, window) as rec, StepDigest(torch, trainer, DIST_STEPS) as digest:
         api.reset_launch_counts()
         t = time.perf_counter()
         run = trainer.train(cfg, data_cfg, loop, flags, device=dev)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        wall = time.perf_counter() - t - digest.seconds
         counts = api.launch_counts()
+    # the state after step DIST_STEPS against phase 3n's; the digests' time is out of the step times
+    out["digest_s"] = digest.seconds
+    run["history"][DIST_STEPS - 1]["s_per_step"] -= digest.seconds
+    if dist_run is not None:
+        out["dist_differ"] = hold_to_dist_digests(
+            smoke, "phase 3m", f"state after step {DIST_STEPS} (per-leaf sha256)", digest.digests,
+            dist_run.get("training", {}).get("state_digests"), [TRAIN_BATCH, TRAIN_SEQ], "bfloat16")
     peak = torch.cuda.max_memory_allocated(dev)
     n_params = sum(x.numel() for x in transformer._tree_leaves(run["state"]["params"]))
     state_bytes = transformer.param_bytes(run["state"])
@@ -3683,7 +3727,8 @@ def run_training_phase(torch, api, rg, smoke, dev, gpu):
           f"in {wall:.1f} s: step {med * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first {step_s[0] * 1e3:.1f} ms), "
           f"{out['tokens_per_s']:.1f} tokens/s, peak memory {peak / 2**30:.2f} GiB "
           f"(max_memory_allocated; {out['memory_before_gib']:.2f} GiB held before), K11 launches a step "
-          f"{out['launches_per_step']} (predicted {per_step}); losses {[f'{x:.4f}' for x in losses]} ({gpu})")
+          f"{out['launches_per_step']} (predicted {per_step}); losses {[f'{x:.4f}' for x in losses]} ({gpu}); "
+          f"state digests after step {DIST_STEPS} in {digest.seconds:.1f} s (out of the step times)")
 
     # every K11 forward and gradient call of step TRAIN_RECORD_STEP against its plain version
     for i, (a, b, h0, hs) in enumerate(rec.calls["fwd"]):
@@ -3879,6 +3924,347 @@ def training_timing(torch, rg, smoke, train, floor_ms):
               f"{max(b_bytes, b_ops) / k_ms:.1%}, {k_ms / floor_ms:.2f} launch floors), plain {p_ms:.3f} ms on the "
               f"card; {launches} launches on the path ({gpu})")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3n: sharding rules and mesh collectives on an NCCL process group
+# ---------------------------------------------------------------------------
+
+
+def tensor_sha256(torch, t):
+    """sha256 of a tensor's bytes (any dtype), read on the host."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()).hexdigest()
+
+
+def tree_digests(torch, leaves, workers=8, chunk=64 << 20):
+    """{path: sha256} of ``(path, tensor)`` pairs, each leaf hashed by one of
+    ``workers`` threads through a pinned host buffer of ``chunk`` bytes of
+    its own; at most ``workers`` leaves are held at once (``leaves`` may
+    make each leaf as it is read)."""
+    import hashlib
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    local = threading.local()
+    gate = threading.BoundedSemaphore(workers)
+
+    def digest(t):
+        try:
+            if getattr(local, "buf", None) is None:
+                local.buf = torch.empty(chunk, dtype=torch.uint8, pin_memory=t.is_cuda)
+            flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            h = hashlib.sha256()
+            for i in range(0, flat.numel(), chunk):
+                n = min(chunk, flat.numel() - i)
+                local.buf[:n].copy_(flat[i:i + n])
+                h.update(local.buf[:n].numpy())
+            return h.hexdigest()
+        finally:
+            gate.release()
+
+    futures = {}
+    with ThreadPoolExecutor(workers) as pool:
+        for path, t in leaves:
+            gate.acquire()
+            futures[path] = pool.submit(digest, t)
+            del t
+        return {p: f.result() for p, f in futures.items()}
+
+
+def state_leaves(tree, prefix=""):
+    """(path, leaf) of a dict tree in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from state_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+class StepDigest:
+    """While active, wraps the train steps ``trainer.train`` builds: after
+    step ``at`` (1-based) it records the per-leaf sha256 digests of the new
+    state (``digests``) and the seconds that took (``seconds``, inside that
+    step's time in the trainer's history)."""
+
+    def __init__(self, torch, trainer, at):
+        self.torch, self.trainer, self.at = torch, trainer, at
+        self.digests, self.seconds = None, 0.0
+
+    def __enter__(self):
+        self.orig = make = self.trainer.make_train_step
+
+        def wrapped_make(*args, **kwargs):
+            step, n = make(*args, **kwargs), [0]
+
+            def wrapped(state, batch):
+                new, metrics = step(state, batch)
+                n[0] += 1
+                if n[0] == self.at:
+                    self.torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    self.digests = tree_digests(self.torch, state_leaves(new))
+                    self.seconds = time.perf_counter() - t
+                return new, metrics
+
+            return wrapped
+
+        self.trainer.make_train_step = wrapped_make
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.make_train_step = self.orig
+
+
+def run_dist_phase(torch, smoke, gpu):
+    """Phase 3n (module docstring): ``chip_smoke.py --dist-phase`` in a
+    process of its own, run while this process holds next to nothing on the
+    card; its checks and failures join this run's, and its logits and state
+    digests go to phases 3j and 3m (:func:`hold_to_dist_digests`)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-phase"],
+                           capture_output=True, text=True, timeout=DIST_TIMEOUT_S, cwd=str(ROOT), env=env)
+        rc, stdout, stderr = r.returncode, r.stdout, r.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, stdout, stderr = None, e.stdout or "", f"timed out after {DIST_TIMEOUT_S} s"
+        stdout = stdout.decode() if isinstance(stdout, bytes) else stdout
+    lines = stdout.splitlines()
+    for ln in lines:
+        if not ln.startswith("{"):
+            print(ln)
+    js = [ln for ln in lines if ln.startswith("{")]
+    out = json.loads(js[-1]) if js else {}
+    out["rc"], out["seconds"] = rc, time.perf_counter() - t
+    if rc != 0 or not js:
+        smoke.failures.append(f"phase 3n: child exit {rc}: {(stderr or '')[-3000:]}")
+    smoke.cases.extend(out.get("cases", []))
+    smoke.failures.extend(f"phase 3n: {f}" for f in out.get("failures", []))
+    print(f"phase 3n: {out['seconds']:.1f} s in its own process, exit {rc} ({gpu})")
+    return out
+
+
+def hold_to_dist_digests(smoke, phase, what, mine, theirs, shape, dtype):
+    """Phase ``phase``'s digests (``mine``: {name: sha256}) against phase
+    3n's of the same computation under MeshRules (``theirs``): every name
+    present in both and equal.  Returns the names that differ."""
+    differ = sorted(k for k in set(mine) | set(theirs or {}) if (theirs or {}).get(k) != mine.get(k))
+    ok = bool(theirs) and not differ
+    smoke.cases.append({"kernel": "dist", "case": f"{phase} {what} vs phase 3n under MeshRules", "ok": ok,
+                        "max_abs_err": None, "exact": True, "shape": list(shape), "dtype": dtype})
+    if not ok:
+        smoke.failures.append(f"{phase} {what}: {len(differ)} of {len(mine)} digests differ from phase 3n's under "
+                              f"MeshRules ({differ[:8]}){'' if theirs else '; phase 3n gave none'}")
+    print(f"{phase} {what}: {len(mine) - len(differ)}/{len(mine)} bit-equal to phase 3n's under MeshRules (1, 1)")
+    return differ
+
+
+def dist_phase_main() -> int:
+    """``chip_smoke.py --dist-phase``, run by phase 3n: an NCCL process
+    group of one rank on card 0 (``tcp://localhost``, a free port), then
+    :func:`dist_checks`, then the process group destroyed after the card is
+    idle.  Prints one JSON line."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smoke = Smoke(torch)
+    out = {"gpu": nvidia_smi("name,power.limit")}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        dist_checks(torch, dev, smoke, out)
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["cases"], out["failures"] = smoke.cases, smoke.failures
+    print(json.dumps(out))
+    return 0
+
+
+def dist_checks(torch, dev, smoke, out):
+    """Phase 3n's checks on the initialised process group (one rank): the
+    ("data", "model") = (1, 1) host mesh on ``dev`` and its MeshRules; the
+    collectives (each against its CPU copy), the training and serving paths
+    under those rules (their state and logits digests recorded for 3m and
+    3j) and the memory model.  Records into ``smoke`` and ``out``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.kernels import api
+    from repro_torch.launch import memory_model, specs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import MeshDescription, make_host_mesh
+    from repro_torch.launch.train import TRAIN_FLAGS
+    from repro_torch.models import transformer
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.train import optimizer, steps, trainer
+
+    mesh = make_host_mesh(device=dev.type)
+    rules = MeshRules.from_mesh(mesh)
+    out["backend"] = {a: str(dist.get_backend(mesh.group(a))) for a in mesh.axis_names}
+    out["mesh"] = mesh.shape
+    if set(out["backend"].values()) != {"nccl"}:
+        smoke.failures.append(f"backend {out['backend']}, not nccl")
+    cpu_mesh = MeshDescription((1, 1), ("data", "model"))
+
+    # (a) the four collectives through NCCL, each against its CPU copy
+    g = torch.Generator().manual_seed(SEED + 7)
+    cases = {
+        "htree_allreduce float32": (lambda m, x: collectives.htree_allreduce(x, m, "model"),
+                                    (torch.randn((4, 64), generator=g),)),
+        "htree_allreduce int32": (lambda m, x: collectives.htree_allreduce(x, m, "data"),
+                                  (torch.randint(-2**31, 2**31 - 1, (4, 64), generator=g, dtype=torch.int32),)),
+        # integer-valued floats: the card's and the CPU's products are exact
+        "ring_allgather_matmul": (lambda m, a, w: collectives.ring_allgather_matmul(a, w, m, "model"),
+                                  (torch.randint(-8, 8, (16, 64), generator=g).float(),
+                                   torch.randint(-8, 8, (64, 24), generator=g).float())),
+        "shuffle": (lambda m, x: collectives.shuffle(x, m, "data", split_dim=0),
+                    (torch.arange(64 * 3, dtype=torch.int32).reshape(64, 3),)),
+        "compressed_psum_with_feedback": (
+            lambda m, gr, e: torch.cat(collectives.compressed_psum_with_feedback(gr, e, m, ("data", "model"))),
+            (torch.randn(4096, generator=g), 0.01 * torch.randn(4096, generator=g))),
+    }
+    out["collectives"] = {}
+    for name, (fn, args) in cases.items():
+        collectives.reset_call_counts()
+        got = fn(mesh, *[a.to(dev) for a in args])
+        torch.cuda.synchronize()
+        calls = collectives.call_counts()
+        smoke.check("collectives", f"phase 3n {name}", got, fn(cpu_mesh, *args), exact=True)
+        out["collectives"][name] = calls
+    print(f"phase 3n process group: backend {out['backend']}, mesh {mesh.shape}; torch.distributed calls of "
+          f"each collective on the card: {out['collectives']} (a butterfly and a ring of one rank have no "
+          f"rounds); each bit-equal to its CPU copy")
+
+    # (b) training: trainer.train under the rules with ZeRO-1, phase 3m's batch, seed and schedule
+    cfg = get_config(TRAIN_ARCH)
+    flags = dataclasses.replace(TRAIN_FLAGS, zero1=True)
+    n_rglru = sum(kind == "rglru" for kind in cfg.layer_kinds())
+    want = {"rglru_scan": 2 * n_rglru * DIST_STEPS, "rglru_scan_bwd": n_rglru * DIST_STEPS}
+    loop = trainer.TrainLoopConfig(steps=DIST_STEPS, log_every=1, schedule_steps=TRAIN_STEPS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    api.reset_launch_counts()
+    collectives.reset_call_counts()
+    t = time.perf_counter()
+    run = trainer.train(cfg, data_cfg, loop, flags, rules=rules, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts, calls = api.launch_counts(), collectives.call_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if counts != want:
+        smoke.failures.append(f"training launches {counts} != {want}")
+    sspecs = steps.train_state_specs(cfg, rules, optimizer.AdamWConfig(), flags)
+    live_bytes = transformer.param_bytes(run["state"])
+    cell = ShapeCell("phase3n_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    mem = memory_model.analytic_memory(cfg, cell, rules, flags, specs.input_specs(cfg, cell, rules, flags))
+    t = time.perf_counter()
+    spec_of = dict(state_leaves(sspecs))
+    digests = tree_digests(torch, ((p, steps._gather(x, spec_of[p], rules))
+                                   for p, x in state_leaves(run["state"])))
+    digest_s = time.perf_counter() - t
+    if mem["state_bytes_per_device"] != live_bytes:
+        smoke.failures.append(f"analytic state bytes {mem['state_bytes_per_device']} != live {live_bytes}")
+    hist = run["history"]
+    out["training"] = {
+        "launches": counts, "launches_per_step": {k: v / DIST_STEPS for k, v in counts.items()},
+        "collective_calls": calls, "collective_calls_per_step": {k: v / DIST_STEPS for k, v in calls.items()},
+        "losses": [h["loss"] for h in hist], "s_per_step": [h["s_per_step"] for h in hist], "wall_s": wall,
+        "state_digests": digests, "digest_s": digest_s,
+        "state_bytes_live": live_bytes, "memory_model": mem, "max_memory_allocated": peak}
+    print(f"phase 3n {TRAIN_ARCH} trained under MeshRules (1, 1) with ZeRO-1, {DIST_STEPS} steps at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} in {wall:.1f} s (steps {[round(h['s_per_step'] * 1e3, 1) for h in hist]} ms); "
+          f"K11 launches {counts} (expected {want}); torch.distributed calls a step "
+          f"{out['training']['collective_calls_per_step']}; {len(digests)} leaf digests after step {DIST_STEPS} "
+          f"for phase 3m ({digest_s:.1f} s); state bytes: analytic "
+          f"{mem['state_bytes_per_device']}, live {live_bytes}; analytic peak "
+          f"{mem['analytic_peak_per_device'] / 2**30:.2f} GiB, max_memory_allocated {peak / 2**30:.2f} GiB")
+    del run
+    torch.cuda.empty_cache()
+
+    # (c) the compressed mean on the tied embedding's gradient (float32), card against CPU
+    params = transformer.init_params(cfg, SEED, device=dev)
+    batch = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, 0, dev)
+    _, _, grads = steps._global_grads_of(params, cfg, batch, flags, rules)
+    grad = grads["embed"]["w"].to(torch.float32)
+    del params, grads
+    torch.cuda.empty_cache()
+    collectives.reset_call_counts()
+    t = time.perf_counter()
+    red, err = collectives.compressed_psum_with_feedback(grad, torch.zeros_like(grad), mesh, ("data",))
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t) * 1e3
+    comp_calls = collectives.call_counts()
+    red, err = red.cpu(), err.cpu()
+    grad = grad.cpu()
+    want_red, want_err = collectives.compressed_psum_with_feedback(grad, torch.zeros_like(grad), cpu_mesh,
+                                                                  ("data",))
+    smoke.check("collectives", f"phase 3n compressed mean of the {tuple(grad.shape)} embedding gradient",
+                red, want_red, exact=True)
+    smoke.check("collectives", f"phase 3n compressed new error of the {tuple(grad.shape)} embedding gradient",
+                err, want_err, exact=True)
+    out["compressed_embedding_grad"] = {"shape": list(grad.shape), "numel": grad.numel(), "card_ms": card_ms,
+                                        "calls": comp_calls}
+    print(f"phase 3n compressed_psum_with_feedback on the tied embedding's gradient {tuple(grad.shape)} "
+          f"({grad.numel() / 1e6:.0f} M float32): {card_ms:.1f} ms on the card (host clock), calls {comp_calls}, "
+          f"mean and new error bit-equal to the CPU copy")
+    del red, err, grad, want_red, want_err
+
+    # (d) serving: Qwen2-0.5B's prefill and decode steps under the rules, against phase 3j's logits
+    scfg = get_config(LLM_ARCH)
+    sflags = serve_cli.serve_flags()
+    eng = serve_engine.ServeEngine(scfg, transformer.init_params(scfg, SEED, device=dev), sflags,
+                                   max_len=serve_cli.MAX_LEN)
+    batch = eng.prompt_batch(serve_cli.make_requests(scfg, LLM_REQUESTS, LLM_NEW_TOKENS))
+    api.reset_launch_counts()
+    collectives.reset_call_counts()
+    with torch.no_grad():
+        cache, logits = serve_engine.make_prefill_step(scfg, sflags, rules, max_len=serve_cli.MAX_LEN)(
+            eng.params, batch)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        _, logits2 = serve_engine.make_decode_step(scfg, sflags, rules)(eng.params, cache, tok)
+    torch.cuda.synchronize()
+    counts, calls = api.launch_counts(), collectives.call_counts()
+    want = {"bitslice_matmul": 2 * LLM_K4_PER_LAYER * scfg.n_layers}
+    if counts != want:
+        smoke.failures.append(f"serving launches {counts} != {want}")
+    got_d = {"prefill": tensor_sha256(torch, logits), "decode_step": tensor_sha256(torch, logits2)}
+    if not all(bool(torch.isfinite(lg).all()) for lg in (logits, logits2)):
+        smoke.failures.append("serving logits not finite")
+    dcell = ShapeCell("phase3n_decode", "decode", serve_cli.MAX_LEN, LLM_REQUESTS)
+    smem = memory_model.analytic_memory(scfg, dcell, rules, sflags, specs.input_specs(scfg, dcell, rules, sflags))
+    served = transformer.param_bytes(eng.params)
+    if smem["params_bytes_per_device"] != served:
+        smoke.failures.append(f"analytic params bytes {smem['params_bytes_per_device']} != served {served}")
+    out["serving"] = {"launches": counts, "collective_calls": calls, "logits_digests": got_d,
+                      "logits_shape": list(logits.shape), "logits_dtype": str(logits.dtype),
+                      "memory_model": smem, "params_bytes_served": served}
+    print(f"phase 3n {LLM_ARCH} prefill {tuple(batch['tokens'].shape)} and one decode step under MeshRules "
+          f"(1, 1): launches {counts} (expected {want}), torch.distributed calls {calls}; logits digests for "
+          f"phase 3j; params bytes: analytic "
+          f"{smem['params_bytes_per_device']}, served {served}")
+    out["path_launches"] = {"dist_training": out["training"]["launches"], "dist_serving": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -4323,6 +4709,9 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"  {src}.cu: {info['seconds']:.1f} s; " + " | ".join(regs[:8]))
 
+    # ---------------- phase 3n, first: sharding rules and collectives on NCCL, in a process of its own ----------------
+    dist_run = run_dist_phase(torch, smoke, gpu)
+
     # ---------------- phase 2: kernels against their plain versions ----------------
     cfg = resnet.RESNET18
     params_cpu = resnet.init_params(cfg, SEED, device="cpu")
@@ -4469,6 +4858,7 @@ def main() -> int:
           f"launches {launches} (expected {expected}); first forward {first_forward_s:.3f} s, "
           f"CPU plain forward {cpu_forward_s:.2f} s")
     path_launches = {"resnet18_eager": {k: v for k, v in counts.items() if v}}
+    path_launches.update(dist_run.get("path_launches", {}))
 
     # ---------------- phase 3b: RESNET18 through the Program API ----------------
     traced = api.trace(lambda p, v: resnet.forward(cfg, p, v), name="resnet18")
@@ -4603,7 +4993,7 @@ def main() -> int:
     path_launches["pimsab_tiny_card_executor"] = pimsab["program_lowering"]["tiny"]["card_executor_launches"]
 
     # ---------------- phase 3j: the LLM serving path at Qwen2-0.5B's full width ----------------
-    llm = run_llm_phase(torch, api, bm, att, smoke, dev, gpu)
+    llm = run_llm_phase(torch, api, bm, att, smoke, dev, gpu, dist_run)
     path_launches["llm_serving"] = llm["path_launches"]
     torch.cuda.synchronize()
 
@@ -4620,8 +5010,9 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---------------- phase 3m: the training path at RecurrentGemma-2B's full width and depth ----------------
-    train = run_training_phase(torch, api, rg, smoke, dev, gpu)
+    train = run_training_phase(torch, api, rg, smoke, dev, gpu, dist_run)
     path_launches["training"] = train["path_launches"]
+
 
     # ---------------- phase 4: timing ----------------
     library = {
@@ -4846,6 +5237,9 @@ def main() -> int:
     llm_latency, llm_rows = llm_timing(torch, bm, att, smoke, llm, floor_ms)
     fam_latency, fam_rows = families_timing(torch, bm, att, rg, smoke, fam, floor_ms)
     train_rows = training_timing(torch, rg, smoke, train, floor_ms)
+    for r in train_rows:  # phase 3n's launches of K11 beside 3m's
+        kernel = r["name"].split("[")[0]
+        r["launches_by_path"]["dist_training"] = dist_run.get("training", {}).get("launches", {}).get(kernel, 0)
 
     # ---------------- phase 5: where the forward's device time goes ----------------
     prof_iters = 3
@@ -4956,6 +5350,7 @@ def main() -> int:
         "llm": dict({k: v for k, v in llm.items() if k not in ("recorder", "steps")}, latency=llm_latency),
         "families": dict({k: v for k, v in fam.items() if k not in ("recorder", "steps")}, latency=fam_latency),
         "training": {k: v for k, v in train.items() if k != "recorded"},
+        "dist": {k: v for k, v in dist_run.items() if k not in ("cases", "failures")},
     }, indent=1))
 
     if smoke.failures:
@@ -4985,7 +5380,15 @@ def main() -> int:
                       "families_seconds": fam["seconds"],
                       "training": {k: train[k] for k in ("arch", "batch", "seq", "steps", "step_ms_median",
                                                          "tokens_per_s", "peak_memory_gib", "launches_per_step",
-                                                         "losses", "seconds")}}))
+                                                         "losses", "seconds")},
+                      "dist": {"backend": dist_run.get("backend"), "seconds": dist_run.get("seconds"),
+                               "training": {k: dist_run.get("training", {}).get(k) for k in (
+                                   "launches_per_step", "collective_calls_per_step", "losses", "s_per_step",
+                                   "max_memory_allocated")},
+                               "serving": {k: dist_run.get("serving", {}).get(k) for k in (
+                                   "launches", "collective_calls")},
+                               "state_leaves_differing_from_3m": train.get("dist_differ"),
+                               "logits_differing_from_3j": llm.get("dist_differ")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -4994,4 +5397,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--replay-profiles"]:
         sys.exit(replay_profile_main())
+    if sys.argv[1:] == ["--dist-phase"]:
+        sys.exit(dist_phase_main())
     sys.exit(train_resume_main() if sys.argv[1:] == ["--train-resume"] else main())

@@ -11,7 +11,7 @@ Program over that kernel and the relu kernel.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,9 +86,12 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Mean token cross-entropy in float32; the logits of the padded
-    vocabulary (ids ≥ ``vocab``) are masked by subtracting 1e9."""
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> Tuple[torch.Tensor, int]:
+    """(summed token cross-entropy in float32, token count): JAX's
+    ``softmax_cross_entropy`` is the sum over the count (``loss_fn`` divides,
+    over the global count under sharding rules).  The logits of the padded
+    vocabulary (ids ≥ ``vocab``) are masked by subtracting 1e9.  No label is
+    masked, so every token counts."""
     lf = logits.to(torch.float32)
     if lf.shape[-1] > vocab:
         mask = torch.zeros(lf.shape[-1], dtype=torch.float32, device=lf.device)
@@ -96,7 +99,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int
         lf = lf - mask
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
-    return torch.mean(logz - gold)
+    nll = logz - gold
+    return torch.sum(nll), nll.numel()
 
 
 def _saturate_int8(x: torch.Tensor) -> torch.Tensor:

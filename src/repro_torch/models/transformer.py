@@ -16,9 +16,15 @@ changes nothing.  Four entry points:
 * ``prefill``     — full-sequence forward that also returns the decode cache.
 * ``decode_step`` — one token in, logits out, and a new cache.
 
-Sharding ``rules`` raise ``NotImplementedError`` (ROADMAP S13).  Every
-quantized linear runs the bit-sliced GEMM (``models/common.int_matmul``);
-under ``RunFlags.quant_kv`` the int8 scores run the row-dot kernel
+Sharding ``rules`` (``dist.sharding.MeshRules``) run data-parallel, SPMD:
+each entry point takes the global batch, this rank keeps its rows
+(``sharding.batch_shard``) and returns JAX's global values (logits
+gathered over the data axes, the aux loss their mean); a decode cache stays
+this rank's shard.  MoE routes per data shard as JAX does (``_ffn_apply``).
+A model axis wider than one (tensor-parallel execution) raises
+``NotImplementedError`` naming ROADMAP S13b.  Every quantized linear runs
+the bit-sliced GEMM (``models/common.int_matmul``); under
+``RunFlags.quant_kv`` the int8 scores run the row-dot kernel
 (``models/attention.int8_scores``); an RG-LRU prefill runs the RG-LRU scan
 kernel (``models/recurrent.rglru_block_apply``).
 """
@@ -32,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives, sharding
 from repro_torch.kernels import api
 from repro_torch.kernels.api import PrecisionSpec
 from repro_torch.models import frontend
@@ -51,7 +58,7 @@ from repro_torch.models.common import (
     linear_init,
     rmsnorm,
     rmsnorm_init,
-    softmax_cross_entropy,
+    cross_entropy_sum,
     swiglu,
 )
 from repro_torch.models.moe import moe_ffn, moe_init
@@ -74,13 +81,27 @@ KV_SPEC = PrecisionSpec.int8
 
 
 def check_supported(cfg: ModelConfig, rules: Any = None) -> None:
-    """Raise ``NotImplementedError`` for sharding rules, which the port does
-    not run yet (ROADMAP S13); every block kind and family of the configs
-    runs."""
-    if rules is not None:
+    """Every block kind and family of the configs runs, without rules or
+    data-parallel under a ``MeshRules`` (ROADMAP S13).  A ``MeshRules``
+    whose model axis is wider than one raises ``NotImplementedError``
+    (tensor-parallel execution, ROADMAP S13b); rules of another type raise
+    ``TypeError``."""
+    if rules is None:
+        return
+    if not isinstance(rules, sharding.MeshRules):
+        raise TypeError(f"{cfg.name}: rules must be a dist.sharding.MeshRules (ROADMAP S13), "
+                        f"not {type(rules).__name__}")
+    if rules.tp > 1:
         raise NotImplementedError(
-            f"{cfg.name}: sharding rules (MeshRules) are not ported yet (ROADMAP S13, dist/sharding.py); "
-            "pass rules=None")
+            f"{cfg.name}: tensor-parallel execution on the {rules.tp_axis!r} axis (tp={rules.tp}) is not "
+            "ported yet (ROADMAP S13b); the port runs data-parallel meshes (model axis of size 1)")
+
+
+def _shard_of(cfg: ModelConfig, rules: Any, batch: int) -> Optional[sharding.BatchShard]:
+    """This rank's rows of a ``batch``-row global batch under ``rules``
+    (None without rules), after :func:`check_supported`."""
+    check_supported(cfg, rules)
+    return None if rules is None else sharding.batch_shard(rules, batch)
 
 
 def _tree_map(fn, tree):
@@ -257,22 +278,34 @@ def _cross_kv(p: Params, enc_out: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
     }
 
 
-def _ffn_apply(p: Params, x: torch.Tensor, cfg, flags: RunFlags) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(output, aux loss).  MoE routes per group: ``flags.routing_groups``
-    (else one group, JAX's rule without sharding rules), lowered until it
-    divides the tokens."""
+def _ffn_apply(p: Params, x: torch.Tensor, cfg, flags: RunFlags,
+               shard: Optional[sharding.BatchShard] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(output, aux loss) of this rank's rows ``x``.  MoE routes per group,
+    JAX's global rule: ``flags.routing_groups`` or one group a data shard,
+    lowered until it divides the global token count.  Groups that align with
+    the ranks' rows (a multiple of dp) are routed where the rows lie, the
+    aux loss the mean over this rank's groups; otherwise the rank gathers
+    the block's rows of every rank, routes them all and keeps its own (its
+    aux loss then the global one)."""
     if cfg.is_moe:
-        groups = flags.routing_groups or 1
-        tokens = x.shape[0] * x.shape[1]
+        dp = shard.dp if shard is not None else 1
+        split = shard is not None and shard.sharded and dp > 1
+        groups = flags.routing_groups or dp
+        tokens = x.shape[0] * x.shape[1] * (dp if split else 1)
         while tokens % groups:
             groups -= 1
-        return moe_ffn(p, x, cfg, groups)
+        if not split:
+            return moe_ffn(p, x, cfg, groups)
+        if groups % dp == 0:
+            return moe_ffn(p, x, cfg, groups // dp)
+        out, aux = moe_ffn(p, collectives.gather_rows(x, shard), cfg, groups)
+        return out[shard.start:shard.start + shard.rows], aux
     return linear(p["w_down"], swiglu(linear(p["w_gate"], x), linear(p["w_up"], x))), _zero(x.device)
 
 
 def _block_apply_seq(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, flags: RunFlags,
-                     positions: torch.Tensor, enc_out: Optional[torch.Tensor],
-                     causal: bool) -> Tuple[torch.Tensor, Params, torch.Tensor]:
+                     positions: torch.Tensor, enc_out: Optional[torch.Tensor], causal: bool,
+                     shard: Optional[sharding.BatchShard] = None) -> Tuple[torch.Tensor, Params, torch.Tensor]:
     """Returns (x_out, new cache entries, aux loss).  A recurrent block starts
     from a zero state; the mLSTM chunk is ``attn_chunk`` capped at 256."""
     aux = _zero(x.device)
@@ -289,7 +322,7 @@ def _block_apply_seq(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, fl
         x = x + _cross_apply(p["cross"], hx, kvx, cfg)
         cache_out["cross_k"], cache_out["cross_v"] = kvx["k"], kvx["v"]
     if "ffn" in p:
-        y2, a = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, flags)
+        y2, a = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, flags, shard)
         x = x + y2
         aux = aux + a
     return x, cache_out, aux
@@ -318,19 +351,21 @@ def _embed_batch(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.T
     return x
 
 
-def _run_encoder(params: Params, cfg, flags: RunFlags, frame_embeds: torch.Tensor) -> torch.Tensor:
+def _run_encoder(params: Params, cfg, flags: RunFlags, frame_embeds: torch.Tensor,
+                 shard: Optional[sharding.BatchShard]) -> torch.Tensor:
     """The encoder of an encoder–decoder model: the audio adapter over the
     frame embeddings, non-causal attention blocks, then ``enc_norm``."""
     x = frontend.embed_frames(params["audio_adapter"], frame_embeds.to(dtype_of(cfg)))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     for gi in range(cfg.n_enc_layers):
         gp = _group(params["enc_blocks"], gi)
-        x, _, _ = _block_apply_seq(gp["00_attn"], x, "attn", cfg, flags, positions, None, causal=False)
+        x, _, _ = _block_apply_seq(gp["00_attn"], x, "attn", cfg, flags, positions, None, False, shard)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def _encoder_out(params: Params, cfg, flags: RunFlags, batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
-    return _run_encoder(params, cfg, flags, batch["enc_embeds"]) if cfg.is_encdec else None
+def _encoder_out(params: Params, cfg, flags: RunFlags, batch: Dict[str, torch.Tensor],
+                 shard: Optional[sharding.BatchShard]) -> Optional[torch.Tensor]:
+    return _run_encoder(params, cfg, flags, batch["enc_embeds"], shard) if cfg.is_encdec else None
 
 
 def _lm_head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -343,12 +378,25 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], fl
             rules: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits.  Returns (logits, aux_loss): the float32 sum of
     the MoE load-balance losses over blocks (0 without MoE).  An
-    encoder–decoder batch carries ``enc_embeds`` (B, T_frames, d)."""
-    check_supported(cfg, rules)
+    encoder–decoder batch carries ``enc_embeds`` (B, T_frames, d).  Under
+    ``rules`` this rank runs its rows of the global batch and returns the
+    global logits and aux loss (not differentiable across ranks: the train
+    step differentiates :func:`local_loss`)."""
+    shard = _shard_of(cfg, rules, batch["tokens"].shape[0])
+    if shard is None:
+        return _forward(params, cfg, batch, flags, None)
+    logits, aux = _forward(params, cfg, shard.take(batch), flags, shard)
+    return collectives.gather_rows(logits, shard), collectives.mean_over(aux, shard)
+
+
+def _forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags,
+             shard: Optional[sharding.BatchShard]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward` on this rank's rows ``batch``: their logits and this
+    rank's aux loss."""
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = _embed_batch(params, cfg, batch)
-    enc_out = _encoder_out(params, cfg, flags, batch)
+    enc_out = _encoder_out(params, cfg, flags, batch, shard)
     positions = torch.arange(s, device=tokens.device)[None]
     aux = _zero(x.device)
     # Remat per block, as JAX's jax.checkpoint around each block: the
@@ -358,7 +406,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], fl
     for gi in range(cfg.pattern_groups()):
         gp = _group(params["blocks"], gi)
         for i, kind in enumerate(cfg.block_pattern):
-            args = (gp[f"{i:02d}_{kind}"], x, kind, cfg, flags, positions, enc_out)
+            args = (gp[f"{i:02d}_{kind}"], x, kind, cfg, flags, positions, enc_out, shard)
             if remat:
                 x, a = checkpoint(_one_block, *args, use_reentrant=False, preserve_rng_state=False)
             else:
@@ -369,17 +417,41 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], fl
 
 
 def _one_block(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, flags: RunFlags, positions: torch.Tensor,
-               enc_out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+               enc_out: Optional[torch.Tensor], shard: Optional[sharding.BatchShard]) -> Tuple[torch.Tensor, torch.Tensor]:
     """One causal block of :func:`forward`: (x_out, aux loss)."""
-    x, _, a = _block_apply_seq(p, x, kind, cfg, flags, positions, enc_out, causal=True)
+    x, _, a = _block_apply_seq(p, x, kind, cfg, flags, positions, enc_out, True, shard)
     return x, a
+
+
+def local_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags,
+               shard: Optional[sharding.BatchShard]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(loss, ce, aux) of this rank's rows ``batch``, such that the sums over
+    the data shards are the global ``loss`` and ``ce`` and ``dp`` times the
+    global ``aux``: ce is the rows' summed token cross-entropy over the
+    global token count, and the loss adds ``0.01 · aux / dp``.  Summing its
+    gradients over the data axes gives the gradients of the global loss.
+    Without ``shard``, :func:`loss_fn`'s values."""
+    logits, aux = _forward(params, cfg, batch, flags, shard)
+    total, count = cross_entropy_sum(logits, batch["labels"], cfg.vocab_size)
+    if shard is None or not shard.sharded:
+        return total / count + 0.01 * aux, total / count, aux
+    ce = total / (count * shard.dp)
+    return ce + 0.01 * (aux / shard.dp), ce, aux
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags = DEFAULT_FLAGS,
             rules: Any = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(ce + 0.01 · aux, {"ce": ce, "aux": aux}) over ``batch["labels"]``."""
-    logits, aux = forward(params, cfg, batch, flags, rules)
-    ce = softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    """(ce + 0.01 · aux, {"ce": ce, "aux": aux}) over ``batch["labels"]``.
+    Under ``rules``, JAX's global values: the summed token losses and the
+    aux losses of every rank's rows reduced over the data axes."""
+    shard = _shard_of(cfg, rules, batch["tokens"].shape[0])
+    if shard is None:
+        loss, ce, aux = local_loss(params, cfg, batch, flags, None)
+        return loss, {"ce": ce, "aux": aux}
+    _, ce, aux = local_loss(params, cfg, shard.take(batch), flags, shard)
+    if shard.sharded:
+        ce = collectives.all_reduce_(ce.detach().clone(), shard.group)
+        aux = collectives.mean_over(aux.detach(), shard)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -492,13 +564,23 @@ def _seq_cache_to_decode_cache(entries: Params, kind: str, cfg, s: int, max_len:
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags = DEFAULT_FLAGS,
             rules: Any = None, max_len: Optional[int] = None) -> Tuple[Params, torch.Tensor]:
-    """Run the prompt, return (cache, last-token logits)."""
-    check_supported(cfg, rules)
+    """Run the prompt, return (cache, last-token logits).  Under ``rules``
+    this rank runs its rows of the global batch: the cache is its shard
+    (``serve.engine.cache_specs``), the logits the global ones."""
+    shard = _shard_of(cfg, rules, batch["tokens"].shape[0])
+    if shard is None:
+        return _prefill(params, cfg, batch, flags, None, max_len)
+    cache, logits = _prefill(params, cfg, shard.take(batch), flags, shard, max_len)
+    return cache, collectives.gather_rows(logits, shard)
+
+
+def _prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags,
+             shard: Optional[sharding.BatchShard], max_len: Optional[int]) -> Tuple[Params, torch.Tensor]:
     tokens = batch["tokens"]
     s = tokens.shape[1]
     max_len = max_len or s
     x = _embed_batch(params, cfg, batch)
-    enc_out = _encoder_out(params, cfg, flags, batch)
+    enc_out = _encoder_out(params, cfg, flags, batch, shard)
     positions = torch.arange(s, device=tokens.device)[None]
     per_group = []
     for gi in range(cfg.pattern_groups()):
@@ -506,7 +588,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], fl
         entries = {}
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
-            x, new, _ = _block_apply_seq(gp[key], x, kind, cfg, flags, positions, enc_out, causal=True)
+            x, new, _ = _block_apply_seq(gp[key], x, kind, cfg, flags, positions, enc_out, True, shard)
             entries[key] = _seq_cache_to_decode_cache(new, kind, cfg, s, max_len, flags)
         per_group.append(entries)
     blocks = {key: {n: torch.stack([e[key][n] for e in per_group]) for n in per_group[0][key]}
@@ -579,8 +661,18 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: torch.T
     The given cache is left as it was: the step clones each cache leaf once,
     writes the new K/V rows into the clones and copies each recurrent
     block's new state over its clone.  ``cache["pos"]`` is read once, on the
-    host (see :func:`init_cache`)."""
-    check_supported(cfg, rules)
+    host (see :func:`init_cache`).  Under ``rules`` the tokens are the
+    global batch's, the cache this rank's shard (as :func:`prefill` returns
+    it) and the logits the global ones."""
+    shard = _shard_of(cfg, rules, tokens.shape[0])
+    if shard is None:
+        return _decode_step(params, cfg, cache, tokens, flags, None)
+    new_cache, logits = _decode_step(params, cfg, cache, shard.take({"t": tokens})["t"], flags, shard)
+    return new_cache, collectives.gather_rows(logits, shard)
+
+
+def _decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: torch.Tensor, flags: RunFlags,
+                 shard: Optional[sharding.BatchShard]) -> Tuple[Params, torch.Tensor]:
     pos = int(cache["pos"])
     x = _embed_tokens(params, tokens, cfg)
     blocks = _tree_map(torch.clone, cache["blocks"])
@@ -600,7 +692,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: torch.T
             if "cross" in p:
                 x = x + _cross_decode(p["cross"], rmsnorm(p["lnx"], x, cfg.norm_eps), cfg, entry)
             if "ffn" in p:
-                y2, _ = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, flags)
+                y2, _ = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, flags, shard)
                 x = x + y2
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _lm_head(params, x, cfg)[:, 0]

@@ -31,11 +31,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import MeshRules, P, cache_entry_spec
 from repro_torch.kernels import api
 from repro_torch.kernels.program import cached_executable
 from repro_torch.models.common import dtype_of, maybe_quantize_tree
 from repro_torch.models.runtime import DEFAULT_FLAGS, RunFlags
-from repro_torch.models.transformer import decode_step, init_params, prefill
+from repro_torch.models.transformer import cache_shape, decode_step, init_params, prefill
 
 # the JAX package's kernel backends (repro.kernels.api.BACKENDS)
 JAX_BACKENDS = ("pallas", "interpret", "xla", "pimsab")
@@ -55,7 +56,29 @@ def serve_params_shape(cfg: ModelConfig, flags: RunFlags = DEFAULT_FLAGS):
     return maybe_quantize_tree(p, cfg) if flags.quant_serve else p
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, rules: MeshRules, flags: RunFlags = DEFAULT_FLAGS):
+    """The decode cache's spec tree (``pos`` a scalar; every block leaf its
+    entry's spec behind the unsharded group axis), in the JAX package's
+    order of leaves."""
+    shapes = cache_shape(cfg, batch, max_len, flags)
+
+    def visit(node):
+        if isinstance(node, dict):
+            return {k: visit(node[k]) for k in sorted(node)}
+        if node.ndim == 0:
+            return P()
+        # leading dim is the scan-group axis; entry rules apply to the rest
+        inner = cache_entry_spec(tuple(node.shape[1:]), cfg, rules, seq_shard_kv=flags.seq_shard_kv)
+        return P(None, *inner)
+
+    return {"pos": P(), "blocks": visit(shapes["blocks"])}
+
+
 def make_prefill_step(cfg, flags=DEFAULT_FLAGS, rules=None, max_len=None, backend=None) -> Callable:
+    """``step(params, batch) -> (cache, logits)``.  Under ``rules`` every
+    rank calls it with the global batch: it runs its rows and returns its
+    cache shard (:func:`cache_specs`) and the global logits."""
+
     def step(params, batch):
         with _backend_scope(backend):
             return prefill(params, cfg, batch, flags, rules, max_len=max_len)
@@ -64,6 +87,9 @@ def make_prefill_step(cfg, flags=DEFAULT_FLAGS, rules=None, max_len=None, backen
 
 
 def make_decode_step(cfg, flags=DEFAULT_FLAGS, rules=None, backend=None) -> Callable:
+    """``step(params, cache, tokens) -> (cache, logits)``; under ``rules``
+    the tokens are the global batch's and the cache this rank's shard."""
+
     def step(params, cache, tokens):
         with _backend_scope(backend):
             return decode_step(params, cfg, cache, tokens, flags, rules)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -72,12 +72,14 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_update(grads: Any, state: Dict[str, Any], params: Any, cfg: AdamWConfig,
-                 lr: torch.Tensor) -> Tuple[Any, Dict[str, Any]]:
+                 lr: torch.Tensor, gnorm: Optional[torch.Tensor] = None) -> Tuple[Any, Dict[str, Any]]:
     """One AdamW step.  Returns ``(new_params, new_state)``; ``state``'s
     ``m``, ``v`` and ``master`` leaves are updated in place and reappear in
-    ``new_state`` (the caller passes the state on, as a donated one)."""
+    ``new_state`` (the caller passes the state on, as a donated one).
+    ``gnorm`` is the gradients' global norm when ``grads`` are shards of
+    them (ZeRO-1); by default it is taken from ``grads``."""
     count = state["count"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if gnorm is None else gnorm
     scale = torch.minimum(_scalar(1.0, gn), _scalar(cfg.grad_clip, gn) / torch.maximum(gn, _scalar(1e-12, gn)))
     cf = count.to(torch.float32)
     bc1 = 1.0 - torch.pow(_scalar(cfg.b1, cf), cf)

@@ -1,7 +1,10 @@
 """The training loop of the PyTorch port: data pipeline + train step +
 checkpoint/restart + heartbeat, wired together as in the JAX package's
 ``train/trainer.py``.  Runs on the card by default (``device="cuda"``), or on
-the CPU when asked (the tests, at ``reduced_config``).
+the CPU when asked (the tests, at ``reduced_config``).  Under sharding
+``rules`` every rank of the process group runs this loop (SPMD): it draws
+the same global batch, the step keeps its rows, and rank 0 alone writes the
+checkpoints, in the global layout.
 """
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -19,7 +23,14 @@ from repro_torch.models.transformer import init_params
 from repro_torch.train import checkpoint
 from repro_torch.train.fault import HeartbeatMonitor
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.steps import make_train_state, make_train_step, train_state_shape
+from repro_torch.train.steps import (
+    gather_train_state,
+    make_train_state,
+    make_train_step,
+    shard_train_state,
+    train_state_shape,
+    train_state_specs,
+)
 
 
 @dataclass
@@ -47,13 +58,18 @@ def train(
     """Train; returns {'state', 'history', 'resumed_from'}.  Parameters
     are ``init_params(cfg, loop.seed)`` on ``device`` (the port's draws, not
     JAX's), or the latest checkpoint in ``loop.ckpt_dir``, with the data
-    cursor it saved.  Sharding ``rules`` raise (ROADMAP S13)."""
+    cursor it saved.  Under ``rules`` (a data-parallel ``MeshRules`` over
+    the process group) this is one rank's loop; its returned state is its
+    own (ZeRO-1 shards under ``flags.zero1``: ``steps.gather_train_state``
+    gives the global one).  A checkpoint restores at any dp."""
     dev = api.resolve_device(device)
     opt_cfg = AdamWConfig(lr=loop.base_lr)
     step_fn = make_train_step(
         cfg, flags, rules, opt_cfg,
         base_lr=loop.base_lr, total_steps=loop.schedule_steps or loop.steps,
     )
+    specs = train_state_specs(cfg, rules, opt_cfg, flags) if rules is not None and flags.zero1 else None
+    spmd = rules is not None and dist.is_initialized()
 
     start_step, extra = 0, {}
     if resume and loop.ckpt_dir and checkpoint.latest_step(loop.ckpt_dir) is not None:
@@ -62,6 +78,8 @@ def train(
     else:
         state = make_train_state(init_params(cfg, loop.seed, device=dev), opt_cfg)
         resumed = None
+    if specs is not None:
+        state = shard_train_state(state, specs, rules)
 
     pipe = TokenPipeline(data_cfg, start_step=extra.get("data_step", start_step))
     monitor = HeartbeatMonitor(n_workers=1)
@@ -78,8 +96,13 @@ def train(
                 t_last = time.time()
                 history.append({"step": i + 1, "loss": loss, "s_per_step": dt})
             if loop.ckpt_dir and ((i + 1) % loop.ckpt_every == 0 or i == loop.steps - 1):
-                checkpoint.save(loop.ckpt_dir, state, i + 1, extra={"data_step": pipe.state()})
-                checkpoint.prune(loop.ckpt_dir)
+                whole = gather_train_state(state, specs, rules) if specs is not None else state
+                if not spmd or dist.get_rank() == 0:
+                    checkpoint.save(loop.ckpt_dir, whole, i + 1, extra={"data_step": pipe.state()})
+                    checkpoint.prune(loop.ckpt_dir)
+                del whole
+                if spmd:
+                    dist.barrier()
     finally:
         pipe.close()
     return {"state": state, "history": history, "resumed_from": resumed}

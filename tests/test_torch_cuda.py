@@ -1658,3 +1658,62 @@ def test_reduced_family_on_card_equals_cpu(card, arch):
     labels = torch.from_numpy(rng.integers(0, 256, (2, 12)).astype(np.int32))
     loss, parts = tt.loss_fn(card_p, cfg, dict(on_card, labels=labels.to(card)), flags)
     assert torch.isfinite(loss) and (float(parts["aux"]) > 0) == cfg.is_moe
+
+
+def test_nccl_world_one_collectives_and_train_step(card, tmp_path):
+    """An NCCL process group of one rank on the card: the ("data", "model")
+    host mesh, the four collectives bit-equal to their CPU copies (integer-
+    valued floats for the ring matmul), a CPU tensor refused by the NCCL
+    group, and a reduced train step under the rules with ZeRO-1 bit-equal
+    to the rules-free step on the card."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.dist import collectives as tc
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.launch.mesh import MeshDescription, make_host_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.runtime import RunFlags
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import steps as tsteps
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdzv'}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh()
+        assert str(dist.get_backend(mesh.group("data"))) == "nccl"
+        cpu = MeshDescription((1, 1), ("data", "model"))
+        x, xi = floats((4, 64), 1), ints((4, 64), I32_MIN, I32_MAX, 2)
+        a, w = ints((16, 64), -8, 8, 3).float(), ints((64, 24), -8, 8, 4).float()
+        g, e = floats((4096,), 5), 0.01 * floats((4096,), 6)
+        tc.reset_call_counts()
+        for fn, args in ((lambda m, t: tc.htree_allreduce(t, m, "model"), (x,)),
+                         (lambda m, t: tc.htree_allreduce(t, m, "data"), (xi,)),
+                         (lambda m, p, q: tc.ring_allgather_matmul(p, q, m, "model"), (a, w)),
+                         (lambda m, t: tc.shuffle(t, m, "data"), (xi,)),
+                         (lambda m, p, q: torch.cat(tc.compressed_psum_with_feedback(p, q, m, ("data", "model"))),
+                          (g, e))):
+            got = fn(mesh, *[t.to(card) for t in args])
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), fn(cpu, *args))
+        assert tc.call_counts() == {"all_to_all_single": 1, "all_reduce": 2}
+        with pytest.raises(RuntimeError, match="nccl"):
+            tc.all_reduce_(torch.zeros(2), mesh.group("data"))
+
+        rules = MeshRules.from_mesh(mesh)
+        cfg = reduced_config(get_config("recurrentgemma-2b"))
+        flags = RunFlags(attn_chunk=8, flash_threshold=64)
+        batch = {k: ints((2, 12), 0, cfg.vocab_size, 7 + i).to(card) for i, k in enumerate(("tokens", "labels"))}
+        params = tt.init_params(cfg, 0, device=card)
+        plain, _ = tsteps.make_train_step(cfg, flags)(
+            tsteps.make_train_state(topt.tree_map(torch.clone, params), topt.AdamWConfig()), batch)
+        z1 = dataclasses.replace(flags, zero1=True)
+        specs = tsteps.train_state_specs(cfg, rules, topt.AdamWConfig(), z1)
+        state = tsteps.shard_train_state(tsteps.make_train_state(params, topt.AdamWConfig()), specs, rules)
+        new, _ = tsteps.make_train_step(cfg, z1, rules)(state, batch)
+        new = tsteps.gather_train_state(new, specs, rules)
+        for p, q in zip(topt.tree_leaves(plain), topt.tree_leaves(new)):
+            assert torch.equal(p, q)
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()

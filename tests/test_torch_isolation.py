@@ -16,6 +16,7 @@ from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.configs import reduced_config as treduced  # noqa: E402
 from repro_torch.kernels import api as tapi  # noqa: E402
 from repro_torch.data.pipeline import DataConfig as tDataConfig  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import train as ttrain_cli  # noqa: E402
 from repro_torch.models import resnet as tres  # noqa: E402
@@ -50,7 +51,9 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.launch.serve", "repro_torch.models.recurrent", "repro_torch.models.moe",
             "repro_torch.data.pipeline", "repro_torch.train.fault", "repro_torch.train.optimizer",
             "repro_torch.train.steps", "repro_torch.train.checkpoint", "repro_torch.train.trainer",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.dist", "repro_torch.dist.sharding",
+            "repro_torch.dist.collectives", "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.memory_model"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -100,6 +103,7 @@ ENTRY_POINTS = {
     "train.trainer.train": lambda: ttrainer.train(treduced(tget_config("qwen2-0.5b")), tDataConfig(256, 8, 2),
                                                   ttrainer.TrainLoopConfig(steps=1)),
     "train.checkpoint.restore": lambda: tckpt.restore("/nonexistent", {}, step=0),
+    "launch.mesh.make_host_mesh": lambda: tmesh.make_host_mesh(),
 }
 
 

@@ -303,15 +303,22 @@ def test_qwen2_slice_equals_jax(dtype, quant_serve, quant_kv):
 
 
 def test_rules_raise_naming_s13():
+    """Data-parallel rules run (ROADMAP S13); a model axis wider than one
+    raises naming ROADMAP S13b, and rules that are no MeshRules TypeError."""
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.launch.mesh import MeshDescription
+
     _, tcfg = configs("qwen2-0.5b", "float32")
     p = tt.init_params(tcfg, 0, device="cpu")
     batch = {"tokens": torch.ones((1, 8), dtype=torch.int32)}
-    for call in (lambda: tt.forward(p, tcfg, batch, rules=object()),
-                 lambda: tt.prefill(p, tcfg, batch, rules=object()),
-                 lambda: tt.decode_step(p, tcfg, tt.init_cache(tcfg, 1, 8, device="cpu"),
-                                        batch["tokens"][:, :1], rules=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP S13"):
-            call()
+    tp = MeshRules.from_mesh(MeshDescription((1, 2), ("data", "model")))
+    for rules, err, match in ((tp, NotImplementedError, "ROADMAP S13b"), (object(), TypeError, "MeshRules")):
+        for call in (lambda: tt.forward(p, tcfg, batch, rules=rules),
+                     lambda: tt.prefill(p, tcfg, batch, rules=rules),
+                     lambda: tt.decode_step(p, tcfg, tt.init_cache(tcfg, 1, 8, device="cpu"),
+                                            batch["tokens"][:, :1], rules=rules)):
+            with pytest.raises(err, match=match):
+                call()
 
 
 def test_params_and_cache_shapes_on_meta_equal_jax():

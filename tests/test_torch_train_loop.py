@@ -186,10 +186,18 @@ def test_train_history_matches_jax_from_one_checkpoint(tmp_path):
 
 
 def test_train_refuses_rules_naming_s13():
+    """The trainer takes data-parallel rules (ROADMAP S13); a model axis
+    wider than one raises naming S13b, rules that are no MeshRules
+    TypeError."""
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.launch.mesh import MeshDescription
+
     _, cfg = _configs("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="S13"):
-        ttrainer.train(cfg, TDataConfig(cfg.vocab_size, 8, 2), ttrainer.TrainLoopConfig(steps=1), rules=object(),
-                       device="cpu")
+    tp = MeshRules.from_mesh(MeshDescription((1, 2), ("data", "model")))
+    for rules, err, match in ((tp, NotImplementedError, "S13b"), (object(), TypeError, "MeshRules")):
+        with pytest.raises(err, match=match):
+            ttrainer.train(cfg, TDataConfig(cfg.vocab_size, 8, 2), ttrainer.TrainLoopConfig(steps=1), rules=rules,
+                           device="cpu")
 
 
 def test_cli_trains_on_the_cpu_when_asked(tmp_path):
