@@ -153,6 +153,26 @@ Phases, any failure of which exits non-zero:
       bytes to the served parameters', its analytic peak beside
       ``max_memory_allocated``.  Phase 3j holds its 4 × 8 logits, and 3m its
       state after step DIST_STEPS (per-leaf sha256), bit-equal to these.
+   o. tensor-parallel execution, run after 3n in TP_RANKS processes of their
+      own (``chip_smoke.py --tp-phase RANK PORT``) on the one card, a gloo
+      group whose collectives stage through host memory
+      (``make_host_mesh(2, host_collectives=True)``; NCCL refuses two ranks
+      on one device, and every kernel launch stays on the card): the mesh
+      (1, 2) and its ``MeshRules``; Qwen2-0.5B and RecurrentGemma-2B at full
+      width and depth and DBRX-132B at full width, 1 layer, each rank on its
+      ``shard_params`` slices, 3j's 4 × 8 prefill and decode step with and
+      without quant_kv through ``make_prefill_step`` / ``make_decode_step``
+      under the rules, K4, K6 and K11 launches exact, held bit-equal to rank
+      0's 1-rank run of the same steps (the gap printed), whose 4 × 8 logits
+      3j holds bit-equal to its own; every K4
+      and K6 shape's first call and every K11 call held to its plain
+      version on each rank; RecurrentGemma-2B trained at full width and
+      TP_TRAIN_LAYERS layers through ``trainer.train`` under the rules, K11
+      launches exact and step TRAIN_RECORD_STEP's held, its state gathered
+      leaf by leaf and held to rank 0's 1-rank run (TP_TRAIN_TOL), one more
+      step profiled (torch.profiler: device busy time, host-device copies,
+      host time inside torch.distributed's ops); each rank's live parameter
+      and state bytes equal to the memory model's.
 
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
@@ -486,6 +506,33 @@ TRAIN_NO_LIBRARY = {
 # rules, which 3j's logits must equal.
 DIST_STEPS = 3
 DIST_TIMEOUT_S = 600
+
+# Phase 3o, tensor-parallel execution: TP_RANKS ranks on the one card (a
+# process each, run after 3n while the main process holds next to nothing on
+# the card), their collectives over gloo staged through host memory
+# (make_host_mesh(..., host_collectives=True): NCCL refuses two ranks on one
+# device).  Serving: 3j's 4 x 8 prefill and decode step with and without
+# quant_kv for each TP_SERVE config (layers on the card; None: all), held
+# bit-equal to rank 0's 1-rank run of the same steps (every cross-rank
+# combine of serving is an int32 sum, a max or a gather; the gap to the
+# largest logit is printed).
+# Training: RecurrentGemma-2B at full width, one pattern group
+# (TP_TRAIN_LAYERS layers: two ranks and the 1-rank reference on one 80 GB
+# card), TP_STEPS steps of 3m's batch, held to rank 0's 1-rank run: the
+# first step's loss and the last step's first moments within TP_TRAIN_TOL
+# (TRAIN_TOL's rule applied to the card-vs-CPU gaps read at 13 layers,
+# 1.43e-4 and 0.0198).  These two are the checks that can catch a fault (a
+# wrong or missing partial sum moves the first loss and the moments); the
+# masters' gap is printed only: AdamW's first steps move each master by
+# about lr whatever the gradient, so no limit on it could fail for a wrong
+# one.
+TP_RANKS = 2
+TP_SERVE = {"qwen2-0.5b": None, "recurrentgemma-2b": None, "dbrx-132b": 1}
+TP_TRAIN_LAYERS = 13
+TP_STEPS = 3
+TP_TRAIN_TOL = (2.0 ** -11, 2.0 ** -4)
+TP_TIMEOUT_S = 700
+TP_COLLECTIVE_TIMEOUT_S = 300
 
 # Phase 3k, the continuous-batching scheduler and multi-chip scale-out on the
 # host's simulator, held to BENCH_kernels.json's serve and scaling sections
@@ -4268,6 +4315,444 @@ def dist_checks(torch, dev, smoke, out):
 
 
 # ---------------------------------------------------------------------------
+# phase 3o: tensor-parallel execution, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def tp_k6_calls(cfg, tp, batch, rows):
+    """Row-dot calls of one attention layer's int8 scores on a rank of a
+    model axis of ``tp``: its query heads against the KV heads they need."""
+    from repro_torch.models import attention as tmattn
+
+    hq = cfg.n_heads // tp
+    hkv = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else max(1, hq * cfg.n_kv_heads // cfg.n_heads)
+    return -(-batch // tmattn.int8_scores_rows_per_call(batch, hkv, hq // hkv, rows))
+
+
+def run_tp_phase(torch, smoke, gpu):
+    """Phase 3o (module docstring): ``chip_smoke.py --tp-phase RANK PORT``
+    for TP_RANKS ranks in processes of their own on the one card, run while
+    this process holds next to nothing on it, under one time limit; each
+    rank's checks and failures join this run's."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # gloo's own transport over the loopback interface (the machine has no other network)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-phase", str(r), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(ROOT), env=env)
+             for r in range(TP_RANKS)]
+    outs, rcs = [], []
+    for p in procs:
+        try:
+            stdout, stderr = p.communicate(timeout=max(TP_TIMEOUT_S - (time.perf_counter() - t), 1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            stdout, stderr = p.communicate()
+            stderr = f"{stderr}\ntimed out after {TP_TIMEOUT_S} s"
+        outs.append((stdout, stderr))
+        rcs.append(p.returncode)
+    runs = []
+    for r, (stdout, stderr) in enumerate(outs):
+        lines = stdout.splitlines()
+        for ln in lines:
+            if not ln.startswith("{") and (r == 0 or rcs[r] != 0):
+                print(ln)
+        js = [ln for ln in lines if ln.startswith("{")]
+        res = json.loads(js[-1]) if js else {}
+        if rcs[r] != 0 or not js:
+            smoke.failures.append(f"phase 3o rank {r}: exit {rcs[r]}: {(stderr or '')[-3000:]}")
+        smoke.cases.extend(res.get("cases", []))
+        smoke.failures.extend(f"phase 3o rank {r}: {f}" for f in res.get("failures", []))
+        runs.append(res)
+    out = dict(runs[0]) if runs else {}
+    out.pop("cases", None), out.pop("failures", None)
+    out["ranks"] = [{k: v for k, v in res.items() if k not in ("cases", "failures")} for res in runs[1:]]
+    out["rc"], out["seconds"] = rcs, time.perf_counter() - t
+    print(f"phase 3o: {out['seconds']:.1f} s, {TP_RANKS} ranks in processes of their own, exits {rcs} ({gpu})")
+    return out
+
+
+def tp_phase_main(rank: int, port: int) -> int:
+    """``chip_smoke.py --tp-phase RANK PORT``, run by phase 3o: one of
+    TP_RANKS ranks of a gloo process group (``tcp://localhost:PORT``) on
+    card 0, then :func:`tp_checks`, then the group destroyed after the card
+    is idle.  Prints one JSON line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smoke = Smoke(torch)
+    out = {"gpu": nvidia_smi("name,power.limit"), "rank": rank}
+    t_phase = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=TP_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT_S))
+    try:
+        tp_checks(torch, dev, rank, smoke, out)
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["cases"], out["failures"] = smoke.cases, smoke.failures
+    print(json.dumps(out))
+    return 0
+
+
+def tp_kernel_shapes(rec):
+    """The recorder's K4 and K6 shapes with their counts, JSON-able."""
+    shapes = []
+    for (kernel, sa, sb), c in sorted(rec.calls.items()):
+        extra = {"slice_bits": c["args"][2], "pairs": [list(p) for p in c["args"][3]], "path": c["path"]} \
+            if kernel == "bitslice_matmul" else {}
+        shapes.append(dict({"kernel": kernel, "a": list(sa), "b": list(sb), "count": c["count"],
+                            "max_abs_err": c.get("max_abs_err")}, **extra))
+    return shapes
+
+
+def tp_gap(torch, want, got):
+    """The largest |got - want| over the largest |want|."""
+    want, got = want.float().cpu(), got.float().cpu()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def tp_checks(torch, dev, rank, smoke, out):
+    """Phase 3o's checks on one rank of the host-staged gloo group: the
+    ("data", "model") = (1, TP_RANKS) mesh over ``host_collectives``; the
+    serving steps of TP_SERVE's configs under its rules on this rank's
+    slices, held to rank 0's 1-rank run of the same steps; RecurrentGemma-2B
+    trained at TP_TRAIN_LAYERS layers, held to rank 0's 1-rank run; every
+    K4, K6 and K11 call against its plain version; the live bytes against
+    the memory model's.  Records into ``smoke`` and ``out``."""
+    import dataclasses
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.kernels import api
+    from repro_torch.kernels import attention as att
+    from repro_torch.kernels import bitslice_matmul as bm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.launch import memory_model, specs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.train import optimizer, steps, trainer
+
+    mesh = make_host_mesh(TP_RANKS, device=dev.type, host_collectives=True)
+    rules = sharding.MeshRules.from_mesh(mesh)
+    out["mesh"] = mesh.shape
+    out["transport"] = {a: f"{dist.get_backend(mesh.group(a))} staged through host memory "
+                           f"({collectives.host_staged(mesh.group(a))})" for a in mesh.axis_names}
+    if rank == 0:
+        print(f"phase 3o: {TP_RANKS} ranks on one card, mesh {mesh.shape}; every collective copies its tensors to "
+              f"the host, runs gloo there and copies back ({out['transport']}): NCCL refuses two ranks on one "
+              f"device; every kernel launch stays on the card")
+    path_counts = {"tp_serving": {}, "tp_training": {}}
+
+    def add(path, counts):
+        for k, v in counts.items():
+            if v:
+                path_counts[path][k] = path_counts[path].get(k, 0) + v
+
+    # (a) serving: the 4 x 8 prefill and one decode step of each config, with and without quant_kv
+    out["serving"] = {}
+    rec = LLMKernelRecorder(torch, bm, att, rg)
+    for arch, layers in TP_SERVE.items():
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        flags = serve_cli.serve_flags(cfg=cfg)
+        eng = serve_engine.ServeEngine(cfg, transformer.init_params(cfg, SEED, device=dev), flags,
+                                       max_len=serve_cli.MAX_LEN)
+        batch = eng.prompt_batch(serve_cli.make_requests(cfg, LLM_REQUESTS, LLM_NEW_TOKENS))
+        local = sharding.shard_params(eng.params, cfg, rules)
+        served = transformer.param_bytes(local)
+        dcell = ShapeCell("phase3o_decode", "decode", serve_cli.MAX_LEN, LLM_REQUESTS)
+        smem = memory_model.analytic_memory(cfg, dcell, rules, flags, specs.input_specs(cfg, dcell, rules, flags))
+        if smem["params_bytes_per_device"] != served:
+            smoke.failures.append(f"{arch}: analytic params bytes {smem['params_bytes_per_device']} != served {served}")
+        res = {"layers": cfg.n_layers, "params_bytes_served": served,
+               "params_bytes_analytic": smem["params_bytes_per_device"], "runs": {}}
+        for quant_kv in (False, True):
+            fl = dataclasses.replace(flags, quant_kv=quant_kv)
+            label = f"{arch} quant_kv={quant_kv}"
+            tok = torch.zeros((LLM_REQUESTS, 1), dtype=torch.int32)
+            ref = {}
+            if rank == 0:  # the 1-rank run of the same steps, first
+                with torch.no_grad():
+                    cache, lg = serve_engine.make_prefill_step(cfg, fl, max_len=serve_cli.MAX_LEN)(eng.params, batch)
+                    tok = torch.argmax(lg, -1).to(torch.int32)[:, None].cpu()
+                    _, lg2 = serve_engine.make_decode_step(cfg, fl)(eng.params, cache, tok.to(dev))
+                ref = {"prefill": lg.cpu(), "decode_step": lg2.cpu()}
+                del cache, lg, lg2
+            dist.broadcast(tok, 0, group=None)  # the greedy tokens of the 1-rank prefill, to every rank
+            api.reset_launch_counts()
+            collectives.reset_call_counts()
+            with torch.no_grad(), rec:
+                cache, lg = serve_engine.make_prefill_step(cfg, fl, rules, max_len=serve_cli.MAX_LEN)(local, batch)
+                _, lg2 = serve_engine.make_decode_step(cfg, fl, rules)(local, cache, tok.to(dev))
+                torch.cuda.synchronize()
+            counts, calls = {k: v for k, v in api.launch_counts().items() if v}, collectives.call_counts()
+            add("tp_serving", counts)
+            n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_kinds())
+            want = {"bitslice_matmul": fam_k4(cfg, True) + fam_k4(cfg, False)}
+            if quant_kv:
+                want["attention_qk"] = sum(
+                    tp_k6_calls(cfg, TP_RANKS, LLM_REQUESTS,
+                                min(cfg.window, serve_cli.MAX_LEN) if kind == "local_attn" else serve_cli.MAX_LEN)
+                    for kind in cfg.layer_kinds() if kind in ("attn", "local_attn"))
+            n_rglru = sum(kind == "rglru" for kind in cfg.layer_kinds())
+            if n_rglru:
+                want["rglru_scan"] = n_rglru
+            if counts != want:
+                smoke.failures.append(f"{label}: launches {counts} != {want}")
+            run = {"launches": counts, "expected": want, "collective_calls": calls, "attention_layers": n_attn,
+                   "digests": {"prefill": tensor_sha256(torch, lg), "decode_step": tensor_sha256(torch, lg2)}}
+            for name, x in (("prefill", lg), ("decode_step", lg2)):
+                if not bool(torch.isfinite(x).all()) or x.shape != (LLM_REQUESTS, cfg.padded_vocab()):
+                    smoke.failures.append(f"{label} {name}: logits {tuple(x.shape)}, finite "
+                                          f"{bool(torch.isfinite(x).all())}")
+            if rank == 0:
+                run["ref_digests"] = {k: tensor_sha256(torch, v) for k, v in ref.items()}
+                run["bit_equal"] = run["digests"] == run["ref_digests"]
+                for name, x in (("prefill", lg), ("decode_step", lg2)):
+                    gap = tp_gap(torch, ref[name], x)
+                    run[f"{name}_gap"] = gap
+                    ok = run["digests"][name] == run["ref_digests"][name]
+                    smoke.cases.append({"kernel": "tp", "case": f"phase 3o {label} {name} vs 1 rank", "ok": ok,
+                                        "max_abs_err": gap, "exact": True, "shape": list(x.shape),
+                                        "dtype": str(x.dtype)})
+                    if not ok:
+                        smoke.failures.append(f"{label} {name}: not bit-equal to the 1-rank run, gap {gap} of "
+                                              f"its largest logit")
+            res["runs"][f"quant_kv={quant_kv}"] = run
+            del cache, lg, lg2
+        del eng, local
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t
+        out["serving"][arch] = res
+        if rank == 0:
+            print(f"phase 3o {arch} ({cfg.n_layers} layers) under MeshRules {mesh.shape}, 4 x 8 prefill and decode "
+                  f"step: " + "; ".join(
+                      f"{k}: launches {r['launches']} (expected {r['expected']}), torch.distributed calls "
+                      f"{r['collective_calls']}, bit-equal to 1 rank {r['bit_equal']}, gaps "
+                      f"{r['prefill_gap']:.3g} / {r['decode_step_gap']:.3g}"
+                      for k, r in res["runs"].items())
+                  + f"; params bytes served {served}, analytic {smem['params_bytes_per_device']}; "
+                  f"{res['seconds']:.1f} s")
+
+    # every K4 and K6 shape's first call and every K11 call against its plain version
+    check_recorded(torch, bm, att, smoke, rec, f"phase 3o rank {rank}", "TP", None)
+    scans = scan_checks(torch, rg, smoke, rec, f"phase 3o rank {rank}")
+    out["kernel_shapes"] = tp_kernel_shapes(rec)
+    out["scans"] = {str(k): v for k, v in scans.items()}
+    del rec
+    torch.cuda.empty_cache()
+
+    # (b) training: RecurrentGemma-2B at TP_TRAIN_LAYERS layers, rank 0's 1-rank run first
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TP_TRAIN_LAYERS)
+    flags = train_cli.TRAIN_FLAGS
+    n_rglru = sum(kind == "rglru" for kind in cfg.layer_kinds())
+    per_step = {"rglru_scan": 2 * n_rglru, "rglru_scan_bwd": n_rglru}
+    loop = trainer.TrainLoopConfig(steps=TP_STEPS, log_every=1, schedule_steps=TRAIN_STEPS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    tr = {"layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TP_STEPS}
+    ref_m = ref_master = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref = trainer.train(cfg, data_cfg, loop, flags, device=dev)
+        torch.cuda.synchronize()
+        tr["ref_losses"] = [h["loss"] for h in ref["history"]]
+        tr["ref_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        ref_m = {p: x.cpu() for p, x in state_leaves(ref["state"]["opt"]["m"])}
+        ref_master = {p: x.cpu() for p, x in state_leaves(ref["state"]["opt"]["master"])}
+        del ref
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec_step = TRAIN_RECORD_STEP - 1
+    window = {"fwd": range(rec_step * per_step["rglru_scan"], (rec_step + 1) * per_step["rglru_scan"]),
+              "bwd": range(rec_step * per_step["rglru_scan_bwd"], (rec_step + 1) * per_step["rglru_scan_bwd"])}
+    api.reset_launch_counts()
+    collectives.reset_call_counts()
+    t_run = time.perf_counter()
+    with ScanRecorder(rg, window) as srec:
+        run = trainer.train(cfg, data_cfg, loop, flags, rules=rules, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts, calls = {k: v for k, v in api.launch_counts().items() if v}, collectives.call_counts()
+    add("tp_training", counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: v * TP_STEPS for k, v in per_step.items()}
+    if counts != want:
+        smoke.failures.append(f"training launches {counts} != {want}")
+    for i, (a, b, h0, hs) in enumerate(srec.calls["fwd"]):
+        smoke.check("rglru_scan", f"phase 3o rank {rank} training step {TRAIN_RECORD_STEP} forward call {i}", hs,
+                    rg._scan_plain(a, b, h0).cpu(), exact=True)
+    for i, ((a, h0, hs, g, need_h0), got) in enumerate(srec.calls["bwd"]):
+        for name, x, y in zip(("da", "db", "dh0"), got, rg._scan_bwd_plain(a, h0, hs, g, need_h0)):
+            if y is not None:
+                smoke.check("rglru_scan_bwd", f"phase 3o rank {rank} training step {TRAIN_RECORD_STEP} call {i} "
+                            f"{name}", x, y.cpu(), exact=True)
+    held = (len(srec.calls["fwd"]), len(srec.calls["bwd"]))
+    if held != (per_step["rglru_scan"], per_step["rglru_scan_bwd"]):
+        smoke.failures.append(f"training: held {held} K11 calls of step {TRAIN_RECORD_STEP}, not {per_step}")
+    del srec
+    sspecs = steps.train_state_specs(cfg, rules, optimizer.AdamWConfig(), flags)
+    live = transformer.param_bytes(run["state"])
+    tcell = ShapeCell("phase3o_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    mem = memory_model.analytic_memory(cfg, tcell, rules, flags, specs.input_specs(cfg, tcell, rules, flags))
+    if mem["state_bytes_per_device"] != live:
+        smoke.failures.append(f"analytic state bytes {mem['state_bytes_per_device']} != live {live}")
+    spec_of = dict(state_leaves(sspecs))
+    losses = [h["loss"] for h in run["history"]]
+    tr.update({"launches": counts, "launches_per_step": {k: v / TP_STEPS for k, v in counts.items()},
+               "collective_calls_per_step": {k: v / TP_STEPS for k, v in calls.items()}, "losses": losses,
+               "s_per_step": [h["s_per_step"] for h in run["history"]], "wall_s": wall, "peak_gib": peak / 2**30,
+               "state_bytes_live": live, "state_bytes_analytic": mem["state_bytes_per_device"],
+               "analytic_peak_gib": mem["analytic_peak_per_device"] / 2**30})
+    # the state after the last step, gathered leaf by leaf, against the 1-rank run's (on rank 0)
+    top = err = master_worst = 0.0
+    for part in ("m", "master"):
+        for p, x in state_leaves(run["state"]["opt"][part]):
+            whole = sharding.gather_leaf(x, spec_of[f"opt/{part}/{p}"], rules)
+            if rank == 0:
+                y = (ref_m if part == "m" else ref_master).pop(p)
+                if part == "m":
+                    top = max(top, float(y.abs().max()))
+                    err = max(err, float((whole.cpu() - y).abs().max()))
+                else:
+                    master_worst = max(master_worst, master_gap(torch, [whole], [y]))
+            del whole
+    # one more step (after a warm one) under the profiler: where the step's time goes
+    holder = {"state": run.pop("state")}
+    step_fn = steps.make_train_step(cfg, flags, rules, optimizer.AdamWConfig(lr=loop.base_lr), base_lr=loop.base_lr,
+                                    total_steps=loop.schedule_steps)
+    extra = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, TP_STEPS, dev)
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], extra)
+
+    tr["profile"] = tp_step_profile(torch, one_step)
+    del run, holder
+    torch.cuda.empty_cache()
+    if rank == 0:
+        lr = loop.base_lr
+        # the first step's loss is of the same weights; later ones of weights that AdamW's
+        # sign-like first steps moved apart (printed, held through the moments and masters)
+        tr["loss_gaps"] = [abs(a - b) / abs(b) for a, b in zip(losses, tr["ref_losses"])]
+        loss_gap = tr["loss_gaps"][0]
+        m_gap, master_lr = err / top, master_worst / lr
+        tr.update({"loss_gap": loss_gap, "m_gap": m_gap, "master_gap_lr": master_lr, "tol": TP_TRAIN_TOL})
+        loss_tol, m_tol = TP_TRAIN_TOL
+        ok = loss_gap <= loss_tol and m_gap <= m_tol and all(map(math.isfinite, losses))
+        smoke.cases.append({"kernel": "tp", "case": f"phase 3o training {cfg.n_layers} layers vs 1 rank", "ok": ok,
+                            "max_abs_err": m_gap, "exact": False, "shape": [TRAIN_BATCH, TRAIN_SEQ],
+                            "dtype": "bfloat16"})
+        if not ok:
+            smoke.failures.append(f"training vs 1 rank: step-1 loss gap {loss_gap} (limit {loss_tol}), first-moment gap "
+                                  f"{m_gap} (limit {m_tol}); master gap {master_lr} lr")
+    tr["seconds"] = time.perf_counter() - t
+    out["training"] = tr
+    out["path_launches"] = path_counts
+    if rank == 0:
+        print(f"phase 3o {TRAIN_ARCH} trained at {cfg.n_layers} layers under MeshRules {mesh.shape}, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TP_STEPS} steps in {wall:.1f} s (steps "
+              f"{[round(s * 1e3, 1) for s in tr['s_per_step']]} ms): K11 launches {counts} (expected {want}); "
+              f"torch.distributed calls a step {tr['collective_calls_per_step']}; losses {losses} vs 1 rank "
+              f"{tr['ref_losses']} (gaps {[float(f'{x:.3g}') for x in tr['loss_gaps']]}), first moments within "
+              f"{tr['m_gap']:.3g} of the "
+              f"largest (limits {TP_TRAIN_TOL}), masters within {tr['master_gap_lr']:.3g} lr (printed); "
+              f"state bytes a rank: live {live}, analytic {mem['state_bytes_per_device']}; peak "
+              f"{tr['peak_gib']:.2f} GiB a rank (1 rank: {tr['ref_peak_gib']:.2f}); {tr['seconds']:.1f} s")
+        pr = tr["profile"]
+        print(f"phase 3o profile of one training step on rank 0: {pr['wall_ms']:.1f} ms wall, device busy "
+              f"{pr['device_busy_ms']} ms (idle share {pr['idle_share']}; host-device copies {pr['copy_calls']} "
+              f"taking {pr['copy_ms']} ms of it), host ops by self CPU time: "
+              + "; ".join(f"{nm} x{c} {ms:.1f} ms" for nm, c, ms in pr["host_top"]))
+
+
+def tp_step_profile(torch, fn):
+    """``fn`` (one training step of a rank of phase 3o) once warm, then once
+    under torch.profiler: the wall time on CUDA events, the device busy time
+    and idle share (None when the profiler saw no device activity), the
+    host-device copies' count and device time, and the host ops that took
+    the most self CPU time (``[name, calls, ms]``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    busy = copy_ms = 0.0
+    kernels = copies = 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            busy, kernels = busy + ms, kernels + 1
+            if ev.name.startswith("Memcpy"):
+                copy_ms, copies = copy_ms + ms, copies + 1
+    wall = start.elapsed_time(end)
+    host = sorted(([a.key, a.count, a.self_cpu_time_total / 1e3] for a in prof.key_averages()),
+                  key=lambda q: -q[2])
+    return {"wall_ms": wall, "device_busy_ms": busy if kernels else None,
+            "idle_share": 1 - busy / wall if kernels else None, "device_events": kernels,
+            "copy_calls": copies, "copy_ms": copy_ms, "host_top": host[:8]}
+
+
+def tp_kernel_rows(torch, bm, att, smoke, tp_run, floor_ms, gpu):
+    """Phase 4 for 3o: each K4 shape that rank 0 of phase 3o launched, on
+    operands drawn here, timed as :func:`recorded_kernel_rows` times the
+    LLM path's (the rank's own calls were held to their plain versions in
+    3o); their launches are rank 0's."""
+    import types
+
+    g = torch.Generator().manual_seed(SEED + 29)
+    rec = types.SimpleNamespace(calls={})
+    for s in tp_run.get("kernel_shapes", []):
+        if s["kernel"] != "bitslice_matmul":
+            continue
+        x = torch.randint(-128, 128, s["a"], generator=g, dtype=torch.int8)
+        w = torch.randint(-128, 128, s["b"], generator=g, dtype=torch.int8)
+        pairs = tuple(tuple(p) for p in s["pairs"])
+        xd, wd = x.to("cuda"), w.to("cuda")
+        got = bm._bitslice_gemm(xd, wd, s["slice_bits"], pairs)
+        t = time.perf_counter()
+        want = bm._bitslice_plain(x, w, s["slice_bits"], pairs)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err = smoke.check("bitslice_matmul", f"phase 4 TP shape {s['a']}x{s['b']}", got, want, exact=True)
+        rec.calls[("bitslice_matmul", tuple(s["a"]), tuple(s["b"]))] = {
+            "count": s["count"], "path": bm.launched_path(), "out": got, "args": (xd, wd, s["slice_bits"], pairs),
+            "plain_ms": plain_ms, "max_abs_err": err}
+    heads = types.SimpleNamespace(n_kv_heads=1, n_heads=1)  # read for K6 rows only
+    return recorded_kernel_rows(torch, bm, att, smoke, rec, heads, floor_ms, "tp2", "tp_serving", gpu)
+
+
+# ---------------------------------------------------------------------------
 # phase 3k: the continuous-batching scheduler and multi-chip scale-out
 # ---------------------------------------------------------------------------
 
@@ -4712,6 +5197,9 @@ def main() -> int:
     # ---------------- phase 3n, first: sharding rules and collectives on NCCL, in a process of its own ----------------
     dist_run = run_dist_phase(torch, smoke, gpu)
 
+    # ---------------- phase 3o, next: tensor-parallel execution, two ranks on the card ----------------
+    tp_run = run_tp_phase(torch, smoke, gpu)
+
     # ---------------- phase 2: kernels against their plain versions ----------------
     cfg = resnet.RESNET18
     params_cpu = resnet.init_params(cfg, SEED, device="cpu")
@@ -4859,6 +5347,7 @@ def main() -> int:
           f"CPU plain forward {cpu_forward_s:.2f} s")
     path_launches = {"resnet18_eager": {k: v for k, v in counts.items() if v}}
     path_launches.update(dist_run.get("path_launches", {}))
+    path_launches.update(tp_run.get("path_launches", {}))
 
     # ---------------- phase 3b: RESNET18 through the Program API ----------------
     traced = api.trace(lambda p, v: resnet.forward(cfg, p, v), name="resnet18")
@@ -4995,6 +5484,15 @@ def main() -> int:
     # ---------------- phase 3j: the LLM serving path at Qwen2-0.5B's full width ----------------
     llm = run_llm_phase(torch, api, bm, att, smoke, dev, gpu, dist_run)
     path_launches["llm_serving"] = llm["path_launches"]
+    tp_ref = tp_run.get("serving", {}).get(LLM_ARCH, {}).get("runs", {}).get("quant_kv=False", {}).get("ref_digests")
+    llm["tp_reference_equal"] = tp_ref == llm["logits_digests"]
+    smoke.cases.append({"kernel": "tp", "case": "phase 3j 4x8 logits vs phase 3o's 1-rank run", "exact": True,
+                        "ok": llm["tp_reference_equal"], "max_abs_err": None, "shape": [], "dtype": ""})
+    if not llm["tp_reference_equal"]:
+        smoke.failures.append(f"phase 3j: the 4x8 logits digests {llm['logits_digests']} differ from phase 3o's "
+                              f"1-rank run's {tp_ref}")
+    print(f"phase 3j 4x8 prefill and decode step logits bit-equal to phase 3o's 1-rank run, the reference of its "
+          f"two ranks: {llm['tp_reference_equal']}")
     torch.cuda.synchronize()
 
     # ---------------- phase 3k: the scheduler and multi-chip scale-out ----------------
@@ -5235,6 +5733,7 @@ def main() -> int:
     entry_rows = entry_point_timing(torch, att, ht, rg, smoke, entry, imad_per_s)
     entry_latency = entry_executor_latency(torch, program, entry)
     llm_latency, llm_rows = llm_timing(torch, bm, att, smoke, llm, floor_ms)
+    tp_rows = tp_kernel_rows(torch, bm, att, smoke, tp_run, floor_ms, gpu)
     fam_latency, fam_rows = families_timing(torch, bm, att, rg, smoke, fam, floor_ms)
     train_rows = training_timing(torch, rg, smoke, train, floor_ms)
     for r in train_rows:  # phase 3n's launches of K11 beside 3m's
@@ -5338,7 +5837,8 @@ def main() -> int:
         "kernel_ms": kernel_ms, "profile": profile_summary, "launches": launches, "expected_launches": expected,
         "path_launches": path_launches, "program": program_timing, "peak_memory_gib": peak_gib,
         "entry_executor_latency": entry_latency,
-        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows + fam_rows + train_rows,
+        "kernels": rows + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows + fam_rows + train_rows
+        + tp_rows,
         "registered_kernels": registered,
         "entry_points": [{k: v for k, v in r.items() if k not in ("args", "cpu_args", "want", "ex")} for r in entry],
         "decode": decode, "decode_summary": decode_summary,
@@ -5351,6 +5851,7 @@ def main() -> int:
         "families": dict({k: v for k, v in fam.items() if k not in ("recorder", "steps")}, latency=fam_latency),
         "training": {k: v for k, v in train.items() if k != "recorded"},
         "dist": {k: v for k, v in dist_run.items() if k not in ("cases", "failures")},
+        "tp": tp_run,
     }, indent=1))
 
     if smoke.failures:
@@ -5358,7 +5859,7 @@ def main() -> int:
             print("FAIL", f, file=sys.stderr)
         return 1
     path = [r for r in rows if r["launches"]] + k1_rows + bitslice_rows + attention_rows + entry_rows + llm_rows \
-        + fam_rows + train_rows
+        + fam_rows + train_rows + tp_rows
     off_path = [r["name"] for r in rows if not r["launches"]]
     if off_path:
         print(f"FAIL kernels launched on no path: {off_path}", file=sys.stderr)
@@ -5388,7 +5889,16 @@ def main() -> int:
                                "serving": {k: dist_run.get("serving", {}).get(k) for k in (
                                    "launches", "collective_calls")},
                                "state_leaves_differing_from_3m": train.get("dist_differ"),
-                               "logits_differing_from_3j": llm.get("dist_differ")}}))
+                               "logits_differing_from_3j": llm.get("dist_differ")},
+                      "tp": {"ranks": TP_RANKS, "mesh": tp_run.get("mesh"), "seconds": tp_run.get("seconds"),
+                             "serving": {arch: {k: {n: r.get(n) for n in (
+                                 "launches", "bit_equal", "prefill_gap", "decode_step_gap")}
+                                 for k, r in res.get("runs", {}).items()}
+                                 for arch, res in tp_run.get("serving", {}).items()},
+                             "training": {k: tp_run.get("training", {}).get(k) for k in (
+                                 "layers", "launches_per_step", "collective_calls_per_step", "losses", "ref_losses",
+                                 "loss_gap", "m_gap", "master_gap_lr", "peak_gib", "s_per_step", "profile")},
+                             "logits_3j_equal_1_rank": llm.get("tp_reference_equal")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -5399,4 +5909,6 @@ if __name__ == "__main__":
         sys.exit(replay_profile_main())
     if sys.argv[1:] == ["--dist-phase"]:
         sys.exit(dist_phase_main())
+    if sys.argv[1:2] == ["--tp-phase"]:
+        sys.exit(tp_phase_main(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(train_resume_main() if sys.argv[1:] == ["--train-resume"] else main())

@@ -18,10 +18,18 @@ group of an axis; an axis of size 1 needs no group.
 
 The SPMD helpers below them (:func:`all_reduce_`, :func:`all_gather_dim`,
 :func:`gather_rows`, :func:`mean_over`) are what the model, the train step
-and the serving steps call on the data axes.  Every
-``torch.distributed`` call is counted by its name (:func:`call_counts`).  A
-CUDA tensor goes only to an NCCL group and a CPU tensor only to a gloo one:
-anything else raises, so no collective runs on another device than asked.
+and the serving steps call on the data axes; Megatron's conjugate pairs
+(:func:`copy_to_model`, :func:`reduce_from_model`,
+:func:`gather_from_model`, :func:`all_reduce_max`) are what the model calls
+on the model axis.  Every ``torch.distributed`` call is counted by its name,
+and every conjugate by its own (:func:`call_counts`).  A CUDA tensor goes
+only to an NCCL group and a CPU tensor only to a gloo one: anything else
+raises, so no collective runs on another device than asked.  The one
+exception is asked for by name: a gloo group registered by
+:func:`stage_through_host` (``launch.mesh.make_host_mesh(...,
+host_collectives=True)``, for several ranks sharing one card, where NCCL
+refuses) takes CUDA tensors, each call copying them to the host, running
+gloo there and copying the result back.
 """
 from __future__ import annotations
 
@@ -33,6 +41,10 @@ import torch.distributed as dist
 _CALLS: Dict[str, int] = {}
 
 _BACKEND_OF = {"cuda": "nccl", "cpu": "gloo"}
+
+# gloo groups whose CUDA tensors are staged through host memory (by
+# identity); forgotten once torch.distributed's process groups are destroyed
+_HOST_STAGED: list = []
 
 
 def call_counts() -> Dict[str, int]:
@@ -49,16 +61,41 @@ def _count(name: str) -> None:
     _CALLS[name] = _CALLS.get(name, 0) + 1
 
 
+def stage_through_host(group) -> None:
+    """Let the gloo ``group`` take CUDA tensors, staged through host memory
+    (the explicit opt-in of ``make_host_mesh(..., host_collectives=True)``)."""
+    if str(dist.get_backend(group)) != "gloo":
+        raise ValueError(f"only a gloo group stages through the host, not {dist.get_backend(group)}")
+    if not host_staged(group):
+        _HOST_STAGED.append(group)
+
+
+def host_staged(group) -> bool:
+    """Whether ``group`` stages CUDA tensors through host memory (never
+    after ``torch.distributed.destroy_process_group``)."""
+    if not dist.is_initialized():
+        _HOST_STAGED.clear()
+    return any(g is group for g in _HOST_STAGED)
+
+
 def _checked(group, *tensors: torch.Tensor):
     """``group``, after checking that its backend serves the tensors' device
-    (NCCL for CUDA, gloo for the CPU)."""
+    (NCCL for CUDA, gloo for the CPU; gloo also for CUDA on a group that
+    :func:`stage_through_host` registered)."""
     backend = str(dist.get_backend(group))
+    staged = host_staged(group)
     for t in tensors:
         want = _BACKEND_OF.get(t.device.type)
-        if backend != want:
+        if backend != want and not (staged and t.device.type == "cuda"):
             raise RuntimeError(f"a {t.device.type} tensor on a {backend} process group: "
                                f"{t.device.type} tensors take {want}")
     return group
+
+
+def _host(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` where ``group``'s backend reads it: a host copy of a CUDA
+    tensor on a host-staged group, else ``t``."""
+    return t.cpu() if t.is_cuda and host_staged(group) else t
 
 
 def _group(mesh, axis: str, *tensors: torch.Tensor):
@@ -81,13 +118,15 @@ def _const(value: float, like: torch.Tensor) -> torch.Tensor:
 def _exchange(send: torch.Tensor, to: int, frm: int, group) -> torch.Tensor:
     """Send ``send`` to group rank ``to`` and receive its like from group
     rank ``frm`` (one ``batch_isend_irecv`` pair)."""
+    dev = send.device
+    send = _host(send.contiguous(), group)
     recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send.contiguous(), dist.get_global_rank(group, to), group),
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, to), group),
            dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, frm), group)]
     _count("batch_isend_irecv")
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return recv
+    return recv.to(dev)
 
 
 def htree_allreduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -176,10 +215,11 @@ def shuffle(x: torch.Tensor, mesh, axis: str, *, split_dim: int = 0) -> torch.Te
     xs = x.movedim(split_dim, 0).contiguous()
     if group is None:
         return xs.clone().movedim(0, split_dim)
-    out = torch.empty_like(xs)
+    hx = _host(xs, group)
+    out = torch.empty_like(hx)
     _count("all_to_all_single")
-    dist.all_to_all_single(out, xs, group=group)
-    return out.movedim(0, split_dim).contiguous()
+    dist.all_to_all_single(out, hx, group=group)
+    return out.to(x.device).movedim(0, split_dim).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -187,12 +227,15 @@ def shuffle(x: torch.Tensor, mesh, axis: str, *, split_dim: int = 0) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
-def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``x`` over ``group`` in place (nothing without a group); returns
-    ``x``."""
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` over ``group`` in place by ``op`` (a sum by default;
+    nothing without a group); returns ``x``."""
     if group is not None:
         _count("all_reduce")
-        dist.all_reduce(x, group=_checked(group, x))
+        h = _host(x, _checked(group, x))
+        dist.all_reduce(h, op=op, group=group)
+        if h is not x:
+            x.copy_(h)
     return x
 
 
@@ -201,9 +244,11 @@ def all_gather_dim(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
     rank order (a copy of ``x`` without a group)."""
     if group is None:
         return x.clone()
-    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    h = _host(x.contiguous(), _checked(group, x))
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=h.device)
     _count("all_gather_into_tensor")
-    dist.all_gather_into_tensor(out, x.contiguous(), group=_checked(group, x))
+    dist.all_gather_into_tensor(out, h, group=group)
+    out = out.to(x.device)
     return torch.cat(out.view(n, *x.shape).unbind(0), dim=dim) if dim else out
 
 
@@ -240,3 +285,81 @@ def mean_over(x: torch.Tensor, shard: Optional[Any]) -> torch.Tensor:
     if shard is None or not shard.sharded or shard.group is None:
         return x
     return all_reduce_(x.clone(), shard.group) / _const(float(shard.dp), x)
+
+
+# ---------------------------------------------------------------------------
+# Megatron's conjugates on the model axis
+# ---------------------------------------------------------------------------
+#
+# ``ms`` is this rank's ``dist.sharding.ModelShard``; with none (a model axis
+# of one) each is the identity.  A tensor is either replicated (every rank of
+# the model axis holds the same values and, through these functions, gets
+# the same gradient) or a rank's slice of a dim.
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ms):
+        ctx.ms = ms
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.ms.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ms):
+        return all_reduce_(x.contiguous().clone(), ms.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ms):
+        ctx.dim, ctx.ms, ctx.size = dim, ms, x.shape[dim]
+        return all_gather_dim(x, dim, ms.tp, ms.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.ms.index * ctx.size, ctx.size), None, None
+
+
+def copy_to_model(x: torch.Tensor, ms) -> torch.Tensor:
+    """A replicated tensor entering a rank's slice of the work: the
+    identity; its gradient, each rank's part, summed over the model axis."""
+    if ms is None:
+        return x
+    _count("copy_to_model")
+    return _CopyToModel.apply(x, ms)
+
+
+def reduce_from_model(x: torch.Tensor, ms) -> torch.Tensor:
+    """Each rank's partial sum, summed over the model axis (replicated);
+    the gradient passes through to each rank's part."""
+    if ms is None:
+        return x
+    _count("reduce_from_model")
+    return _ReduceFromModel.apply(x, ms)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, ms) -> torch.Tensor:
+    """Each rank's slice along ``dim``, concatenated in rank order
+    (replicated); the gradient's own slice goes back to each rank."""
+    if ms is None:
+        return x
+    _count("gather_from_model")
+    return _GatherFromModel.apply(x, dim % x.dim(), ms)
+
+
+def all_reduce_max(x: torch.Tensor, ms) -> torch.Tensor:
+    """The elementwise max over the model axis (a row's quantization scale
+    over its slices); carries no gradient."""
+    if ms is None:
+        return x
+    _count("all_reduce_max")
+    return all_reduce_(x.detach().contiguous().clone(), ms.group, op=dist.ReduceOp.MAX)

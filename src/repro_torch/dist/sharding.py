@@ -16,7 +16,10 @@ decision log grows in the JAX package's order.
 
 The port runs SPMD: each rank holds its shard, so :func:`constrain` is the
 identity, and the batch is split where it enters a step
-(:func:`batch_shard`).  :class:`P` is the port's ``PartitionSpec``.
+(:func:`batch_shard`).  On a "model" axis wider than one each rank holds its
+slices of the leaves the specs shard (:func:`shard_params`,
+:func:`gather_params`) and the model runs them tensor-parallel
+(:class:`ModelShard`).  :class:`P` is the port's ``PartitionSpec``.
 """
 from __future__ import annotations
 
@@ -275,6 +278,23 @@ def data_index(rules: MeshRules) -> int:
     return rules.mesh.coordinate(rules.dp_axes) if hasattr(rules.mesh, "coordinate") else 0
 
 
+def model_group(rules: MeshRules):
+    """The process group of the model axis, or None on a mesh with no ranks
+    and one model shard; a mesh with no ranks and more model shards
+    describes a layout and cannot run a step (ValueError)."""
+    if hasattr(rules.mesh, "group"):
+        return rules.mesh.group(rules.tp_axis)
+    if rules.tp > 1:
+        raise ValueError(f"a mesh with no process groups cannot run {rules.tp} model shards; "
+                         "build one with launch.mesh.make_host_mesh")
+    return None
+
+
+def model_index(rules: MeshRules) -> int:
+    """This rank's coordinate on the model axis (0 on a mesh with no ranks)."""
+    return rules.mesh.coordinate(rules.tp_axis) if hasattr(rules.mesh, "coordinate") else 0
+
+
 @dataclass(frozen=True)
 class BatchShard:
     """This rank's rows of a global batch of ``batch`` rows: rows
@@ -305,3 +325,94 @@ def batch_shard(rules: MeshRules, batch: int) -> BatchShard:
     :meth:`MeshRules.batch_axes` (whose fallback it notes)."""
     sharded = rules.batch_axes(batch) is not None
     return BatchShard(batch, rules.dp, data_index(rules), sharded, data_group(rules))
+
+
+@dataclass(frozen=True)
+class ModelShard:
+    """This rank's place on a model axis of ``tp`` > 1 ranks: its
+    coordinate ``index`` and the axis's process group.  A dim that the specs
+    shard on "model" is cut into ``tp`` contiguous slices, the rank holding
+    slice ``index``."""
+
+    tp: int
+    index: int
+    group: Any
+
+    def start(self, size: int) -> int:
+        """Where this rank's slice of a dim of global ``size`` starts."""
+        return self.index * (size // self.tp)
+
+
+def model_shard(rules: Optional[MeshRules]) -> Optional[ModelShard]:
+    """This rank's :class:`ModelShard` under ``rules``, None without rules or
+    on a model axis of one."""
+    if rules is None or rules.tp == 1:
+        return None
+    return ModelShard(rules.tp, model_index(rules), model_group(rules))
+
+
+def _axis_dims(spec: P, rules: MeshRules):
+    """(dim, n, index, group) of each dim ``spec`` shards: the model axis or
+    the data axes."""
+    dp = P(rules.dp_axes)[0]
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        if ax == rules.tp_axis:
+            yield d, rules.tp, model_index(rules), model_group(rules)
+        elif ax == dp:
+            yield d, rules.dp, data_index(rules), data_group(rules)
+        else:
+            raise ValueError(f"spec {spec} shards on {ax!r}, neither the model axis nor the data axes")
+
+
+def shard_leaf(x, spec: P, rules: MeshRules):
+    """This rank's slice of the global leaf ``x`` by ``spec`` (a copy; ``x``
+    itself when the spec shards nothing)."""
+    out = x
+    for d, n, i, _ in _axis_dims(spec, rules):
+        c = x.shape[d] // n
+        out = out.narrow(d, i * c, c)
+    return x if out is x else out.clone()
+
+
+def gather_leaf(x, spec: P, rules: MeshRules):
+    """The global leaf of which every rank holds ``x``, its slice of
+    ``spec`` (``x`` itself when the spec shards nothing)."""
+    from repro_torch.dist import collectives
+
+    for d, n, _, group in _axis_dims(spec, rules):
+        x = collectives.all_gather_dim(x, d, n, group)
+    return x
+
+
+def _map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_params(tree: Any, cfg, rules: MeshRules) -> Any:
+    """This rank's slices of a global parameter tree (the model's or its
+    serving form) by :func:`param_specs`."""
+    return _map_specs(lambda x, sp: shard_leaf(x, sp, rules), tree, param_specs(tree, cfg, rules))
+
+
+def _quantized(tree: Any) -> bool:
+    """Whether a parameter tree is the serving form (int8 weights)."""
+    if isinstance(tree, dict):
+        return any(_quantized(v) for v in tree.values())
+    return str(tree.dtype) == "torch.int8"
+
+
+def gather_params(tree: Any, cfg, rules: MeshRules) -> Any:
+    """The global parameter tree from every rank's :func:`shard_params`, by
+    the :func:`param_specs` of the global shapes (the model's parameters, or
+    their serving form when ``tree`` holds int8 weights), since a rank holds
+    only its slices."""
+    from repro_torch.models import common, transformer
+
+    shapes = transformer.params_shape(cfg)
+    if _quantized(tree):
+        shapes = common.maybe_quantize_tree(shapes, cfg)
+    return _map_specs(lambda x, sp: gather_leaf(x, sp, rules), tree, param_specs(shapes, cfg, rules))

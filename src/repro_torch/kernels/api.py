@@ -287,15 +287,18 @@ class SlicedTensor:
 
     @classmethod
     def quantize(cls, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec.int8, *,
-                 weight: bool = False) -> "SlicedTensor":
+                 weight: bool = False, scale: Optional[torch.Tensor] = None) -> "SlicedTensor":
         """Dynamic symmetric per-row (activation) or per-column (weight)
         quantization: activations along the last axis (the contraction axis
-        of ``x @ w``), weights along the second-to-last."""
+        of ``x @ w``), weights along the second-to-last.  ``scale`` (the
+        kept-dim scale) replaces the one taken from ``x``: a row-parallel
+        linear quantizes its slice of each row with the whole row's."""
         bits = spec.weight_bits if weight else spec.act_bits
         axis = -2 if weight else -1
         qmax = 2 ** (bits - 1) - 1
         xf = x.to(torch.float32)
-        scale = absmax_scale(xf, axis, qmax)
+        if scale is None:
+            scale = absmax_scale(xf, axis, qmax)
         x_q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax).to(torch.int32)
         return cls.from_int(x_q, bits, slice_bits=spec.slice_bits, scale=scale)
 

@@ -7,15 +7,25 @@ quantized linear layers and the training loss).
 :class:`~repro_torch.kernels.api.SlicedTensor` operands; both run the
 bit-sliced GEMM kernel.  :func:`quant_linear_relu` runs ``relu(x @ W)`` as one traced
 Program over that kernel and the relu kernel.
+
+:func:`tp_linear` is a linear layer on a "model" axis wider than one: from
+the shape of the rank's weight it runs column-parallel (its output columns),
+row-parallel (its slice of the contraction, partial sums added over the
+axis) or replicated.  A quantized row-parallel linear (:func:`quant_linear`
+with a model shard) takes each row's scale over the axis before quantizing
+and adds the int32 accumulators before dequantizing, so it gives the
+unsharded result bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives
 from repro_torch.kernels import api
 from repro_torch.kernels.api import PrecisionSpec, SlicedTensor
 from repro_torch.kernels.bitslice_matmul import bitslice_matmul
@@ -120,11 +130,20 @@ def quantize_weight(w: torch.Tensor, bits: int = 8) -> Params:
     return {"w_q": w_q, "w_scale": scale}
 
 
-def _dynamic_act_quant(x: torch.Tensor, bits: int):
-    """Per-row symmetric quantization of activations: (int8 values, scale)."""
+def _act_scale(xf: torch.Tensor, bits: int, ms=None) -> torch.Tensor:
+    """Each row's symmetric quantization scale.  With ``ms`` (a
+    ``dist.sharding.ModelShard``) ``xf`` is this rank's slice of each row and
+    the scale is the whole row's: the max of the slices' scales over the
+    model axis (a scale grows with its absmax)."""
+    return collectives.all_reduce_max(api.absmax_scale(xf, -1, 2 ** (bits - 1) - 1), ms)
+
+
+def _dynamic_act_quant(x: torch.Tensor, bits: int, ms=None):
+    """Per-row symmetric quantization of activations: (int8 values, scale);
+    ``ms`` as in :func:`_act_scale`."""
     qmax = 2 ** (bits - 1) - 1
     xf = x.to(torch.float32)
-    scale = api.absmax_scale(xf, -1, qmax)
+    scale = _act_scale(xf, bits, ms)
     x_q = _saturate_int8(torch.clamp(torch.round(xf / scale), -qmax - 1, qmax))
     return x_q, scale
 
@@ -139,7 +158,7 @@ def int_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, w_q.shape[1])
 
 
-def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec.int8) -> torch.Tensor:
+def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec.int8, ms=None) -> torch.Tensor:
     """Bit-sliced integer linear: dynamic activation quantization and int32
     accumulation.
 
@@ -147,33 +166,71 @@ def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec
     wider specs go through ``api.matmul`` over ``SlicedTensor`` operands,
     which splits into slices, skips the all-zero ones and recombines with
     shifts.
+
+    With ``ms`` (a ``dist.sharding.ModelShard``) the linear is row-parallel:
+    ``x`` is this rank's slice of each row's contraction and ``p`` the
+    matching rows.  Each row's scale is taken over the model axis and the
+    int32 accumulators are summed over it before dequantizing, so the result
+    is the unsharded one bit for bit.
     """
+    lead = x.shape[:-1]
     if spec.single_pass:
-        x_q, x_scale = _dynamic_act_quant(x, spec.act_bits)
+        x_q, x_scale = _dynamic_act_quant(x, spec.act_bits, ms)
         acc = int_matmul(x_q, p["w_q"])
-        out = acc.to(torch.float32) * x_scale * p["w_scale"]
     else:
-        lead = x.shape[:-1]
-        x_st = SlicedTensor.quantize(x.reshape(-1, x.shape[-1]), spec)
-        w_st = SlicedTensor.from_int(
-            p["w_q"].to(torch.int32), spec.weight_bits,
-            slice_bits=spec.slice_bits, scale=p["w_scale"].reshape(-1),
-        )
-        out = api.matmul(x_st, w_st).reshape(*lead, -1)
+        xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        x_scale = _act_scale(xf, spec.act_bits, ms)
+        x_st = SlicedTensor.quantize(xf, spec, scale=x_scale)
+        w_st = SlicedTensor.from_int(p["w_q"].to(torch.int32), spec.weight_bits, slice_bits=spec.slice_bits)
+        acc = api.matmul(dataclasses.replace(x_st, scale=None), w_st).reshape(*lead, -1)
+        x_scale = x_scale.reshape(*lead, 1)
+    acc = collectives.reduce_from_model(acc, ms)
+    out = acc.to(torch.float32) * x_scale * p["w_scale"]
     if "b" in p:
         out = out + p["b"].to(torch.float32)
     return out.to(x.dtype)
 
 
-def linear(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] = None) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] = None, ms=None) -> torch.Tensor:
     """Quantized (bit-sliced) if the parameters are quantized, else a plain
-    float product."""
+    float product.  ``ms`` (a ``dist.sharding.ModelShard``) makes it
+    row-parallel: the partial products of this rank's slice of the
+    contraction are summed over the model axis, then the bias is added."""
     if "w_q" in p:
-        return quant_linear(p, x, spec or PrecisionSpec.int8)
-    out = x @ p["w"]
+        return quant_linear(p, x, spec or PrecisionSpec.int8, ms)
+    out = collectives.reduce_from_model(x @ p["w"], ms)
     if "b" in p:
         out = out + p["b"]
     return out
+
+
+def tp_linear(p: Params, x: torch.Tensor, ms, d_in: int, d_out: int,
+              spec: Optional[PrecisionSpec] = None) -> torch.Tensor:
+    """:func:`linear` of a ``(d_in, d_out)`` layer on the model axis of
+    ``ms`` (a ``dist.sharding.ModelShard``; None runs :func:`linear`).
+
+    The rank's weight tells the layout.  Column-sharded: ``x`` whole, the
+    output this rank's columns.  Row-sharded: ``x`` this rank's slice of the
+    contraction (or whole, then sliced here), the output whole (the partial
+    sums added over the axis).  Replicated: ``x`` and the output whole (the
+    rules shard a layer's input dim exactly when they shard the output dim
+    of the layer that feeds it)."""
+    if ms is None:
+        return linear(p, x, spec)
+    k, n = (p["w_q"] if "w_q" in p else p["w"]).shape[-2:]
+    if n != d_out:
+        return linear(p, collectives.copy_to_model(x, ms), spec)
+    if k == d_in:
+        return linear(p, x, spec)
+    if x.shape[-1] == d_in:
+        x = collectives.copy_to_model(x, ms).narrow(-1, ms.start(d_in), k)
+    return linear(p, x, spec, ms)
+
+
+def tp_gathered(x: torch.Tensor, ms, d: int) -> torch.Tensor:
+    """``x`` whole along its last dim of global size ``d``: gathered over the
+    model axis when this rank holds a slice of it."""
+    return x if ms is None or x.shape[-1] == d else collectives.gather_from_model(x, -1, ms)
 
 
 def _matmul_relu_chain(x_st: SlicedTensor, w_st: SlicedTensor) -> torch.Tensor:

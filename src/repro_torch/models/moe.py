@@ -16,6 +16,11 @@ with ``jnp.einsum`` outside any kernel: here ``torch.einsum``.  The combine
 is an ``index_add_``, atomic on CUDA: the card adds a token's expert outputs
 in another order than the CPU, so the two agree within a float tolerance,
 not bit for bit.
+
+On a "model" axis wider than one that the experts divide, a rank holds
+``E/tp`` experts: the router, the capacity and the dispatch stay replicated
+(every rank routes identically), the rank runs its experts on their buffer
+rows, and the expert outputs are gathered over the axis before the combine.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.dist import collectives
 from repro_torch.models.common import Params, dense_init, swiglu
 
 
@@ -73,8 +79,10 @@ def _combine_group(y: torch.Tensor, info, t: int) -> torch.Tensor:
     return y.new_zeros((t, y.shape[-1])).index_add_(0, st, contrib)
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg, n_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss).  Routed per group of B*S/n_groups tokens."""
+def moe_ffn(p: Params, x: torch.Tensor, cfg, n_groups: int, ms=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss).  Routed per group of B*S/n_groups
+    tokens.  ``ms`` (a ``dist.sharding.ModelShard``): the experts this rank
+    holds when ``p``'s expert stacks are its slices of them."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     tokens = b * s
@@ -84,14 +92,20 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, n_groups: int) -> Tuple[torch.Tenso
     capacity = max(k, int(math.ceil(tg * k / e * cfg.moe_capacity_factor)))
     xg = x.reshape(n_groups, tg, d)
     logits = xg.to(torch.float32) @ p["router"]["w"]  # (G, Tg, E)
+    el = p["w_gate"].shape[0]
+    split = ms is not None and el != e
     outs = []
     for xi, li in zip(xg, logits):
         buf, info = _route_group(xi, li, k, capacity)
         buf = buf.reshape(e, capacity, d)
+        if split:  # this rank's experts' rows
+            buf = collectives.copy_to_model(buf, ms).narrow(0, ms.start(e), el)
         gate = torch.einsum("ecd,edf->ecf", buf, p["w_gate"])
         up = torch.einsum("ecd,edf->ecf", buf, p["w_up"])
         act = swiglu(gate, up)
         down = torch.einsum("ecf,efd->ecd", act, p["w_down"])
+        if split:
+            down = collectives.gather_from_model(down, 0, ms)
         outs.append(_combine_group(down.reshape(e * capacity, d), info, tg))
     out = torch.stack(outs)
     # Switch-style load-balance aux loss

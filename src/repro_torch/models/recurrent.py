@@ -18,6 +18,14 @@ Every op is the JAX package's op in its order: the width-4 causal
 convolution is four multiply-adds in the input dtype (``F.conv1d`` would
 accumulate in float32), ``jax.nn.gelu`` is the tanh approximation and
 ``jax.nn.softplus`` / ``log_sigmoid`` are ``logaddexp`` forms.
+
+On a "model" axis wider than one (``ms``, a ``dist.sharding.ModelShard``)
+the sharding rules shard only the xLSTM mixers' ``w_up`` (columns) and
+``w_down`` (rows), whose names the FFN shares: ``w_up``'s output is a
+concatenation (``[x_m | z]``, the GeGLU halves) that a column slice would
+split wrongly, so it is gathered whole; ``w_down`` takes its slice of the
+replicated input and adds the partial sums over the axis.  Everything else,
+the RG-LRU mixer whole, replicates.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import api
-from repro_torch.models.common import Params, dtype_of, linear, linear_init
+from repro_torch.models.common import Params, dtype_of, linear, linear_init, tp_gathered, tp_linear
 
 # ---------------------------------------------------------------------------
 # causal conv1d (width-K depthwise), used by RG-LRU and mLSTM blocks
@@ -101,8 +109,9 @@ def _rglru_coeffs(p: Params, u: torch.Tensor):
     return log_a, x_in
 
 
-def rglru_block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[Dict] = None):
+def rglru_block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[Dict] = None, ms=None):
     """x: (B,S,d).  Returns (y, new_state) with state {"h": (B,W), "conv": (B,K-1,W)}.
+    Its leaves replicate on any mesh: ``ms`` changes nothing.
 
     The sequence form runs ``h_t = a_t·h_{t-1} + x_in_t`` on the RG-LRU scan
     kernel from ``state["h"]`` (or zeros): JAX adds ``a_0·h`` into
@@ -247,10 +256,11 @@ def _groupnorm_heads(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return x * torch.rsqrt(var + eps)
 
 
-def mlstm_block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[Dict] = None, chunk: int = 256):
-    b, s, _ = x.shape
+def mlstm_block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[Dict] = None, chunk: int = 256,
+                      ms=None):
+    b, s, d = x.shape
     pf, h, dh = _mlstm_dims(cfg)
-    up = linear(p["w_up"], x)
+    up = tp_gathered(tp_linear(p["w_up"], x, ms, d, 2 * pf), ms, 2 * pf)
     xm, z = torch.chunk(up, 2, dim=-1)
     conv_state = state["conv"] if state else None
     xc, conv_state = causal_conv1d(xm, p["conv"]["kernel"], conv_state)
@@ -272,7 +282,7 @@ def mlstm_block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[Dict] = N
         y, cell = _mlstm_chunk_scan(q, k, v, ig, lf, cell, chunk)
     y = _groupnorm_heads(y).reshape(b, s, pf).to(x.dtype) * p["gn_scale"]
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    out = linear(p["w_down"], y)
+    out = tp_linear(p["w_down"], y, ms, pf, d)
     return out, {"C": cell["C"], "n": cell["n"], "m": cell["m"], "conv": conv_state}
 
 
@@ -297,11 +307,15 @@ def mlstm_full_state_init(cfg, batch: int, *, lead: tuple = (), device: Any = No
 # ---------------------------------------------------------------------------
 
 
+def _slstm_ffd(d: int) -> int:
+    return ((4 * d // 3) + 63) // 64 * 64
+
+
 def slstm_block_init(gen, cfg, dtype, *, lead: tuple = (), device: Any) -> Params:
     d = cfg.d_model
     h = cfg.n_heads
     dh = d // h
-    ffd = ((4 * d // 3) + 63) // 64 * 64
+    ffd = _slstm_ffd(d)
     return {
         "w_in": linear_init(gen, d, 4 * d, dtype, lead=lead, device=device),  # z,i,f,o input projections
         # a raw array, not a linear: the serving form leaves it float
@@ -331,7 +345,7 @@ def _slstm_cell(r: torch.Tensor, xz, xi, xf, xo, state):
     return (c_new, n_new, h_new, m_new), h_new
 
 
-def slstm_block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[Dict] = None):
+def slstm_block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[Dict] = None, ms=None):
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
@@ -347,9 +361,10 @@ def slstm_block_apply(p: Params, x: torch.Tensor, cfg, state: Optional[Dict] = N
     hs = torch.stack(hs, dim=1)  # (B,S,H,dh)
     hs = _groupnorm_heads(hs).reshape(b, s, d).to(x.dtype) * p["gn_scale"]
     # post-up GeGLU FFN
-    up = linear(p["w_up"], hs)
+    ffd = _slstm_ffd(d)
+    up = tp_gathered(tp_linear(p["w_up"], hs, ms, d, 2 * ffd), ms, 2 * ffd)
     g, u = torch.chunk(up, 2, dim=-1)
-    y = linear(p["w_down"], _gelu(g.to(torch.float32)).to(x.dtype) * u)
+    y = tp_linear(p["w_down"], _gelu(g.to(torch.float32)).to(x.dtype) * u, ms, ffd, d)
     c, n, hh, m = cell
     return y, {"c": c, "n": n, "h": hh, "m": m}
 

@@ -16,13 +16,23 @@ changes nothing.  Four entry points:
 * ``prefill``     — full-sequence forward that also returns the decode cache.
 * ``decode_step`` — one token in, logits out, and a new cache.
 
-Sharding ``rules`` (``dist.sharding.MeshRules``) run data-parallel, SPMD:
-each entry point takes the global batch, this rank keeps its rows
+Sharding ``rules`` (``dist.sharding.MeshRules``) run SPMD: each entry
+point takes the global batch, this rank keeps its rows
 (``sharding.batch_shard``) and returns JAX's global values (logits
 gathered over the data axes, the aux loss their mean); a decode cache stays
 this rank's shard.  MoE routes per data shard as JAX does (``_ffn_apply``).
-A model axis wider than one (tensor-parallel execution) raises
-``NotImplementedError`` naming ROADMAP S13b.  Every quantized linear runs
+On a model axis wider than one each rank holds its slices of the leaves
+``param_specs`` shards (``sharding.shard_params``) and runs them
+Megatron-style (``common.tp_linear``): the query heads, and the KV heads
+when they divide, column-parallel with ``wo`` row-parallel, the FFN
+likewise, the experts split over the axis, the embedding vocab-parallel
+(a masked lookup summed over the axis) and the head column-parallel with
+its vocabulary gathered.  A rank whose KV heads replicate takes the ones
+its query heads need (``_local_kv``).  The cache follows
+``serve.engine.cache_specs``: KV heads on the axis when they divide, else,
+under ``RunFlags.seq_shard_kv``, the rows of each leaf the specs shard on
+it, which a decode step gathers and gives back (``cache["seq_sharded"]``
+names them).  Every quantized linear runs
 the bit-sliced GEMM (``models/common.int_matmul``); under
 ``RunFlags.quant_kv`` the int8 scores run the row-dot kernel
 (``models/attention.int8_scores``); an RG-LRU prefill runs the RG-LRU scan
@@ -54,12 +64,13 @@ from repro_torch.models.common import (
     apply_rope,
     dense_init,
     dtype_of,
-    linear,
     linear_init,
     rmsnorm,
     rmsnorm_init,
     cross_entropy_sum,
     swiglu,
+    tp_gathered,
+    tp_linear,
 )
 from repro_torch.models.moe import moe_ffn, moe_init
 from repro_torch.models.recurrent import (
@@ -82,26 +93,30 @@ KV_SPEC = PrecisionSpec.int8
 
 def check_supported(cfg: ModelConfig, rules: Any = None) -> None:
     """Every block kind and family of the configs runs, without rules or
-    data-parallel under a ``MeshRules`` (ROADMAP S13).  A ``MeshRules``
-    whose model axis is wider than one raises ``NotImplementedError``
-    (tensor-parallel execution, ROADMAP S13b); rules of another type raise
-    ``TypeError``."""
+    under a ``MeshRules`` on a process mesh (ROADMAP S13, S13b).  Rules of
+    another type raise ``TypeError``; a mesh with no ranks and a model axis
+    wider than one describes a layout and cannot run (``ValueError``
+    naming ``launch.mesh.make_host_mesh``)."""
     if rules is None:
         return
     if not isinstance(rules, sharding.MeshRules):
         raise TypeError(f"{cfg.name}: rules must be a dist.sharding.MeshRules (ROADMAP S13), "
                         f"not {type(rules).__name__}")
-    if rules.tp > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel execution on the {rules.tp_axis!r} axis (tp={rules.tp}) is not "
-            "ported yet (ROADMAP S13b); the port runs data-parallel meshes (model axis of size 1)")
+    try:
+        sharding.model_group(rules)
+    except ValueError as e:
+        raise ValueError(f"{cfg.name}: {e}") from None
 
 
-def _shard_of(cfg: ModelConfig, rules: Any, batch: int) -> Optional[sharding.BatchShard]:
-    """This rank's rows of a ``batch``-row global batch under ``rules``
-    (None without rules), after :func:`check_supported`."""
+def _shard_of(cfg: ModelConfig, rules: Any, batch: int
+              ) -> Tuple[Optional[sharding.BatchShard], Optional[sharding.ModelShard]]:
+    """This rank's rows of a ``batch``-row global batch and its place on the
+    model axis under ``rules`` (None, None without rules), after
+    :func:`check_supported`."""
     check_supported(cfg, rules)
-    return None if rules is None else sharding.batch_shard(rules, batch)
+    if rules is None:
+        return None, None
+    return sharding.batch_shard(rules, batch), sharding.model_shard(rules)
 
 
 def _tree_map(fn, tree):
@@ -237,15 +252,49 @@ def params_from_numpy(tree: Any, device: Any = "cuda") -> Any:
 # ---------------------------------------------------------------------------
 
 
-def _attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, flags: RunFlags, positions: torch.Tensor,
-                kind: str, causal: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    b, s, _ = x.shape
+def _local_kv(kv: Tuple[torch.Tensor, ...], cfg, ms, hq: int) -> Tuple[torch.Tensor, ...]:
+    """The KV heads (dim 2 of each of ``kv``) that this rank's ``hq`` query
+    heads attend with under GQA.  They are the tensors themselves unless the
+    query heads are split over the model axis and the KV heads are not:
+    then the heads its query heads need, contiguous when each of them serves
+    as many local query heads, else one a query head."""
+    if ms is None or hq == cfg.n_heads or kv[0].shape[2] != cfg.n_kv_heads:
+        return kv
+    g = cfg.n_heads // cfg.n_kv_heads
+    heads = [(ms.start(cfg.n_heads) + i) // g for i in range(hq)]
+    lo, hi = heads[0], heads[-1] + 1
+    kv = tuple(collectives.copy_to_model(t, ms) for t in kv)
+    if len({heads.count(j) for j in range(lo, hi)}) == 1:
+        return tuple(t[:, :, lo:hi] for t in kv)
+    idx = torch.tensor(heads, device=kv[0].device)
+    return tuple(t.index_select(2, idx) for t in kv)
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg, ms) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Query, key and value heads (B, S, heads, hd): this rank's heads of
+    each projection that the model axis splits."""
+    b, s, d = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = linear(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = tp_linear(p["wq"], x, ms, d, cfg.q_dim).reshape(b, s, -1, hd)
+    k = tp_linear(p["wk"], x, ms, d, cfg.kv_dim).reshape(b, s, -1, hd)
+    v = tp_linear(p["wv"], x, ms, d, cfg.kv_dim).reshape(b, s, -1, hd)
+    return q, k, v
+
+
+def _attn_out(p: Params, out: torch.Tensor, cfg, ms) -> torch.Tensor:
+    """``wo`` over the attention output of this rank's query heads."""
+    b, s = out.shape[:2]
+    return tp_linear(p["wo"], out.reshape(b, s, -1), ms, cfg.q_dim, cfg.d_model)
+
+
+def _attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, flags: RunFlags, positions: torch.Tensor,
+                kind: str, causal: bool, ms=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    q, k, v = _qkv(p, x, cfg, ms)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    cache = {"k": k, "v": v}
+    k, v = _local_kv((k, v), cfg, ms, q.shape[2])
+    s = x.shape[1]
     if kind == "local_attn":
         # both keep w + 1 keys (qpos - kpos <= window), one more than decode's ring
         if s <= 2 * cfg.window and s <= flags.flash_threshold:
@@ -256,30 +305,28 @@ def _attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, flags: RunFlags, p
     else:
         out = full_attention(q, k, v, causal=causal, chunk=flags.attn_chunk, triangular=flags.triangular_attn,
                              flash_threshold=flags.flash_threshold)
-    y = linear(p["wo"], out.reshape(b, s, cfg.q_dim))
-    return y, {"k": k, "v": v}
+    return _attn_out(p, out, cfg, ms), cache
 
 
-def _cross_apply(p: Params, x: torch.Tensor, enc_kv: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    out = full_attention(q, enc_kv["k"], enc_kv["v"], causal=False, chunk=2048, triangular=False,
-                         flash_threshold=8192)
-    return linear(p["wo"], out.reshape(b, s, cfg.q_dim))
+def _cross_apply(p: Params, x: torch.Tensor, enc_kv: Dict[str, torch.Tensor], cfg, ms=None) -> torch.Tensor:
+    b, s, d = x.shape
+    q = tp_linear(p["wq"], x, ms, d, cfg.q_dim).reshape(b, s, -1, cfg.resolved_head_dim)
+    k, v = _local_kv((enc_kv["k"], enc_kv["v"]), cfg, ms, q.shape[2])
+    out = full_attention(q, k, v, causal=False, chunk=2048, triangular=False, flash_threshold=8192)
+    return _attn_out(p, out, cfg, ms)
 
 
-def _cross_kv(p: Params, enc_out: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
-    b, t, _ = enc_out.shape
+def _cross_kv(p: Params, enc_out: torch.Tensor, cfg, ms=None) -> Dict[str, torch.Tensor]:
+    b, t, d = enc_out.shape
     hd = cfg.resolved_head_dim
     return {
-        "k": linear(p["wk"], enc_out).reshape(b, t, cfg.n_kv_heads, hd),
-        "v": linear(p["wv"], enc_out).reshape(b, t, cfg.n_kv_heads, hd),
+        "k": tp_linear(p["wk"], enc_out, ms, d, cfg.kv_dim).reshape(b, t, -1, hd),
+        "v": tp_linear(p["wv"], enc_out, ms, d, cfg.kv_dim).reshape(b, t, -1, hd),
     }
 
 
 def _ffn_apply(p: Params, x: torch.Tensor, cfg, flags: RunFlags,
-               shard: Optional[sharding.BatchShard] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+               shard: Optional[sharding.BatchShard] = None, ms=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(output, aux loss) of this rank's rows ``x``.  MoE routes per group,
     JAX's global rule: ``flags.routing_groups`` or one group a data shard,
     lowered until it divides the global token count.  Groups that align with
@@ -295,34 +342,36 @@ def _ffn_apply(p: Params, x: torch.Tensor, cfg, flags: RunFlags,
         while tokens % groups:
             groups -= 1
         if not split:
-            return moe_ffn(p, x, cfg, groups)
+            return moe_ffn(p, x, cfg, groups, ms)
         if groups % dp == 0:
-            return moe_ffn(p, x, cfg, groups // dp)
-        out, aux = moe_ffn(p, collectives.gather_rows(x, shard), cfg, groups)
+            return moe_ffn(p, x, cfg, groups // dp, ms)
+        out, aux = moe_ffn(p, collectives.gather_rows(x, shard), cfg, groups, ms)
         return out[shard.start:shard.start + shard.rows], aux
-    return linear(p["w_down"], swiglu(linear(p["w_gate"], x), linear(p["w_up"], x))), _zero(x.device)
+    d, f = cfg.d_model, cfg.d_ff
+    act = swiglu(tp_linear(p["w_gate"], x, ms, d, f), tp_linear(p["w_up"], x, ms, d, f))
+    return tp_linear(p["w_down"], act, ms, f, d), _zero(x.device)
 
 
 def _block_apply_seq(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, flags: RunFlags,
                      positions: torch.Tensor, enc_out: Optional[torch.Tensor], causal: bool,
-                     shard: Optional[sharding.BatchShard] = None) -> Tuple[torch.Tensor, Params, torch.Tensor]:
+                     shard: Optional[sharding.BatchShard] = None, ms=None) -> Tuple[torch.Tensor, Params, torch.Tensor]:
     """Returns (x_out, new cache entries, aux loss).  A recurrent block starts
     from a zero state; the mLSTM chunk is ``attn_chunk`` capped at 256."""
     aux = _zero(x.device)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind in ("attn", "local_attn"):
-        y, cache_out = _attn_apply(p["attn"], h, cfg, flags, positions, kind, causal)
+        y, cache_out = _attn_apply(p["attn"], h, cfg, flags, positions, kind, causal, ms)
     else:
         kw = {"chunk": min(flags.attn_chunk, 256)} if kind == "mlstm" else {}
-        y, cache_out = _MIXER_APPLY[kind](p["mixer"], h, cfg, None, **kw)
+        y, cache_out = _MIXER_APPLY[kind](p["mixer"], h, cfg, None, **kw, ms=ms)
     x = x + y
     if "cross" in p and enc_out is not None:
         hx = rmsnorm(p["lnx"], x, cfg.norm_eps)
-        kvx = _cross_kv(p["cross"], enc_out, cfg)
-        x = x + _cross_apply(p["cross"], hx, kvx, cfg)
+        kvx = _cross_kv(p["cross"], enc_out, cfg, ms)
+        x = x + _cross_apply(p["cross"], hx, kvx, cfg, ms)
         cache_out["cross_k"], cache_out["cross_v"] = kvx["k"], kvx["v"]
     if "ffn" in p:
-        y2, a = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, flags, shard)
+        y2, a = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, flags, shard, ms)
         x = x + y2
         aux = aux + a
     return x, cache_out, aux
@@ -337,41 +386,60 @@ def _group(tree: Params, gi: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def _embed_tokens(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = params["embed"]["w"][tokens]
+def _embed_tokens(params: Params, tokens: torch.Tensor, cfg, ms=None) -> torch.Tensor:
+    """The token embeddings, ``* sqrt(d)``.  A rank holding a slice of the
+    vocabulary looks up its own ids, zeros for the rest, summed over the
+    model axis (exact: one rank gives each id)."""
+    w = params["embed"]["w"]
+    vp = cfg.padded_vocab()
+    if ms is None or w.shape[0] == vp:
+        x = w[tokens]
+    else:
+        local = tokens.to(torch.int64) - ms.start(vp)
+        hit = (local >= 0) & (local < w.shape[0])
+        rows = w[torch.clamp(local, 0, w.shape[0] - 1)]
+        x = collectives.reduce_from_model(torch.where(hit[..., None], rows, torch.zeros((), dtype=w.dtype,
+                                                                                     device=w.device)), ms)
     # JAX multiplies by jnp.asarray(sqrt(d), x.dtype): a constant rounded to
     # the activation dtype first (a bfloat16 29.93 is 30.0), not the float32 value
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
 
 
-def _embed_batch(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    x = _embed_tokens(params, batch["tokens"], cfg)
+def _embed_batch(params: Params, cfg, batch: Dict[str, torch.Tensor], ms=None) -> torch.Tensor:
+    x = _embed_tokens(params, batch["tokens"], cfg, ms)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         x = frontend.fuse_patches(params["vision_adapter"], x, batch["patch_embeds"])
     return x
 
 
 def _run_encoder(params: Params, cfg, flags: RunFlags, frame_embeds: torch.Tensor,
-                 shard: Optional[sharding.BatchShard]) -> torch.Tensor:
+                 shard: Optional[sharding.BatchShard], ms=None) -> torch.Tensor:
     """The encoder of an encoder–decoder model: the audio adapter over the
     frame embeddings, non-causal attention blocks, then ``enc_norm``."""
     x = frontend.embed_frames(params["audio_adapter"], frame_embeds.to(dtype_of(cfg)))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     for gi in range(cfg.n_enc_layers):
         gp = _group(params["enc_blocks"], gi)
-        x, _, _ = _block_apply_seq(gp["00_attn"], x, "attn", cfg, flags, positions, None, False, shard)
+        x, _, _ = _block_apply_seq(gp["00_attn"], x, "attn", cfg, flags, positions, None, False, shard, ms)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _encoder_out(params: Params, cfg, flags: RunFlags, batch: Dict[str, torch.Tensor],
-                 shard: Optional[sharding.BatchShard]) -> Optional[torch.Tensor]:
-    return _run_encoder(params, cfg, flags, batch["enc_embeds"], shard) if cfg.is_encdec else None
+                 shard: Optional[sharding.BatchShard], ms=None) -> Optional[torch.Tensor]:
+    return _run_encoder(params, cfg, flags, batch["enc_embeds"], shard, ms) if cfg.is_encdec else None
 
 
-def _lm_head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def _lm_head(params: Params, x: torch.Tensor, cfg, ms=None) -> torch.Tensor:
+    """The logits over the padded vocabulary: column-parallel on a rank
+    holding a slice of the vocabulary, then gathered over the model axis."""
+    vp = cfg.padded_vocab()
     if cfg.tie_embeddings:
-        return x @ params["embed"]["w"].T
-    return linear(params["lm_head"], x)  # the quantized head runs the bit-sliced GEMM
+        w = params["embed"]["w"]
+        if ms is None or w.shape[0] == vp:
+            return x @ w.T
+        return collectives.gather_from_model(collectives.copy_to_model(x, ms) @ w.T, -1, ms)
+    # the quantized head runs the bit-sliced GEMM
+    return tp_gathered(tp_linear(params["lm_head"], x, ms, cfg.d_model, vp), ms, vp)
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags = DEFAULT_FLAGS,
@@ -382,21 +450,21 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], fl
     ``rules`` this rank runs its rows of the global batch and returns the
     global logits and aux loss (not differentiable across ranks: the train
     step differentiates :func:`local_loss`)."""
-    shard = _shard_of(cfg, rules, batch["tokens"].shape[0])
+    shard, ms = _shard_of(cfg, rules, batch["tokens"].shape[0])
     if shard is None:
         return _forward(params, cfg, batch, flags, None)
-    logits, aux = _forward(params, cfg, shard.take(batch), flags, shard)
+    logits, aux = _forward(params, cfg, shard.take(batch), flags, shard, ms)
     return collectives.gather_rows(logits, shard), collectives.mean_over(aux, shard)
 
 
 def _forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags,
-             shard: Optional[sharding.BatchShard]) -> Tuple[torch.Tensor, torch.Tensor]:
+             shard: Optional[sharding.BatchShard], ms=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`forward` on this rank's rows ``batch``: their logits and this
     rank's aux loss."""
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    x = _embed_batch(params, cfg, batch)
-    enc_out = _encoder_out(params, cfg, flags, batch, shard)
+    x = _embed_batch(params, cfg, batch, ms)
+    enc_out = _encoder_out(params, cfg, flags, batch, shard, ms)
     positions = torch.arange(s, device=tokens.device)[None]
     aux = _zero(x.device)
     # Remat per block, as JAX's jax.checkpoint around each block: the
@@ -406,32 +474,35 @@ def _forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], f
     for gi in range(cfg.pattern_groups()):
         gp = _group(params["blocks"], gi)
         for i, kind in enumerate(cfg.block_pattern):
-            args = (gp[f"{i:02d}_{kind}"], x, kind, cfg, flags, positions, enc_out, shard)
+            args = (gp[f"{i:02d}_{kind}"], x, kind, cfg, flags, positions, enc_out, shard, ms)
             if remat:
                 x, a = checkpoint(_one_block, *args, use_reentrant=False, preserve_rng_state=False)
             else:
                 x, a = _one_block(*args)
             aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _lm_head(params, x, cfg), aux
+    return _lm_head(params, x, cfg, ms), aux
 
 
 def _one_block(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, flags: RunFlags, positions: torch.Tensor,
-               enc_out: Optional[torch.Tensor], shard: Optional[sharding.BatchShard]) -> Tuple[torch.Tensor, torch.Tensor]:
+               enc_out: Optional[torch.Tensor], shard: Optional[sharding.BatchShard],
+               ms=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One causal block of :func:`forward`: (x_out, aux loss)."""
-    x, _, a = _block_apply_seq(p, x, kind, cfg, flags, positions, enc_out, True, shard)
+    x, _, a = _block_apply_seq(p, x, kind, cfg, flags, positions, enc_out, True, shard, ms)
     return x, a
 
 
 def local_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags,
-               shard: Optional[sharding.BatchShard]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               shard: Optional[sharding.BatchShard], ms=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, ce, aux) of this rank's rows ``batch``, such that the sums over
     the data shards are the global ``loss`` and ``ce`` and ``dp`` times the
     global ``aux``: ce is the rows' summed token cross-entropy over the
     global token count, and the loss adds ``0.01 · aux / dp``.  Summing its
     gradients over the data axes gives the gradients of the global loss.
-    Without ``shard``, :func:`loss_fn`'s values."""
-    logits, aux = _forward(params, cfg, batch, flags, shard)
+    Without ``shard``, :func:`loss_fn`'s values.  On a model axis (``ms``)
+    every rank of it computes the same loss from the gathered logits, and
+    the gradients of the leaves it holds slices of are those slices'."""
+    logits, aux = _forward(params, cfg, batch, flags, shard, ms)
     total, count = cross_entropy_sum(logits, batch["labels"], cfg.vocab_size)
     if shard is None or not shard.sharded:
         return total / count + 0.01 * aux, total / count, aux
@@ -444,11 +515,11 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], fl
     """(ce + 0.01 · aux, {"ce": ce, "aux": aux}) over ``batch["labels"]``.
     Under ``rules``, JAX's global values: the summed token losses and the
     aux losses of every rank's rows reduced over the data axes."""
-    shard = _shard_of(cfg, rules, batch["tokens"].shape[0])
+    shard, ms = _shard_of(cfg, rules, batch["tokens"].shape[0])
     if shard is None:
         loss, ce, aux = local_loss(params, cfg, batch, flags, None)
         return loss, {"ce": ce, "aux": aux}
-    _, ce, aux = local_loss(params, cfg, shard.take(batch), flags, shard)
+    _, ce, aux = local_loss(params, cfg, shard.take(batch), flags, shard, ms)
     if shard.sharded:
         ce = collectives.all_reduce_(ce.detach().clone(), shard.group)
         aux = collectives.mean_over(aux.detach(), shard)
@@ -504,16 +575,32 @@ def _host_pos(pos: int) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, flags: RunFlags = DEFAULT_FLAGS, *,
-               device: Any = "cuda") -> Params:
+               device: Any = "cuda", rules: Any = None) -> Params:
     """Decode cache: stacked (G, ...) per pattern position, plus the
-    position, an int32 scalar on the host."""
+    position, an int32 scalar on the host.  Under ``rules``, this rank's
+    shard of it by ``serve.engine.cache_specs`` (with ``seq_sharded``
+    naming the leaves whose rows are split, as :func:`prefill` gives it)."""
     dev = _device(device)
     g = cfg.pattern_groups()
-    return {
+    cache = {
         "pos": _host_pos(0),
         "blocks": {f"{i:02d}_{kind}": _cache_entry_shape(cfg, kind, batch, max_len, flags, (g,), dev)
                    for i, kind in enumerate(cfg.block_pattern)},
     }
+    if rules is None:
+        return cache
+    check_supported(cfg, rules)
+    seq = {}
+    for key, entry in cache["blocks"].items():
+        for name, leaf in entry.items():
+            spec = sharding.P(None, *sharding.cache_entry_spec(tuple(leaf.shape[1:]), cfg, rules,
+                                                               seq_shard_kv=flags.seq_shard_kv))
+            entry[name] = sharding.shard_leaf(leaf, spec, rules)
+            if spec[2] == rules.tp_axis:
+                seq.setdefault(key, {})[name] = _host_pos(leaf.shape[2])
+    if seq:
+        cache["seq_sharded"] = seq
+    return cache
 
 
 def cache_shape(cfg: ModelConfig, batch: int, max_len: int, flags: RunFlags = DEFAULT_FLAGS) -> Params:
@@ -562,25 +649,53 @@ def _seq_cache_to_decode_cache(entries: Params, kind: str, cfg, s: int, max_len:
     return out
 
 
+_KV_LEAVES = ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v")
+
+
+def _shard_rows(blocks: Params, cfg: ModelConfig, flags: RunFlags, rules: sharding.MeshRules,
+                ms: sharding.ModelShard, batch: int) -> Params:
+    """Cut each stacked cache leaf that ``cache_entry_spec`` shards by rows
+    on the model axis to this rank's rows, in place; returns
+    ``{block: {leaf: global rows}}`` of the leaves cut.  The spec is taken
+    of the global entry shape: the global batch, and all KV heads where this
+    rank holds its slice of them."""
+    seq = {}
+    for key, entry in blocks.items():
+        for name, leaf in entry.items():
+            shape = [batch, *leaf.shape[2:]]
+            if name in _KV_LEAVES and cfg.n_kv_heads % ms.tp == 0 and shape[2] * ms.tp == cfg.n_kv_heads:
+                shape[2] = cfg.n_kv_heads
+            spec = sharding.cache_entry_spec(tuple(shape), cfg, rules, seq_shard_kv=flags.seq_shard_kv)
+            if spec[1] == rules.tp_axis:
+                c = leaf.shape[2] // ms.tp
+                entry[name] = leaf.narrow(2, ms.index * c, c).clone()
+                seq.setdefault(key, {})[name] = _host_pos(leaf.shape[2])
+    return seq
+
+
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags = DEFAULT_FLAGS,
             rules: Any = None, max_len: Optional[int] = None) -> Tuple[Params, torch.Tensor]:
     """Run the prompt, return (cache, last-token logits).  Under ``rules``
     this rank runs its rows of the global batch: the cache is its shard
     (``serve.engine.cache_specs``), the logits the global ones."""
-    shard = _shard_of(cfg, rules, batch["tokens"].shape[0])
+    shard, ms = _shard_of(cfg, rules, batch["tokens"].shape[0])
     if shard is None:
         return _prefill(params, cfg, batch, flags, None, max_len)
-    cache, logits = _prefill(params, cfg, shard.take(batch), flags, shard, max_len)
+    cache, logits = _prefill(params, cfg, shard.take(batch), flags, shard, max_len, ms)
+    if ms is not None and flags.seq_shard_kv:
+        seq = _shard_rows(cache["blocks"], cfg, flags, rules, ms, shard.batch)
+        if seq:
+            cache["seq_sharded"] = seq
     return cache, collectives.gather_rows(logits, shard)
 
 
 def _prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags,
-             shard: Optional[sharding.BatchShard], max_len: Optional[int]) -> Tuple[Params, torch.Tensor]:
+             shard: Optional[sharding.BatchShard], max_len: Optional[int], ms=None) -> Tuple[Params, torch.Tensor]:
     tokens = batch["tokens"]
     s = tokens.shape[1]
     max_len = max_len or s
-    x = _embed_batch(params, cfg, batch)
-    enc_out = _encoder_out(params, cfg, flags, batch, shard)
+    x = _embed_batch(params, cfg, batch, ms)
+    enc_out = _encoder_out(params, cfg, flags, batch, shard, ms)
     positions = torch.arange(s, device=tokens.device)[None]
     per_group = []
     for gi in range(cfg.pattern_groups()):
@@ -588,13 +703,13 @@ def _prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], f
         entries = {}
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
-            x, new, _ = _block_apply_seq(gp[key], x, kind, cfg, flags, positions, enc_out, True, shard)
+            x, new, _ = _block_apply_seq(gp[key], x, kind, cfg, flags, positions, enc_out, True, shard, ms)
             entries[key] = _seq_cache_to_decode_cache(new, kind, cfg, s, max_len, flags)
         per_group.append(entries)
     blocks = {key: {n: torch.stack([e[key][n] for e in per_group]) for n in per_group[0][key]}
               for key in per_group[0]}
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = _lm_head(params, x[:, -1:], cfg)[:, 0]
+    logits = _lm_head(params, x[:, -1:], cfg, ms)[:, 0]
     return {"pos": _host_pos(s), "blocks": blocks}, logits
 
 
@@ -608,18 +723,17 @@ def _write_row(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
     cache[:, slot:slot + 1] = new
 
 
-def _attn_decode(p: Params, h: torch.Tensor, cfg, entry: Params, pos: int, kind: str) -> torch.Tensor:
+def _attn_decode(p: Params, h: torch.Tensor, cfg, entry: Params, pos: int, kind: str, ms=None) -> torch.Tensor:
     """One token of attention; writes its K/V row into ``entry`` (a group's
     views of the step's fresh cache) in place and returns the block output.
 
     ``local_attn`` keeps a ring of ``w`` rows: the row goes to slot
     ``pos % w`` and the ``min(pos + 1, w)`` rows from slot 0 are live (RoPE
-    was applied at insert, so their order does not matter)."""
+    was applied at insert, so their order does not matter).  On a model
+    axis the rank attends with its query heads over the KV heads they need
+    (under ``quant_kv`` the row-dot kernel scores only that slab)."""
     b = h.shape[0]
-    hd = cfg.resolved_head_dim
-    q = linear(p["wq"], h).reshape(b, 1, cfg.n_heads, hd)
-    k = linear(p["wk"], h).reshape(b, 1, cfg.n_kv_heads, hd)
-    v = linear(p["wv"], h).reshape(b, 1, cfg.n_kv_heads, hd)
+    q, k, v = _qkv(p, h, cfg, ms)
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
@@ -637,21 +751,22 @@ def _attn_decode(p: Params, h: torch.Tensor, cfg, entry: Params, pos: int, kind:
         vq, vs = quantize_kv(v, KV_SPEC)
         for n, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
             _write_row(entry[n], new, slot)
-        out = decode_attention_int8(q, entry["k"], entry["v"], entry["k_scale"], entry["v_scale"], valid,
-                                    KV_SPEC)
+        kq, vq, ks, vs = _local_kv((entry["k"], entry["v"], entry["k_scale"], entry["v_scale"]), cfg, ms,
+                                   q.shape[2])
+        out = decode_attention_int8(q, kq, vq, ks, vs, valid, KV_SPEC)
     else:
         _write_row(entry["k"], k, slot)
         _write_row(entry["v"], v, slot)
-        out = decode_attention(q, entry["k"], entry["v"], valid)
-    return linear(p["wo"], out.reshape(b, 1, cfg.q_dim))
+        out = decode_attention(q, *_local_kv((entry["k"], entry["v"]), cfg, ms, q.shape[2]), valid)
+    return _attn_out(p, out, cfg, ms)
 
 
-def _cross_decode(p: Params, hx: torch.Tensor, cfg, entry: Params) -> torch.Tensor:
+def _cross_decode(p: Params, hx: torch.Tensor, cfg, entry: Params, ms=None) -> torch.Tensor:
     """One token of cross-attention over the cached encoder K/V."""
-    b = hx.shape[0]
-    xq = linear(p["wq"], hx).reshape(b, 1, cfg.n_heads, cfg.resolved_head_dim)
-    out = decode_attention(xq, entry["cross_k"], entry["cross_v"])
-    return linear(p["wo"], out.reshape(b, 1, cfg.q_dim))
+    b, _, d = hx.shape
+    xq = tp_linear(p["wq"], hx, ms, d, cfg.q_dim).reshape(b, 1, -1, cfg.resolved_head_dim)
+    out = decode_attention(xq, *_local_kv((entry["cross_k"], entry["cross_v"]), cfg, ms, xq.shape[2]))
+    return _attn_out(p, out, cfg, ms)
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: torch.Tensor,
@@ -663,19 +778,24 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: torch.T
     block's new state over its clone.  ``cache["pos"]`` is read once, on the
     host (see :func:`init_cache`).  Under ``rules`` the tokens are the
     global batch's, the cache this rank's shard (as :func:`prefill` returns
-    it) and the logits the global ones."""
-    shard = _shard_of(cfg, rules, tokens.shape[0])
+    it) and the logits the global ones.  The leaves ``cache["seq_sharded"]``
+    names hold this rank's rows: the step gathers them over the model axis,
+    runs, and keeps this rank's rows of the new cache."""
+    shard, ms = _shard_of(cfg, rules, tokens.shape[0])
     if shard is None:
         return _decode_step(params, cfg, cache, tokens, flags, None)
-    new_cache, logits = _decode_step(params, cfg, cache, shard.take({"t": tokens})["t"], flags, shard)
+    new_cache, logits = _decode_step(params, cfg, cache, shard.take({"t": tokens})["t"], flags, shard, ms)
     return new_cache, collectives.gather_rows(logits, shard)
 
 
 def _decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: torch.Tensor, flags: RunFlags,
-                 shard: Optional[sharding.BatchShard]) -> Tuple[Params, torch.Tensor]:
+                 shard: Optional[sharding.BatchShard], ms=None) -> Tuple[Params, torch.Tensor]:
     pos = int(cache["pos"])
-    x = _embed_tokens(params, tokens, cfg)
-    blocks = _tree_map(torch.clone, cache["blocks"])
+    x = _embed_tokens(params, tokens, cfg, ms)
+    seq = cache.get("seq_sharded", {})
+    blocks = {key: {n: (collectives.all_gather_dim(leaf, 2, ms.tp, ms.group) if n in seq.get(key, ()) else
+                        leaf.clone()) for n, leaf in entry.items()}
+              for key, entry in cache["blocks"].items()}
     for gi in range(cfg.pattern_groups()):
         gp, gc = _group(params["blocks"], gi), _group(blocks, gi)
         for i, kind in enumerate(cfg.block_pattern):
@@ -683,17 +803,25 @@ def _decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: torch.
             p, entry = gp[key], gc[key]
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
             if kind in ("attn", "local_attn"):
-                y = _attn_decode(p["attn"], h, cfg, entry, pos, kind)
+                y = _attn_decode(p["attn"], h, cfg, entry, pos, kind, ms)
             else:
-                y, st = _MIXER_APPLY[kind](p["mixer"], h, cfg, entry)
+                y, st = _MIXER_APPLY[kind](p["mixer"], h, cfg, entry, ms=ms)
                 for n, leaf in st.items():
                     entry[n].copy_(leaf)
             x = x + y
             if "cross" in p:
-                x = x + _cross_decode(p["cross"], rmsnorm(p["lnx"], x, cfg.norm_eps), cfg, entry)
+                x = x + _cross_decode(p["cross"], rmsnorm(p["lnx"], x, cfg.norm_eps), cfg, entry, ms)
             if "ffn" in p:
-                y2, _ = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, flags, shard)
+                y2, _ = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, flags, shard, ms)
                 x = x + y2
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = _lm_head(params, x, cfg)[:, 0]
-    return {"pos": _host_pos(pos + 1), "blocks": blocks}, logits
+    logits = _lm_head(params, x, cfg, ms)[:, 0]
+    new = {"pos": _host_pos(pos + 1), "blocks": blocks}
+    for key, names in seq.items():
+        for n in names:
+            leaf = blocks[key][n]
+            c = leaf.shape[2] // ms.tp
+            blocks[key][n] = leaf.narrow(2, ms.index * c, c).clone()
+    if seq:
+        new["seq_sharded"] = seq
+    return new, logits

@@ -8,14 +8,21 @@ AdamW under the config's schedule.  The step consumes the state it is given
 (the moments and master weights are updated in place, as JAX's trainer
 donates its train state) and returns the new one.
 
-Under sharding ``rules`` (a data-parallel ``MeshRules``, ROADMAP S13) the
-step is SPMD over the process group: each rank takes its rows of the global
-batch (:func:`batch_specs_tree`), forms its share of JAX's global loss (its
-summed token losses over the global token count), and the gradients are
-summed over the data axes.  Under ``RunFlags.zero1`` each rank keeps the
-moments and master weights only for its :func:`zero1_spec` shard of each
-leaf (:func:`shard_train_state`), updates that shard and gathers the new
-parameters; :func:`gather_train_state` gives back the global layout.
+Under sharding ``rules`` (a ``MeshRules`` on a process mesh, ROADMAP S13
+and S13b) the step is SPMD over the process group: each rank takes its rows
+of the global batch (:func:`batch_specs_tree`), forms its share of JAX's
+global loss (its summed token losses over the global token count), and the
+gradients are summed over the data axes.  On a model axis wider than one a
+rank holds its slices of the leaves ``param_specs`` shards, with their
+moments and master weights: their gradients stay its slices', those of the
+replicated leaves come out equal on every rank of the axis (the model's
+conjugate collectives), and the clipping norm adds the slices' squares over
+the axis.  Under ``RunFlags.zero1`` each rank keeps the moments and master
+weights only for its :func:`zero1_spec` shard of each leaf, cut from its
+model-axis slice, updates that shard and gathers the new parameters over
+the data axes.  :func:`shard_train_state` cuts a global state to a rank's
+(:func:`init_train_state` builds one without the global moments) and
+:func:`gather_train_state` gives back the global layout.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import collectives, sharding
-from repro_torch.dist.sharding import MeshRules, P, param_specs
+from repro_torch.dist.sharding import MeshRules, P, gather_leaf, param_specs, shard_leaf, shard_params
 from repro_torch.models import transformer
 from repro_torch.models.runtime import DEFAULT_FLAGS, RunFlags
 from repro_torch.train.optimizer import (
@@ -132,19 +139,36 @@ def _gather(x: torch.Tensor, spec: P, rules: MeshRules) -> torch.Tensor:
     return collectives.all_gather_dim(x, d, rules.dp, sharding.data_group(rules))
 
 
+def _map_state(fn, state: Dict[str, Any], specs: Dict[str, Any]) -> Dict[str, Any]:
+    """``fn(leaf, spec)`` over the parameters and optimizer leaves of a train
+    state (``count`` and ``step`` as they are)."""
+    opt = {k: (v if k == "count" else tree_map(fn, v, specs["opt"][k])) for k, v in state["opt"].items()}
+    return {"params": tree_map(fn, state["params"], specs["params"]), "opt": opt, "step": state["step"]}
+
+
 def shard_train_state(state: Dict[str, Any], specs: Dict[str, Any], rules: MeshRules) -> Dict[str, Any]:
-    """This rank's train state from the global one: each optimizer leaf cut
-    to its shard of ``specs`` (:func:`train_state_specs` under ZeRO-1); the
-    parameters, ``count`` and ``step`` stay whole."""
-    opt = {k: (v if k == "count" else tree_map(lambda x, sp: _local(x, sp, rules), v, specs["opt"][k]))
-           for k, v in state["opt"].items()}
-    return {"params": state["params"], "opt": opt, "step": state["step"]}
+    """This rank's train state from the global one: each parameter and
+    optimizer leaf cut to its slice of ``specs`` (:func:`train_state_specs`)
+    on the model axis and, under ZeRO-1, the data axes; a leaf the specs do
+    not shard stays as it is."""
+    return _map_state(lambda x, sp: shard_leaf(x, sp, rules), state, specs)
 
 
 def gather_train_state(state: Dict[str, Any], specs: Dict[str, Any], rules: MeshRules) -> Dict[str, Any]:
     """The global train state from every rank's :func:`shard_train_state`
     (the layout checkpoints keep)."""
-    opt = {k: (v if k == "count" else tree_map(lambda x, sp: _gather(x, sp, rules), v, specs["opt"][k]))
+    return _map_state(lambda x, sp: gather_leaf(x, sp, rules), state, specs)
+
+
+def init_train_state(params: Any, cfg: ModelConfig, opt_cfg: AdamWConfig, specs: Optional[Dict[str, Any]],
+                     rules: Optional[MeshRules]) -> Dict[str, Any]:
+    """:func:`shard_train_state` of ``make_train_state(params)`` for the
+    global ``params``, made from this rank's slices of them, so that the
+    global moments and master weights are never held."""
+    if rules is None:
+        return make_train_state(params, opt_cfg)
+    state = make_train_state(shard_params(params, cfg, rules), opt_cfg)
+    opt = {k: (v if k == "count" else tree_map(lambda x, sp: _local(x, sp, rules), v, specs["opt"][k]))
            for k, v in state["opt"].items()}
     return {"params": state["params"], "opt": opt, "step": state["step"]}
 
@@ -155,7 +179,8 @@ def gather_train_state(state: Dict[str, Any], specs: Dict[str, Any], rules: Mesh
 
 
 def _grads_of(params: Any, cfg: ModelConfig, batch: Dict[str, torch.Tensor], flags: RunFlags,
-              shard: Optional[sharding.BatchShard] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
+              shard: Optional[sharding.BatchShard] = None,
+              ms: Optional[sharding.ModelShard] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """(loss, metrics, gradients) of ``local_loss`` at ``params`` on the rows
     ``batch``: JAX's ``value_and_grad(..., has_aux=True)`` (without
     ``shard``), or this rank's share of it.  A leaf the loss does not reach
@@ -165,7 +190,7 @@ def _grads_of(params: Any, cfg: ModelConfig, batch: Dict[str, torch.Tensor], fla
     it = iter(live)
     p = transformer._tree_map(lambda _: next(it), params)
     with torch.enable_grad():
-        loss, ce, aux = transformer.local_loss(p, cfg, batch, flags, shard)
+        loss, ce, aux = transformer.local_loss(p, cfg, batch, flags, shard, ms)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     it = iter(g if g is not None else torch.zeros_like(leaf) for g, leaf in zip(grads, leaves))
     return loss.detach(), {"ce": ce.detach(), "aux": aux.detach()}, transformer._tree_map(lambda _: next(it), params)
@@ -179,7 +204,7 @@ def _global_grads_of(params: Any, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     if rules is None:
         return _grads_of(params, cfg, batch, flags)
     shard = sharding.batch_shard(rules, batch["tokens"].shape[0])
-    loss, metrics, grads = _grads_of(params, cfg, shard.take(batch), flags, shard)
+    loss, metrics, grads = _grads_of(params, cfg, shard.take(batch), flags, shard, sharding.model_shard(rules))
     if not shard.sharded:  # every rank ran the whole batch
         return loss, metrics, grads
     grads = tree_map(torch.Tensor.contiguous, grads)
@@ -190,15 +215,30 @@ def _global_grads_of(params: Any, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     return loss, {"ce": ce, "aux": aux / shard.dp}, grads
 
 
+def _grad_norm(grads: Any, specs: Optional[Dict[str, Any]], rules: Optional[MeshRules]) -> Optional[torch.Tensor]:
+    """The global norm of the gradients of which this rank holds its
+    model-axis slices (each sliced leaf's sum of squares added over the
+    axis, in one call), in ``global_norm``'s order; None (``adamw_update``
+    takes it from the gradients) on a model axis of one."""
+    ms = sharding.model_shard(rules)
+    if ms is None:
+        return None
+    sums = torch.stack([torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(grads)])
+    split = torch.tensor([rules.tp_axis in tuple(sp) for sp in tree_leaves(specs["params"])], device=sums.device)
+    summed = collectives.all_reduce_(torch.where(split, sums, torch.zeros_like(sums)), ms.group)
+    return torch.sqrt(torch.sum(torch.where(split, summed, sums)))
+
+
 def _zero1_update(grads: Any, state: Dict[str, Any], opt_cfg: AdamWConfig, lr: torch.Tensor,
                   specs: Dict[str, Any], rules: MeshRules) -> Tuple[Any, Dict[str, Any]]:
     """AdamW on this rank's shard of each leaf (clipped by the global norm
     of the whole gradients), then the new parameters gathered."""
     leaf_specs = specs["opt"]["m"]
+    gnorm = _grad_norm(grads, specs, rules)
     shard = lambda x, sp: _local(x, sp, rules)  # noqa: E731
     new_shards, new_opt = adamw_update(tree_map(shard, grads, leaf_specs), state["opt"],
                                        tree_map(shard, state["params"], leaf_specs), opt_cfg, lr,
-                                       gnorm=global_norm(grads))
+                                       gnorm=global_norm(grads) if gnorm is None else gnorm)
     return _gather_consuming(new_shards, leaf_specs, rules), new_opt
 
 
@@ -222,11 +262,13 @@ def make_train_step(
 ) -> Callable[[Dict[str, Any], Dict[str, torch.Tensor]], Tuple[Dict[str, Any], Dict[str, torch.Tensor]]]:
     """``train_step(state, batch) -> (new_state, metrics)`` with metrics
     ``loss``, ``lr``, ``ce`` and ``aux``.  Under ``rules`` every rank calls
-    it with the same global batch and its own state (its ZeRO-1 shards under
-    ``flags.zero1``); the metrics are the global ones."""
+    it with the same global batch and its own state (its slices of the
+    leaves the model axis splits, and its ZeRO-1 shards under
+    ``flags.zero1``: :func:`shard_train_state`); the metrics are the global
+    ones."""
     transformer.check_supported(cfg, rules)
     sched = schedule_for(cfg, base_lr, total_steps)
-    specs = train_state_specs(cfg, rules, opt_cfg, flags) if rules is not None and flags.zero1 else None
+    specs = train_state_specs(cfg, rules, opt_cfg, flags) if rules is not None else None
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         k = flags.grad_accum
@@ -243,8 +285,9 @@ def make_train_step(
         else:
             loss, metrics, grads = _global_grads_of(state["params"], cfg, batch, flags, rules)
         lr = sched(state["step"])
-        if specs is None:
-            new_params, new_opt = adamw_update(grads, state["opt"], state["params"], opt_cfg, lr)
+        if not flags.zero1 or specs is None:
+            new_params, new_opt = adamw_update(grads, state["opt"], state["params"], opt_cfg, lr,
+                                               gnorm=_grad_norm(grads, specs, rules))
         else:
             new_params, new_opt = _zero1_update(grads, state, opt_cfg, lr, specs, rules)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}

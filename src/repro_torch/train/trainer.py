@@ -3,8 +3,9 @@ checkpoint/restart + heartbeat, wired together as in the JAX package's
 ``train/trainer.py``.  Runs on the card by default (``device="cuda"``), or on
 the CPU when asked (the tests, at ``reduced_config``).  Under sharding
 ``rules`` every rank of the process group runs this loop (SPMD): it draws
-the same global batch, the step keeps its rows, and rank 0 alone writes the
-checkpoints, in the global layout.
+the same global batch, the step keeps its rows, a rank holds its slices of
+the state on the model axis (and its ZeRO-1 shards), and rank 0 alone
+writes the checkpoints, in the global layout gathered over both axes.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from repro_torch.train.fault import HeartbeatMonitor
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.steps import (
     gather_train_state,
-    make_train_state,
+    init_train_state,
     make_train_step,
     shard_train_state,
     train_state_shape,
@@ -58,28 +59,29 @@ def train(
     """Train; returns {'state', 'history', 'resumed_from'}.  Parameters
     are ``init_params(cfg, loop.seed)`` on ``device`` (the port's draws, not
     JAX's), or the latest checkpoint in ``loop.ckpt_dir``, with the data
-    cursor it saved.  Under ``rules`` (a data-parallel ``MeshRules`` over
-    the process group) this is one rank's loop; its returned state is its
-    own (ZeRO-1 shards under ``flags.zero1``: ``steps.gather_train_state``
-    gives the global one).  A checkpoint restores at any dp."""
+    cursor it saved.  Under ``rules`` (a ``MeshRules`` over the process
+    group) this is one rank's loop; its returned state is its own (its
+    model-axis slices, and ZeRO-1 shards under ``flags.zero1``:
+    ``steps.gather_train_state`` gives the global one).  A checkpoint
+    restores at any (dp, tp)."""
     dev = api.resolve_device(device)
     opt_cfg = AdamWConfig(lr=loop.base_lr)
     step_fn = make_train_step(
         cfg, flags, rules, opt_cfg,
         base_lr=loop.base_lr, total_steps=loop.schedule_steps or loop.steps,
     )
-    specs = train_state_specs(cfg, rules, opt_cfg, flags) if rules is not None and flags.zero1 else None
+    specs = train_state_specs(cfg, rules, opt_cfg, flags) if rules is not None else None
     spmd = rules is not None and dist.is_initialized()
 
     start_step, extra = 0, {}
     if resume and loop.ckpt_dir and checkpoint.latest_step(loop.ckpt_dir) is not None:
         state, start_step, extra = checkpoint.restore(loop.ckpt_dir, train_state_shape(cfg, opt_cfg), device=dev)
         resumed = start_step
+        if specs is not None:
+            state = shard_train_state(state, specs, rules)
     else:
-        state = make_train_state(init_params(cfg, loop.seed, device=dev), opt_cfg)
+        state = init_train_state(init_params(cfg, loop.seed, device=dev), cfg, opt_cfg, specs, rules)
         resumed = None
-    if specs is not None:
-        state = shard_train_state(state, specs, rules)
 
     pipe = TokenPipeline(data_cfg, start_step=extra.get("data_step", start_step))
     monitor = HeartbeatMonitor(n_workers=1)

@@ -9,6 +9,12 @@ inputs from the spec's ``.npz`` and writes JAX's outputs, keyed by case, to
   forced (1, n) ("data", "model") mesh for each world size n of the spec.
 * ``train`` — one ``make_train_step`` under ``MeshRules.from_mesh`` of a
   forced (dp, 1) mesh, jitted, for each (config, flags, dp) of the spec.
+* ``tp_serve`` — for each case and mesh of the spec: the prefill step and
+  the decode steps of ``serve.engine`` under ``MeshRules.from_mesh`` of the
+  forced mesh, jitted, the parameters placed by ``param_specs``; float32
+  cases only (bfloat16 runs op by op in the test's own process).
+* ``tp_train`` — ``jit_train_step`` of each case on each forced mesh of the
+  spec, the state placed by its specs.
 """
 import json
 import os
@@ -86,10 +92,83 @@ def train(spec, inputs):
     return out
 
 
+def _placed(tree, specs, mesh):
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    return jax.device_put(tree, jax.tree_util.tree_map(lambda sp: NamedSharding(mesh, sp), specs,
+                                                       is_leaf=lambda x: isinstance(x, PartitionSpec)))
+
+
+def tp_serve(spec, inputs):
+    from repro.configs import get_config, reduced_config
+    from repro.dist.sharding import MeshRules, param_specs
+    from repro.models import common as jc
+    from repro.models import transformer as jt
+    from repro.models.runtime import RunFlags
+    from repro.serve import engine
+
+    out = {}
+    for case in spec["cases"]:
+        cfg = dataclasses.replace(reduced_config(get_config(case["arch"])), dtype="float32")
+        flags = RunFlags(**case["flags"])
+        params = jt.init_params(jax.random.key(0), cfg)
+        if flags.quant_serve:
+            params = jc.maybe_quantize_tree(params, cfg)
+        name = case["name"]
+        batch = {k[len(name) + 7:]: jnp.asarray(v) for k, v in inputs.items() if k.startswith(f"{name}/batch/")}
+        feed = inputs[f"{name}/feed"]
+        for shape in case["meshes"]:
+            if tuple(shape) not in [tuple(m) for m in spec["meshes"]]:
+                continue
+            mesh = _mesh(tuple(shape), ("data", "model"))
+            rules = MeshRules.from_mesh(mesh)
+            with mesh:
+                placed = _placed(params, param_specs(params, cfg, rules), mesh)
+                cache, logits = jax.jit(engine.make_prefill_step(cfg, flags, rules, max_len=spec["max_len"]))(
+                    placed, batch)
+                tag = f"{name}/{shape[0]}x{shape[1]}"
+                out[f"{tag}/prefill"] = logits
+                dec = jax.jit(engine.make_decode_step(cfg, flags, rules))
+                for i in range(feed.shape[0]):
+                    cache, logits = dec(placed, cache, jnp.asarray(feed[i]))
+                    out[f"{tag}/decode{i}"] = logits
+                for path, leaf in jax.tree_util.tree_flatten_with_path(cache["blocks"])[0]:
+                    out[f"{tag}/cache/" + "/".join(k.key for k in path)] = leaf
+    return out
+
+
+def tp_train(spec, inputs):
+    from repro.configs import get_config, reduced_config
+    from repro.dist.sharding import MeshRules
+    from repro.models import transformer as jt
+    from repro.models.runtime import RunFlags
+    from repro.train import steps as js
+
+    out = {}
+    for case in spec["cases"]:
+        cfg = dataclasses.replace(reduced_config(get_config(case["arch"])), dtype="float32")
+        flags = RunFlags(**case["flags"])
+        state = js.make_train_state(jt.init_params(jax.random.key(0), cfg), js.AdamWConfig())
+        batch = {k: jnp.asarray(inputs[f"{case['name']}/batch/{k}"]) for k in ("tokens", "labels")}
+        for shape in spec["meshes"]:
+            mesh = _mesh(tuple(shape), ("data", "model"))
+            rules = MeshRules.from_mesh(mesh)
+            with mesh:
+                step, sspecs = js.jit_train_step(cfg, rules, flags, donate=False)
+                new, metrics = step(_placed(state, sspecs, mesh), batch)
+            tag = f"{case['name']}/{shape[0]}x{shape[1]}"
+            for path, leaf in jax.tree_util.tree_flatten_with_path(new)[0]:
+                out[f"{tag}/state/" + "/".join(k.key for k in path)] = leaf
+            for k, v in metrics.items():
+                out[f"{tag}/metrics/{k}"] = v
+    return out
+
+
 if __name__ == "__main__":
     job, spec_path, out_path = sys.argv[1:4]
     spec = json.loads(open(spec_path).read())
     inputs = dict(np.load(spec["inputs"]))
-    results = {"collectives": collectives, "train": train}[job](spec, inputs)
+    results = {"collectives": collectives, "train": train, "tp_serve": tp_serve, "tp_train": tp_train}[job](
+        spec, inputs)
     np.savez(out_path, **{k: np.asarray(v) for k, v in results.items()})
     print("JAX_DIST_OK", len(results))

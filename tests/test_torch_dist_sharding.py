@@ -127,8 +127,8 @@ def test_model_runs_data_parallel_rules_and_refuses_tensor_parallel():
     want, _ = tt.forward(p, cfg, batch)
     got, aux = tt.forward(p, cfg, batch, rules=one)
     assert torch.equal(want, got) and float(aux) == 0.0
-    _, tp = rules_pair("4x4")
-    with pytest.raises(NotImplementedError, match="ROADMAP S13b"):
+    _, tp = rules_pair("4x4")  # a layout with no ranks: tensor-parallel rules run on a process mesh only
+    with pytest.raises(ValueError, match="make_host_mesh"):
         tt.forward(p, cfg, batch, rules=tp)
     with pytest.raises(TypeError, match="MeshRules"):
         tt.forward(p, cfg, batch, rules=object())

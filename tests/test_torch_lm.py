@@ -303,8 +303,10 @@ def test_qwen2_slice_equals_jax(dtype, quant_serve, quant_kv):
 
 
 def test_rules_raise_naming_s13():
-    """Data-parallel rules run (ROADMAP S13); a model axis wider than one
-    raises naming ROADMAP S13b, and rules that are no MeshRules TypeError."""
+    """Tensor-parallel rules run on a process mesh (ROADMAP S13b,
+    ``tests/test_torch_tp_serve.py``); a model axis wider than one on a mesh
+    with no ranks describes a layout and raises ValueError naming
+    ``make_host_mesh``, and rules that are no MeshRules TypeError."""
     from repro_torch.dist.sharding import MeshRules
     from repro_torch.launch.mesh import MeshDescription
 
@@ -312,7 +314,7 @@ def test_rules_raise_naming_s13():
     p = tt.init_params(tcfg, 0, device="cpu")
     batch = {"tokens": torch.ones((1, 8), dtype=torch.int32)}
     tp = MeshRules.from_mesh(MeshDescription((1, 2), ("data", "model")))
-    for rules, err, match in ((tp, NotImplementedError, "ROADMAP S13b"), (object(), TypeError, "MeshRules")):
+    for rules, err, match in ((tp, ValueError, "make_host_mesh"), (object(), TypeError, "MeshRules")):
         for call in (lambda: tt.forward(p, tcfg, batch, rules=rules),
                      lambda: tt.prefill(p, tcfg, batch, rules=rules),
                      lambda: tt.decode_step(p, tcfg, tt.init_cache(tcfg, 1, 8, device="cpu"),

@@ -170,15 +170,17 @@ def test_maybe_quantize_tree_bit_exact(arch):
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_rules_raise_naming_s13(arch):
     """check_supported runs every family without rules and under
-    data-parallel MeshRules (ROADMAP S13); it refuses a model axis wider
-    than one (ROADMAP S13b) and rules that are no MeshRules."""
+    data-parallel MeshRules (ROADMAP S13); tensor-parallel rules run on a
+    process mesh (ROADMAP S13b), while a model axis wider than one on a mesh
+    with no ranks raises ValueError naming ``make_host_mesh``; rules that
+    are no MeshRules raise TypeError."""
     from repro_torch.dist.sharding import MeshRules
     from repro_torch.launch.mesh import MeshDescription
 
     _, tcfg = configs(arch, "float32")
     tt.check_supported(tcfg)
     tt.check_supported(tcfg, rules=MeshRules.from_mesh(MeshDescription((8, 1), ("data", "model"))))
-    with pytest.raises(NotImplementedError, match=f"{arch}.*ROADMAP S13b"):
+    with pytest.raises(ValueError, match=f"{arch}.*make_host_mesh"):
         tt.check_supported(tcfg, rules=MeshRules.from_mesh(MeshDescription((2, 4), ("data", "model"))))
     with pytest.raises(TypeError, match=f"{arch}.*MeshRules"):
         tt.check_supported(tcfg, rules=object())

@@ -149,7 +149,7 @@ def test_routing_groups_rule_equals_jax(routing_groups, want, monkeypatch):
 
     _, tp, _, tcfg = _ffn("kimi-k2-1t-a32b")
     seen = []
-    monkeypatch.setattr(tt, "moe_ffn", lambda p, x, cfg, g: seen.append(g) or (x, torch.zeros(())))
+    monkeypatch.setattr(tt, "moe_ffn", lambda p, x, cfg, g, ms=None: seen.append(g) or (x, torch.zeros(())))
     tt._ffn_apply(tp, torch.zeros((2, 4, tcfg.d_model)), tcfg, RunFlags(routing_groups=routing_groups))
     assert seen == [want]
     jseen = []

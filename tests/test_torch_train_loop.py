@@ -186,15 +186,15 @@ def test_train_history_matches_jax_from_one_checkpoint(tmp_path):
 
 
 def test_train_refuses_rules_naming_s13():
-    """The trainer takes data-parallel rules (ROADMAP S13); a model axis
-    wider than one raises naming S13b, rules that are no MeshRules
-    TypeError."""
+    """The trainer takes rules on a process mesh (ROADMAP S13, S13b); a
+    model axis wider than one on a mesh with no ranks raises ValueError
+    naming ``make_host_mesh``, rules that are no MeshRules TypeError."""
     from repro_torch.dist.sharding import MeshRules
     from repro_torch.launch.mesh import MeshDescription
 
     _, cfg = _configs("qwen2-0.5b")
     tp = MeshRules.from_mesh(MeshDescription((1, 2), ("data", "model")))
-    for rules, err, match in ((tp, NotImplementedError, "S13b"), (object(), TypeError, "MeshRules")):
+    for rules, err, match in ((tp, ValueError, "make_host_mesh"), (object(), TypeError, "MeshRules")):
         with pytest.raises(err, match=match):
             ttrainer.train(cfg, TDataConfig(cfg.vocab_size, 8, 2), ttrainer.TrainLoopConfig(steps=1), rules=rules,
                            device="cpu")

@@ -86,13 +86,15 @@ def test_train_state_from_numpy_carries_every_leaf_bit_for_bit():
 
 
 def test_rules_raise_naming_s13():
-    """S13 gave the step its sharding functions; a model axis wider than one
-    raises naming S13b, rules that are no MeshRules TypeError."""
+    """S13 gave the step its sharding functions and S13b its tensor-parallel
+    execution on a process mesh; a model axis wider than one on a mesh with
+    no ranks raises ValueError naming ``make_host_mesh``, rules that are no
+    MeshRules TypeError."""
     from repro_torch.dist.sharding import MeshRules
     from repro_torch.launch.mesh import MeshDescription
 
     cfg = treduced(tget("qwen2-0.5b"))
-    with pytest.raises(NotImplementedError, match="S13b"):
+    with pytest.raises(ValueError, match="make_host_mesh"):
         tsteps.make_train_step(cfg, rules=MeshRules.from_mesh(MeshDescription((2, 2), ("data", "model"))))
     with pytest.raises(TypeError, match="MeshRules"):
         tsteps.make_train_step(cfg, rules=object())
