@@ -172,7 +172,22 @@ Phases, any failure of which exits non-zero:
       leaf by leaf and held to rank 0's 1-rank run (TP_TRAIN_TOL), one more
       step profiled (torch.profiler: device busy time, host-device copies,
       host time inside torch.distributed's ops); each rank's live parameter
-      and state bytes equal to the memory model's.
+      and state bytes equal to the memory model's.  Each serving step's
+      collective records (``collectives.collective_records``) go to 3p.
+   p. the dry run (after 3m; ``repro_torch.launch.dryrun``: a step run on
+      ``meta`` tensors as one rank of a fake process group, touching no
+      device) held to the live runs: 3j's 4 x 8 prefill and its decode step
+      at batch 4, and 3m's 8 x 64 training step, each predicted at mesh
+      (1, 1) and run once on the card from ``dryrun.live_step_args`` (random
+      weights from SEED), its kernel launches and argument and output bytes
+      equal to the prediction's; the prediction's peak (``MemTracker`` on
+      ``meta``) printed beside ``max_memory_allocated`` and its roofline
+      max(compute, memory) beside the step's time (DRYRUN_TIMED_STEPS calls,
+      host clock); the (1, TP_RANKS) dry run of 3o's serving steps on each
+      rank, its ``collective_stats`` (counts and operand bytes by op) equal
+      to 3o's live records; and DRYRUN_CLI_CELLS, one production cell of
+      each kind, through ``python -m repro_torch.launch.dryrun`` at
+      pod16x16 (exit 0, an ok record).
 
    Each of (c)–(g) runs again on CPU copies of its inputs (the plain
    versions); the bit-sliced kernel's output must equal its plain version's
@@ -4506,9 +4521,14 @@ def tp_checks(torch, dev, rank, smoke, out):
             dist.broadcast(tok, 0, group=None)  # the greedy tokens of the 1-rank prefill, to every rank
             api.reset_launch_counts()
             collectives.reset_call_counts()
-            with torch.no_grad(), rec:
+            records = {}  # what each step's collectives moved, held by phase 3p to the (1, 2) dry run
+            with torch.no_grad(), rec, collectives.recording_collectives():
+                collectives.reset_collective_records()
                 cache, lg = serve_engine.make_prefill_step(cfg, fl, rules, max_len=serve_cli.MAX_LEN)(local, batch)
+                records["prefill"] = [list(r) for r in collectives.collective_records()]
+                collectives.reset_collective_records()
                 _, lg2 = serve_engine.make_decode_step(cfg, fl, rules)(local, cache, tok.to(dev))
+                records["decode_step"] = [list(r) for r in collectives.collective_records()]
                 torch.cuda.synchronize()
             counts, calls = {k: v for k, v in api.launch_counts().items() if v}, collectives.call_counts()
             add("tp_serving", counts)
@@ -4524,7 +4544,8 @@ def tp_checks(torch, dev, rank, smoke, out):
                 want["rglru_scan"] = n_rglru
             if counts != want:
                 smoke.failures.append(f"{label}: launches {counts} != {want}")
-            run = {"launches": counts, "expected": want, "collective_calls": calls, "attention_layers": n_attn,
+            run = {"launches": counts, "expected": want, "collective_calls": calls, "collective_records": records,
+                   "attention_layers": n_attn,
                    "digests": {"prefill": tensor_sha256(torch, lg), "decode_step": tensor_sha256(torch, lg2)}}
             for name, x in (("prefill", lg), ("decode_step", lg2)):
                 if not bool(torch.isfinite(x).all()) or x.shape != (LLM_REQUESTS, cfg.padded_vocab()):
@@ -4750,6 +4771,202 @@ def tp_kernel_rows(torch, bm, att, smoke, tp_run, floor_ms, gpu):
             "plain_ms": plain_ms, "max_abs_err": err}
     heads = types.SimpleNamespace(n_kv_heads=1, n_heads=1)  # read for K6 rows only
     return recorded_kernel_rows(torch, bm, att, smoke, rec, heads, floor_ms, "tp2", "tp_serving", gpu)
+
+
+# ---------------------------------------------------------------------------
+# phase 3p: the dry run's predictions against the live runs
+# ---------------------------------------------------------------------------
+
+# one production cell of each kind through the dry run's CLI at pod16x16
+DRYRUN_CLI_CELLS = (("qwen2-0.5b", "train_4k"), ("recurrentgemma-2b", "prefill_32k"),
+                    ("recurrentgemma-2b", "long_500k"))
+DRYRUN_CLI_TIMEOUT_S = 300
+DRYRUN_TIMED_STEPS = 3  # the step timed after its counted call
+
+
+def dryrun_cells():
+    """Phase 3p's cells, ``(label, arch, cell, flags)``: 3j's 4 x 8 prefill
+    and its decode step at batch 4 on the launcher's MAX_LEN-row cache, 3m's
+    8 x 64 training step, each with its phase's run flags."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.train import TRAIN_FLAGS
+
+    sflags = serve_cli.serve_flags(cfg=get_config(LLM_ARCH))
+    return (
+        ("3j prefill", LLM_ARCH, ShapeCell("phase3p_prefill", "prefill", serve_cli.PROMPT_LEN, LLM_REQUESTS), sflags),
+        ("3j decode step", LLM_ARCH, ShapeCell("phase3p_decode", "decode", serve_cli.MAX_LEN, LLM_REQUESTS), sflags),
+        ("3m training step", TRAIN_ARCH, ShapeCell("phase3p_train", "train", TRAIN_SEQ, TRAIN_BATCH), TRAIN_FLAGS),
+    )
+
+
+def live_cell(torch, api, dryrun, cfg, cell, flags, dev):
+    """One cell's step on the card from ``dryrun.live_step_args`` (random
+    weights from SEED, no rules): its launches, argument and output bytes and
+    ``max_memory_allocated`` above what the card held before its arguments
+    in the counted call, then DRYRUN_TIMED_STEPS calls timed on the host
+    clock to the card's idle."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    step, args = dryrun.live_step_args(cfg, cell, None, flags, dev, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    api.reset_launch_counts()
+    with torch.no_grad():
+        out = step(*args)
+    torch.cuda.synchronize()
+    res = {"launches": {k: v for k, v in api.launch_counts().items() if v},
+           "argument_bytes": dryrun.tree_bytes(args), "output_bytes": dryrun.output_bytes(out),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev), "base_bytes": base}
+    res["peak_above_base"] = res["max_memory_allocated"] - base
+    del out
+    times = []
+    for _ in range(DRYRUN_TIMED_STEPS):
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        del out
+    res["step_ms"] = times
+    res["step_ms_median"] = median(sorted(times))
+    del step, args
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_collective_checks(torch, smoke, dryrun, tp_run):
+    """Phase 3o's live records against the (1, TP_RANKS) dry run of the same
+    steps on each rank of a fake group: counts and operand bytes by op."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.hlo_analysis import collective_stats
+    from repro_torch.launch.mesh import make_dryrun_mesh
+
+    ranks = [tp_run] + list(tp_run.get("ranks", []))
+    cells = {"prefill": ShapeCell("phase3o_prefill", "prefill", serve_cli.PROMPT_LEN, LLM_REQUESTS),
+             "decode_step": ShapeCell("phase3o_decode", "decode", serve_cli.MAX_LEN, LLM_REQUESTS)}
+    out = {}
+    for arch, layers in TP_SERVE.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        for quant_kv in (False, True):
+            fl = dataclasses.replace(serve_cli.serve_flags(cfg=cfg), quant_kv=quant_kv)
+            for r in range(TP_RANKS):
+                live_run = (ranks[r].get("serving", {}).get(arch, {}).get("runs", {}).get(f"quant_kv={quant_kv}", {})
+                            if r < len(ranks) else {})
+                with make_dryrun_mesh(shape=(1, TP_RANKS), rank=r) as mesh, torch.no_grad():
+                    rules = MeshRules.from_mesh(mesh)
+                    for name, cell in cells.items():
+                        step, args, *_ = dryrun._build_step_args(cfg, cell, rules, fl)
+                        pred = collective_stats(dryrun.count_step(step, args).records)
+                        del step, args
+                        got = live_run.get("collective_records", {}).get(name)
+                        live = collective_stats(collectives.CollectiveRecord(*x) for x in (got or []))
+                        key = f"{arch} quant_kv={quant_kv} rank {r} {name}"
+                        ok = got is not None and (pred.counts, pred.operand_bytes) == (live.counts, live.operand_bytes)
+                        out[key] = {"predicted": {"counts": pred.counts, "operand_bytes": pred.operand_bytes},
+                                    "live": {"counts": live.counts, "operand_bytes": live.operand_bytes}, "equal": ok}
+                        smoke.cases.append({"kernel": "dryrun", "case": f"phase 3p {key} collectives vs phase 3o",
+                                            "ok": ok, "exact": True})
+                        if not ok:
+                            smoke.failures.append(f"phase 3p {key}: the (1, {TP_RANKS}) dry run's collectives "
+                                                  f"{out[key]['predicted']} != phase 3o's live "
+                                                  f"{out[key]['live'] if got is not None else 'records: none'}")
+    return out
+
+
+def run_dryrun_phase(torch, api, smoke, dev, gpu, tp_run):
+    """Phase 3p (module docstring): the dry run (``repro_torch.launch.dryrun``,
+    meta tensors on a fake process group) predicts phase 3j's and 3m's steps
+    at mesh (1, 1) and phase 3o's collectives at (1, TP_RANKS); the live
+    steps on the card are held to its launches and argument and output
+    bytes, its peak and roofline printed beside the live ones; then one
+    production cell of each kind through the CLI at pod16x16."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dryrun_mesh
+
+    t_phase = time.perf_counter()
+    out = {"gpu": gpu, "cells": {}}
+    for label, arch, cell, flags in dryrun_cells():
+        cfg = get_config(arch)
+        live = live_cell(torch, api, dryrun, cfg, cell, flags, dev)
+        t = time.perf_counter()
+        with make_dryrun_mesh(shape=(1, 1)) as mesh, torch.no_grad():
+            pred = dryrun.run_cell(cfg, cell, MeshRules.from_mesh(mesh), flags, correction=False)
+        pred_s = time.perf_counter() - t
+        mem, rl = pred["memory"], pred["roofline"]
+        bound_ms = max(rl["compute_s"], rl["memory_s"]) * 1e3
+        res = {"arch": arch, "kind": cell.kind, "seq": cell.seq_len, "batch": cell.global_batch, "live": live,
+               "predicted": {"launches": pred["launches"], "argument_bytes": mem["argument_bytes_per_device"],
+                             "output_bytes": mem["output_bytes_per_device"], "peak_bytes": mem["peak_bytes_per_device"],
+                             "peak_from": mem["peak_from"], "analytic_peak": mem["analytic"]["analytic_peak_per_device"],
+                             "flops": pred["cost"]["flops"], "bytes_accessed": pred["cost"]["bytes_accessed"],
+                             "roofline": rl, "roofline_ms": bound_ms, "seconds": pred_s}}
+        for what, p, lv in (("launches", pred["launches"], live["launches"]),
+                            ("argument bytes", mem["argument_bytes_per_device"], live["argument_bytes"]),
+                            ("output bytes", mem["output_bytes_per_device"], live["output_bytes"])):
+            ok = p == lv
+            smoke.cases.append({"kernel": "dryrun", "case": f"phase 3p {label} {what} predicted vs live", "ok": ok,
+                                "exact": True})
+            if not ok:
+                smoke.failures.append(f"phase 3p {label}: predicted {what} {p} != live {lv}")
+        peak = mem["peak_bytes_per_device"]
+        print(f"phase 3p {label} ({arch}, {cell.kind} {cell.global_batch} x {cell.seq_len}, mesh (1, 1)): launches "
+              f"predicted {pred['launches']}, live {live['launches']}; argument bytes {mem['argument_bytes_per_device']} "
+              f"/ {live['argument_bytes']}, output bytes {mem['output_bytes_per_device']} / {live['output_bytes']}; "
+              f"peak predicted {'n/a' if peak is None else f'{peak / 2**30:.3f}'} GiB ({mem['peak_from']}), "
+              f"analytic {mem['analytic']['analytic_peak_per_device'] / 2**30:.3f} GiB, beside max_memory_allocated "
+              f"{live['peak_above_base'] / 2**30:.3f} GiB above the card's {live['base_bytes'] / 2**30:.3f} GiB before "
+              f"the arguments; roofline max(compute, memory) {bound_ms:.4f} ms (dominant {rl['dominant']}) beside the "
+              f"measured step {live['step_ms_median']:.3f} ms (median of {DRYRUN_TIMED_STEPS}, host clock); the dry "
+              f"run took {pred_s:.1f} s ({gpu})")
+        out["cells"][label] = res
+
+    # the CLI at pod16x16, its processes on the host's cores while the (1, 2) dry runs run here
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = {f"{arch} {shape}": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--mesh", "single",
+         "--no-save"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(ROOT), env=env)
+        for arch, shape in DRYRUN_CLI_CELLS}
+    t = time.perf_counter()
+    out["tp_collectives"] = tp_collective_checks(torch, smoke, dryrun, tp_run)
+    n_eq = sum(v["equal"] for v in out["tp_collectives"].values())
+    print(f"phase 3p: the (1, {TP_RANKS}) dry run's collective_stats equal to phase 3o's live records (counts and "
+          f"operand bytes by op) in {n_eq}/{len(out['tp_collectives'])} steps ({time.perf_counter() - t:.1f} s); "
+          + "; ".join(f"{k}: {v['predicted']['counts']}" for k, v in out["tp_collectives"].items()
+                      if k.endswith("rank 0 decode_step") and "quant_kv=False" in k))
+    out["cli"] = {}
+    for key, proc in cli.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=max(DRYRUN_CLI_TIMEOUT_S - (time.perf_counter() - t), 1))
+        except subprocess.TimeoutExpired:
+            for p in cli.values():
+                p.kill()
+            stdout, stderr = proc.communicate()
+            stderr = f"{stderr}\ntimed out after {DRYRUN_CLI_TIMEOUT_S} s"
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("[pod16x16]")]
+        ok = proc.returncode == 0 and len(lines) == 1 and " ok " in lines[0]
+        out["cli"][key] = {"rc": proc.returncode, "line": lines[0] if lines else None}
+        smoke.cases.append({"kernel": "dryrun", "case": f"phase 3p CLI {key} pod16x16", "ok": ok, "exact": True})
+        if not ok:
+            smoke.failures.append(f"phase 3p CLI {key}: exit {proc.returncode}: {stdout[-1000:]} {stderr[-2000:]}")
+        print(f"phase 3p CLI: {lines[0] if lines else stdout[-300:]}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 3p: {out['seconds']:.1f} s ({gpu})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5511,6 +5728,11 @@ def main() -> int:
     train = run_training_phase(torch, api, rg, smoke, dev, gpu, dist_run)
     path_launches["training"] = train["path_launches"]
 
+    # ---------------- phase 3p: the dry run's predictions against the live runs ----------------
+    dry = run_dryrun_phase(torch, api, smoke, dev, gpu, tp_run)
+    for label, c in dry["cells"].items():
+        path_launches[f"dryrun_live[{label}]"] = c["live"]["launches"]
+
 
     # ---------------- phase 4: timing ----------------
     library = {
@@ -5852,6 +6074,7 @@ def main() -> int:
         "training": {k: v for k, v in train.items() if k != "recorded"},
         "dist": {k: v for k, v in dist_run.items() if k not in ("cases", "failures")},
         "tp": tp_run,
+        "dryrun": dry,
     }, indent=1))
 
     if smoke.failures:
@@ -5898,7 +6121,16 @@ def main() -> int:
                              "training": {k: tp_run.get("training", {}).get(k) for k in (
                                  "layers", "launches_per_step", "collective_calls_per_step", "losses", "ref_losses",
                                  "loss_gap", "m_gap", "master_gap_lr", "peak_gib", "s_per_step", "profile")},
-                             "logits_3j_equal_1_rank": llm.get("tp_reference_equal")}}))
+                             "logits_3j_equal_1_rank": llm.get("tp_reference_equal")},
+                      "dryrun": {"seconds": dry["seconds"],
+                                 "cells": {label: {"predicted": {k: c["predicted"][k] for k in (
+                                     "launches", "argument_bytes", "output_bytes", "peak_bytes", "roofline_ms")},
+                                     "live": {k: c["live"][k] for k in (
+                                         "launches", "argument_bytes", "output_bytes", "peak_above_base",
+                                         "step_ms_median")}} for label, c in dry["cells"].items()},
+                                 "tp_collectives_equal": sum(v["equal"] for v in dry["tp_collectives"].values()),
+                                 "tp_collectives_steps": len(dry["tp_collectives"]),
+                                 "cli": dry["cli"]}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -22,25 +22,57 @@ and the serving steps call on the data axes; Megatron's conjugate pairs
 (:func:`copy_to_model`, :func:`reduce_from_model`,
 :func:`gather_from_model`, :func:`all_reduce_max`) are what the model calls
 on the model axis.  Every ``torch.distributed`` call is counted by its name,
-and every conjugate by its own (:func:`call_counts`).  A CUDA tensor goes
-only to an NCCL group and a CPU tensor only to a gloo one: anything else
-raises, so no collective runs on another device than asked.  The one
-exception is asked for by name: a gloo group registered by
-:func:`stage_through_host` (``launch.mesh.make_host_mesh(...,
+and every conjugate by its own (:func:`call_counts`); inside
+:func:`recording_collectives` each call also leaves a record of what it
+moves (:func:`collective_records`: the op under its HLO name, the operand
+bytes, the group size and the link the group crosses), which
+``launch.hlo_analysis.collective_stats`` turns into the JAX package's
+``CollectiveStats``.  A CUDA tensor goes only to an NCCL group, a CPU tensor
+only to a gloo one and a ``meta`` tensor only to a ``"fake"`` one (the dry
+run's, ``launch.mesh.make_dryrun_mesh``, which moves nothing): anything else
+raises, so no collective runs on another device than asked and no real run
+passes through a fake group.  The one exception is asked for by name: a gloo
+group registered by :func:`stage_through_host` (``launch.mesh.make_host_mesh(...,
 host_collectives=True)``, for several ranks sharing one card, where NCCL
 refuses) takes CUDA tensors, each call copying them to the host, running
 gloo there and copying the result back.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import contextlib
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 _CALLS: Dict[str, int] = {}
 
-_BACKEND_OF = {"cuda": "nccl", "cpu": "gloo"}
+_BACKEND_OF = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}
+
+# GPUs one NVLink domain holds: an HGX H100 node (NVIDIA DGX H100 data
+# sheet: 8 GPUs on NVSwitch); a group whose ranks span nodes crosses
+# InfiniBand.  Rank r lies in node r // GPUS_PER_NODE.
+GPUS_PER_NODE = 8
+
+
+class CollectiveRecord(NamedTuple):
+    """``count`` calls of one kind: the op under its HLO name
+    (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute`` for a send/recv pair), the bytes of the operand
+    this rank hands it (a gather's shard, a scatter's whole input), the
+    group's size and the link it crosses (``"nvlink"`` within a node,
+    ``"infiniband"`` across nodes)."""
+
+    op: str
+    operand_bytes: int
+    group_size: int
+    link: str
+    count: int
+
+
+_RECORDS: Dict[Tuple[str, int, int, str], int] = {}
+_recording = 0  # open recording_collectives scopes
+_LINKS: Dict[Any, str] = {}  # group_link of each group, while a scope is open
 
 # gloo groups whose CUDA tensors are staged through host memory (by
 # identity); forgotten once torch.distributed's process groups are destroyed
@@ -59,6 +91,55 @@ def reset_call_counts() -> None:
 
 def _count(name: str) -> None:
     _CALLS[name] = _CALLS.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_collectives() -> Iterator[None]:
+    """While the block runs, each ``torch.distributed`` call of this module
+    leaves its record (:func:`collective_records`); outside it none does,
+    and a call does no work for the records."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+        if not _recording:
+            _LINKS.clear()
+
+
+def collective_records() -> List[CollectiveRecord]:
+    """What each ``torch.distributed`` call of this module moved inside
+    :func:`recording_collectives` since the last
+    :func:`reset_collective_records`, equal calls merged (``count``), in the
+    order each kind first came."""
+    return [CollectiveRecord(*key, n) for key, n in _RECORDS.items()]
+
+
+def reset_collective_records() -> None:
+    _RECORDS.clear()
+
+
+def group_link(group) -> str:
+    """``"nvlink"`` when every rank of ``group`` lies in one node of
+    ``GPUS_PER_NODE`` GPUs, else ``"infiniband"``."""
+    nodes = {r // GPUS_PER_NODE for r in dist.get_process_group_ranks(group)}
+    return "nvlink" if len(nodes) == 1 else "infiniband"
+
+
+def _record(op: str, operand: torch.Tensor, group) -> None:
+    if not _recording:
+        return
+    link = _LINKS.get(group)
+    if link is None:
+        link = _LINKS[group] = group_link(group)
+    key = (op, operand.numel() * operand.element_size(), dist.get_world_size(group), link)
+    _RECORDS[key] = _RECORDS.get(key, 0) + 1
+
+
+def _fake(group) -> bool:
+    """Whether ``group`` is a fake process group (the dry run's)."""
+    return str(dist.get_backend(group)) == "fake"
 
 
 def stage_through_host(group) -> None:
@@ -80,8 +161,8 @@ def host_staged(group) -> bool:
 
 def _checked(group, *tensors: torch.Tensor):
     """``group``, after checking that its backend serves the tensors' device
-    (NCCL for CUDA, gloo for the CPU; gloo also for CUDA on a group that
-    :func:`stage_through_host` registered)."""
+    (NCCL for CUDA, gloo for the CPU, the fake backend for ``meta``; gloo
+    also for CUDA on a group that :func:`stage_through_host` registered)."""
     backend = str(dist.get_backend(group))
     staged = host_staged(group)
     for t in tensors:
@@ -121,9 +202,12 @@ def _exchange(send: torch.Tensor, to: int, frm: int, group) -> torch.Tensor:
     dev = send.device
     send = _host(send.contiguous(), group)
     recv = torch.empty_like(send)
+    _count("batch_isend_irecv")
+    _record("collective-permute", send, group)
+    if _fake(group):  # the fake backend pairs no sends with receives (it moves nothing anyway)
+        return recv
     ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, to), group),
            dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, frm), group)]
-    _count("batch_isend_irecv")
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return recv.to(dev)
@@ -218,6 +302,7 @@ def shuffle(x: torch.Tensor, mesh, axis: str, *, split_dim: int = 0) -> torch.Te
     hx = _host(xs, group)
     out = torch.empty_like(hx)
     _count("all_to_all_single")
+    _record("all-to-all", hx, group)
     dist.all_to_all_single(out, hx, group=group)
     return out.to(x.device).movedim(0, split_dim).contiguous()
 
@@ -233,6 +318,7 @@ def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     if group is not None:
         _count("all_reduce")
         h = _host(x, _checked(group, x))
+        _record("all-reduce", h, group)
         dist.all_reduce(h, op=op, group=group)
         if h is not x:
             x.copy_(h)
@@ -247,6 +333,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
     h = _host(x.contiguous(), _checked(group, x))
     out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=h.device)
     _count("all_gather_into_tensor")
+    _record("all-gather", h, group)
     dist.all_gather_into_tensor(out, h, group=group)
     out = out.to(x.device)
     return torch.cat(out.view(n, *x.shape).unbind(0), dim=dim) if dim else out

@@ -29,6 +29,19 @@ a run can show which kernels it went through; while an Executor captures a
 CUDA graph, its launches go to a :class:`LaunchLog` instead, which each
 replay of the graph adds (:func:`recording_launches`,
 :func:`replay_launches`).
+
+The kernels a dry run's steps reach (the bit-sliced GEMM, the row dot of
+q·Kᵀ, the RG-LRU scan and its gradient) also take ``meta`` operands, on an
+explicit route of their own (:func:`meta_operands`): the card's checks of
+dtypes, shapes and index range, then a ``meta`` output of the kernel's
+shape and dtype where the card would launch.  It launches nothing and
+counts no launch.  Inside :func:`kernels_as_units` each call of these
+kernels that the card would launch, on any device, notes its work
+(:func:`kernel_work`: one call, operations, and bytes as each input read
+once and each output written once), so a run counts each kernel as one
+unit, and a plain version runs outside the dispatch modes that count a
+step's PyTorch ops.  Outside it nothing is noted.  Nothing else takes
+``meta`` operands.
 """
 from __future__ import annotations
 
@@ -82,6 +95,13 @@ __all__ = [
     "tuning",
     "resolve_device",
     "kernel_device",
+    "meta_operands",
+    "noting_work",
+    "note_kernel_work",
+    "kernel_work",
+    "reset_kernel_work",
+    "kernels_as_units",
+    "plain_scope",
     "count_launch",
     "launch_counts",
     "reset_launch_counts",
@@ -517,6 +537,84 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     with _launch_lock:
         _launches.clear()
+
+
+# ---------------------------------------------------------------------------
+# kernel work, and the meta route
+# ---------------------------------------------------------------------------
+
+_work: Dict[str, List[float]] = {}
+# open kernels_as_units scopes, process-wide: a backward on the autograd
+# engine's device threads notes its kernels' work too
+_units_depth = 0
+
+
+def meta_operands(*tensors: torch.Tensor) -> bool:
+    """Whether every operand is a ``meta`` tensor: a wrapper with a meta
+    route takes it then (the card's checks, then a ``meta`` output where the
+    card would launch); any other mix of devices goes to
+    :func:`kernel_device`, which refuses ``meta``."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def noting_work() -> bool:
+    """Whether kernel calls note their work: inside :func:`kernels_as_units`
+    only, so a run outside it computes and notes nothing."""
+    return _units_depth > 0
+
+
+def note_kernel_work(kernel: str, ops: float, nbytes: float) -> None:
+    """Called by a kernel wrapper where the card would launch ``kernel``
+    (on any device) while :func:`noting_work`: one call doing ``ops``
+    operations (a multiply-add is two) and moving ``nbytes`` (each input
+    read once, each output written once)."""
+    if not noting_work():
+        return
+    with _launch_lock:
+        w = _work.setdefault(kernel, [0, 0.0, 0.0])
+        w[0] += 1
+        w[1] += ops
+        w[2] += nbytes
+
+
+def kernel_work() -> Dict[str, Dict[str, float]]:
+    """``{kernel: {"calls", "ops", "bytes"}}`` noted since the last
+    :func:`reset_kernel_work`, over every device (a meta call included):
+    ``calls`` is the launches the card makes for those calls."""
+    with _launch_lock:
+        return {k: {"calls": int(c), "ops": o, "bytes": b} for k, (c, o, b) in _work.items()}
+
+
+def reset_kernel_work() -> None:
+    with _launch_lock:
+        _work.clear()
+
+
+@contextlib.contextmanager
+def kernels_as_units() -> Iterator[None]:
+    """While the block runs, kernel calls note their work
+    (:func:`note_kernel_work`) and a kernel's plain version runs outside
+    every ``TorchDispatchMode`` (:func:`plain_scope`): a mode counting a
+    step's PyTorch ops sees a kernel call only by the work it notes, on the
+    CPU as on the card and on ``meta``."""
+    global _units_depth
+    with _launch_lock:
+        _units_depth += 1
+    try:
+        yield
+    finally:
+        with _launch_lock:
+            _units_depth -= 1
+
+
+def plain_scope():
+    """The scope a kernel wrapper runs its plain version in: outside the
+    dispatch modes inside :func:`kernels_as_units`, else no scope."""
+    if noting_work():
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        return _disable_current_modes()
+    return contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.api import count_launch, kernel_device, register_kernel
+from repro_torch.kernels.api import (count_launch, kernel_device, meta_operands, note_kernel_work, noting_work,
+                                     plain_scope, register_kernel)
 
 # the card's element types: int8 (and bool, for the selector) as 1 byte, int32 as 4
 _BYTES = {torch.int8: 1, torch.int32: 4}
@@ -332,16 +333,23 @@ def _pv_plain(p: torch.Tensor, v: torch.Tensor, shift: int) -> torch.Tensor:
 
 def _qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """``q (M, D) · k (T, D)ᵀ → (M, T)`` int32; the CUDA kernel for CUDA
-    tensors (the row dot of :func:`rowdot_plan`, or the generic kernel)."""
-    dev = kernel_device(q, k)
+    tensors (the row dot of :func:`rowdot_plan`, or the generic kernel);
+    for ``meta`` ones the card's checks, then a ``meta`` output.  Work:
+    2·M·T·D operations; q and k read, the output written."""
+    meta = meta_operands(q, k)
+    dev = q.device if meta else kernel_device(q, k)
+    (m, d), t = q.shape, k.shape[0]
+    if m * t and noting_work():
+        note_kernel_work("attention_qk", 2 * m * t * d,
+                         q.numel() * q.element_size() + k.numel() * k.element_size() + 4 * m * t)
     if dev.type == "cpu":
-        return _qk_plain(q, k)
+        with plain_scope():
+            return _qk_plain(q, k)
     qb, kb = _elem_bytes(q), _elem_bytes(k)
-    (m, d), (t, _) = q.shape, k.shape
     _index_range(m * t, t * d, m * d)
     q, k = q.contiguous(), k.contiguous()
     out = torch.empty((m, t), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
+    if out.numel() == 0 or meta:
         return out
     plan = rowdot_plan(t, d, m, kb, qb, (k.data_ptr(), q.data_ptr()))
     _build.launch("attention_qk", dev, q.data_ptr(), k.data_ptr(), out.data_ptr(), m, t, d, qb, kb, int(plan.vec),

@@ -28,7 +28,11 @@ from repro_torch.kernels.api import (
     count_launch,
     kernel_device,
     launch_record,
+    meta_operands,
     note_executed_pairs,
+    note_kernel_work,
+    noting_work,
+    plain_scope,
     register_kernel,
 )
 
@@ -111,15 +115,31 @@ def launched_path() -> Optional[str]:
 _bitslice_plain = ref.bitslice_pairs_ref
 
 
+def bitslice_work(x_shape, w_shape, slice_bits: int, pairs: Pairs, itemsize: int = 1) -> Tuple[int, int]:
+    """(operations, bytes) of one call: two operations (multiply, add) per
+    product of each computed pair; each slice a computed pair reads, read
+    once, and the int32 output written once.  A pair whose shift is 32 or
+    more adds 0 mod 2**32 and is not computed."""
+    (_, m, k), (_, _, n) = x_shape, w_shape
+    live = [(s, t) for s, t in pairs if slice_bits * (s + t) < 32]
+    nbytes = (len({s for s, _ in live}) * m * k + len({t for _, t in live}) * k * n) * itemsize + 4 * m * n
+    return 2 * m * k * n * len(live), nbytes
+
+
 def _bitslice_gemm(x: torch.Tensor, w: torch.Tensor, slice_bits: int, pairs: Pairs) -> torch.Tensor:
     """``Σ_{(s,t) in pairs} (x[s] @ w[t]) << (slice_bits·(s+t))`` of int8
-    slice stacks, int32 wrapping; the CUDA kernel for CUDA tensors."""
-    dev = kernel_device(x, w)
+    slice stacks, int32 wrapping; the CUDA kernel for CUDA tensors; for
+    ``meta`` ones the card's checks, then a ``meta`` output."""
+    meta = meta_operands(x, w)
+    dev = x.device if meta else kernel_device(x, w)
+    (sx, m, k), (sw, _, n) = x.shape, w.shape
+    if m * n and noting_work():
+        note_kernel_work("bitslice_matmul", *bitslice_work(x.shape, w.shape, slice_bits, pairs, x.element_size()))
     if dev.type == "cpu":
-        return _bitslice_plain(x, w, slice_bits, pairs)
+        with plain_scope():
+            return _bitslice_plain(x, w, slice_bits, pairs)
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"the bit-sliced GEMM takes int8 slice stacks, got {x.dtype} and {w.dtype}")
-    (sx, m, k), (sw, _, n) = x.shape, w.shape
     if max(sx, sw) > MAX_SLICES or len(pairs) > MAX_PAIRS:
         raise ValueError(f"the kernel takes at most {MAX_SLICES} slices per operand and "
                          f"{MAX_PAIRS} pairs, got {sx}, {sw} slices and {len(pairs)} pairs")
@@ -128,7 +148,7 @@ def _bitslice_gemm(x: torch.Tensor, w: torch.Tensor, slice_bits: int, pairs: Pai
             raise ValueError(f"shape {tuple(t.shape)} exceeds the kernel's index range")
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
+    if out.numel() == 0 or meta:
         return out
     # sorted by diagonal: the kernel sums each diagonal in one accumulator
     order = tuple(sorted(pairs, key=lambda p: (p[0] + p[1], p)))

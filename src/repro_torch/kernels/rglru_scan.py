@@ -34,7 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.api import count_launch, kernel_device, register_kernel
+from repro_torch.kernels.api import (count_launch, kernel_device, meta_operands, note_kernel_work, noting_work,
+                                     plain_scope, register_kernel)
 
 
 # csrc/rglru_scan.cu's constants
@@ -99,18 +100,24 @@ def _scan_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
 
 def _scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t·h_{t-1} + b_t`` over axis 1 of ``a, b (B, T, W)`` from
-    ``h0 (B, W)``; the CUDA kernel for CUDA tensors."""
-    dev = kernel_device(a, b, h0)
+    ``h0 (B, W)``; the CUDA kernel for CUDA tensors; for ``meta`` ones the
+    card's checks, then a ``meta`` output.  Work: one fma (two operations)
+    an element; a and b read, the output written, h0 read."""
+    meta = meta_operands(a, b, h0)
+    dev = a.device if meta else kernel_device(a, b, h0)
     if any(t.dtype != torch.float32 for t in (a, b, h0)):
         raise TypeError(f"rglru_scan takes float32 operands, got {a.dtype}, {b.dtype}, {h0.dtype}")
+    if a.numel() and noting_work():
+        note_kernel_work("rglru_scan", 2 * a.numel(), 4 * (3 * a.numel() + h0.numel()))
     if dev.type == "cpu":
-        return _scan_plain(a, b, h0)
+        with plain_scope():
+            return _scan_plain(a, b, h0)
     bsz, t, w = a.shape
     if a.numel() >= 2**31:
         raise ValueError(f"extent {a.numel()} exceeds the kernels' 32-bit index range")
     a, b, h0 = a.contiguous(), b.contiguous(), h0.contiguous()
     out = torch.empty_like(a)
-    if out.numel() == 0:
+    if out.numel() == 0 or meta:
         return out
     plan = rglru_plan(bsz, t, w, (a.data_ptr(), b.data_ptr()))
     _build.launch("rglru_scan_f32", dev, a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(),
@@ -141,13 +148,20 @@ def _scan_bwd(a: torch.Tensor, h0: torch.Tensor, hs: torch.Tensor, g: torch.Tens
               need_h0: bool) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The gradients of :func:`_scan` given ``g = ∂L/∂hs``: ``(∂a, ∂b, ∂h0
     or None)`` from ``a``, ``h0`` and the forward's ``hs``; the CUDA kernel
-    for CUDA tensors, in one launch."""
-    dev = kernel_device(a, h0, hs, g)
+    for CUDA tensors, in one launch; for ``meta`` ones the card's checks,
+    then ``meta`` outputs.  Work: three operations an element (the carried
+    fma, ∂a's product); a, hs and g read, ∂a and ∂b written, h0 read (and
+    ∂h0 written)."""
+    meta = meta_operands(a, h0, hs, g)
+    dev = a.device if meta else kernel_device(a, h0, hs, g)
     if any(t.dtype != torch.float32 for t in (a, h0, hs, g)):
         raise TypeError(f"rglru_scan's backward takes float32 operands, got {a.dtype}, {h0.dtype}, "
                         f"{hs.dtype}, {g.dtype}")
+    if a.numel() and noting_work():
+        note_kernel_work("rglru_scan_bwd", 3 * a.numel(), 4 * (5 * a.numel() + h0.numel() * (2 if need_h0 else 1)))
     if dev.type == "cpu":
-        return _scan_bwd_plain(a, h0, hs, g, need_h0)
+        with plain_scope():
+            return _scan_bwd_plain(a, h0, hs, g, need_h0)
     bsz, t, w = a.shape
     if a.numel() >= 2**31:
         raise ValueError(f"extent {a.numel()} exceeds the kernels' 32-bit index range")
@@ -155,6 +169,8 @@ def _scan_bwd(a: torch.Tensor, h0: torch.Tensor, hs: torch.Tensor, g: torch.Tens
     da, db = torch.empty_like(a), torch.empty_like(a)
     if a.numel() == 0:
         return da, db, torch.zeros_like(h0) if need_h0 else None
+    if meta:
+        return da, db, torch.empty_like(h0) if need_h0 else None
     dh0 = torch.empty_like(h0) if need_h0 else None
     plan = rglru_plan(bsz, t, w, (a.data_ptr(), hs.data_ptr(), h0.data_ptr(), g.data_ptr()))
     _build.launch("rglru_scan_bwd_f32", dev, a.data_ptr(), hs.data_ptr(), h0.data_ptr(), g.data_ptr(),

@@ -7,6 +7,10 @@ inter-tile rule: no cross-tile partial-sum reduction).
 
 :func:`make_production_mesh` describes such a mesh without ranks: the
 sharding specs, the input specs and the memory model read only its axes.
+:func:`make_dryrun_mesh` puts one rank of such a mesh on a fake process
+group (``torch.distributed``'s ``"fake"`` backend, which moves nothing and
+takes only ``meta`` tensors here): the dry run (``launch.dryrun``) runs a
+step on it as that rank, touching no device.
 :func:`make_host_mesh` builds a ``torch.distributed`` device mesh over the
 process group the caller initialised — NCCL on the card, gloo when the
 caller asks for the CPU, or gloo staged through host memory when the caller
@@ -16,7 +20,8 @@ not kept here: the card's are named beside their source where they are used.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+import contextlib
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -47,26 +52,78 @@ class ProcessMesh(MeshDescription):
         super().__init__(tuple(device_mesh.mesh.shape), device_mesh.mesh_dim_names)
         self.device_mesh = device_mesh
         self.device_type = device_type or device_mesh.device_type
+        self._flat: Dict[Tuple[str, ...], Any] = {}
 
-    @staticmethod
-    def _axis(axes: Union[str, Tuple[str, ...]]) -> str:
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        if len(axes) != 1:
-            raise ValueError(f"a host mesh has one data axis; got {axes}")
-        return axes[0]
+    def _flattened(self, axes: Tuple[str, ...]):
+        """The device mesh of several data axes flattened in row-major order
+        (("pod", "data") on the multi-pod mesh)."""
+        if "model" in axes:
+            raise ValueError(f"a process group spans one data axis, the data axes together or the model axis; "
+                             f"got {axes}")
+        if axes not in self._flat:
+            self._flat[axes] = self.device_mesh[axes]._flatten()
+        return self._flat[axes]
 
     def group(self, axes: Union[str, Tuple[str, ...]]):
-        """The process group of one axis ("data" or "model")."""
-        return self.device_mesh.get_group(self._axis(axes))
+        """The process group of one axis ("data" or "model"), or of the data
+        axes together."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        return self._flattened(axes).get_group()
 
     def coordinate(self, axes: Union[str, Tuple[str, ...]]) -> int:
-        return self.device_mesh.get_local_rank(self._axis(axes))
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if len(axes) == 1:
+            return self.device_mesh.get_local_rank(axes[0])
+        return self._flattened(axes).get_local_rank()
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshDescription:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return MeshDescription(shape, axes)
+    return MeshDescription(*_production_shape(multi_pod))
+
+
+def _production_shape(multi_pod: bool) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+@contextlib.contextmanager
+def make_dryrun_mesh(multi_pod: bool = False, rank: int = 0, *,
+                     shape: Optional[Tuple[int, ...]] = None) -> Iterator[ProcessMesh]:
+    """Rank ``rank`` of a production mesh (16×16, or 2×16×16 with
+    ``multi_pod``; or ``shape``, two axes ("data", "model") or three
+    ("pod", "data", "model")) on a fake process group, for the block:
+
+        with make_dryrun_mesh(rank=0) as mesh:
+            rules = MeshRules.from_mesh(mesh)
+
+    A fake group moves nothing and ``dist.collectives`` hands it only
+    ``meta`` tensors, so whatever runs on this mesh touches no device.
+    Refuses to start while a process group exists (a live run's), and
+    destroys its own when the block ends."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers the "fake" backend)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError(f"make_dryrun_mesh starts its own fake process group; one already exists "
+                           f"(backend {dist.get_backend()}, world {dist.get_world_size()})")
+    if shape is None:
+        shape, axes = _production_shape(multi_pod)
+    else:
+        shape = tuple(shape)
+        axes = {2: ("data", "model"), 3: ("pod", "data", "model")}[len(shape)]
+    n = 1
+    for v in shape:
+        n *= v
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} is not in a mesh of {n} ranks")
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank, world_size=n)
+    try:
+        yield ProcessMesh(init_device_mesh("cpu", shape, mesh_dim_names=axes), device_type="meta")
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(model: int = 1, *, device: Any = "cuda", host_collectives: bool = False) -> ProcessMesh:

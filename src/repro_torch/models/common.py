@@ -105,7 +105,7 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, vocab: int) ->
     lf = logits.to(torch.float32)
     if lf.shape[-1] > vocab:
         mask = torch.zeros(lf.shape[-1], dtype=torch.float32, device=lf.device)
-        mask[vocab:] = 1e9
+        mask.narrow(0, vocab, lf.shape[-1] - vocab).fill_(1e9)  # one op on every device, meta included
         lf = lf - mask
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]

@@ -112,6 +112,9 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, n_groups: int, ms=None) -> Tuple[to
     probs = torch.softmax(logits, dim=-1)  # (G, Tg, E)
     me = torch.mean(probs, dim=1)  # (G, E) router probability mass
     top1 = torch.argmax(logits, dim=-1)
-    ce = torch.mean(torch.nn.functional.one_hot(top1, e).to(torch.float32), dim=1)  # (G, E) dispatch mass
+    # one_hot's (G, Tg, E) by a compare: the same ops on every device (the
+    # CPU's one_hot reads the ids' range on the host first)
+    hot = (top1[..., None] == torch.arange(e, device=top1.device)).to(torch.float32)
+    ce = torch.mean(hot, dim=1)  # (G, E) dispatch mass
     aux = e * torch.mean(torch.sum(me * ce, dim=-1))
     return out.reshape(b, s, d), aux

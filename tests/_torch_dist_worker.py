@@ -21,6 +21,10 @@ the CPU, runs the job and writes its results, keyed by case, to
 * ``tp_train`` — for each mesh of the spec with WORLD ranks and each case,
   ``jit_train_step`` with ZeRO-1 off and on from JAX's initial state, the
   new state gathered; and the gradients through each conjugate collective.
+* ``dryrun_stats`` — for each mesh of the spec with WORLD ranks, each case
+  and each cell: the dry run's step (``launch.dryrun.live_step_args``) run
+  live under its ``MeshRules``, and the records of the collectives it made
+  (``collectives.collective_records``).
 """
 import json
 import sys
@@ -307,6 +311,30 @@ def tp_train(spec, inputs, world, rank):
     return out
 
 
+def dryrun_stats(spec, inputs, world, rank):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.models.runtime import RunFlags
+
+    out = {}
+    for shape in meshes_of(spec, world):
+        rules = MeshRules.from_mesh(make_host_mesh(shape[1], device="cpu"))
+        for case in spec["cases"]:
+            cfg = dataclasses.replace(reduced_config(get_config(case["arch"])), **case.get("cfg", {}))
+            flags = RunFlags(**case["flags"])
+            for c in case["cells"]:
+                cell = ShapeCell(*c)
+                step, args = dryrun.live_step_args(cfg, cell, rules, flags, "cpu")
+                tc.reset_collective_records()
+                with torch.no_grad(), tc.recording_collectives():
+                    step(*args)
+                out[f"{case['name']}/{cell.kind}/{shape[0]}x{shape[1]}"] = [tuple(r) for r in tc.collective_records()]
+    return out
+
+
 if __name__ == "__main__":
     job, spec_path, world, rank = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
     spec = json.loads(Path(spec_path).read_text())
@@ -314,7 +342,7 @@ if __name__ == "__main__":
     dist.init_process_group("gloo", init_method=f"file://{spec['rdzv']}", world_size=world, rank=rank)
     inputs = dict(np.load(spec["inputs"])) if spec.get("inputs") else {}
     result = {"collectives": collectives, "train": train, "trainer": trainer, "tp_serve": tp_serve,
-              "tp_train": tp_train}[job](spec, inputs, world, rank)
+              "tp_train": tp_train, "dryrun_stats": dryrun_stats}[job](spec, inputs, world, rank)
     torch.save(result, Path(spec["out"]) / f"rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()

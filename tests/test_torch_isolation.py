@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: ``repro_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor any module of the JAX package, and its entry
-points refuse to fall back to the CPU when the card was asked for."""
+"""The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither ``jax`` nor any
+module of the JAX package, and its entry points refuse to fall back to the
+CPU when the card was asked for."""
 import ast
 import os
 import subprocess
@@ -53,7 +54,8 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.train.steps", "repro_torch.train.checkpoint", "repro_torch.train.trainer",
             "repro_torch.launch.train", "repro_torch.dist", "repro_torch.dist.sharding",
             "repro_torch.dist.collectives", "repro_torch.launch.mesh", "repro_torch.launch.specs",
-            "repro_torch.launch.memory_model"} <= set(mods)
+            "repro_torch.launch.memory_model", "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -70,7 +72,8 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py"]
+                         + sorted(str(p.relative_to(REPO)) for p in (REPO / "examples").glob("torch_*.py")))
 def test_source_imports_nothing_of_jax_or_repro(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
