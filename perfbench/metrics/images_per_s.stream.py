@@ -1,0 +1,6 @@
+"""Images whose logits reached the host in the window, over the window: one image a call."""
+from perfbench.bench import readers
+
+
+def read(ctx):
+    return readers.rate(ctx)

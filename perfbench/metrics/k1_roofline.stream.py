@@ -1,0 +1,6 @@
+"""Per cent: K1's least time (work/resnet.py) over its device time in the trace. One image a call."""
+from perfbench.bench import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "K1")
