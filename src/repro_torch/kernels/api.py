@@ -23,11 +23,14 @@ simulator on the host), whose modeled cycles and energy
 :func:`last_sim_report` returns; its results return to the operands' device.
 A Program compiled inside the scope (or with ``backend="pimsab"``) lowers as
 one fused graph onto the same model.  Inside :func:`trace` a call is
-recorded instead of run.  Each kernel launch adds one to a
-per-kernel counter (:func:`launch_counts`, :func:`reset_launch_counts`), so
-a run can show which kernels it went through; while an Executor captures a
-CUDA graph, its launches go to a :class:`LaunchLog` instead, which each
-replay of the graph adds (:func:`recording_launches`,
+recorded instead of run.  Each kernel launch adds one to the
+counter ``launch.<kernel>`` of the port's counter registry
+(:mod:`repro_torch.obs`, which also holds the program's and the serving
+engine's counters); :func:`launch_counts` and :func:`reset_launch_counts`
+read and clear the launch counters alone, so a run can show which kernels
+it went through.  While an Executor captures a CUDA graph, the counts its
+thread takes (launches and the rest) go to a :class:`LaunchLog` instead,
+which each replay of the graph adds (:func:`recording_launches`,
 :func:`replay_launches`).
 
 The kernels a dry run's steps reach (the bit-sliced GEMM, the row dot of
@@ -56,6 +59,7 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import program as _program
 from repro_torch.kernels import ref
 from repro_torch.kernels.program import (
@@ -457,11 +461,7 @@ def kernel_device(*tensors: torch.Tensor) -> torch.device:
 # launch counters
 # ---------------------------------------------------------------------------
 
-_launches: Dict[str, int] = {}
-_launch_lock = threading.Lock()
-# ``.log``: the LaunchLog this thread's launches go to while it captures a
-# CUDA graph (a capture launches nothing; each replay launches it all)
-_capturing = threading.local()
+LAUNCH = "launch."  # a kernel's launch counter in the obs registry: LAUNCH + kernel
 # the thread-local records kernel wrappers leave at a launch (launch_record)
 _records: List[threading.local] = []
 
@@ -477,66 +477,60 @@ def launch_record() -> threading.local:
 
 @dataclass
 class LaunchLog:
-    """What one replay of a captured CUDA graph launches: the launches per
-    kernel its capture recorded, and the values the capture left in each
-    :func:`launch_record` (in their order of creation)."""
+    """What one replay of a captured CUDA graph launches: every count its
+    capture took (``obs`` counter names, launches under ``launch.<kernel>``)
+    and the values the capture left in each :func:`launch_record` (in their
+    order of creation)."""
 
-    counts: Dict[str, int]
+    taken: Dict[str, int] = dataclasses.field(default_factory=dict)
     records: Tuple[Dict[str, Any], ...] = ()
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        """The launches per kernel the capture recorded."""
+        return {k[len(LAUNCH):]: n for k, n in self.taken.items() if k.startswith(LAUNCH)}
 
 
 def count_launch(kernel: str) -> None:
     """Called by a kernel wrapper right after it launched ``kernel``."""
-    log = getattr(_capturing, "log", None)
-    if log is not None:
-        log.counts[kernel] = log.counts.get(kernel, 0) + 1
-        return
-    with _launch_lock:
-        _launches[kernel] = _launches.get(kernel, 0) + 1
+    obs.count(LAUNCH + kernel)
 
 
 @contextlib.contextmanager
 def recording_launches() -> Iterator[LaunchLog]:
-    """Send this thread's launch counts and launch records to a fresh
-    :class:`LaunchLog` while the block runs (a CUDA graph capture, which
-    launches nothing); afterwards the counters and records are as they were
-    before the block."""
-    if getattr(_capturing, "log", None) is not None:
-        raise RuntimeError("this thread already records its launches (one capture at a time)")
-    log = LaunchLog({})
+    """Send this thread's counts (launches and the rest) and launch records
+    to a fresh :class:`LaunchLog` while the block runs (a CUDA graph
+    capture, which launches nothing); afterwards the counters and records
+    are as they were before the block."""
     saved = [dict(r.__dict__) for r in _records]
-    for r in _records:
-        r.__dict__.clear()
-    _capturing.log = log
-    try:
-        yield log
-    finally:
-        _capturing.log = None
-        log.records = tuple(dict(r.__dict__) for r in _records)
-        for r, values in zip(_records, saved):
+    with obs.diverting_counts() as taken:
+        log = LaunchLog(taken)
+        for r in _records:
             r.__dict__.clear()
-            r.__dict__.update(values)
+        try:
+            yield log
+        finally:
+            log.records = tuple(dict(r.__dict__) for r in _records)
+            for r, values in zip(_records, saved):
+                r.__dict__.clear()
+                r.__dict__.update(values)
 
 
 def replay_launches(log: LaunchLog) -> None:
-    """Account for one replay of a captured graph: add the launches its
-    capture recorded and set each launch record as the capture left it."""
-    with _launch_lock:
-        for kernel, n in log.counts.items():
-            _launches[kernel] = _launches.get(kernel, 0) + n
+    """Account for one replay of a captured graph: add the counts its
+    capture took and set each launch record as the capture left it."""
+    obs.add_counts(log.taken)
     for r, values in zip(_records, log.records):
         r.__dict__.update(values)
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    with _launch_lock:
-        return dict(_launches)
+    return {k[len(LAUNCH):]: n for k, n in obs.counts(LAUNCH).items()}
 
 
 def reset_launch_counts() -> None:
-    with _launch_lock:
-        _launches.clear()
+    obs.reset_counts(LAUNCH)
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +538,7 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 _work: Dict[str, List[float]] = {}
+_work_lock = threading.Lock()
 # open kernels_as_units scopes, process-wide: a backward on the autograd
 # engine's device threads notes its kernels' work too
 _units_depth = 0
@@ -570,7 +565,7 @@ def note_kernel_work(kernel: str, ops: float, nbytes: float) -> None:
     read once, each output written once)."""
     if not noting_work():
         return
-    with _launch_lock:
+    with _work_lock:
         w = _work.setdefault(kernel, [0, 0.0, 0.0])
         w[0] += 1
         w[1] += ops
@@ -581,12 +576,12 @@ def kernel_work() -> Dict[str, Dict[str, float]]:
     """``{kernel: {"calls", "ops", "bytes"}}`` noted since the last
     :func:`reset_kernel_work`, over every device (a meta call included):
     ``calls`` is the launches the card makes for those calls."""
-    with _launch_lock:
+    with _work_lock:
         return {k: {"calls": int(c), "ops": o, "bytes": b} for k, (c, o, b) in _work.items()}
 
 
 def reset_kernel_work() -> None:
-    with _launch_lock:
+    with _work_lock:
         _work.clear()
 
 
@@ -598,12 +593,12 @@ def kernels_as_units() -> Iterator[None]:
     step's PyTorch ops sees a kernel call only by the work it notes, on the
     CPU as on the card and on ``meta``."""
     global _units_depth
-    with _launch_lock:
+    with _work_lock:
         _units_depth += 1
     try:
         yield
     finally:
-        with _launch_lock:
+        with _work_lock:
             _units_depth -= 1
 
 

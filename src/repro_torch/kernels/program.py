@@ -59,6 +59,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 __all__ = [
     "TraceError",
     "ProgramValue",
@@ -426,7 +428,11 @@ class TracedFunction:
         prog = self.trace(*args, **kwargs)
         ex = compile_program(prog)
         leaves, _ = tree_flatten((args, kwargs))
-        return ex._execute_leaves(leaves)
+        call = obs.call("program.call", program=prog.name) if obs.recording() else obs.NULL
+        with call:
+            out = ex._execute_leaves(leaves)
+            call.note("route", ex.replay)
+            return out
 
 
 def trace(fn: Callable[..., Any], *, name: Optional[str] = None) -> TracedFunction:
@@ -581,12 +587,15 @@ class _GraphReplay:
     def run(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
         from repro_torch.kernels import api
 
-        self.graph.follow_last_call()
-        torch._foreach_copy_(self.inputs, leaves)
-        self.graph.replay()
-        # fresh tensors, as a jitted call returns: the next replay rewrites the buffers
-        outputs = [o.clone() for o in self.outputs]
-        api.replay_launches(self.log)
+        with obs.span("program.copy_in"):
+            self.graph.follow_last_call()
+            torch._foreach_copy_(self.inputs, leaves)
+        with obs.span("program.replay"):
+            self.graph.replay()
+        with obs.span("program.copy_out"):
+            # fresh tensors, as a jitted call returns: the next replay rewrites the buffers
+            outputs = [o.clone() for o in self.outputs]
+            api.replay_launches(self.log)
         return outputs
 
 
@@ -624,6 +633,12 @@ class Executor:
     with one warning).  ``replay`` (``"graph"`` or ``"eager"``) and
     ``replay_reason`` tell the route of the last call and why.
 
+    With span recording on (:mod:`repro_torch.obs`, off by default) a call
+    records ``program.call`` (ids ``program`` and ``route``) around
+    ``program.check`` (flatten and aval check) and the route's spans:
+    ``program.eager``; ``program.capture`` after the first call's eager
+    run; or ``program.copy_in``, ``program.replay`` and ``program.copy_out``.
+
     A pimsab Executor (``backend == "pimsab"``) takes neither route: every
     call runs ``pimsab_backend.execute_traced_program`` on the host
     (``replay`` is ``"pimsab"``), whatever the scope and wherever the leaves
@@ -656,6 +671,16 @@ class Executor:
         self.states = dict(states)
 
     def __call__(self, *args, **kwargs):
+        call = obs.call("program.call", program=self.program.name) if obs.recording() else obs.NULL
+        with call:
+            with obs.span("program.check"):
+                leaves = self._check(args, kwargs)
+            out = self._execute_leaves(leaves)
+            call.note("route", self.replay)
+            return out
+
+    def _check(self, args, kwargs) -> List[Any]:
+        """The call's leaves, once their structure and avals are the traced ones."""
         leaves, in_tree = tree_flatten((args, kwargs))
         if in_tree != self.program.in_tree:
             raise TypeError(
@@ -675,7 +700,7 @@ class Executor:
                 "shapes/dtypes than it was compiled for (compile a new "
                 "program for this signature):\n" + "\n".join(diffs)
             )
-        return self._execute_leaves(leaves)
+        return leaves
 
     def _execute_leaves(self, leaves: List[Any]):
         return tree_unflatten(self.program.out_tree, self._run(leaves))
@@ -686,22 +711,27 @@ class Executor:
         device, reason = _graph_device(leaves, self.program.consts)
         if device is None:
             self.replay, self.replay_reason = "eager", reason
-            return self._eager(leaves)
+            return self._eager_call(leaves)
         key = (device, tuple(l.stride() for l in leaves))
         with self._lock:
             replay = self._graphs.get(key)
             if replay is None:
-                outputs = self._eager(leaves)
-                replay = self._graphs[key] = self._capture(device, leaves)
+                outputs = self._eager_call(leaves)
+                with obs.span("program.capture"):
+                    replay = self._graphs[key] = self._capture(device, leaves)
             elif isinstance(replay, _GraphReplay):
                 outputs = replay.run(leaves)
             else:
-                outputs = self._eager(leaves)
+                outputs = self._eager_call(leaves)
             if isinstance(replay, _GraphReplay):
                 self.replay, self.replay_reason = "graph", GRAPH_REASON
             else:
                 self.replay, self.replay_reason = "eager", replay
             return outputs
+
+    def _eager_call(self, leaves: List[Any]) -> List[Any]:
+        with obs.span("program.eager"):
+            return self._eager(leaves)
 
     def _run_pimsab(self, leaves: List[Any]) -> List[Any]:
         from repro_torch.kernels import api

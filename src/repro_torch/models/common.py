@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.dist import collectives
 from repro_torch.kernels import api
 from repro_torch.kernels.api import PrecisionSpec, SlicedTensor
@@ -175,20 +176,23 @@ def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec
     """
     lead = x.shape[:-1]
     if spec.single_pass:
-        x_q, x_scale = _dynamic_act_quant(x, spec.act_bits, ms)
+        with obs.span("model.act_quant"):
+            x_q, x_scale = _dynamic_act_quant(x, spec.act_bits, ms)
         acc = int_matmul(x_q, p["w_q"])
     else:
-        xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        x_scale = _act_scale(xf, spec.act_bits, ms)
-        x_st = SlicedTensor.quantize(xf, spec, scale=x_scale)
+        with obs.span("model.act_quant"):
+            xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+            x_scale = _act_scale(xf, spec.act_bits, ms)
+            x_st = SlicedTensor.quantize(xf, spec, scale=x_scale)
         w_st = SlicedTensor.from_int(p["w_q"].to(torch.int32), spec.weight_bits, slice_bits=spec.slice_bits)
         acc = api.matmul(dataclasses.replace(x_st, scale=None), w_st).reshape(*lead, -1)
         x_scale = x_scale.reshape(*lead, 1)
     acc = collectives.reduce_from_model(acc, ms)
-    out = acc.to(torch.float32) * x_scale * p["w_scale"]
-    if "b" in p:
-        out = out + p["b"].to(torch.float32)
-    return out.to(x.dtype)
+    with obs.span("model.dequant"):
+        out = acc.to(torch.float32) * x_scale * p["w_scale"]
+        if "b" in p:
+            out = out + p["b"].to(torch.float32)
+        return out.to(x.dtype)
 
 
 def linear(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] = None, ms=None) -> torch.Tensor:
@@ -254,7 +258,8 @@ def quant_linear_relu(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] 
     if "w_q" not in p or "b" in p or api.static_value(x) is None:
         return torch.clamp_min(linear(p, x, spec), 0)
     lead = x.shape[:-1]
-    x_st = SlicedTensor.quantize(x.reshape(-1, x.shape[-1]), spec)
+    with obs.span("model.act_quant"):
+        x_st = SlicedTensor.quantize(x.reshape(-1, x.shape[-1]), spec)
     x_raw = SlicedTensor(  # scale-less view that keeps the zero-slice metadata
         slices=x_st.slices, slice_bits=x_st.slice_bits,
         orig_bits=x_st.orig_bits, zero_slices=x_st.zero_slices,
@@ -262,8 +267,9 @@ def quant_linear_relu(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] 
     w_st = SlicedTensor.from_int(p["w_q"].to(torch.int32), spec.weight_bits,
                                  slice_bits=spec.slice_bits)
     raw = _matmul_relu(x_raw, w_st)
-    out = raw.to(torch.float32) * x_st.scale.reshape(-1, 1) * p["w_scale"].reshape(1, -1)
-    return out.reshape(*lead, -1).to(x.dtype)
+    with obs.span("model.dequant"):
+        out = raw.to(torch.float32) * x_st.scale.reshape(-1, 1) * p["w_scale"].reshape(1, -1)
+        return out.reshape(*lead, -1).to(x.dtype)
 
 
 def maybe_quantize_tree(params: Params, cfg, path: str = "") -> Params:

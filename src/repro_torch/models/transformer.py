@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import collectives, sharding
 from repro_torch.kernels import api
@@ -293,18 +294,19 @@ def _attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, flags: RunFlags, p
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     cache = {"k": k, "v": v}
-    k, v = _local_kv((k, v), cfg, ms, q.shape[2])
-    s = x.shape[1]
-    if kind == "local_attn":
-        # both keep w + 1 keys (qpos - kpos <= window), one more than decode's ring
-        if s <= 2 * cfg.window and s <= flags.flash_threshold:
-            out = local_attention(q, k, v, cfg.window)  # small-S direct band
+    with obs.span("model.attention"):
+        k, v = _local_kv((k, v), cfg, ms, q.shape[2])
+        s = x.shape[1]
+        if kind == "local_attn":
+            # both keep w + 1 keys (qpos - kpos <= window), one more than decode's ring
+            if s <= 2 * cfg.window and s <= flags.flash_threshold:
+                out = local_attention(q, k, v, cfg.window)  # small-S direct band
+            else:
+                out = full_attention(q, k, v, causal=causal, chunk=min(flags.attn_chunk, cfg.window),
+                                     triangular=flags.triangular_attn, flash_threshold=0, window=cfg.window)
         else:
-            out = full_attention(q, k, v, causal=causal, chunk=min(flags.attn_chunk, cfg.window),
-                                 triangular=flags.triangular_attn, flash_threshold=0, window=cfg.window)
-    else:
-        out = full_attention(q, k, v, causal=causal, chunk=flags.attn_chunk, triangular=flags.triangular_attn,
-                             flash_threshold=flags.flash_threshold)
+            out = full_attention(q, k, v, causal=causal, chunk=flags.attn_chunk,
+                                 triangular=flags.triangular_attn, flash_threshold=flags.flash_threshold)
     return _attn_out(p, out, cfg, ms), cache
 
 
@@ -745,19 +747,20 @@ def _attn_decode(p: Params, h: torch.Tensor, cfg, entry: Params, pos: int, kind:
         # cache's end (a prompt plus its new tokens longer than max_len) JAX
         # overwrites the last row, where torch indexing would raise
         slot, live = min(max(pos, 0), t - 1), pos + 1
-    valid = torch.full((b,), live, dtype=torch.int32, device=h.device)
-    if "k_scale" in entry:  # int8 KV cache (PIMSAB adaptive precision)
-        kq, ks = quantize_kv(k, KV_SPEC)
-        vq, vs = quantize_kv(v, KV_SPEC)
-        for n, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
-            _write_row(entry[n], new, slot)
-        kq, vq, ks, vs = _local_kv((entry["k"], entry["v"], entry["k_scale"], entry["v_scale"]), cfg, ms,
-                                   q.shape[2])
-        out = decode_attention_int8(q, kq, vq, ks, vs, valid, KV_SPEC)
-    else:
-        _write_row(entry["k"], k, slot)
-        _write_row(entry["v"], v, slot)
-        out = decode_attention(q, *_local_kv((entry["k"], entry["v"]), cfg, ms, q.shape[2]), valid)
+    with obs.span("model.attention"):
+        valid = torch.full((b,), live, dtype=torch.int32, device=h.device)
+        if "k_scale" in entry:  # int8 KV cache (PIMSAB adaptive precision)
+            kq, ks = quantize_kv(k, KV_SPEC)
+            vq, vs = quantize_kv(v, KV_SPEC)
+            for n, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+                _write_row(entry[n], new, slot)
+            kq, vq, ks, vs = _local_kv((entry["k"], entry["v"], entry["k_scale"], entry["v_scale"]), cfg, ms,
+                                       q.shape[2])
+            out = decode_attention_int8(q, kq, vq, ks, vs, valid, KV_SPEC)
+        else:
+            _write_row(entry["k"], k, slot)
+            _write_row(entry["v"], v, slot)
+            out = decode_attention(q, *_local_kv((entry["k"], entry["v"]), cfg, ms, q.shape[2]), valid)
     return _attn_out(p, out, cfg, ms)
 
 

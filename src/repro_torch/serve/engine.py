@@ -30,6 +30,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import MeshRules, P, cache_entry_spec
 from repro_torch.kernels import api
@@ -135,12 +136,16 @@ class ServeEngine:
         """The prefill batch of ``requests``: prompts left-padded with 0 to
         the longest (at least 8), plus zero patch embeddings for a vision
         config and zero frame embeddings (B, enc_seq_len, d) for an
-        encoder–decoder one."""
+        encoder–decoder one.  Counts the ``tokens`` slots
+        (``serve.prompt_slots``) and those that are padding
+        (``serve.padding_slots``) in :mod:`repro_torch.obs`."""
         b = len(requests)
         s = max(max(len(r.prompt) for r in requests), 8)
         toks = np.zeros((b, s), np.int32)
         for i, r in enumerate(requests):
             toks[i, s - len(r.prompt):] = r.prompt  # left-pad
+        obs.count("serve.prompt_slots", b * s)
+        obs.count("serve.padding_slots", b * s - sum(len(r.prompt) for r in requests))
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         if self.cfg.frontend == "vision":
             batch["patch_embeds"] = torch.zeros((b, self.cfg.n_patches, self.cfg.d_model),
@@ -151,10 +156,25 @@ class ServeEngine:
         return batch
 
     def run(self, requests: List[Request]) -> List[Request]:
-        with torch.no_grad():
-            cache, logits = self._prefill(self.params, self.prompt_batch(requests))
+        """Serve ``requests`` to the end: prefill them as one batch, then
+        decode in lock-step until each has its ``max_new_tokens`` or its
+        ``eos``; their tokens go to ``generated``.
+
+        With span recording on (:mod:`repro_torch.obs`, off by default) a
+        run records ``serve.run`` (ids: ``requests``, the request ids)
+        around ``serve.prompt_batch``, ``serve.prefill``, each
+        ``serve.decode`` step and each ``serve.sample`` (argmax and the
+        tokens' read-back): the end of the first ``serve.sample`` is when
+        every request's first token is on the host."""
+        run = obs.call("serve.run", requests=tuple(r.rid for r in requests)) if obs.recording() else obs.NULL
+        with torch.no_grad(), run:
+            with obs.span("serve.prompt_batch"):
+                batch = self.prompt_batch(requests)
+            with obs.span("serve.prefill"):
+                cache, logits = self._prefill(self.params, batch)
             steps = max(r.max_new_tokens for r in requests)
-            next_tok = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            with obs.span("serve.sample"):
+                next_tok = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
             for _ in range(steps):
                 for i, r in enumerate(requests):
                     if not r.done:
@@ -167,7 +187,9 @@ class ServeEngine:
                         next_tok[i] = 0
                 if all(r.done for r in requests):
                     break
-                tokens = torch.from_numpy(next_tok).to(self.device)[:, None]
-                cache, logits = self._decode(self.params, cache, tokens)
-                next_tok = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+                with obs.span("serve.decode"):
+                    tokens = torch.from_numpy(next_tok).to(self.device)[:, None]
+                    cache, logits = self._decode(self.params, cache, tokens)
+                with obs.span("serve.sample"):
+                    next_tok = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         return requests
