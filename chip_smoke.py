@@ -90,11 +90,15 @@ Phases, any failure of which exits non-zero:
       signature a compile-cache hit); one 512-token prompt at max_len 1024
       (the chunked prefill); the 4 requests again with ``quant_kv``.
       Launches exact: the bit-sliced GEMM 7 a layer (168) in each prefill
-      and decode step, the row dot once a layer for each group of batch
+      and decode step, each behind one activation quantize (``act_quant``),
+      the row dot once a layer for each group of batch
       rows ``attention.int8_scores_rows_per_call`` gives (at batch 4 one
       group: 24) in each ``quant_kv`` decode step, nothing else; logits
       finite; each K4 and K6 call shape of the runs bit-equal to its plain
-      version (K4 on the tensor cores); then at full width and 2 layers,
+      version (K4 on the tensor cores), and the activation quantize at the
+      (M, K) of each K4 shape, its int8 values and scales bit-equal to its
+      plain version and to the PyTorch chain on the card (3l, 3o: each
+      recorded quantize held the same way); then at full width and 2 layers,
       the card against CPU copies of the same weights (quantized weights
       bit-equal; bfloat16 with and without ``quant_kv`` and float32 within
       2**-7 of the largest CPU logit, greedy tokens equal where the top-2
@@ -106,7 +110,8 @@ Phases, any failure of which exits non-zero:
       18 RG-LRU, 8 local attention; 2.9 B random bfloat16 parameters from
       seed 0 served as int8) over the same three runs, launches exact: the
       bit-sliced GEMM 200 a prefill or decode step (8 an RG-LRU layer, 7 a
-      local-attention layer; the tied head is a float product), the RG-LRU
+      local-attention layer; the tied head is a float product), each behind
+      one activation quantize, the RG-LRU
       scan 18 a prefill (one an RG-LRU layer) and none in a decode step, the
       row dot 8 a ``quant_kv`` decode step; each K4 and K6 shape bit-equal to
       its plain version and every RG-LRU scan call within 1e-4 of its plain
@@ -162,7 +167,9 @@ Phases, any failure of which exits non-zero:
       width and depth and DBRX-132B at full width, 1 layer, each rank on its
       ``shard_params`` slices, 3j's 4 × 8 prefill and decode step with and
       without quant_kv through ``make_prefill_step`` / ``make_decode_step``
-      under the rules, K4, K6 and K11 launches exact, held bit-equal to rank
+      under the rules, K4, K6 and K11 launches exact (the activation
+      quantize in front of each K4 call but the row-parallel ones, counted
+      by their scales' ``all_reduce_max``), held bit-equal to rank
       0's 1-rank run of the same steps (the gap printed), whose 4 × 8 logits
       3j holds bit-equal to its own; every K4
       and K6 shape's first call and every K11 call held to its plain
@@ -276,7 +283,10 @@ Phases, any failure of which exits non-zero:
    phase 3j's prefills (4 × 8, 1 × 512), decode steps (batch 4 with and
    without ``quant_kv``, batch 1 on 1024 rows) and a whole engine run, host
    clock from an idle card; each K4 and K6 shape of 3j beside its bound,
-   its plain version (CPU) and ``torch._int_mm`` where it takes the shape;
+   its plain version (CPU) and ``torch._int_mm`` where it takes the shape,
+   and each activation-quantize shape beside its bound (bytes) and the
+   PyTorch chain it replaces on the card, in paired rounds, also at
+   MiniCPM-2B's prefill shapes (16384 × 2304 and 16384 × 5760, bfloat16);
    the same for 3l's RecurrentGemma-2B, and the RG-LRU scan at its path's
    shapes (4 × 8 × 2560, 1 × 512 × 2560) beside its bound and plain version;
    the scan and its gradient kernel at 3m's 8 × 64 × 2560 the same way;
@@ -587,6 +597,10 @@ PAIRED_ROUNDS = 7
 
 BITSLICE_SOURCE = "src/repro_torch/kernels/csrc/bitslice_gemm.cu"
 BITSLICE_REPLACES = "src/repro/kernels/bitslice_matmul.py:29"
+ACT_QUANT_SOURCE = "src/repro_torch/kernels/csrc/act_quant.cu"
+ACT_QUANT_REPLACES = "src/repro/models/common.py:91"  # _dynamic_act_quant, jnp ops that XLA fuses
+MINICPM_PREFILL_SLOTS = 16384  # a batch of the benchmark's MiniCPM-2B prefill cells: 32 x 512 slots
+MINICPM_ACT_QUANT_K = (2304, 5760)  # its linears' K: q, k, v, o, gate, up; down
 
 SOURCES = {
     "gemm": "src/repro_torch/kernels/csrc/int_gemm.cu",
@@ -2819,12 +2833,16 @@ class LLMKernelRecorder:
     """While active, records each bit-sliced GEMM and q·Kᵀ call of the LLM
     path by (kernel, operand shapes): the count, and the first call's
     operands and output (clones) with the path the bit-sliced GEMM took;
-    given the RG-LRU scan's module ``rg``, also every scan call's operands
-    and output (``scans``)."""
+    each activation quantize (``act_quant``) by (M, K, dtype, bits) the
+    same way (``quants``); given the RG-LRU scan's module ``rg``, also every
+    scan call's operands and output (``scans``)."""
 
     def __init__(self, torch, bm, att, rg=None):
-        self.torch, self.bm, self.att, self.rg = torch, bm, att, rg
+        from repro_torch.kernels import act_quant as aq
+
+        self.torch, self.bm, self.att, self.rg, self.aq = torch, bm, att, rg, aq
         self.calls = {}
+        self.quants = {}
         self.scans = []
 
     def _note(self, key, args, out, path=None):
@@ -2849,7 +2867,18 @@ class LLMKernelRecorder:
             self._note(("attention_qk", tuple(q.shape), tuple(k.shape)), (q, k), out)
             return out
 
-        bm._bitslice_gemm, att._qk = rec_b, rec_q
+        orig_a = self.orig_quant = self.aq.act_quant
+
+        def rec_a(x, bits=8):
+            out = orig_a(x, bits)
+            key = (x.numel() // x.shape[-1], x.shape[-1], str(x.dtype).removeprefix("torch."), bits)
+            if key in self.quants:
+                self.quants[key]["count"] += 1
+            else:
+                self.quants[key] = {"count": 1, "x": x.clone(), "out": tuple(o.clone() for o in out)}
+            return out
+
+        bm._bitslice_gemm, att._qk, self.aq.act_quant = rec_b, rec_q, rec_a
         if self.rg is not None:
             orig_s = self.orig_scan = self.rg._scan
 
@@ -2863,6 +2892,7 @@ class LLMKernelRecorder:
 
     def __exit__(self, *exc):
         self.bm._bitslice_gemm, self.att._qk = self.orig
+        self.aq.act_quant = self.orig_quant
         if self.rg is not None:
             self.rg._scan = self.orig_scan
 
@@ -2899,13 +2929,21 @@ def llm_k6_calls(cfg, batch, max_len):
     return -(-batch // tmattn.int8_scores_rows_per_call(batch, hkv, g, max_len))
 
 
+def behind_act_quant(want, row_parallel=0):
+    """``want`` with the activation quantize (``act_quant``) launched in
+    front of each K4 call but the ``row_parallel`` ones: every quantized
+    linear of the LLM paths is single-pass, and only a row-parallel one
+    (its scale all-reduced over the model axis) takes the PyTorch chain."""
+    return dict(want, act_quant=want["bitslice_matmul"] - row_parallel)
+
+
 def llm_expected(cfg, decode_steps, quant_kv, batch=LLM_REQUESTS, max_len=None):
     """Launches of one engine run: 7 bit-sliced GEMMs a layer in the prefill
-    and in each decode step, and the row-dot calls of :func:`llm_k6_calls`
-    a layer a decode step under quant_kv (the tied LM head is a float
-    product)."""
+    and in each decode step, each behind one activation quantize, and the
+    row-dot calls of :func:`llm_k6_calls` a layer a decode step under
+    quant_kv (the tied LM head is a float product)."""
     per_step = LLM_K4_PER_LAYER * cfg.n_layers
-    want = {"bitslice_matmul": per_step * (1 + decode_steps)}
+    want = behind_act_quant({"bitslice_matmul": per_step * (1 + decode_steps)})
     if quant_kv:
         from repro_torch.launch import serve as serve_cli
 
@@ -2916,8 +2954,7 @@ def llm_expected(cfg, decode_steps, quant_kv, batch=LLM_REQUESTS, max_len=None):
 def llm_step_expected(cfg, quant_kv, batch=LLM_REQUESTS, max_len=None):
     """Launches of one decode step (see :func:`llm_expected`)."""
     want = llm_expected(cfg, 1, quant_kv, batch, max_len)
-    want["bitslice_matmul"] = LLM_K4_PER_LAYER * cfg.n_layers
-    return want
+    return behind_act_quant(dict(want, bitslice_matmul=LLM_K4_PER_LAYER * cfg.n_layers))
 
 
 def llm_decode_profiles(torch, dev, arch=LLM_ARCH, quant_kvs=(False, True)):
@@ -3056,11 +3093,20 @@ def llm_card_vs_cpu(torch, common, transformer, smoke, dev, cfg, flags, dtype):
 
 
 def check_recorded(torch, bm, att, smoke, rec, phase, tag, want_keys):
-    """The recorder's K4 and K6 shapes must be ``want_keys`` (any, if None); each shape's
-    first call is held bit-equal to its plain version on the CPU (timed),
-    and every bit-sliced call must have taken the tensor cores."""
+    """The recorder's K4 and K6 shapes must be ``want_keys`` (any, if None),
+    and an activation quantize must come in front of each K4 (M, K); each
+    shape's first call is held bit-equal to its plain version on the CPU
+    (timed), each quantize's also to the PyTorch chain on the card, and
+    every bit-sliced call must have taken the tensor cores."""
     if want_keys is not None and set(rec.calls) != want_keys:
         smoke.failures.append(f"{phase}: kernel shapes {sorted(rec.calls)} != expected {sorted(want_keys)}")
+    if want_keys is not None:
+        want_q = {(sa[1], sa[2]) for kernel, sa, _ in want_keys if kernel == "bitslice_matmul"}
+        got_q = {key[:2] for key in rec.quants}
+        if got_q != want_q:
+            smoke.failures.append(f"{phase}: activation quantize (M, K) {sorted(got_q)} != expected {sorted(want_q)}")
+    for key, c in sorted(rec.quants.items()):
+        c["plain_ms"], c["max_abs_err"] = hold_act_quant(torch, smoke, f"{phase} {tag}", key, c["x"], c["out"])
     for key, c in sorted(rec.calls.items()):
         args = [a.cpu() if torch.is_tensor(a) else a for a in c["args"]]
         t = time.perf_counter()
@@ -3257,14 +3303,93 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
     lat["engine_run"] = {"tokens": ntok, "s": wall, "tokens_per_s": ntok / wall}
     print(f"phase 4 LLM {LLM_ARCH} engine.run 4 requests x {LLM_NEW_TOKENS} tokens ({gpu}): {wall * 1e3:.1f} ms, "
           f"{ntok / wall:.1f} tokens/s (second run)")
-    return lat, recorded_kernel_rows(torch, bm, att, smoke, llm["recorder"], e.cfg, floor_ms, "llm", "llm_serving",
-                                     gpu)
+    return lat, (recorded_kernel_rows(torch, bm, att, smoke, llm["recorder"], e.cfg, floor_ms, "llm", "llm_serving",
+                                      gpu) + minicpm_act_quant_rows(torch, smoke, torch.device("cuda", 0), floor_ms, gpu))
+
+
+def hold_act_quant(torch, smoke, label, key, x, out):
+    """The activation quantize's ``out`` of ``x`` at ``key`` (M, K, dtype,
+    bits) held bit-equal to its plain version on a CPU copy (timed) and to
+    the PyTorch chain it replaces on the card (``_dynamic_act_quant``):
+    (plain ms, max |error|)."""
+    from repro_torch.kernels import api
+    from repro_torch.models import common
+
+    m, k, dtype, bits = key
+    xc = x.cpu()
+    t = time.perf_counter()
+    plain = api.act_quant_plain(xc, bits)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    chain = common._dynamic_act_quant(x, bits)
+    errs = []
+    for part, got, want, on_card in zip(("values", "scales"), out, plain, chain):
+        case = f"{label} M={m} K={k} {dtype} {bits} bits {part}"
+        errs.append(smoke.check("act_quant", case, got, want, exact=True) or 0.0)
+        smoke.check("act_quant", f"{case} vs the PyTorch chain on the card", got, on_card.cpu(), exact=True)
+    return plain_ms, max(errs)
+
+
+def act_quant_rows(torch, quants, floor_ms, tag, path, gpu):
+    """Each activation-quantize shape of ``quants`` (a recorder's, or made
+    at MiniCPM-2B's prefill shapes) at 8 bits: the kernel by CUDA-graph
+    replay and eagerly, beside its bound (bytes: the input read once, int8
+    and the scales written once) and the PyTorch chain it replaces (the
+    library row, on the card), the two read in paired rounds."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.act_quant import act_quant_bytes
+    from repro_torch.models import common
+
+    rows = []
+    for (m, k, dtype, bits), c in sorted(quants.items()):
+        x = c["x"]
+        k_timer = graph_timer(torch, lambda x=x, bits=bits: api.act_quant(x, bits))
+        lib_timer = graph_timer(torch, lambda x=x, bits=bits: common._dynamic_act_quant(x, bits))
+        eager = cuda_ms(torch, lambda x=x, bits=bits: api.act_quant(x, bits))
+        sums, _ = paired_rounds([(k_timer, lib_timer)], PAIRED_ROUNDS)
+        k_ms, lib_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
+        nbytes = act_quant_bytes(m, k, x.element_size())
+        bound_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        name = f"act_quant[{tag} M={m} K={k} {dtype}]"
+        rows.append({
+            "name": name, "route": "cuda", "source": ACT_QUANT_SOURCE, "replaces": ACT_QUANT_REPLACES,
+            "launches": c["count"], "max_abs_err": c["max_abs_err"], "ms": k_ms, "plain_ms": c["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms, "eager_ms": eager,
+            "plain_device": "cpu", "path": path, "library": "the PyTorch chain (models.common._dynamic_act_quant)",
+            "rounds": dict(sums, kernel_no_slower=sum(a <= b for a, b in zip(sums["kernel"], sums["library"]))),
+            "launches_by_path": {path: c["count"]}, "shapes": [[m, k]], "dtypes": [dtype], "bits": bits,
+            "bytes": nbytes, "ops": 0, "floors": k_ms / floor_ms,
+        })
+        print(f"kernel {name}: {k_ms * 1e3:.3f} us graph replay ({eager * 1e3:.3f} us eager; bound "
+              f"{bound_ms * 1e3:.3f} us by bytes, roofline share {bound_ms / k_ms:.1%}, {k_ms / floor_ms:.2f} launch "
+              f"floors), plain {c['plain_ms']:.2f} ms on the CPU, the PyTorch chain {lib_ms * 1e3:.3f} us on the card "
+              f"({lib_ms / k_ms:.1f}x); {c['count']} launches on the {path} path ({gpu})")
+    return rows
+
+
+def minicpm_act_quant_rows(torch, smoke, dev, floor_ms, gpu):
+    """The activation quantize at MiniCPM-2B's prefill shapes, a batch of
+    MINICPM_PREFILL_SLOTS slots at its two K (bfloat16, 8 bits; not a path of
+    this script, whose batch the benchmark's LLM cells serve): held as
+    :func:`hold_act_quant` holds a path's, then timed as
+    :func:`act_quant_rows`."""
+    from repro_torch.kernels import api
+
+    quants = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    for k in MINICPM_ACT_QUANT_K:
+        key = (MINICPM_PREFILL_SLOTS, k, "bfloat16", 8)
+        x = (3.0 * torch.randn(MINICPM_PREFILL_SLOTS, k, generator=g, device=dev)).to(torch.bfloat16)
+        out = api.act_quant(x, 8)
+        plain_ms, err = hold_act_quant(torch, smoke, "MiniCPM-2B prefill", key, x, out)
+        quants[key] = {"count": 0, "x": x, "plain_ms": plain_ms, "max_abs_err": err}
+    return act_quant_rows(torch, quants, floor_ms, "MiniCPM-2B prefill", "minicpm_prefill_shape", gpu)
 
 
 def recorded_kernel_rows(torch, bm, att, smoke, rec, cfg, floor_ms, tag, path, gpu):
     """Each K4 and K6 shape of a recorded path by CUDA-graph replay and
     eagerly, beside its bound, its plain version (CPU) and torch._int_mm
-    where it takes the shape: the kernel rows."""
+    where it takes the shape, and each activation-quantize shape
+    (:func:`act_quant_rows`): the kernel rows."""
     hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     rows = []
     for key, c in sorted(rec.calls.items()):
@@ -3322,7 +3447,7 @@ def recorded_kernel_rows(torch, bm, att, smoke, rec, cfg, floor_ms, tag, path, g
               f"{max(b_bytes, b_ops) * 1e3:.3f} us by {rows[-1]['bound_by']}, roofline share "
               f"{max(b_bytes, b_ops) / k_ms:.1%}, {k_ms / floor_ms:.2f} launch floors), plain {c['plain_ms']:.2f} ms "
               f"on the CPU, torch._int_mm {lib_ms}; {c['count']} launches on the {path} path ({gpu})")
-    return rows
+    return rows + act_quant_rows(torch, rec.quants, floor_ms, tag, path, gpu)
 
 
 # ---------------------------------------------------------------------------
@@ -3364,8 +3489,8 @@ def fam_expected(cfg, decode_steps, quant_kv, batch, max_len):
     """Launches of an engine run with ``decode_steps`` decode steps: K4 a
     prefill and a step (:func:`fam_k4`), K11 once for each RG-LRU layer of
     the prefill (a decode step is elementwise), K6 a quant_kv step
-    (:func:`fam_k6`)."""
-    want = {"bitslice_matmul": fam_k4(cfg, True) + decode_steps * fam_k4(cfg, False)}
+    (:func:`fam_k6`); the activation quantize in front of each K4 call."""
+    want = behind_act_quant({"bitslice_matmul": fam_k4(cfg, True) + decode_steps * fam_k4(cfg, False)})
     n_rglru = sum(kind == "rglru" for kind in cfg.layer_kinds())
     if n_rglru:
         want["rglru_scan"] = n_rglru
@@ -3376,7 +3501,7 @@ def fam_expected(cfg, decode_steps, quant_kv, batch, max_len):
 
 def fam_step_expected(cfg, quant_kv, batch, max_len):
     """Launches of one decode step (see :func:`fam_expected`)."""
-    want = {"bitslice_matmul": fam_k4(cfg, False)}
+    want = behind_act_quant({"bitslice_matmul": fam_k4(cfg, False)})
     if quant_kv and fam_k6(cfg, batch, max_len):
         want["attention_qk"] = fam_k6(cfg, batch, max_len)
     return want
@@ -4308,7 +4433,7 @@ def dist_checks(torch, dev, smoke, out):
         _, logits2 = serve_engine.make_decode_step(scfg, sflags, rules)(eng.params, cache, tok)
     torch.cuda.synchronize()
     counts, calls = api.launch_counts(), collectives.call_counts()
-    want = {"bitslice_matmul": 2 * LLM_K4_PER_LAYER * scfg.n_layers}
+    want = behind_act_quant({"bitslice_matmul": 2 * LLM_K4_PER_LAYER * scfg.n_layers})
     if counts != want:
         smoke.failures.append(f"serving launches {counts} != {want}")
     got_d = {"prefill": tensor_sha256(torch, logits), "decode_step": tensor_sha256(torch, logits2)}
@@ -4533,7 +4658,8 @@ def tp_checks(torch, dev, rank, smoke, out):
             counts, calls = {k: v for k, v in api.launch_counts().items() if v}, collectives.call_counts()
             add("tp_serving", counts)
             n_attn = sum(kind in ("attn", "local_attn") for kind in cfg.layer_kinds())
-            want = {"bitslice_matmul": fam_k4(cfg, True) + fam_k4(cfg, False)}
+            want = behind_act_quant({"bitslice_matmul": fam_k4(cfg, True) + fam_k4(cfg, False)},
+                                    calls.get("all_reduce_max", 0))
             if quant_kv:
                 want["attention_qk"] = sum(
                     tp_k6_calls(cfg, TP_RANKS, LLM_REQUESTS,
@@ -4753,7 +4879,7 @@ def tp_kernel_rows(torch, bm, att, smoke, tp_run, floor_ms, gpu):
     import types
 
     g = torch.Generator().manual_seed(SEED + 29)
-    rec = types.SimpleNamespace(calls={})
+    rec = types.SimpleNamespace(calls={}, quants={})  # each rank held its quantizes in 3o
     for s in tp_run.get("kernel_shapes", []):
         if s["kernel"] != "bitslice_matmul":
             continue

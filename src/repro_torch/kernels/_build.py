@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 SOURCES = ("int_gemm", "pool_reduce", "ewise", "bitslice_gemm", "attention", "htree_reduce",
-           "rglru_scan")
+           "rglru_scan", "act_quant")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,6 +87,11 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     # its backward: a, hs, h0, g, then ∂a, ∂b and ∂h0 (NULL when not
     # needed), the extents and the same plan
     "rglru_scan_bwd_f32": ("rglru_scan", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    # the activation quantize: x and its row stride, q, the scales, M, K,
+    # qmax and the block (act_quant.act_quant_plan)
+    "act_quant_bf16": ("act_quant", (_P, _L, _P, _P, _I, _I, _I, _I, _P)),
+    "act_quant_f16": ("act_quant", (_P, _L, _P, _P, _I, _I, _I, _I, _P)),
+    "act_quant_f32": ("act_quant", (_P, _L, _P, _P, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

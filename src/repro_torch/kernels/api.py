@@ -33,8 +33,9 @@ thread takes (launches and the rest) go to a :class:`LaunchLog` instead,
 which each replay of the graph adds (:func:`recording_launches`,
 :func:`replay_launches`).
 
-The kernels a dry run's steps reach (the bit-sliced GEMM, the row dot of
-q·Kᵀ, the RG-LRU scan and its gradient) also take ``meta`` operands, on an
+The kernels a dry run's steps reach (the bit-sliced GEMM, the activation
+quantize in front of it, the row dot of q·Kᵀ, the RG-LRU scan and its
+gradient) also take ``meta`` operands, on an
 explicit route of their own (:func:`meta_operands`): the card's checks of
 dtypes, shapes and index range, then a ``meta`` output of the kernel's
 shape and dtype where the card would launch.  It launches nothing and
@@ -116,6 +117,9 @@ __all__ = [
     "bitslice_matmul_oracle",
     "matmul",
     "quantized_matmul",
+    "act_quant",
+    "act_quant_plain",
+    "quantize_int8",
     "ewise_add",
     "relu",
     "conv2d",
@@ -249,6 +253,29 @@ def absmax_scale(xf: torch.Tensor, dim: int, qmax: int) -> torch.Tensor:
     from the true division that the CPU and the JAX package compute."""
     amax = torch.amax(xf.abs(), dim=dim, keepdim=True)
     return torch.clamp_min(amax / torch.full_like(amax, qmax), 1e-8)
+
+
+def quantize_int8(xf: torch.Tensor, scale: torch.Tensor, qmax: int) -> torch.Tensor:
+    """``clamp(round(xf / scale), -qmax - 1, qmax)`` as int8.  Above 8 bits
+    values outside int8 saturate to −128 or 127, as XLA converts (a torch
+    cast wraps them: 200.0 → −56)."""
+    return torch.clamp(torch.clamp(torch.round(xf / scale), -qmax - 1, qmax), -128, 127).to(torch.int8)
+
+
+def act_quant_plain(x: torch.Tensor, bits: int,
+                    reduce_scale: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The activation quantize as PyTorch ops, in float32: the plain version
+    of :func:`act_quant`.  Each row's scale is :func:`absmax_scale` at
+    ``qmax = 2**(bits-1) - 1``, passed through ``reduce_scale`` where given
+    (a row-parallel linear takes its max over the model axis), and the row
+    is quantized by :func:`quantize_int8`."""
+    qmax = 2 ** (bits - 1) - 1
+    xf = x.to(torch.float32)
+    scale = absmax_scale(xf, -1, qmax)
+    if reduce_scale is not None:
+        scale = reduce_scale(scale)
+    return quantize_int8(xf, scale, qmax), scale
 
 
 def _zero_slice_ids(slices: Any) -> Tuple[int, ...]:
@@ -811,6 +838,22 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                                  scale=w_scale.reshape(-1))
     out = matmul(x_st, w_st)
     return out.reshape(*lead, -1).to(x.dtype)
+
+
+def act_quant(x: torch.Tensor, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric quantization of activations ``x (..., K)``
+    (bfloat16, float16 or float32) at ``bits`` (2 to 8): ``(x_q int8
+    (..., K), scale float32 (..., 1))``, scale ``max(max|x| / qmax, 1e-8)``.
+    One pass over memory on the card (``kernels/act_quant.py``; not a
+    registry kernel: the JAX package leaves it to XLA), the PyTorch chain
+    (:func:`act_quant_plain`) on the CPU, the card's checks and ``meta``
+    outputs on ``meta``; a ``TypeError`` or ``ValueError`` for what the card
+    does not take, on every device.  A row with a NaN or an infinity gets
+    the chain's NaN or infinite scale; its int8 values are unspecified where
+    ``x / scale`` is NaN, as the chain's are."""
+    from repro_torch.kernels import act_quant as _act_quant
+
+    return _act_quant.act_quant(x, bits)
 
 
 def ewise_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -114,12 +114,6 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, vocab: int) ->
     return torch.sum(nll), nll.numel()
 
 
-def _saturate_int8(x: torch.Tensor) -> torch.Tensor:
-    """Float → int8 as XLA converts: values outside int8 saturate to −128 or
-    127 (a torch cast wraps them: 200.0 → −56)."""
-    return torch.clamp(x, -128, 127).to(torch.int8)
-
-
 def quantize_weight(w: torch.Tensor, bits: int = 8) -> Params:
     """Symmetric per-output-channel integer quantization of a
     ``(..., d_in, d_out)`` weight: ``{"w_q": int8, "w_scale": float32}``.
@@ -127,8 +121,7 @@ def quantize_weight(w: torch.Tensor, bits: int = 8) -> Params:
     wf = w.to(torch.float32)
     qmax = 2 ** (bits - 1) - 1
     scale = api.absmax_scale(wf, -2, qmax)
-    w_q = _saturate_int8(torch.clamp(torch.round(wf / scale), -qmax - 1, qmax))
-    return {"w_q": w_q, "w_scale": scale}
+    return {"w_q": api.quantize_int8(wf, scale, qmax), "w_scale": scale}
 
 
 def _act_scale(xf: torch.Tensor, bits: int, ms=None) -> torch.Tensor:
@@ -140,13 +133,23 @@ def _act_scale(xf: torch.Tensor, bits: int, ms=None) -> torch.Tensor:
 
 
 def _dynamic_act_quant(x: torch.Tensor, bits: int, ms=None):
-    """Per-row symmetric quantization of activations: (int8 values, scale);
-    ``ms`` as in :func:`_act_scale`."""
-    qmax = 2 ** (bits - 1) - 1
-    xf = x.to(torch.float32)
-    scale = _act_scale(xf, bits, ms)
-    x_q = _saturate_int8(torch.clamp(torch.round(xf / scale), -qmax - 1, qmax))
-    return x_q, scale
+    """Per-row symmetric quantization of activations as PyTorch ops
+    (``api.act_quant_plain``): (int8 values, scale); ``ms`` as in
+    :func:`_act_scale`."""
+    return api.act_quant_plain(x, bits, lambda scale: collectives.all_reduce_max(scale, ms))
+
+
+def _single_pass_act_quant(x: torch.Tensor, bits: int, ms=None):
+    """:func:`_dynamic_act_quant` in front of a single-pass linear: the
+    one-pass kernel (``api.act_quant``), which raises on what it does not
+    take.  A row-parallel call (``ms``) takes the PyTorch chain, its scale
+    all-reduced between the max and the quantize, and on the card counts
+    ``model.act_quant.torch``."""
+    if ms is None:
+        return api.act_quant(x, bits)
+    if x.device.type == "cuda":
+        obs.count("model.act_quant.torch")
+    return _dynamic_act_quant(x, bits, ms)
 
 
 def int_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -163,10 +166,11 @@ def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec
     """Bit-sliced integer linear: dynamic activation quantization and int32
     accumulation.
 
-    A spec that fits one slice pair (the int8 default) is one int8 product;
-    wider specs go through ``api.matmul`` over ``SlicedTensor`` operands,
-    which splits into slices, skips the all-zero ones and recombines with
-    shifts.
+    A spec that fits one slice pair (the int8 default) is one int8 product,
+    its activations quantized in one pass on the card
+    (:func:`_single_pass_act_quant`); wider specs go through ``api.matmul``
+    over ``SlicedTensor`` operands, which splits into slices, skips the
+    all-zero ones and recombines with shifts.
 
     With ``ms`` (a ``dist.sharding.ModelShard``) the linear is row-parallel:
     ``x`` is this rank's slice of each row's contraction and ``p`` the
@@ -177,7 +181,7 @@ def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec
     lead = x.shape[:-1]
     if spec.single_pass:
         with obs.span("model.act_quant"):
-            x_q, x_scale = _dynamic_act_quant(x, spec.act_bits, ms)
+            x_q, x_scale = _single_pass_act_quant(x, spec.act_bits, ms)
         acc = int_matmul(x_q, p["w_q"])
     else:
         with obs.span("model.act_quant"):

@@ -47,7 +47,10 @@ capture's log instead (:func:`diverting_counts`), and each replay of the
 graph adds them (:func:`add_counts`), as a replay does the same work again.
 Besides the launches, the port counts ``serve.prompt_slots`` and
 ``serve.padding_slots`` (the slots of each prefill batch's ``tokens``, and
-those of them that are padding).
+those of them that are padding), and ``model.act_quant.torch`` (a
+single-pass row-parallel ``quant_linear`` on the card, whose activations take
+the PyTorch chain, not the ``act_quant`` kernel: the kernel's share is
+``launch.act_quant`` over the two).
 """
 from __future__ import annotations
 

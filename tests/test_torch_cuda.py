@@ -1562,7 +1562,8 @@ def test_reduced_decode_step_on_card_equals_cpu(card, quant_kv):
     """A Qwen2-0.5B ``reduced_config`` prefill and two decode steps on the
     card against the same port on CPU copies (float32: 2**-6 of the largest
     logit, the tolerance of tests/_torch_lm_ref.py with int8 activations);
-    K4 launches 7 a layer a step, K6 one a layer a decode step under quant_kv."""
+    K4 launches 7 a layer a step, each behind one activation quantize, K6
+    one a layer a decode step under quant_kv."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced_config
@@ -1577,7 +1578,8 @@ def test_reduced_decode_step_on_card_equals_cpu(card, quant_kv):
     toks = torch.from_numpy(np.random.default_rng(1).integers(2, 256, (2, 12)).astype(np.int32))
     tapi.reset_launch_counts()
     cache_d, got = tt.prefill(card_p, cfg, {"tokens": toks.to(card)}, flags, max_len=16)
-    assert tapi.launch_counts() == {"bitslice_matmul": 7 * cfg.n_layers}
+    linears = {"bitslice_matmul": 7 * cfg.n_layers, "act_quant": 7 * cfg.n_layers}
+    assert tapi.launch_counts() == linears
     cache_c, want = tt.prefill(cpu_p, cfg, {"tokens": toks}, flags, max_len=16)
     for step in range(3):
         atol = 2.0 ** -6 * float(want.abs().max())
@@ -1586,8 +1588,7 @@ def test_reduced_decode_step_on_card_equals_cpu(card, quant_kv):
         tapi.reset_launch_counts()
         cache_d, got = tt.decode_step(card_p, cfg, cache_d, nt.to(card), flags)
         torch.cuda.synchronize()
-        assert tapi.launch_counts() == ({"bitslice_matmul": 7 * cfg.n_layers, "attention_qk": cfg.n_layers}
-                                        if quant_kv else {"bitslice_matmul": 7 * cfg.n_layers})
+        assert tapi.launch_counts() == (dict(linears, attention_qk=cfg.n_layers) if quant_kv else linears)
         cache_c, want = tt.decode_step(cpu_p, cfg, cache_c, nt, flags)
 
 
