@@ -287,6 +287,10 @@ Phases, any failure of which exits non-zero:
    and each activation-quantize shape beside its bound (bytes) and the
    PyTorch chain it replaces on the card, in paired rounds, also at
    MiniCPM-2B's prefill shapes (16384 × 2304 and 16384 × 5760, bfloat16);
+   the grouped bit-sliced GEMM at Moonlight-16B-A3B's prefill shapes (64
+   experts of ~1,500 rows, K × N 2048 × 2816 and 1408 × 2048), held
+   bit-equal to its plain version on the card and beside its bound and 64
+   ``torch._int_mm`` calls over the same rows;
    the same for 3l's RecurrentGemma-2B, and the RG-LRU scan at its path's
    shapes (4 × 8 × 2560, 1 × 512 × 2560) beside its bound and plain version;
    the scan and its gradient kernel at 3m's 8 × 64 × 2560 the same way;
@@ -601,6 +605,14 @@ ACT_QUANT_SOURCE = "src/repro_torch/kernels/csrc/act_quant.cu"
 ACT_QUANT_REPLACES = "src/repro/models/common.py:91"  # _dynamic_act_quant, jnp ops that XLA fuses
 MINICPM_PREFILL_SLOTS = 16384  # a batch of the benchmark's MiniCPM-2B prefill cells: 32 x 512 slots
 MINICPM_ACT_QUANT_K = (2304, 5760)  # its linears' K: q, k, v, o, gate, up; down
+# the grouped K4 at Moonlight-16B-A3B's prefill (the benchmark's
+# moonlight-16b.prefill-512 cell: ~16,100 slots × top-6 over 64 experts):
+# the routed experts' gate and up side by side, then down
+MOONLIGHT_EXPERTS = 64
+MOONLIGHT_ROWS_PER_EXPERT = 1500
+MOONLIGHT_GROUPED_KN = ((2048, 2816), (1408, 2048))
+GROUPED_SOURCE = "src/repro_torch/kernels/csrc/bitslice_gemm.cu (bitslice_grouped_kernel)"
+GROUPED_REPLACES = "none: the JAX package multiplies experts with jnp.einsum (src/repro/models/moe.py)"
 
 SOURCES = {
     "gemm": "src/repro_torch/kernels/csrc/int_gemm.cu",
@@ -3303,8 +3315,10 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
     lat["engine_run"] = {"tokens": ntok, "s": wall, "tokens_per_s": ntok / wall}
     print(f"phase 4 LLM {LLM_ARCH} engine.run 4 requests x {LLM_NEW_TOKENS} tokens ({gpu}): {wall * 1e3:.1f} ms, "
           f"{ntok / wall:.1f} tokens/s (second run)")
+    dev = torch.device("cuda", 0)
     return lat, (recorded_kernel_rows(torch, bm, att, smoke, llm["recorder"], e.cfg, floor_ms, "llm", "llm_serving",
-                                      gpu) + minicpm_act_quant_rows(torch, smoke, torch.device("cuda", 0), floor_ms, gpu))
+                                      gpu) + minicpm_act_quant_rows(torch, smoke, dev, floor_ms, gpu)
+                 + moonlight_grouped_rows(torch, smoke, dev, floor_ms, gpu))
 
 
 def hold_act_quant(torch, smoke, label, key, x, out):
@@ -3383,6 +3397,70 @@ def minicpm_act_quant_rows(torch, smoke, dev, floor_ms, gpu):
         plain_ms, err = hold_act_quant(torch, smoke, "MiniCPM-2B prefill", key, x, out)
         quants[key] = {"count": 0, "x": x, "plain_ms": plain_ms, "max_abs_err": err}
     return act_quant_rows(torch, quants, floor_ms, "MiniCPM-2B prefill", "minicpm_prefill_shape", gpu)
+
+
+def moonlight_grouped_rows(torch, smoke, dev, floor_ms, gpu):
+    """The grouped K4 at Moonlight-16B-A3B's prefill shapes: 64 experts of
+    about MOONLIGHT_ROWS_PER_EXPERT rows each (uneven: a multinomial draw),
+    each (K, N) of MOONLIGHT_GROUPED_KN; held bit-equal to its plain version
+    (on the card: float64 products of each expert's rows), then timed by
+    CUDA-graph replay and eagerly, beside its bound (operations at the int8
+    peak, or the rows, all 64 weights and the int32 output once) and 64
+    ``torch._int_mm`` calls over the same rows, in paired rounds."""
+    import numpy as np
+
+    from repro_torch.kernels import api
+    from repro_torch.kernels import bitslice_matmul as bm
+
+    rng = np.random.default_rng(SEED + 35)
+    e = MOONLIGHT_EXPERTS
+    counts = rng.multinomial(e * MOONLIGHT_ROWS_PER_EXPERT, rng.dirichlet(np.full(e, 20.0)))
+    bounds = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    offsets = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    r = bounds[-1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 35)
+    rows = []
+    for k, n in MOONLIGHT_GROUPED_KN:
+        x = torch.randint(-128, 128, (r, k), generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-128, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+        api.reset_launch_counts()
+        out = api.grouped_matmul(x, w, offsets)
+        torch.cuda.synchronize()
+        if api.launch_counts() != {"grouped_matmul": 1}:
+            smoke.failures.append(f"grouped_matmul: launches {api.launch_counts()} for one call, not 1")
+        t = time.perf_counter()
+        plain = bm._grouped_plain(x, w, offsets)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        case = f"Moonlight-16B-A3B prefill E={e} R={r} K={k} N={n}"
+        err = smoke.check("grouped_matmul", case, out, plain.cpu(), exact=True)
+        run = lambda x=x, w=w: api.grouped_matmul(x, w, offsets)  # noqa: E731
+
+        def library(x=x, w=w):
+            for j in range(e):
+                torch._int_mm(x[bounds[j]:bounds[j + 1]], w[j])
+
+        sums, _ = paired_rounds([(graph_timer(torch, run, reps=5), graph_timer(torch, library, reps=5))],
+                                PAIRED_ROUNDS)
+        k_ms, lib_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
+        eager = cuda_ms(torch, run, reps=5)
+        ops, nbytes = bm.grouped_work(r, k, n, e)
+        bound_ms = max(ops / INT8_OPS_PER_S, nbytes / MEM_BYTES_PER_S) * 1e3
+        by = "ops" if ops / INT8_OPS_PER_S >= nbytes / MEM_BYTES_PER_S else "bytes"
+        name = f"grouped_matmul[{case}]"
+        rows.append({
+            "name": name, "route": "cuda", "source": GROUPED_SOURCE, "replaces": GROUPED_REPLACES, "launches": 1,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "plain_device": "cuda", "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms, "library": f"{e} torch._int_mm calls, one an expert",
+            "eager_ms": eager, "path": "moonlight_prefill_shape", "launches_by_path": {"moonlight_prefill_shape": 1},
+            "rounds": dict(sums, kernel_no_slower=sum(a <= b for a, b in zip(sums["kernel"], sums["library"]))),
+            "shapes": [[r, k, n]], "experts": e, "rows_per_expert": [int(min(counts)), int(max(counts))],
+            "ops": ops, "bytes": nbytes, "floors": k_ms / floor_ms,
+        })
+        print(f"kernel {name}: {k_ms:.4f} ms graph replay ({eager:.4f} ms eager; bound {bound_ms:.4f} ms by {by}, "
+              f"roofline share {bound_ms / k_ms:.1%}), plain {plain_ms:.2f} ms on the card, {e} torch._int_mm "
+              f"{lib_ms:.4f} ms ({lib_ms / k_ms:.2f}x); rows an expert {min(counts)}-{max(counts)} ({gpu})")
+    return rows
 
 
 def recorded_kernel_rows(torch, bm, att, smoke, rec, cfg, floor_ms, tag, path, gpu):

@@ -185,6 +185,70 @@ class ModelConfig:
         return dense - all_experts + active
 
 
+MLA_KINDS = ("mla", "mla_moe")
+
+
+def mla_moe_pattern(n_layers: int, first_k_dense: int) -> Tuple[str, ...]:
+    """The layer kinds of a DeepSeek-V3-architecture decoder, one pattern
+    group: ``first_k_dense`` latent-attention layers with a dense SwiGLU
+    (``"mla"``), then latent-attention layers with routed and shared experts
+    (``"mla_moe"``)."""
+    return ("mla",) * first_k_dense + ("mla_moe",) * (n_layers - first_k_dense)
+
+
+@dataclass(frozen=True)
+class MLAMoEConfig(ModelConfig):
+    """A DeepSeek-V3-architecture decoder (arXiv:2405.04434, 2412.19437):
+    multi-head latent attention in every layer and, past the leading dense
+    layers, sigmoid-routed experts beside shared ones.  The fields
+    :class:`ModelConfig` lacks sit here, so that the registered configs and
+    their ``repr`` stay the JAX package's.
+
+    Attention: ``wq`` gives each head ``qk_nope_head_dim +
+    qk_rope_head_dim`` (``q_lora_rank`` null: no query compression);
+    ``wkv_a`` gives a latent of ``kv_lora_rank`` (RMSNorm'd, the decode
+    cache keeps it) and a ``qk_rope_head_dim`` key part that every head
+    shares (RoPE'd, cached too); ``wkv_b`` expands the latent into each
+    head's key part and its value of ``v_head_dim``.  ``head_dim`` is the
+    query and key head, ``d_ff`` the dense layers' width.
+
+    Experts: ``n_experts`` routed of width ``moe_d_ff``,
+    ``experts_per_token`` chosen by sigmoid score plus a selection bias
+    (``noaux_tc`` with ``n_group`` = ``topk_group`` = 1), weighted by their
+    scores normalised over the chosen (``norm_topk_prob``) times
+    ``routed_scaling_factor``; ``n_shared_experts`` always-on experts, one
+    SwiGLU of width ``n_shared_experts * moe_d_ff``.  Routing is dropless:
+    ``moe_capacity_factor`` is not read.  The embedding is not scaled."""
+
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    n_group: int = 1
+    topk_group: int = 1
+
+    def param_count(self) -> int:
+        d, h, e = self.d_model, self.n_heads, self.n_experts
+        qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+        attn = (d * h * qk + d * (self.kv_lora_rank + self.qk_rope_head_dim) + self.kv_lora_rank
+                + self.kv_lora_rank * h * (self.qk_nope_head_dim + self.v_head_dim) + h * self.v_head_dim * d)
+        dense = 3 * d * self.d_ff
+        moe = d * e + e + e * 3 * d * self.moe_d_ff + 3 * d * self.n_shared_experts * self.moe_d_ff
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+        for kind in self.layer_kinds():
+            n += attn + 2 * d + (dense if kind == "mla" else moe)
+        return n
+
+    def active_param_count(self) -> int:
+        idle = (self.n_experts - self.experts_per_token) * 3 * self.d_model * self.moe_d_ff
+        return self.param_count() - idle * self.layer_kinds().count("mla_moe")
+
+
 # ---------------------------------------------------------------------------
 # Input-shape cells
 # ---------------------------------------------------------------------------

@@ -63,6 +63,9 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     # diagonal shifts and its plan (bitslice_matmul.bitslice_plan)
     "bitslice_gemm_mma": ("bitslice_gemm", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                             _P)),
+    # the grouped tensor-core path: x, w, the groups' row offsets, out, rows,
+    # N, K, groups, then its plan (bitslice_matmul.grouped_plan)
+    "bitslice_gemm_grouped": ("bitslice_gemm", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     # the attention kernels take int8 and int32 operands, named by their
     # element size in bytes (1 or 4) after the extents, then their launch
     # plans: q·Kᵀ and the GEMV attention.rowdot_plan's (row dot, lanes,

@@ -119,6 +119,7 @@ __all__ = [
     "quantized_matmul",
     "act_quant",
     "act_quant_plain",
+    "grouped_matmul",
     "quantize_int8",
     "ewise_add",
     "relu",
@@ -854,6 +855,19 @@ def act_quant(x: torch.Tensor, bits: int = 8) -> Tuple[torch.Tensor, torch.Tenso
     from repro_torch.kernels import act_quant as _act_quant
 
     return _act_quant.act_quant(x, bits)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """int8 rows ``x (R, K)`` sorted by group, each times its group's int8
+    weight of ``w (E, K, N)`` → int32 ``(R, N)``; group ``e`` holds the rows
+    ``offsets[e]`` to ``offsets[e + 1]`` (``offsets (E + 1,)`` int32 on the
+    rows' device).  One launch of the bit-sliced GEMM's grouped tensor-core
+    path on the card, which reads no count on the host; the plain version on
+    the CPU (``kernels/bitslice_matmul.grouped_matmul``; not a registry
+    kernel: the JAX package multiplies experts with ``jnp.einsum``)."""
+    from repro_torch.kernels import bitslice_matmul as _bm
+
+    return _bm.grouped_matmul(x, w, offsets)
 
 
 def ewise_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,10 @@ pair is never launched.  :func:`bitslice_plan` picks the kernel's path: int8
 tensor cores (``mma.sync``) for every ``PrecisionSpec`` preset, ``__dp4a``
 for the rest.  Unlike the Pallas wrapper, M, N and K need not divide any
 block size; the kernel masks the ragged edges.
+
+:func:`grouped_matmul` is the same kernel's tensor-core tile over groups of
+rows, each against its own weight (a mixture of experts' routed rows), in
+one launch; it counts its launches as ``grouped_matmul``.
 """
 from __future__ import annotations
 
@@ -166,6 +170,68 @@ def _bitslice_gemm(x: torch.Tensor, w: torch.Tensor, slice_bits: int, pairs: Pai
                       bytes(s for s, _ in order), bytes(t for _, t in order), len(order))
     count_launch("bitslice_matmul")
     _launched.pairs, _launched.path = order, plan.path
+    return out
+
+
+def grouped_plan(k: int, n: int, w_ptr: int) -> Tuple[int, int]:
+    """(16-byte copies of w rows, K tiles between folds) of the grouped
+    product: one slice pair, so ``fold_k`` as :func:`bitslice_plan` takes it
+    for one pair a diagonal."""
+    return int(n % 16 == 0 and w_ptr % 16 == 0), BITSLICE_FOLD_LP // BITSLICE_MMA_BK
+
+
+def grouped_work(rows: int, k: int, n: int, groups: int) -> Tuple[int, int]:
+    """(operations, bytes) of one grouped call: two operations a product of
+    each row with its group's weight; the rows, every group's weight and
+    the int32 output once (the offsets' few bytes not counted)."""
+    return 2 * rows * k * n, rows * k + groups * k * n + 4 * rows * n
+
+
+def _grouped_plain(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """The grouped product's plain version: each group's rows through the
+    bit-sliced GEMM's plain version (one pair, no shift)."""
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=torch.int32, device=x.device)
+    bounds = offsets.tolist()
+    for e in range(w.shape[0]):
+        lo, hi = bounds[e], bounds[e + 1]
+        out[lo:hi] = _bitslice_plain(x[None, lo:hi], w[e:e + 1], 8, ((0, 0),))
+    return out
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """``out[r] = x[r] @ w[e]`` for the rows ``offsets[e] <= r <
+    offsets[e + 1]`` of group ``e``: int8 ``x (R, K)`` sorted by group ×
+    int8 ``w (E, K, N)`` → int32 ``(R, N)``, with ``offsets (E + 1,)`` int32
+    on ``x``'s device (0 first, nondecreasing, R last).  On the card one
+    launch of ``csrc/bitslice_gemm.cu``'s grouped tensor-core path, which
+    never reads the offsets on the host; on the CPU the plain version; on
+    ``meta`` the card's checks, then a ``meta`` output.  Every device refuses
+    what the card refuses: K % 16 != 0, N % 4 != 0.  Not a registry kernel:
+    the JAX package multiplies experts with ``jnp.einsum``, outside Pallas."""
+    meta = meta_operands(x, w, offsets)
+    dev = x.device if meta else kernel_device(x, w, offsets)
+    (r, k), (e, k2, n) = x.shape, w.shape
+    if x.dtype != torch.int8 or w.dtype != torch.int8 or offsets.dtype != torch.int32:
+        raise TypeError(f"the grouped product takes int8 rows and weights and int32 offsets, got {x.dtype}, "
+                        f"{w.dtype} and {offsets.dtype}")
+    if k != k2 or tuple(offsets.shape) != (e + 1,):
+        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} with offsets {tuple(offsets.shape)}")
+    if k % 16 or n % 4 or max(r * k, r * n, e * k * n) >= 2**31:
+        raise ValueError(f"the grouped product takes K % 16 == 0, N % 4 == 0 and operands under 2**31 "
+                         f"elements, got R={r}, K={k}, N={n}, E={e}")
+    if r and noting_work():
+        note_kernel_work("grouped_matmul", *grouped_work(r, k, n, e))
+    if dev.type == "cpu":
+        with plain_scope():
+            return _grouped_plain(x, w, offsets)
+    x, w, offsets = x.contiguous(), w.contiguous(), offsets.contiguous()
+    out = torch.empty((r, n), dtype=torch.int32, device=dev)
+    if out.numel() == 0 or meta:
+        return out
+    w_vec, fold_tiles = grouped_plan(k, n, w.data_ptr())
+    _build.launch("bitslice_gemm_grouped", dev, x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                  r, n, k, e, w_vec, fold_tiles)
+    count_launch("grouped_matmul")
     return out
 
 

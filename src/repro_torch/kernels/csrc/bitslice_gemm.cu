@@ -56,6 +56,18 @@
 // words when K % 4 == 0 and the stack is 4-byte aligned, else byte by byte; w
 // is read by byte, coalesced along N.
 //
+// Grouped path (bitslice_grouped_kernel): the routed experts of a mixture of
+// experts, every expert's product of one projection of one layer in one
+// launch.  It replaces no TPU kernel: the JAX package multiplies experts with
+// jnp.einsum outside Pallas (src/repro/models/moe.py).  The rows (one int8
+// slice each) are sorted by expert and the experts' row offsets lie on the
+// device; each block finds its expert and M tile from them and runs the
+// tensor-core path's tile over that expert's rows and its own (K, N) weight,
+// so a tile never spans two experts and an empty expert launches no block
+// that works.  Bound: at Moonlight-16B-A3B's prefill (~1,500 rows an expert,
+// K x N 2048 x 2816 and 1408 x 2048) operations, at mma.sync's rate as
+// above; the last, partial tile of each expert computes up to 127 zero rows.
+//
 // Bound: the Table III GEMM (61440 x 2048 x 32) is byte-bound on the card
 // (the x stack dominates: the tall tiles stream it once); a wide N such as
 // the Qwen2-0.5B MLP projection (4096 x 896 x 4864) is operation-bound, at
@@ -378,19 +390,16 @@ __device__ __forceinline__ void fold(const int (&acc)[NACC][MT][4][4], const Arg
     }
 }
 
-// NX x NW staged slices, all NX·NW pairs; a BM x BN tile of warps WM x WN.
+// NX x NW staged slices, all NX·NW pairs: the output tile at (row0, col0), a
+// BM x BN tile of warps WM x WN, over all of K, staged in `smem`.
 template <int NX, int NW, int BM, int BN, int WM>
-__global__ void __launch_bounds__(threads_of<BM, BN, WM>())
-bitslice_mma_kernel(const Args args) {
+__device__ __forceinline__ void mma_tile(const Args& args, uint8_t* smem, int row0, int col0) {
   constexpr int THREADS = threads_of<BM, BN, WM>(), WARPS_N = BN / WN;
   constexpr int MT = WM / 16;         // 16-row MMA tiles a warp
   constexpr int NACC = NX + NW - 1;   // local diagonals i + j
   constexpr int X_TILE = BM * BK, W_TILE = BK * BN, STAGE = NX * X_TILE + NW * W_TILE;
   static_assert(X_TILE % (16 * THREADS) == 0 && W_TILE % (16 * THREADS) == 0, "tile / thread mismatch");
 
-  extern __shared__ uint4 smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_raw);
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
   const int ktiles = (args.k + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
@@ -463,6 +472,58 @@ bitslice_mma_kernel(const Args args) {
     fold(acc, args, row0 + wm0 + g, col0 + wn0 + 8 * t, first);  // the range's end: keeps s32 exact
   }
   cp_wait<0>();
+}
+
+template <int NX, int NW, int BM, int BN, int WM>
+__global__ void __launch_bounds__(threads_of<BM, BN, WM>())
+bitslice_mma_kernel(const Args args) {
+  extern __shared__ uint4 smem_raw[];
+  mma_tile<NX, NW, BM, BN, WM>(args, reinterpret_cast<uint8_t*>(smem_raw), blockIdx.x * BM, blockIdx.y * BN);
+}
+
+// The grouped product: group e's rows [offsets[e], offsets[e+1]) of x (one
+// int8 slice, rows sorted by group) times its own weight w[e] (K, N), into
+// the same rows of out.  blockIdx.x counts the groups' BM-row tiles in group
+// order (a group of c rows has ceil(c / BM), an empty one none); the grid is
+// sized for the most any split of the rows can need, ceil(rows / BM) +
+// groups, so the host never reads the counts, and the blocks past the last
+// tile return at once.  No tile spans two groups: a group's last tile is
+// zero-filled past its rows and stores none of them.
+template <int BM, int BN, int WM>
+__global__ void __launch_bounds__(threads_of<BM, BN, WM>())
+bitslice_grouped_kernel(const Args args, const int* __restrict__ offsets, int groups) {
+  int tile = blockIdx.x, e = 0, lo = 0, rows = 0;
+  for (; e < groups; ++e) {
+    lo = offsets[e];
+    rows = offsets[e + 1] - lo;
+    const int tiles = rows > 0 ? (rows + BM - 1) / BM : 0;
+    if (tile < tiles) break;
+    tile -= tiles;
+  }
+  if (e == groups) return;  // uniform over the block: before any barrier
+  Args a = args;
+  a.x[0] = args.x[0] + static_cast<size_t>(lo) * args.k;
+  a.w[0] = args.w[0] + static_cast<size_t>(e) * args.k * args.n;
+  a.out = args.out + static_cast<size_t>(lo) * args.n;
+  a.m = rows;
+  extern __shared__ uint4 smem_raw[];
+  mma_tile<1, 1, BM, BN, WM>(a, reinterpret_cast<uint8_t*>(smem_raw), tile * BM, blockIdx.y * BN);
+}
+
+template <int BM, int BN, int WM>
+int launch_grouped(const Args& a, const int* offsets, int groups, int rows, cudaStream_t stream) {
+  constexpr int THREADS = threads_of<BM, BN, WM>();
+  constexpr int SMEM = STAGES * (BM + BN) * BK;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(bitslice_grouped_kernel<BM, BN, WM>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const dim3 grid((rows + BM - 1) / BM + groups, (a.n + BN - 1) / BN);
+  bitslice_grouped_kernel<BM, BN, WM><<<grid, THREADS, SMEM, stream>>>(a, offsets, groups);
+  return REPRO_LAUNCH_STATUS();
 }
 
 template <int NX, int NW, int BM, int BN, int WM>
@@ -561,4 +622,33 @@ extern "C" int bitslice_gemm_mma(const void* x0, const void* x1, const void* w0,
   if (nx == 2 && nw == 1) return tc::launch_slices<2, 1>(a, nar, st);
   if (nx == 1 && nw == 2) return tc::launch_slices<1, 2>(a, nar, st);
   return tc::launch_slices<2, 2>(a, nar, st);
+}
+
+// The grouped product: x (rows, K) int8 sorted by group, w (groups, K, N)
+// int8, offsets (groups + 1) int32 on the device (offsets[0] = 0,
+// nondecreasing, offsets[groups] = rows), out (rows, N) int32; one slice pair,
+// no shift.  The 128 x 128 tile (128 x 32 for N <= 32).  Refuses
+// (cudaErrorInvalidValue) K % 16 != 0, N % 4 != 0, a misaligned operand or a
+// fold interval past FOLD_LP.
+extern "C" int bitslice_gemm_grouped(const void* x, const void* w, const void* offsets, void* out, int rows,
+                                     int n, int k, int groups, int w_vec, int fold_tiles, void* stream) {
+  const auto misaligned = [](const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to != 0; };
+  if (rows < 0 || groups < 1 || k % 16 != 0 || n % 4 != 0 || fold_tiles < 1 ||
+      static_cast<long long>(fold_tiles) * tc::BK > tc::FOLD_LP || misaligned(x, 16) ||
+      misaligned(w, w_vec ? 16 : 4) || misaligned(offsets, 4) || misaligned(out, 16) || (w_vec && n % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tc::Args a;
+  a.x[0] = a.x[1] = static_cast<const int8_t*>(x);
+  a.w[0] = a.w[1] = static_cast<const int8_t*>(w);
+  a.out = static_cast<uint32_t*>(out);
+  a.m = rows;
+  a.n = n;
+  a.k = k;
+  a.shift[0] = a.shift[1] = a.shift[2] = 0;
+  a.fold_tiles = fold_tiles;
+  a.w_vec = w_vec;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* off = static_cast<const int*>(offsets);
+  if (n <= 32) return tc::launch_grouped<128, 32, 32>(a, off, groups, rows, st);
+  return tc::launch_grouped<128, 128, 64>(a, off, groups, rows, st);
 }

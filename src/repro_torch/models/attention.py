@@ -6,7 +6,10 @@ The float paths are the JAX package's ``einsum`` and ``softmax`` ops, in its
 order (``F.scaled_dot_product_attention`` would add in another order, and it
 is a library kernel).  Long sequences never materialize O(S²) scores:
 :func:`chunked_attention` walks KV chunks carrying (max, denom, acc), and with
-``triangular=True`` its causal schedule visits only chunks j ≤ i.
+``triangular=True`` its causal schedule visits only chunks j ≤ i.  The value
+heads may be narrower than the query and key heads (latent attention's 128
+against 192): every path's output takes the value's head dim, and the
+scores are scaled by the query's.
 
 :func:`decode_attention_int8` scores an int8 query against the int8 KV cache
 with the port's row-dot kernel (``api.attention_qk``): the one contraction of
@@ -38,7 +41,8 @@ def _gqa_fold(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 
 def _direct_attention(q, k, v, mask) -> torch.Tensor:
-    """q: (B,S,Hkv,G,d); k,v: (B,T,Hkv,d); mask: (S,T) bool or None."""
+    """q: (B,S,Hkv,G,d); k: (B,T,Hkv,d); v: (B,T,Hkv,dv); mask: (S,T) bool
+    or None."""
     d = q.shape[-1]
     scores = torch.einsum("bshgd,bthd->bhgst", q, k).to(torch.float32)
     scores = scores / math.sqrt(d)
@@ -100,7 +104,8 @@ def _pad_seq(x: torch.Tensor, before: int, after: int) -> torch.Tensor:
 
 
 def chunked_attention(q, k, v, *, causal: bool, chunk: int, triangular: bool, window: int = 0) -> torch.Tensor:
-    """Flash-style (banded) attention.  q: (B,S,Hkv,G,d); k,v: (B,T,Hkv,d).
+    """Flash-style (banded) attention.  q: (B,S,Hkv,G,d); k: (B,T,Hkv,d); v:
+    (B,T,Hkv,dv).
 
     Loops over q-chunks and, inside, over kv-chunks in the JAX package's
     order (its ``lax.scan`` over the unmasked interior chunks, then the masked
@@ -108,7 +113,7 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int, triangular: bool, wi
     > 0 also skips chunks fully outside the local-attention band.
     """
     b, s, hkv, g, d = q.shape
-    t = k.shape[1]
+    t, dv = k.shape[1], v.shape[-1]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
     t_pad = (-t) % chunk
@@ -131,7 +136,7 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int, triangular: bool, wi
         qc = q[:, i * chunk:(i + 1) * chunk]
         carry = (torch.full((b, hkv, g, chunk), NEG_INF, dtype=torch.float32, device=dev),
                  torch.zeros((b, hkv, g, chunk), dtype=torch.float32, device=dev),
-                 torch.zeros((b, chunk, hkv, g, d), dtype=torch.float32, device=dev))
+                 torch.zeros((b, chunk, hkv, g, dv), dtype=torch.float32, device=dev))
         hi = (i + 1) if (causal and triangular) else nk
         lo = max(0, i - (window + chunk - 1) // chunk) if window > 0 else 0
         if causal and triangular:
@@ -153,7 +158,7 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int, triangular: bool, wi
 
 def full_attention(q, k, v, *, causal: bool, chunk: int, triangular: bool, flash_threshold: int,
                    window: int = 0) -> torch.Tensor:
-    """Entry point.  q: (B,S,Hq,d) -> (B,S,Hq,d); k,v: (B,T,Hkv,d)."""
+    """Entry point.  q, k: (B,S,Hq,d), (B,T,Hkv,d); v: (B,T,Hkv,dv) -> (B,S,Hq,dv)."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qf = _gqa_fold(q, hkv)
@@ -166,12 +171,12 @@ def full_attention(q, k, v, *, causal: bool, chunk: int, triangular: bool, flash
     else:
         out = chunked_attention(qf, k, v, causal=causal, chunk=min(chunk, s), triangular=triangular,
                                 window=window)
-    return out.reshape(b, s, hq, d)
+    return out.reshape(b, s, hq, -1)
 
 
 def local_attention(q, k, v, window: int) -> torch.Tensor:
     """Causal windowed attention: each query sees the previous ``window``
-    tokens.  q: (B,S,Hq,d), k/v: (B,S,Hkv,d).  Chunked attention over
+    tokens.  q, k: (B,S,Hq,d), (B,S,Hkv,d); v: (B,S,Hkv,dv).  Chunked attention over
     (previous, self) chunks with chunk == window: O(S·W).
     """
     b, s, hq, d = q.shape
@@ -200,7 +205,7 @@ def local_attention(q, k, v, window: int) -> torch.Tensor:
     scores = torch.where(mask[None, :, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bnhgst,bnthd->bnshgd", probs, vv)
-    return out.reshape(b, sp, hq, d)[:, :s]
+    return out.reshape(b, sp, hq, -1)[:, :s]
 
 
 def _kv_qmax(spec: PrecisionSpec) -> int:
@@ -305,11 +310,12 @@ def decode_attention_int8(q1, k_q, v_q, k_s, v_s, valid_len=None,
     probs = torch.softmax(scores, dim=-1)
     pw = probs * torch.movedim(v_s, 1, -1)[:, :, None]  # (B,Hkv,G,T)
     out = torch.einsum("bhgt,bthd->bhgd", pw, v_q.to(torch.float32))
-    return out.reshape(b, 1, hq, d).to(q1.dtype)
+    return out.reshape(b, 1, hq, -1).to(q1.dtype)
 
 
 def decode_attention(q1, k_cache, v_cache, valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token decode: q1 (B,1,Hq,d) vs cache (B,T,Hkv,d)."""
+    """One-token decode: q1 (B,1,Hq,d) vs cache k (B,T,Hkv,d), v (B,T,Hkv,dv)
+    -> (B,1,Hq,dv)."""
     b, _, hq, d = q1.shape
     hkv = k_cache.shape[2]
     qf = _gqa_fold(q1, hkv)[:, 0]  # (B,Hkv,G,d)
@@ -317,4 +323,4 @@ def decode_attention(q1, k_cache, v_cache, valid_len: Optional[torch.Tensor] = N
     scores = _valid_mask(scores / math.sqrt(d), valid_len)
     probs = torch.softmax(scores, dim=-1).to(q1.dtype)
     out = torch.einsum("bhgt,bthd->bhgd", probs, v_cache)
-    return out.reshape(b, 1, hq, d)
+    return out.reshape(b, 1, hq, -1)

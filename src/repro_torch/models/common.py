@@ -278,7 +278,8 @@ def quant_linear_relu(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] 
 
 def maybe_quantize_tree(params: Params, cfg, path: str = "") -> Params:
     """The serving form of a parameter tree: every linear ``{"w": ...}``
-    leaf-dict (2-D, or 3-D stacked over pattern groups) becomes ``{"w_q":
+    leaf-dict (2-D, 3-D stacked over pattern groups, or 4-D: a stack of
+    experts' linears over pattern groups) becomes ``{"w_q":
     int8, "w_scale": float32}`` (plus its ``"b"``), quantized per group at
     the config's ``weight_bits``.  Embedding and normalization weights stay
     high-precision (they are gathered, not multiplied)."""
@@ -289,7 +290,7 @@ def maybe_quantize_tree(params: Params, cfg, path: str = "") -> Params:
 
     def rec(node, path):
         if isinstance(node, dict):
-            if "w" in node and node["w"].ndim in (2, 3) and not any(s in path for s in skip):
+            if "w" in node and node["w"].ndim in (2, 3, 4) and not any(s in path for s in skip):
                 q = quantize_weight(node["w"], spec.weight_bits)
                 if "b" in node:
                     q["b"] = node["b"]

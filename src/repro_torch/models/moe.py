@@ -21,6 +21,21 @@ On a "model" axis wider than one that the experts divide, a rank holds
 ``E/tp`` experts: the router, the capacity and the dispatch stay replicated
 (every rank routes identically), the rank runs its experts on their buffer
 rows, and the expert outputs are gathered over the axis before the combine.
+
+:func:`dropless_moe_ffn` is the DeepSeek-V3 architecture's layer
+(``configs.base.MLAMoEConfig``), which the JAX package does not have: sigmoid
+scores, the top-k chosen by score plus a selection bias and weighted by
+their scores normalised and scaled, every routed pair kept (dropless: a
+token's output does not depend on the rest of the batch), and shared experts
+beside the routed ones.  The routed pairs are sorted stably by expert, the
+experts' row offsets found by ``searchsorted``, and each projection of all
+the experts is one launch of the grouped bit-sliced GEMM
+(``api.grouped_matmul``) over the sorted rows, behind the activation quantize
+and before the dequantize as in ``common.quant_linear``: no count is read on
+the host inside the layer.  Spans: ``model.moe.route`` (scores, top-k, sort,
+offsets, the rows' gather), ``model.moe.experts`` (the grouped products with
+their quantize and dequantize), ``model.moe.combine``; counter
+``moe.routed_rows`` (tokens × k).
 """
 from __future__ import annotations
 
@@ -29,8 +44,11 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dist import collectives
-from repro_torch.models.common import Params, dense_init, swiglu
+from repro_torch.kernels import api
+from repro_torch.kernels.api import PrecisionSpec
+from repro_torch.models.common import Params, dense_init, linear, linear_init, swiglu
 
 
 def moe_init(gen, cfg, dtype, *, lead: tuple = (), device: Any) -> Params:
@@ -118,3 +136,107 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, n_groups: int, ms=None) -> Tuple[to
     ce = torch.mean(hot, dim=1)  # (G, E) dispatch mass
     aux = e * torch.mean(torch.sum(me * ce, dim=-1))
     return out.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# dropless, sigmoid-routed experts with shared experts (MLAMoEConfig)
+# ---------------------------------------------------------------------------
+
+ROUTER_BIAS_STD = 0.05  # the selection bias init_params draws (not published)
+
+
+def dropless_moe_init(gen, cfg, dtype, *, lead: tuple = (), device: Any) -> Params:
+    """The router (float32, with its selection bias), the routed experts'
+    stacks as linears of ``(*lead, E, d_in, d_out)`` (gate and up side by
+    side in one) and the shared experts' SwiGLU."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    fs = cfg.n_shared_experts * f
+
+    def experts(d_in, d_out):
+        w = dense_init(gen, e * d_in, d_out, dtype, 1.0 / math.sqrt(d_in), lead=lead, device=device)
+        return {"w": w.reshape(*lead, e, d_in, d_out)}
+
+    bias = dense_init(gen, 1, e, torch.float32, ROUTER_BIAS_STD, lead=lead, device=device)
+    return {
+        "router": {"w": dense_init(gen, d, e, torch.float32, lead=lead, device=device),
+                   "bias": bias.reshape(*lead, e)},
+        "experts": {"gate_up": experts(d, 2 * f), "down": experts(f, d)},
+        "shared": {"w_gate": linear_init(gen, d, fs, dtype, lead=lead, device=device),
+                   "w_up": linear_init(gen, d, fs, dtype, lead=lead, device=device),
+                   "w_down": linear_init(gen, fs, d, dtype, lead=lead, device=device)},
+    }
+
+
+def route_sigmoid(logits: torch.Tensor, bias: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weights (T, k) float32, experts (T, k)) of float32 router ``logits``
+    (T, E): the k experts of the highest sigmoid score plus ``bias`` (the
+    selection bias chooses and does not weigh), weighted by their scores,
+    normalised over the k where ``norm_topk_prob``, times
+    ``routed_scaling_factor``."""
+    if cfg.scoring_func != "sigmoid" or cfg.n_group != 1 or cfg.topk_group != 1:
+        raise NotImplementedError(f"{cfg.name}: dropless routing takes sigmoid scores in one group, got "
+                                  f"{cfg.scoring_func!r}, n_group={cfg.n_group}, topk_group={cfg.topk_group}")
+    scores = torch.sigmoid(logits)
+    experts = torch.topk(scores + bias, cfg.experts_per_token, dim=-1).indices
+    weights = scores.gather(-1, experts)
+    if cfg.norm_topk_prob:
+        weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+    return weights * cfg.routed_scaling_factor, experts
+
+
+def sort_by_expert(experts: torch.Tensor, n_experts: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The routed pairs (``experts (T, k)`` flattened) in a stable order by
+    expert: (order, each sorted pair's expert, offsets (E + 1,) int32 where
+    expert e's pairs are ``offsets[e]`` to ``offsets[e + 1]``)."""
+    flat = experts.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    expert = flat[order]
+    offsets = torch.searchsorted(expert, torch.arange(n_experts + 1, device=flat.device)).to(torch.int32)
+    return order, expert, offsets
+
+
+def _grouped_linear(p: Params, x: torch.Tensor, offsets: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
+    """Each sorted row of ``x`` through its expert's linear of ``p``: the
+    grouped bit-sliced GEMM between the activation quantize (int8, as
+    ``common.linear``'s) and the dequantize (each row's scale times its
+    expert's column scales) when ``p`` is quantized, else float products, an
+    expert at a time."""
+    if "w" in p:
+        out = x.new_empty((x.shape[0], p["w"].shape[-1]))
+        bounds = offsets.tolist()
+        for e in range(p["w"].shape[0]):
+            out[bounds[e]:bounds[e + 1]] = x[bounds[e]:bounds[e + 1]] @ p["w"][e]
+        return out
+    with obs.span("model.act_quant"):
+        x_q, x_scale = api.act_quant(x, PrecisionSpec.int8.act_bits)
+    acc = api.grouped_matmul(x_q, p["w_q"], offsets)
+    with obs.span("model.dequant"):
+        out = acc.to(torch.float32) * x_scale * p["w_scale"].squeeze(-2).index_select(0, expert)
+        return out.to(x.dtype)
+
+
+def dropless_moe_ffn(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (routed + shared experts' output, 0: no aux loss).
+    Every token's k routed pairs are kept; the combine sums a token's k
+    expert outputs in float32, weighted, in its own order, so the output of
+    a token does not depend on the other tokens of the batch."""
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    xf = x.reshape(-1, d)
+    with obs.span("model.moe.route"):
+        logits = xf.to(torch.float32) @ p["router"]["w"]
+        weights, experts = route_sigmoid(logits, p["router"]["bias"], cfg)
+        order, expert, offsets = sort_by_expert(experts, cfg.n_experts)
+        rows = xf[order // k]
+    obs.count("moe.routed_rows", rows.shape[0])
+    with obs.span("model.moe.experts"):
+        gu = _grouped_linear(p["experts"]["gate_up"], rows, offsets, expert)
+        f = gu.shape[-1] // 2
+        y = _grouped_linear(p["experts"]["down"], swiglu(gu[:, :f], gu[:, f:]), offsets, expert)
+    sh = p["shared"]
+    shared = linear(sh["w_down"], swiglu(linear(sh["w_gate"], x), linear(sh["w_up"], x)))
+    with obs.span("model.moe.combine"):
+        pairs = y.new_empty(y.shape).index_copy_(0, order, y)  # back in (token, choice) order
+        routed = (pairs.view(-1, k, d).to(torch.float32) * weights[..., None]).sum(1).to(x.dtype)
+        out = routed.view(b, s, d) + shared
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)

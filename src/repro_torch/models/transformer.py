@@ -1,7 +1,13 @@
 """Composable transformer of the PyTorch port: one model assembly for every
 architecture of ``repro_torch.configs`` (dense GQA, MoE, the RG-LRU hybrid,
 xLSTM, the encoder–decoder audio model, the VLM stub), the port's copy of
-the JAX package's ``models/transformer.py``.
+the JAX package's ``models/transformer.py``; beside them the DeepSeek-V3
+architecture (``configs.base.MLAMoEConfig``, which the JAX package lacks):
+latent attention (kinds ``"mla"`` and ``"mla_moe"``) whose decode cache
+holds the normed latent and the RoPE'd shared key part (``c_kv``, ``k_pe``)
+and expands them through ``wkv_b`` each step, a dense SwiGLU in the leading
+layers and dropless routed plus shared experts (``moe.dropless_moe_ffn``)
+in the rest; no sharding rules, no ``quant_kv``.
 
 The layer stack is the config's ``block_pattern`` tiled to ``n_layers``, its
 parameters and cache stacked on a leading pattern-group axis ``(G, ...)``
@@ -48,7 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import obs
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLA_KINDS, MLAMoEConfig, ModelConfig
 from repro_torch.dist import collectives, sharding
 from repro_torch.kernels import api
 from repro_torch.kernels.api import PrecisionSpec
@@ -65,6 +71,7 @@ from repro_torch.models.common import (
     apply_rope,
     dense_init,
     dtype_of,
+    linear,
     linear_init,
     rmsnorm,
     rmsnorm_init,
@@ -73,7 +80,7 @@ from repro_torch.models.common import (
     tp_gathered,
     tp_linear,
 )
-from repro_torch.models.moe import moe_ffn, moe_init
+from repro_torch.models.moe import dropless_moe_ffn, dropless_moe_init, moe_ffn, moe_init
 from repro_torch.models.recurrent import (
     mlstm_block_apply,
     mlstm_block_init,
@@ -100,6 +107,8 @@ def check_supported(cfg: ModelConfig, rules: Any = None) -> None:
     naming ``launch.mesh.make_host_mesh``)."""
     if rules is None:
         return
+    if any(kind in MLA_KINDS for kind in cfg.block_pattern):
+        raise NotImplementedError(f"{cfg.name}: latent attention does not run under sharding rules")
     if not isinstance(rules, sharding.MeshRules):
         raise TypeError(f"{cfg.name}: rules must be a dist.sharding.MeshRules (ROADMAP S13), "
                         f"not {type(rules).__name__}")
@@ -173,6 +182,12 @@ def _block_init(gen, cfg, kind: str, dtype, lead, device, decoder: bool) -> Para
     """One block = norm + temporal mixer (+ cross-attention) (+ norm + FFN),
     each leaf ``(*lead, ...)``."""
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, dtype, lead=lead, device=device)}
+    if kind in MLA_KINDS:
+        p["attn"] = _mla_init(gen, cfg, dtype, lead, device)
+        p["ln2"] = rmsnorm_init(cfg.d_model, dtype, lead=lead, device=device)
+        p["ffn"] = (_ffn_init(gen, cfg, dtype, lead, device) if kind == "mla"
+                    else dropless_moe_init(gen, cfg, dtype, lead=lead, device=device))
+        return p
     if kind in ("attn", "local_attn"):
         p["attn"] = _attn_init(gen, cfg, dtype, lead, device)
     elif kind in _MIXER_INIT:
@@ -310,6 +325,62 @@ def _attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, flags: RunFlags, p
     return _attn_out(p, out, cfg, ms), cache
 
 
+def _mla_init(gen, cfg, dtype, lead, device) -> Params:
+    """Latent attention's linears (``q_lora_rank`` null) and the latent's
+    norm, each ``(*lead, ...)``."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    return {
+        "wq": linear_init(gen, d, h * cfg.resolved_head_dim, dtype, lead=lead, device=device),
+        "wkv_a": linear_init(gen, d, r + cfg.qk_rope_head_dim, dtype, lead=lead, device=device),
+        "kv_norm": rmsnorm_init(r, dtype, lead=lead, device=device),
+        "wkv_b": linear_init(gen, r, h * (cfg.qk_nope_head_dim + cfg.v_head_dim), dtype, lead=lead, device=device),
+        "wo": linear_init(gen, h * cfg.v_head_dim, d, dtype, lead=lead, device=device),
+    }
+
+
+def _mla_query(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
+    """The query heads (B, S, H, nope + rope), their rope part RoPE'd."""
+    b, s, _ = h.shape
+    q = linear(p["wq"], h).reshape(b, s, cfg.n_heads, -1)
+    nope = cfg.qk_nope_head_dim
+    return torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)], dim=-1)
+
+
+def _mla_latent(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The latent cache's rows of ``h``'s positions: ``c_kv`` (B, S,
+    kv_lora_rank) after its norm and ``k_pe`` (B, S, rope), the key part
+    every head shares, after RoPE."""
+    kv = linear(p["wkv_a"], h)
+    r = cfg.kv_lora_rank
+    c_kv = rmsnorm(p["kv_norm"], kv[..., :r], cfg.norm_eps)
+    return c_kv, apply_rope(kv[..., None, r:], positions, cfg.rope_theta)[..., 0, :]
+
+
+def _mla_expand(p: Params, c_kv: torch.Tensor, k_pe: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each head's keys (B, T, H, nope + rope) and values (B, T, H, v) of
+    latent rows, through ``wkv_b``."""
+    b, t, _ = c_kv.shape
+    kv = linear(p["wkv_b"], c_kv).reshape(b, t, cfg.n_heads, -1)
+    nope = cfg.qk_nope_head_dim
+    k = torch.cat([kv[..., :nope], k_pe[:, :, None].expand(b, t, cfg.n_heads, k_pe.shape[-1])], dim=-1)
+    return k, kv[..., nope:]
+
+
+def _mla_apply(p: Params, x: torch.Tensor, cfg, flags: RunFlags, positions: torch.Tensor,
+               causal: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Latent attention over a sequence: (block output, its latent cache
+    rows).  The scores are scaled by 1/sqrt(nope + rope)."""
+    b, s, _ = x.shape
+    q = _mla_query(p, x, cfg, positions)
+    with obs.span("model.mla.latent"):
+        c_kv, k_pe = _mla_latent(p, x, cfg, positions)
+        k, v = _mla_expand(p, c_kv, k_pe, cfg)
+    with obs.span("model.attention"):
+        out = full_attention(q, k, v, causal=causal, chunk=flags.attn_chunk, triangular=flags.triangular_attn,
+                             flash_threshold=flags.flash_threshold)
+    return linear(p["wo"], out.reshape(b, s, -1)), {"c_kv": c_kv, "k_pe": k_pe}
+
+
 def _cross_apply(p: Params, x: torch.Tensor, enc_kv: Dict[str, torch.Tensor], cfg, ms=None) -> torch.Tensor:
     b, s, d = x.shape
     q = tp_linear(p["wq"], x, ms, d, cfg.q_dim).reshape(b, s, -1, cfg.resolved_head_dim)
@@ -335,8 +406,11 @@ def _ffn_apply(p: Params, x: torch.Tensor, cfg, flags: RunFlags,
     the ranks' rows (a multiple of dp) are routed where the rows lie, the
     aux loss the mean over this rank's groups; otherwise the rank gathers
     the block's rows of every rank, routes them all and keeps its own (its
-    aux loss then the global one)."""
-    if cfg.is_moe:
+    aux loss then the global one).  Dropless experts (``p["experts"]``,
+    :class:`MLAMoEConfig`) route every row of the rank where it lies."""
+    if "experts" in p:
+        return dropless_moe_ffn(p, x, cfg)
+    if "router" in p:
         dp = shard.dp if shard is not None else 1
         split = shard is not None and shard.sharded and dp > 1
         groups = flags.routing_groups or dp
@@ -361,7 +435,9 @@ def _block_apply_seq(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, fl
     from a zero state; the mLSTM chunk is ``attn_chunk`` capped at 256."""
     aux = _zero(x.device)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if kind in ("attn", "local_attn"):
+    if kind in MLA_KINDS:
+        y, cache_out = _mla_apply(p["attn"], h, cfg, flags, positions, causal)
+    elif kind in ("attn", "local_attn"):
         y, cache_out = _attn_apply(p["attn"], h, cfg, flags, positions, kind, causal, ms)
     else:
         kw = {"chunk": min(flags.attn_chunk, 256)} if kind == "mlstm" else {}
@@ -389,7 +465,8 @@ def _group(tree: Params, gi: int) -> Params:
 
 
 def _embed_tokens(params: Params, tokens: torch.Tensor, cfg, ms=None) -> torch.Tensor:
-    """The token embeddings, ``* sqrt(d)``.  A rank holding a slice of the
+    """The token embeddings, ``* sqrt(d)`` (unscaled for an
+    :class:`MLAMoEConfig`, as published).  A rank holding a slice of the
     vocabulary looks up its own ids, zeros for the rest, summed over the
     model axis (exact: one rank gives each id)."""
     w = params["embed"]["w"]
@@ -402,6 +479,8 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg, ms=None) -> torch.T
         rows = w[torch.clamp(local, 0, w.shape[0] - 1)]
         x = collectives.reduce_from_model(torch.where(hit[..., None], rows, torch.zeros((), dtype=w.dtype,
                                                                                      device=w.device)), ms)
+    if isinstance(cfg, MLAMoEConfig):
+        return x
     # JAX multiplies by jnp.asarray(sqrt(d), x.dtype): a constant rounded to
     # the activation dtype first (a bfloat16 29.93 is 30.0), not the float32 value
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
@@ -550,6 +629,12 @@ def _cache_entry_shape(cfg, kind: str, batch: int, max_len: int, flags=DEFAULT_F
             }
         return {"k": torch.zeros(shp, dtype=dt, device=device), "v": torch.zeros(shp, dtype=dt, device=device)}
 
+    if kind in MLA_KINDS:
+        if flags.quant_kv:
+            raise NotImplementedError(f"{cfg.name}: the latent cache has no int8 form (RunFlags.quant_kv)")
+        # the latent cache: the normed latent and the RoPE'd shared key part
+        return {"c_kv": torch.zeros((*lead, batch, max_len, cfg.kv_lora_rank), dtype=dt, device=device),
+                "k_pe": torch.zeros((*lead, batch, max_len, cfg.qk_rope_head_dim), dtype=dt, device=device)}
     if kind == "attn":
         entry = kv_entry(max_len)
     elif kind == "local_attn":
@@ -631,7 +716,13 @@ def _seq_cache_to_decode_cache(entries: Params, kind: str, cfg, s: int, max_len:
     ``s % w != 0`` its first step evicts a token that is not the oldest, a
     property of the JAX package kept here).  Under ``quant_kv`` int8
     payloads and scales; ``cross_k``/``cross_v`` stay as they are.
-    Recurrent states pass through."""
+    Recurrent states pass through.  Latent attention's ``c_kv`` and
+    ``k_pe`` (B,S,·) are zero-padded to ``max_len`` rows as ``attn``'s K/V
+    (no ``quant_kv`` form: ``NotImplementedError``)."""
+    if kind in MLA_KINDS:
+        if flags.quant_kv:
+            raise NotImplementedError(f"{cfg.name}: the latent cache has no int8 form (RunFlags.quant_kv)")
+        return {n: _pad_rows(entries[n], max_len - s) if max_len > s else entries[n] for n in ("c_kv", "k_pe")}
     if kind not in ("attn", "local_attn"):
         return dict(entries)
     out = {}
@@ -764,6 +855,26 @@ def _attn_decode(p: Params, h: torch.Tensor, cfg, entry: Params, pos: int, kind:
     return _attn_out(p, out, cfg, ms)
 
 
+def _mla_decode(p: Params, h: torch.Tensor, cfg, entry: Params, pos: int) -> torch.Tensor:
+    """One token of latent attention: writes its latent row into ``entry``
+    (a group's views of the step's fresh cache) in place, expands the live
+    rows through ``wkv_b`` and attends over them (no weight absorption)."""
+    b = h.shape[0]
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
+    q = _mla_query(p, h, cfg, posb)
+    t = entry["c_kv"].shape[1]
+    # past the cache's end the last row is overwritten, as attn's K/V
+    slot, live = min(max(pos, 0), t - 1), min(pos + 1, t)
+    with obs.span("model.mla.latent"):
+        c_kv, k_pe = _mla_latent(p, h, cfg, posb)
+        _write_row(entry["c_kv"], c_kv, slot)
+        _write_row(entry["k_pe"], k_pe, slot)
+        k, v = _mla_expand(p, entry["c_kv"][:, :live], entry["k_pe"][:, :live], cfg)
+    with obs.span("model.attention"):
+        out = decode_attention(q, k, v)
+    return linear(p["wo"], out.reshape(b, 1, -1))
+
+
 def _cross_decode(p: Params, hx: torch.Tensor, cfg, entry: Params, ms=None) -> torch.Tensor:
     """One token of cross-attention over the cached encoder K/V."""
     b, _, d = hx.shape
@@ -805,7 +916,9 @@ def _decode_step(params: Params, cfg: ModelConfig, cache: Params, tokens: torch.
             key = f"{i:02d}_{kind}"
             p, entry = gp[key], gc[key]
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            if kind in ("attn", "local_attn"):
+            if kind in MLA_KINDS:
+                y = _mla_decode(p["attn"], h, cfg, entry, pos)
+            elif kind in ("attn", "local_attn"):
                 y = _attn_decode(p["attn"], h, cfg, entry, pos, kind, ms)
             else:
                 y, st = _MIXER_APPLY[kind](p["mixer"], h, cfg, entry, ms=ms)

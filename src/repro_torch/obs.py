@@ -37,7 +37,15 @@ The spans the port records:
   ``model.dequant`` (int32 accumulators to float times the scales, cast to
   the activation's dtype) in ``quant_linear`` and ``quant_linear_relu``, and
   ``model.attention`` (the attention core, from the keys and queries after
-  RoPE to the output before ``wo``) in the transformer's prefill and decode.
+  RoPE to the output before ``wo``) in the transformer's prefill and decode;
+  in latent attention ``model.mla.latent`` (``wkv_a``, the latent's norm and
+  RoPE'd key part, the latent cache's row written at a decode step, and the
+  expansion through ``wkv_b``); in the dropless expert layer
+  (``models.moe.dropless_moe_ffn``) ``model.moe.route`` (router, scores,
+  top-k, the stable sort by expert, the offsets, the rows' gather),
+  ``model.moe.experts`` (the grouped products with their quantize, SwiGLU
+  and dequantize) and ``model.moe.combine`` (the rows back in token order,
+  weighted and summed, the shared experts' output added).
 
 **Counters** are always on: :func:`count` adds to a named counter of the
 process, :func:`counts` reads them.  The kernel wrappers' launch counters
@@ -50,7 +58,10 @@ Besides the launches, the port counts ``serve.prompt_slots`` and
 those of them that are padding), and ``model.act_quant.torch`` (a
 single-pass row-parallel ``quant_linear`` on the card, whose activations take
 the PyTorch chain, not the ``act_quant`` kernel: the kernel's share is
-``launch.act_quant`` over the two).
+``launch.act_quant`` over the two), and ``moe.routed_rows`` (the rows a
+dropless expert layer hands its grouped products: tokens × experts a token,
+known on the host).  The grouped bit-sliced GEMM counts its launches as
+``launch.grouped_matmul``.
 """
 from __future__ import annotations
 
