@@ -613,6 +613,11 @@ MOONLIGHT_ROWS_PER_EXPERT = 1500
 MOONLIGHT_GROUPED_KN = ((2048, 2816), (1408, 2048))
 GROUPED_SOURCE = "src/repro_torch/kernels/csrc/bitslice_gemm.cu (bitslice_grouped_kernel)"
 GROUPED_REPLACES = "none: the JAX package multiplies experts with jnp.einsum (src/repro/models/moe.py)"
+# the dequantizing epilogue at MiniCPM-2B's prefill linears: (K, N) of q, k,
+# v, o; gate, up; down
+MINICPM_DEQUANT_KN = ((2304, 2304), (2304, 5760), (5760, 2304))
+EARLIER_DEQUANT = "the route it replaced: the int32 product, then the PyTorch dequantize (4-5 passes)"
+DEQUANT_REPLACES = "none: the dequantize after the int8 product, jnp ops XLA fuses (src/repro/models/common.py)"
 
 SOURCES = {
     "gemm": "src/repro_torch/kernels/csrc/int_gemm.cu",
@@ -2844,7 +2849,10 @@ def run_pimsab_program_phase(torch, np, api, pb, resnet, pimsab_step, smoke, dev
 class LLMKernelRecorder:
     """While active, records each bit-sliced GEMM and q·Kᵀ call of the LLM
     path by (kernel, operand shapes): the count, and the first call's
-    operands and output (clones) with the path the bit-sliced GEMM took;
+    operands and output (clones) with the path the bit-sliced GEMM took; a
+    GEMM that dequantizes in its epilogue (``dequant_matmul``) under the
+    key and operands of the one-pair K4 call it makes, its output the
+    dequantized one and its scales, bias and dtype kept as ``dequant``;
     each activation quantize (``act_quant``) by (M, K, dtype, bits) the
     same way (``quants``); given the RG-LRU scan's module ``rg``, also every
     scan call's operands and output (``scans``)."""
@@ -2857,21 +2865,29 @@ class LLMKernelRecorder:
         self.quants = {}
         self.scans = []
 
-    def _note(self, key, args, out, path=None):
+    def _note(self, key, args, out, path=None, dequant=None):
         if key in self.calls:
             self.calls[key]["count"] += 1
             return
-        self.calls[key] = {"count": 1, "path": path, "out": out.clone(),
-                           "args": tuple(a.clone() if self.torch.is_tensor(a) else a for a in args)}
+        clone = lambda a: a.clone() if self.torch.is_tensor(a) else a  # noqa: E731
+        self.calls[key] = {"count": 1, "path": path, "out": out.clone(), "args": tuple(clone(a) for a in args)}
+        if dequant is not None:
+            self.calls[key]["dequant"] = tuple(clone(a) for a in dequant)
 
     def __enter__(self):
         bm, att = self.bm, self.att
-        self.orig = orig_b, orig_q = bm._bitslice_gemm, att._qk
+        self.orig = orig_b, orig_q, orig_d = bm._bitslice_gemm, att._qk, bm.dequant_matmul
 
         def rec_b(x, w, slice_bits, pairs):
             out = orig_b(x, w, slice_bits, pairs)
             self._note(("bitslice_matmul", tuple(x.shape), tuple(w.shape)), (x, w, slice_bits, pairs), out,
                        bm.launched_path())
+            return out
+
+        def rec_d(x_q, w_q, x_scale, w_scale, bias=None, out_dtype=self.torch.bfloat16):
+            out = orig_d(x_q, w_q, x_scale, w_scale, bias, out_dtype)
+            self._note(("bitslice_matmul", (1, *x_q.shape), (1, *w_q.shape)), (x_q[None], w_q[None], 8, bm.ONE_PAIR),
+                       out, bm.launched_path(), (x_scale, w_scale, bias, out_dtype))
             return out
 
         def rec_q(q, k):
@@ -2890,7 +2906,7 @@ class LLMKernelRecorder:
                 self.quants[key] = {"count": 1, "x": x.clone(), "out": tuple(o.clone() for o in out)}
             return out
 
-        bm._bitslice_gemm, att._qk, self.aq.act_quant = rec_b, rec_q, rec_a
+        bm._bitslice_gemm, att._qk, bm.dequant_matmul, self.aq.act_quant = rec_b, rec_q, rec_d, rec_a
         if self.rg is not None:
             orig_s = self.orig_scan = self.rg._scan
 
@@ -2903,7 +2919,7 @@ class LLMKernelRecorder:
         return self
 
     def __exit__(self, *exc):
-        self.bm._bitslice_gemm, self.att._qk = self.orig
+        self.bm._bitslice_gemm, self.att._qk, self.bm.dequant_matmul = self.orig
         self.aq.act_quant = self.orig_quant
         if self.rg is not None:
             self.rg._scan = self.orig_scan
@@ -3108,8 +3124,9 @@ def check_recorded(torch, bm, att, smoke, rec, phase, tag, want_keys):
     """The recorder's K4 and K6 shapes must be ``want_keys`` (any, if None),
     and an activation quantize must come in front of each K4 (M, K); each
     shape's first call is held bit-equal to its plain version on the CPU
-    (timed), each quantize's also to the PyTorch chain on the card, and
-    every bit-sliced call must have taken the tensor cores."""
+    (timed; a dequantizing K4's is the int32 product and the chain), each
+    quantize's also to the PyTorch chain on the card, and every bit-sliced
+    call must have taken the tensor cores."""
     if want_keys is not None and set(rec.calls) != want_keys:
         smoke.failures.append(f"{phase}: kernel shapes {sorted(rec.calls)} != expected {sorted(want_keys)}")
     if want_keys is not None:
@@ -3122,7 +3139,11 @@ def check_recorded(torch, bm, att, smoke, rec, phase, tag, want_keys):
     for key, c in sorted(rec.calls.items()):
         args = [a.cpu() if torch.is_tensor(a) else a for a in c["args"]]
         t = time.perf_counter()
-        plain = bm._bitslice_plain(*args) if key[0] == "bitslice_matmul" else att._qk_plain(*args)
+        if "dequant" in c:  # the dequantizing epilogue: its plain version is K4's and the chain
+            plain = bm.dequant_matmul(args[0][0], args[1][0], *(a.cpu() if torch.is_tensor(a) else a
+                                                                  for a in c["dequant"]))
+        else:
+            plain = bm._bitslice_plain(*args) if key[0] == "bitslice_matmul" else att._qk_plain(*args)
         c["plain_ms"] = (time.perf_counter() - t) * 1e3
         c["max_abs_err"] = smoke.check(key[0], f"{phase} {tag} {key[1]}x{key[2]}", c["out"], plain, exact=True)
         if key[0] == "bitslice_matmul" and c["path"] != "mma":
@@ -3318,7 +3339,8 @@ def llm_timing(torch, bm, att, smoke, llm, floor_ms):
     dev = torch.device("cuda", 0)
     return lat, (recorded_kernel_rows(torch, bm, att, smoke, llm["recorder"], e.cfg, floor_ms, "llm", "llm_serving",
                                       gpu) + minicpm_act_quant_rows(torch, smoke, dev, floor_ms, gpu)
-                 + moonlight_grouped_rows(torch, smoke, dev, floor_ms, gpu))
+                 + moonlight_grouped_rows(torch, smoke, dev, floor_ms, gpu)
+                 + dequant_epilogue_rows(torch, smoke, dev, floor_ms, gpu))
 
 
 def hold_act_quant(torch, smoke, label, key, x, out):
@@ -3463,6 +3485,151 @@ def moonlight_grouped_rows(torch, smoke, dev, floor_ms, gpu):
     return rows
 
 
+def earlier_dequant(bm, x, w, x_scale, w_scale, bias, dtype):
+    """The route the dequantizing epilogue replaced, on the card: K4's int32
+    sums of ``x (M, K) @ w (K, N)``, then the PyTorch dequantize."""
+    from repro_torch.kernels import api
+
+    m, n = x.shape[0], w.shape[1]
+    acc = bm._bitslice_gemm(x[None], w[None], 8, bm.ONE_PAIR)
+    return api.dequant_plain(acc, x_scale.reshape(m, 1), w_scale.reshape(1, n), bias, dtype)
+
+
+def ptxas_instances(log):
+    """Each kernel instance of an ``nvcc -Xptxas -v`` log: its name
+    (demangled by ``c++filt`` where the toolkit's host has it), registers
+    and spill bytes."""
+    import re
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"name": m.group(1)}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(i["name"] for i in out), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+        if len(names) == len(out):
+            for i, name in zip(out, names):
+                i["name"] = name
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return out
+
+
+def bitslice_instances(smoke, log):
+    """K4's and K4G's instances in ``bitslice_gemm.cu``'s build log; a
+    failure for each that spills."""
+    inst = [i for i in ptxas_instances(log) if "bitslice_mma_kernel" in i["name"]
+            or "bitslice_grouped_kernel" in i["name"]]
+    for i in inst:
+        print(f"  ptxas: {i['name']}: {i['registers']} registers, {i.get('spill_stores')} + "
+              f"{i.get('spill_loads')} bytes spilled")
+        if i.get("spill_stores") or i.get("spill_loads"):
+            smoke.failures.append(f"bitslice_gemm.cu: {i['name']} spills ({i})")
+    return inst
+
+
+def dequant_epilogue_rows(torch, smoke, dev, floor_ms, gpu):
+    """The dequantizing epilogue at the benchmark's prefill shapes, bfloat16
+    out: K4 at MiniCPM-2B's (MINICPM_PREFILL_SLOTS rows, each (K, N) of
+    MINICPM_DEQUANT_KN) and K4G at Moonlight-16B-A3B's (drawn as
+    :func:`moonlight_grouped_rows` draws them); each held bit-equal to its
+    plain version on the same operands (K4's: ``dequant_matmul`` on CPU
+    copies, float64 products then the chain; K4G's: ``_grouped_dequant_plain``
+    on the card, each expert's float64 products then the chain with each
+    row's expert's scales), then timed by CUDA-graph replay beside the route
+    it replaced (the int32 sums, then the PyTorch dequantize; the grouped one
+    with each row's expert's scales gathered, as the expert layer did) in
+    paired rounds, beside the same GEMM writing its int32 sums alone, and
+    eagerly, against its bound (operations at the int8 peak, or the bytes
+    with the output at two)."""
+    import numpy as np
+
+    from repro_torch.kernels import api
+    from repro_torch.kernels import bitslice_matmul as bm
+    from repro_torch.models import common
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 36)
+    calls = []
+    for k, n in MINICPM_DEQUANT_KN:
+        x_q, x_scale = api.act_quant((3.0 * torch.randn(MINICPM_PREFILL_SLOTS, k, generator=g, device=dev)).to(bf16))
+        wq = common.quantize_weight(0.02 * torch.randn(k, n, generator=g, device=dev))
+        ops = (x_q, wq["w_q"], x_scale, wq["w_scale"], None, bf16)
+        calls.append((f"MiniCPM-2B prefill M={MINICPM_PREFILL_SLOTS} K={k} N={n}", "bitslice_matmul", BITSLICE_SOURCE,
+                      lambda ops=ops: bm.dequant_matmul(*ops),
+                      lambda ops=ops: bm.dequant_matmul(*(t if t is None else t.cpu() for t in ops[:5]), ops[5]),
+                      lambda ops=ops: earlier_dequant(bm, *ops),
+                      lambda ops=ops: bm._bitslice_gemm(ops[0][None], ops[1][None], 8, bm.ONE_PAIR),
+                      bm.dequant_work(MINICPM_PREFILL_SLOTS, k, n, 1, 2, 0), [[MINICPM_PREFILL_SLOTS, k, n]]))
+    rng = np.random.default_rng(SEED + 35)
+    e = MOONLIGHT_EXPERTS
+    counts = rng.multinomial(e * MOONLIGHT_ROWS_PER_EXPERT, rng.dirichlet(np.full(e, 20.0)))
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32, device=dev)
+    expert = torch.repeat_interleave(torch.arange(e, device=dev), torch.tensor(counts, device=dev))
+    r = int(counts.sum())
+    for k, n in MOONLIGHT_GROUPED_KN:
+        x_q, x_scale = api.act_quant((3.0 * torch.randn(r, k, generator=g, device=dev)).to(bf16))
+        wq = common.quantize_weight(0.02 * torch.randn(e, k, n, generator=g, device=dev))
+        ops = (x_q, wq["w_q"], offsets, x_scale, wq["w_scale"], bf16)
+
+        def earlier(ops=ops):
+            x, w, off, xs, ws, dt = ops
+            return api.dequant_plain(api.grouped_matmul(x, w, off), xs, ws.squeeze(-2).index_select(0, expert),
+                                     None, dt)
+
+        calls.append((f"Moonlight-16B-A3B prefill E={e} R={r} K={k} N={n}", "grouped_matmul", GROUPED_SOURCE,
+                      lambda ops=ops: bm.grouped_dequant_matmul(*ops),
+                      lambda ops=ops: bm._grouped_dequant_plain(*ops), earlier,
+                      lambda ops=ops: api.grouped_matmul(*ops[:3]), bm.dequant_work(r, k, n, e, 2, 0), [[r, k, n]]))
+    rows = []
+    for case, kernel, source, run, plain, before, int32, (ops, nbytes), shapes in calls:
+        api.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        if api.launch_counts() != {kernel: 1}:
+            smoke.failures.append(f"{kernel} dequantized: launches {api.launch_counts()} for one call, not 1")
+        t = time.perf_counter()
+        want = plain().cpu()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err = smoke.check(kernel, f"{case} dequantized in the epilogue vs its plain version", out, want, exact=True)
+        del want
+        reps = 5 if kernel == "grouped_matmul" else 20
+        sums, _ = paired_rounds([(graph_timer(torch, run, reps=reps), graph_timer(torch, before, reps=reps))],
+                                PAIRED_ROUNDS)
+        k_ms, earlier_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
+        int32_timer = graph_timer(torch, int32, reps=reps)
+        int32_ms = median(sorted(int32_timer() for _ in range(PAIRED_ROUNDS)))
+        eager = cuda_ms(torch, run, reps=reps)
+        bound_ms = max(ops / INT8_OPS_PER_S, nbytes / MEM_BYTES_PER_S) * 1e3
+        by = "ops" if ops / INT8_OPS_PER_S >= nbytes / MEM_BYTES_PER_S else "bytes"
+        name = f"{kernel}[{case} dequantized bfloat16]"
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": DEQUANT_REPLACES, "launches": 1,
+            "max_abs_err": err, "ms": k_ms, "earlier_ms": earlier_ms, "earlier": EARLIER_DEQUANT,
+            "int32_ms": int32_ms, "plain_ms": plain_ms,
+            "plain_device": "cpu" if kernel == "bitslice_matmul" else "cuda",
+            "bound_ms": bound_ms, "bound_by": by, "eager_ms": eager, "path": "benchmark_prefill_shape",
+            "launches_by_path": {"benchmark_prefill_shape": 1}, "shapes": shapes, "ops": ops, "bytes": nbytes,
+            "rounds": dict(sums, kernel_no_slower=sum(a <= b for a, b in zip(sums["kernel"], sums["library"]))),
+            "floors": k_ms / floor_ms,
+        })
+        print(f"kernel {name}: {k_ms:.4f} ms graph replay ({eager:.4f} ms eager; bound {bound_ms:.4f} ms by {by}, "
+              f"roofline share {bound_ms / k_ms:.1%}), earlier route {earlier_ms:.4f} ms "
+              f"({earlier_ms / k_ms:.2f}x), the same GEMM writing int32 {int32_ms:.4f} ms ({gpu})")
+    return rows
+
+
 def recorded_kernel_rows(torch, bm, att, smoke, rec, cfg, floor_ms, tag, path, gpu):
     """Each K4 and K6 shape of a recorded path by CUDA-graph replay and
     eagerly, beside its bound, its plain version (CPU) and torch._int_mm
@@ -3473,7 +3640,19 @@ def recorded_kernel_rows(torch, bm, att, smoke, rec, cfg, floor_ms, tag, path, g
     for key, c in sorted(rec.calls.items()):
         kernel, sa, sb = key
         call_work = None
-        if kernel == "bitslice_matmul":
+        if kernel == "bitslice_matmul" and "dequant" in c:
+            # the dequantizing epilogue, beside the route it replaced: K4's
+            # int32 sums, then the PyTorch dequantize (the same bits)
+            x, w = c["args"][0][0], c["args"][1][0]
+            dq = c["dequant"]
+            run = lambda x=x, w=w, dq=dq: bm.dequant_matmul(x, w, *dq)  # noqa: E731
+            m, k, n = x.shape[0], x.shape[1], w.shape[1]
+            ops, nbytes = bm.dequant_work(m, k, n, 1, dq[3].itemsize, 0 if dq[2] is None else dq[2].element_size())
+            name = f"bitslice_matmul[{tag} M={m} K={k} N={n} dequantized {str(dq[3]).removeprefix('torch.')}]"
+            lib = lambda x=x, w=w, dq=dq: earlier_dequant(bm, x, w, *dq)  # noqa: E731
+            lib_want = c["out"]
+            source, replaces = BITSLICE_SOURCE, BITSLICE_REPLACES
+        elif kernel == "bitslice_matmul":
             x, w, slice_bits, pairs = c["args"]
             run = lambda x=x, w=w, s=slice_bits, p=pairs: bm._bitslice_gemm(x, w, s, p)  # noqa: E731
             nbytes, ops = bitslice_work(x, w, slice_bits, pairs)
@@ -3504,7 +3683,8 @@ def recorded_kernel_rows(torch, bm, att, smoke, rec, cfg, floor_ms, tag, path, g
         eager = cuda_ms(torch, run)
         lib_ms = rounds = None
         if lib is not None:
-            smoke.check(kernel, f"{name} torch._int_mm library call", lib(), lib_want.cpu(), exact=True)
+            smoke.check(kernel, f"{name} {'the earlier route' if 'dequant' in c else 'torch._int_mm library call'}",
+                        lib(), lib_want.cpu(), exact=True)
             sums, _ = paired_rounds([(k_timer, graph_timer(torch, lib))], PAIRED_ROUNDS)
             k_ms, lib_ms = median(sorted(sums["kernel"])), median(sorted(sums["library"]))
             rounds = dict(sums, kernel_no_slower=sum(a <= b for a, b in zip(sums["kernel"], sums["library"])))
@@ -3516,7 +3696,7 @@ def recorded_kernel_rows(torch, bm, att, smoke, rec, cfg, floor_ms, tag, path, g
             "max_abs_err": c["max_abs_err"], "ms": k_ms, "plain_ms": c["plain_ms"],
             "bound_ms": max(b_bytes, b_ops), "bound_by": "operations" if b_ops > b_bytes else "bytes",
             "library_ms": lib_ms, "eager_ms": eager, "plain_device": "cpu", "path": path,
-            "library": "torch._int_mm" if lib is not None else None,
+            "library": None if lib is None else EARLIER_DEQUANT if "dequant" in c else "torch._int_mm",
             "library_note": None if lib is not None else "torch._int_mm needs more than 16 rows in its first operand",
             "kernel_path": c["path"], "rounds": rounds, "bytes": nbytes, "ops": ops, "call_work": call_work,
             "launches_by_path": {path: c["count"]}, "floors": k_ms / floor_ms,
@@ -5614,6 +5794,7 @@ def main() -> int:
         regs = [ln.strip() for ln in str(info["log"]).splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  {src}.cu: {info['seconds']:.1f} s; " + " | ".join(regs[:8]))
+    k4_instances = bitslice_instances(smoke, str(built["bitslice_gemm"]["log"])) if "bitslice_gemm" in built else []
 
     # ---------------- phase 3n, first: sharding rules and collectives on NCCL, in a process of its own ----------------
     dist_run = run_dist_phase(torch, smoke, gpu)
@@ -6293,7 +6474,7 @@ def main() -> int:
         return 1
     print(gpu)
     print(json.dumps({"kernels": path, "registered_kernels": registered, "launch_floor_ms": floor_ms,
-                      "forward_ms": fwd_ms, "forward_ms_p80": fwd_p80, "batch": BATCH,
+                      "bitslice_ptxas": k4_instances, "forward_ms": fwd_ms, "forward_ms_p80": fwd_p80, "batch": BATCH,
                       "copies_per_forward": profile_summary["copies_per_forward"] if by_name else None,
                       "path_launches": path_launches,
                       "program_latency_ms": program_timing["latency_ms_median"],

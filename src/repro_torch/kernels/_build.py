@@ -66,6 +66,12 @@ ENTRY_POINTS: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     # the grouped tensor-core path: x, w, the groups' row offsets, out, rows,
     # N, K, groups, then its plan (bitslice_matmul.grouped_plan)
     "bitslice_gemm_grouped": ("bitslice_gemm", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    # both with the dequantizing epilogue: after the output, the row and
+    # column scales, then (one pair alone) the bias (NULL for none), then
+    # the output's dtype code (bitslice_matmul.DTYPE_CODES), then (one pair
+    # alone) the bias's, then as above
+    "bitslice_gemm_mma_dequant": ("bitslice_gemm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "bitslice_gemm_grouped_dequant": ("bitslice_gemm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     # the attention kernels take int8 and int32 operands, named by their
     # element size in bytes (1 or 4) after the extents, then their launch
     # plans: q·Kᵀ and the GEMV attention.rowdot_plan's (row dot, lanes,

@@ -120,6 +120,10 @@ __all__ = [
     "act_quant",
     "act_quant_plain",
     "grouped_matmul",
+    "dequant_plain",
+    "dequant_matmul_takes",
+    "dequant_matmul",
+    "grouped_dequant_matmul",
     "quantize_int8",
     "ewise_add",
     "relu",
@@ -277,6 +281,20 @@ def act_quant_plain(x: torch.Tensor, bits: int,
     if reduce_scale is not None:
         scale = reduce_scale(scale)
     return quantize_int8(xf, scale, qmax), scale
+
+
+def dequant_plain(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+                  bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """The dequantize of a quantized linear as PyTorch ops: its int32 sums
+    ``acc`` to float32, times the rows' scales ``x_scale``, times the
+    columns' ``w_scale`` (each broadcast against ``acc``), plus ``bias`` in
+    float32 where given, cast to ``dtype``.  The plain version of the
+    dequantizing GEMMs (:func:`dequant_matmul`, :func:`grouped_dequant_matmul`),
+    whose epilogue gives these values bit for bit."""
+    out = acc.to(torch.float32) * x_scale * w_scale
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(dtype)
 
 
 def _zero_slice_ids(slices: Any) -> Tuple[int, ...]:
@@ -868,6 +886,41 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> t
     from repro_torch.kernels import bitslice_matmul as _bm
 
     return _bm.grouped_matmul(x, w, offsets)
+
+
+def dequant_matmul_takes(x_q: torch.Tensor, w_q: torch.Tensor) -> bool:
+    """Whether :func:`dequant_matmul` takes ``x_q (..., K) @ w_q (K, N)`` as
+    they lie (``kernels/bitslice_matmul.dequant_matmul_takes``): int8, on
+    the tensor-core path as one slice pair, K within one fold."""
+    from repro_torch.kernels import bitslice_matmul as _bm
+
+    return _bm.dequant_matmul_takes(x_q, w_q)
+
+
+def dequant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """A single-pass quantized product: int8 ``x_q (M, K)`` × int8 ``w_q (K,
+    N)`` → ``(M, N)`` of ``out_dtype``, :func:`dequant_plain` of the int32
+    sums with the row scales ``x_scale`` (M), the column scales ``w_scale``
+    (N) and ``bias`` (N or None).  On the card one launch of the bit-sliced
+    GEMM's tensor-core path, which dequantizes in its epilogue, bit for bit;
+    the plain product and chain on the CPU; the card's checks and a
+    ``meta`` output on ``meta``; every device refuses what the card refuses
+    (K % 16, N % 4, K past one fold: ``kernels/bitslice_matmul.dequant_matmul``)."""
+    from repro_torch.kernels import bitslice_matmul as _bm
+
+    return _bm.dequant_matmul(x_q, w_q, x_scale, w_scale, bias, out_dtype)
+
+
+def grouped_dequant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, offsets: torch.Tensor, x_scale: torch.Tensor,
+                           w_scale: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:func:`grouped_matmul` dequantized in its epilogue: each row's scale
+    (``x_scale``, R) and its group's column scales (``w_scale``, E × N),
+    written as ``out_dtype``, no bias; devices and refusals as
+    :func:`dequant_matmul`'s (``kernels/bitslice_matmul.grouped_dequant_matmul``)."""
+    from repro_torch.kernels import bitslice_matmul as _bm
+
+    return _bm.grouped_dequant_matmul(x_q, w_q, offsets, x_scale, w_scale, out_dtype)
 
 
 def ewise_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,14 @@ block size; the kernel masks the ragged edges.
 :func:`grouped_matmul` is the same kernel's tensor-core tile over groups of
 rows, each against its own weight (a mixture of experts' routed rows), in
 one launch; it counts its launches as ``grouped_matmul``.
+
+:func:`dequant_matmul` and :func:`grouped_dequant_matmul` are the
+quantized linear's product of one slice pair with its dequantize in the
+tensor-core path's epilogue: the int32 sums leave the kernel as
+``(acc.to(float32) * x_scale * w_scale (+ bias.to(float32))).to(dtype)``
+(``api.dequant_plain``, the chain they replace, which their plain versions
+run), bit for bit.  They count their launches as ``bitslice_matmul`` and
+``grouped_matmul``.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.kernels.api import (
     active_pairs,
     bitslice_matmul_oracle,
     count_launch,
+    dequant_plain,
     kernel_device,
     launch_record,
     meta_operands,
@@ -50,8 +59,12 @@ BITSLICE_FOLD_LP = 2**17 - 1  # FOLD_LP: K · pairs a diagonal's s32 accumulator
 BITSLICE_NARROW_N = 32        # N up to which the narrow tile is taken
 # (BM, BN, WM): output tile and the rows of a warp's 32-column share
 BITSLICE_MMA_TILES = {"narrow": (128, 32, 32), "square": (128, 128, 64), "square_2x2": (64, 128, 32)}
+# the dequantizing epilogue's output and bias dtypes (DT_*; 0: no bias)
+DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 
 Pairs = Tuple[Tuple[int, int], ...]
+ONE_PAIR: Pairs = ((0, 0),)  # a single-pass product: one slice each, no shift
+ONE_PAIR_FOLD_K = BITSLICE_FOLD_LP // BITSLICE_MMA_BK * BITSLICE_MMA_BK  # bitslice_plan's fold_k for it
 
 
 class BitslicePlan(NamedTuple):
@@ -231,6 +244,136 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> t
     w_vec, fold_tiles = grouped_plan(k, n, w.data_ptr())
     _build.launch("bitslice_gemm_grouped", dev, x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
                   r, n, k, e, w_vec, fold_tiles)
+    count_launch("grouped_matmul")
+    return out
+
+
+def dequant_work(rows: int, k: int, n: int, groups: int, out_itemsize: int, bias_itemsize: int) -> Tuple[int, int]:
+    """(operations, bytes) of one call with the dequantizing epilogue (one
+    pair; ``groups`` weights, 1 for K4): two operations a product (the
+    epilogue's few a output not counted); the rows, the weights, the scales
+    and the bias read once, the output written once at its dtype."""
+    nbytes = rows * k + groups * k * n + 4 * rows + groups * n * (4 + bias_itemsize) + rows * n * out_itemsize
+    return 2 * rows * k * n, nbytes
+
+
+def _dequant_checks(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+                    bias: Optional[torch.Tensor], out_dtype: torch.dtype, groups: int) -> None:
+    """What the epilogue refuses, on every device: operand dtypes; scales
+    and a bias of other sizes than the rows and ``groups`` × N; K % 16, N %
+    4, K past one fold (``fold_k`` of one pair), a dimension past 2**31."""
+    if x.dtype != torch.int8 or w.dtype != torch.int8 or x_scale.dtype != torch.float32 or \
+            w_scale.dtype != torch.float32:
+        raise TypeError(f"the dequantizing GEMM takes int8 operands and float32 scales, got {x.dtype}, {w.dtype}, "
+                        f"{x_scale.dtype} and {w_scale.dtype}")
+    if out_dtype not in DTYPE_CODES or (bias is not None and bias.dtype not in DTYPE_CODES):
+        raise TypeError(f"the dequantizing GEMM writes and adds float32, bfloat16 or float16, got {out_dtype} and "
+                        f"{None if bias is None else bias.dtype}")
+    (r, k), n = x.shape, w.shape[-1]
+    if x_scale.numel() != r or w_scale.numel() != groups * n or (bias is not None and bias.numel() != groups * n):
+        raise ValueError(f"scales of {x_scale.numel()} and {w_scale.numel()} and a bias of "
+                         f"{None if bias is None else bias.numel()} elements for {r} rows and {groups} x {n} columns")
+    if k % 16 or n % 4 or k > ONE_PAIR_FOLD_K or max(r, k, n) >= 2**31:
+        raise ValueError(f"the dequantizing GEMM takes K % 16 == 0, N % 4 == 0, K <= {ONE_PAIR_FOLD_K} (one "
+                         f"fold) and dimensions under 2**31, got M={r}, K={k}, N={n}")
+
+
+def dequant_matmul_takes(x_q: torch.Tensor, w_q: torch.Tensor) -> bool:
+    """Whether :func:`dequant_matmul` takes ``x_q (..., K) @ w_q (K, N)``
+    where they lie: int8 operands that :func:`bitslice_plan` sends to the
+    tensor cores as one pair (K % 16, N % 4, x 16-byte and w 4-byte
+    aligned), K within one fold."""
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.dim() != 2 or x_q.shape[-1] != w_q.shape[0]:
+        return False
+    k, n = w_q.shape
+    plan = bitslice_plan(1, 1, x_q.numel() // max(k, 1), n, k, 8, ONE_PAIR, (x_q.data_ptr(), w_q.data_ptr()))
+    return plan.path == "mma" and k <= plan.fold_k
+
+
+def dequant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 ``x_q (M, K)`` × int8 ``w_q (K, N)`` → ``(M, N)`` of
+    ``out_dtype`` (float32, bfloat16 or float16), dequantized by each row's
+    scale (``x_scale``, M float32), each column's (``w_scale``, N float32)
+    and ``bias`` (N, float32, bfloat16 or float16) where given: the chain
+    ``api.dequant_plain`` on K4's int32 sums, bit for bit.  On the card one
+    launch of the tensor-core path with its dequantizing epilogue; on the
+    CPU the plain product and the chain; on ``meta`` the card's checks, then
+    a ``meta`` output.  Every device refuses what the card refuses
+    (:func:`_dequant_checks`); the card also operands off the path's
+    alignment."""
+    operands = (x_q, w_q, x_scale, w_scale) + (() if bias is None else (bias,))
+    meta = meta_operands(*operands)
+    dev = x_q.device if meta else kernel_device(*operands)
+    if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"shapes {tuple(x_q.shape)} @ {tuple(w_q.shape)}")
+    _dequant_checks(x_q, w_q, x_scale, w_scale, bias, out_dtype, 1)
+    (m, k), n = x_q.shape, w_q.shape[1]
+    if m * n and noting_work():
+        note_kernel_work("bitslice_matmul", *dequant_work(
+            m, k, n, 1, out_dtype.itemsize, 0 if bias is None else bias.element_size()))
+    if dev.type == "cpu":
+        with plain_scope():
+            acc = _bitslice_plain(x_q[None], w_q[None], 8, ONE_PAIR)
+            return dequant_plain(acc, x_scale.reshape(m, 1), w_scale.reshape(1, n), bias, out_dtype)
+    x, w = x_q.contiguous(), w_q.contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if out.numel() == 0 or meta:
+        return out
+    plan = bitslice_plan(1, 1, m, n, k, 8, ONE_PAIR, (x.data_ptr(), w.data_ptr()))
+    if plan.path != "mma":
+        raise ValueError("the dequantizing GEMM takes x 16-byte and w 4-byte aligned")
+    xs, ws, b = x_scale.contiguous(), w_scale.contiguous(), None if bias is None else bias.contiguous()
+    _build.launch("bitslice_gemm_mma_dequant", dev, x.data_ptr(), w.data_ptr(), out.data_ptr(), xs.data_ptr(),
+                  ws.data_ptr(), None if b is None else b.data_ptr(), DTYPE_CODES[out_dtype],
+                  0 if b is None else DTYPE_CODES[b.dtype], m, n, k, int(plan.tile == "narrow"), int(plan.w_vec),
+                  plan.fold_k // BITSLICE_MMA_BK)
+    count_launch("bitslice_matmul")
+    _launched.pairs, _launched.path = ONE_PAIR, plan.path
+    return out
+
+
+def _grouped_dequant_plain(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor, x_scale: torch.Tensor,
+                           w_scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """The grouped product's plain version, then the chain with each row's
+    group's column scales."""
+    e, n = w.shape[0], w.shape[2]
+    rows_scale = torch.repeat_interleave(w_scale.reshape(e, n), offsets[1:] - offsets[:-1], dim=0)
+    return dequant_plain(_grouped_plain(x, w, offsets), x_scale.reshape(-1, 1), rows_scale, None, out_dtype)
+
+
+def grouped_dequant_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor, x_scale: torch.Tensor,
+                           w_scale: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:func:`grouped_matmul` with the dequantizing epilogue: each row of
+    group ``e`` times ``w[e]``, dequantized by the row's scale (``x_scale``,
+    R float32) and group ``e``'s column scales (``w_scale``, E × N float32),
+    written as ``out_dtype``: the chain ``api.dequant_plain`` on the grouped
+    int32 sums with each row's group's scales, bit for bit.  No bias: no
+    expert linear has one.  Devices and refusals as :func:`grouped_matmul`'s
+    and :func:`dequant_matmul`'s."""
+    operands = (x, w, offsets, x_scale, w_scale)
+    meta = meta_operands(*operands)
+    dev = x.device if meta else kernel_device(*operands)
+    if offsets.dtype != torch.int32:
+        raise TypeError(f"the grouped product takes int32 offsets, got {offsets.dtype}")
+    if w.dim() != 3 or x.shape[-1] != w.shape[1] or tuple(offsets.shape) != (w.shape[0] + 1,):
+        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} with offsets {tuple(offsets.shape)}")
+    _dequant_checks(x, w, x_scale, w_scale, None, out_dtype, w.shape[0])
+    (r, k), (e, _, n) = x.shape, w.shape
+    if r and noting_work():
+        note_kernel_work("grouped_matmul", *dequant_work(r, k, n, e, out_dtype.itemsize, 0))
+    if dev.type == "cpu":
+        with plain_scope():
+            return _grouped_dequant_plain(x, w, offsets, x_scale, w_scale, out_dtype)
+    x, w, offsets = x.contiguous(), w.contiguous(), offsets.contiguous()
+    out = torch.empty((r, n), dtype=out_dtype, device=dev)
+    if out.numel() == 0 or meta:
+        return out
+    w_vec, fold_tiles = grouped_plan(k, n, w.data_ptr())
+    xs, ws = x_scale.contiguous(), w_scale.contiguous()
+    _build.launch("bitslice_gemm_grouped_dequant", dev, x.data_ptr(), w.data_ptr(), offsets.data_ptr(),
+                  out.data_ptr(), xs.data_ptr(), ws.data_ptr(), DTYPE_CODES[out_dtype], r, n, k, e, w_vec,
+                  fold_tiles)
     count_launch("grouped_matmul")
     return out
 

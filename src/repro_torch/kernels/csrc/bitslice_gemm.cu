@@ -56,6 +56,17 @@
 // words when K % 4 == 0 and the stack is 4-byte aligned, else byte by byte; w
 // is read by byte, coalesced along N.
 //
+// Dequantizing epilogue (both tensor-core kernels, template parameter Out):
+// where a block folds once (K <= fold_k), each s32 sum leaves as the
+// quantized linear's output, not as int32: float(acc) · x_scale[row] ·
+// w_scale[col] (+ bias[col], K4 alone), rounded to Out (float, bfloat16 or
+// half), the PyTorch chain's operations in its order, each rounded on its own
+// (__fmul_rn, __fadd_rn: nothing contracts into an FMA), so the output
+// equals the chain's bit for bit (a NaN's payload aside).  The scales and
+// the bias are read at the fold, a row and a run at a time; a run of four
+// columns is one 16-byte (float) or 8-byte (16-bit types) store.  It takes
+// the int32 pass plus 4-5 PyTorch passes over (M, N) off the path.
+//
 // Grouped path (bitslice_grouped_kernel): the routed experts of a mixture of
 // experts, every expert's product of one projection of one layer in one
 // launch.  It replaces no TPU kernel: the JAX package multiplies experts with
@@ -74,6 +85,11 @@
 // mma.sync's rate, below the dense wgmma int8 rate the bound counts
 // (wgmma and TMA are later work).
 #include "common.cuh"
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -260,14 +276,27 @@ constexpr int WN = 32;     // columns a warp owns: four 8-column MMA tiles
 // stays exact while L·p·2^14 < 2^31
 constexpr int FOLD_LP = (1 << 17) - 1;
 
+// The dtype codes of the dequantizing epilogue's output and bias
+// (bitslice_matmul.DTYPE_CODES); DT_NONE: no bias.
+constexpr int DT_NONE = 0, DT_F32 = 1, DT_BF16 = 2, DT_F16 = 3;
+
+__host__ __device__ constexpr int dt_size(int dt) { return dt == DT_F32 ? 4 : dt == DT_NONE ? 0 : 2; }
+
 struct Args {
-  const int8_t* x[2];  // the staged x slices, (M, K) each
-  const int8_t* w[2];  // the staged w slices, (K, N) each
-  uint32_t* out;
+  const int8_t* x[2];    // the staged x slices, (M, K) each
+  const int8_t* w[2];    // the staged w slices, (K, N) each
+  void* out;             // (M, N): uint32_t sums, or the epilogue's Out
   int m, n, k;
-  int shift[3];        // slice_bits·(s+t) of local diagonal i + j
-  int fold_tiles;      // K tiles summed between folds into out
-  int w_vec;           // 16-byte copies of w rows (else 4-byte)
+  int shift[3];          // slice_bits·(s+t) of local diagonal i + j
+  int fold_tiles;        // K tiles summed between folds into out
+  int w_vec;             // 16-byte copies of w rows (else 4-byte)
+  // the epilogue's row scales (M,), column scales (N,) and bias (N,) of
+  // dtype code bias_type; after the fields above, whose order keeps the
+  // int32 instances at their registers (K4 1 x 2's spills otherwise)
+  const float* x_scale;
+  const float* w_scale;
+  const void* bias;
+  int bias_type;
 };
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
@@ -354,19 +383,48 @@ __device__ __forceinline__ void load_stage(uint8_t* st, const Args& args, int ro
   }
 }
 
-// out += Σ_e acc_e << shift_e over the warp's WM x 32 (out = at the first
-// fold).  Registers 0-1 sit at row g, 2-3 at row g + 8; register 2h + c of
-// MMA tile nt at output column 8t + 4c + nt, so each thread owns two runs of
-// four adjacent columns a row.
-template <int NACC, int MT>
+// A run of four dequantized columns, rounded to Out, in one store.
+__device__ __forceinline__ void store_run(float* p, const float (&y)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+}
+
+__device__ __forceinline__ void store_run(__nv_bfloat16* p, const float (&y)[4]) {
+  uint32_t h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __bfloat16_as_ushort(__float2bfloat16_rn(y[i]));
+  *reinterpret_cast<uint2*>(p) = make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+}
+
+__device__ __forceinline__ void store_run(__half* p, const float (&y)[4]) {
+  uint32_t h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __half_as_ushort(__float2half_rn(y[i]));
+  *reinterpret_cast<uint2*>(p) = make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+}
+
+__device__ __forceinline__ float bias_at(const Args& a, int c) {
+  if (a.bias_type == DT_F32) return static_cast<const float*>(a.bias)[c];
+  if (a.bias_type == DT_BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[c]);
+  return __half2float(static_cast<const __half*>(a.bias)[c]);
+}
+
+// Out = uint32_t: out += Σ_e acc_e << shift_e over the warp's WM x 32 (out
+// = at the first fold).  Else (one fold) out = Out(float(Σ_e acc_e <<
+// shift_e) · x_scale · w_scale (+ bias)).  Registers 0-1 sit at row g, 2-3
+// at row g + 8; register 2h + c of MMA tile nt at output column 8t + 4c +
+// nt, so each thread owns two runs of four adjacent columns a row.
+template <typename Out, int NACC, int MT>
 __device__ __forceinline__ void fold(const int (&acc)[NACC][MT][4][4], const Args& args, int row, int col,
                                      bool first) {
+  constexpr bool RAW = std::is_same<Out, uint32_t>::value;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = row + mt * 16 + h * 8;
       if (r >= args.m) continue;
+      float xs = 0.f;
+      if constexpr (!RAW) xs = args.x_scale[r];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int cc = col + 4 * c;
@@ -379,20 +437,33 @@ __device__ __forceinline__ void fold(const int (&acc)[NACC][MT][4][4], const Arg
           for (int e = 0; e < NACC; ++e) sum += static_cast<uint32_t>(acc[e][mt][nt][2 * h + c]) << args.shift[e];
           v[nt] = sum;
         }
-        uint4* dst = reinterpret_cast<uint4*>(args.out + static_cast<size_t>(r) * args.n + cc);
-        uint4 o = make_uint4(v[0], v[1], v[2], v[3]);
-        if (!first) {  // this thread wrote these words at the last fold
-          const uint4 p = *dst;
-          o.x += p.x; o.y += p.y; o.z += p.z; o.w += p.w;
+        Out* dst = static_cast<Out*>(args.out) + static_cast<size_t>(r) * args.n + cc;
+        if constexpr (RAW) {
+          uint4 o = make_uint4(v[0], v[1], v[2], v[3]);
+          if (!first) {  // this thread wrote these words at the last fold
+            const uint4 p = *reinterpret_cast<const uint4*>(dst);
+            o.x += p.x; o.y += p.y; o.z += p.z; o.w += p.w;
+          }
+          *reinterpret_cast<uint4*>(dst) = o;
+        } else {
+          float y[4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            y[nt] = __fmul_rn(__fmul_rn(__int2float_rn(static_cast<int>(v[nt])), xs), args.w_scale[cc + nt]);
+          if (args.bias_type != DT_NONE) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) y[nt] = __fadd_rn(y[nt], bias_at(args, cc + nt));
+          }
+          store_run(dst, y);
         }
-        *dst = o;
       }
     }
 }
 
 // NX x NW staged slices, all NX·NW pairs: the output tile at (row0, col0), a
-// BM x BN tile of warps WM x WN, over all of K, staged in `smem`.
-template <int NX, int NW, int BM, int BN, int WM>
+// BM x BN tile of warps WM x WN, over all of K, staged in `smem`, folded
+// into Out (see fold).
+template <typename Out, int NX, int NW, int BM, int BN, int WM>
 __device__ __forceinline__ void mma_tile(const Args& args, uint8_t* smem, int row0, int col0) {
   constexpr int THREADS = threads_of<BM, BN, WM>(), WARPS_N = BN / WN;
   constexpr int MT = WM / 16;         // 16-row MMA tiles a warp
@@ -469,16 +540,16 @@ __device__ __forceinline__ void mma_tile(const Args& args, uint8_t* smem, int ro
               for (int nt = 0; nt < 4; ++nt) mma_s8(acc[i + j][mt][nt], a[i][mt], b[j][nt]);
       }
     }
-    fold(acc, args, row0 + wm0 + g, col0 + wn0 + 8 * t, first);  // the range's end: keeps s32 exact
+    fold<Out>(acc, args, row0 + wm0 + g, col0 + wn0 + 8 * t, first);  // the range's end: keeps s32 exact
   }
   cp_wait<0>();
 }
 
-template <int NX, int NW, int BM, int BN, int WM>
+template <typename Out, int NX, int NW, int BM, int BN, int WM>
 __global__ void __launch_bounds__(threads_of<BM, BN, WM>())
 bitslice_mma_kernel(const Args args) {
   extern __shared__ uint4 smem_raw[];
-  mma_tile<NX, NW, BM, BN, WM>(args, reinterpret_cast<uint8_t*>(smem_raw), blockIdx.x * BM, blockIdx.y * BN);
+  mma_tile<Out, NX, NW, BM, BN, WM>(args, reinterpret_cast<uint8_t*>(smem_raw), blockIdx.x * BM, blockIdx.y * BN);
 }
 
 // The grouped product: group e's rows [offsets[e], offsets[e+1]) of x (one
@@ -488,8 +559,10 @@ bitslice_mma_kernel(const Args args) {
 // sized for the most any split of the rows can need, ceil(rows / BM) +
 // groups, so the host never reads the counts, and the blocks past the last
 // tile return at once.  No tile spans two groups: a group's last tile is
-// zero-filled past its rows and stores none of them.
-template <int BM, int BN, int WM>
+// zero-filled past its rows and stores none of them.  The epilogue takes the
+// group's rows' scales and its own row of the column scales (w_scale (groups,
+// N)); it adds no bias.
+template <typename Out, int BM, int BN, int WM>
 __global__ void __launch_bounds__(threads_of<BM, BN, WM>())
 bitslice_grouped_kernel(const Args args, const int* __restrict__ offsets, int groups) {
   int tile = blockIdx.x, e = 0, lo = 0, rows = 0;
@@ -504,29 +577,40 @@ bitslice_grouped_kernel(const Args args, const int* __restrict__ offsets, int gr
   Args a = args;
   a.x[0] = args.x[0] + static_cast<size_t>(lo) * args.k;
   a.w[0] = args.w[0] + static_cast<size_t>(e) * args.k * args.n;
-  a.out = args.out + static_cast<size_t>(lo) * args.n;
+  a.out = static_cast<Out*>(args.out) + static_cast<size_t>(lo) * args.n;
   a.m = rows;
+  if constexpr (!std::is_same<Out, uint32_t>::value) {
+    a.x_scale = args.x_scale + lo;
+    a.w_scale = args.w_scale + static_cast<size_t>(e) * args.n;
+  }
   extern __shared__ uint4 smem_raw[];
-  mma_tile<1, 1, BM, BN, WM>(a, reinterpret_cast<uint8_t*>(smem_raw), tile * BM, blockIdx.y * BN);
+  mma_tile<Out, 1, 1, BM, BN, WM>(a, reinterpret_cast<uint8_t*>(smem_raw), tile * BM, blockIdx.y * BN);
 }
 
-template <int BM, int BN, int WM>
+template <typename Out, int BM, int BN, int WM>
 int launch_grouped(const Args& a, const int* offsets, int groups, int rows, cudaStream_t stream) {
   constexpr int THREADS = threads_of<BM, BN, WM>();
   constexpr int SMEM = STAGES * (BM + BN) * BK;
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(bitslice_grouped_kernel<BM, BN, WM>,
+    const cudaError_t e = cudaFuncSetAttribute(bitslice_grouped_kernel<Out, BM, BN, WM>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
   const dim3 grid((rows + BM - 1) / BM + groups, (a.n + BN - 1) / BN);
-  bitslice_grouped_kernel<BM, BN, WM><<<grid, THREADS, SMEM, stream>>>(a, offsets, groups);
+  bitslice_grouped_kernel<Out, BM, BN, WM><<<grid, THREADS, SMEM, stream>>>(a, offsets, groups);
   return REPRO_LAUNCH_STATUS();
 }
 
-template <int NX, int NW, int BM, int BN, int WM>
+// The 128 x 128 tile (128 x 32 for N <= 32).
+template <typename Out>
+int launch_grouped_tile(const Args& a, const int* offsets, int groups, int rows, cudaStream_t stream) {
+  if (a.n <= 32) return launch_grouped<Out, 128, 32, 32>(a, offsets, groups, rows, stream);
+  return launch_grouped<Out, 128, 128, 64>(a, offsets, groups, rows, stream);
+}
+
+template <typename Out, int NX, int NW, int BM, int BN, int WM>
 int launch_mma(const Args& a, cudaStream_t stream) {
   constexpr int THREADS = threads_of<BM, BN, WM>();
   constexpr int SMEM = STAGES * (NX * BM + NW * BN) * BK;
@@ -534,22 +618,41 @@ int launch_mma(const Args& a, cudaStream_t stream) {
   // (chip_smoke.py and the card tests launch eagerly before any graph capture)
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(bitslice_mma_kernel<NX, NW, BM, BN, WM>,
+    const cudaError_t e = cudaFuncSetAttribute(bitslice_mma_kernel<Out, NX, NW, BM, BN, WM>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
   const dim3 grid((a.m + BM - 1) / BM, (a.n + BN - 1) / BN);
-  bitslice_mma_kernel<NX, NW, BM, BN, WM><<<grid, THREADS, SMEM, stream>>>(a);
+  bitslice_mma_kernel<Out, NX, NW, BM, BN, WM><<<grid, THREADS, SMEM, stream>>>(a);
   return REPRO_LAUNCH_STATUS();
 }
 
 // The tile of bitslice_matmul.BITSLICE_MMA_TILES: (BM, BN, WM).
-template <int NX, int NW>
+template <typename Out, int NX, int NW>
 int launch_slices(const Args& a, bool narrow, cudaStream_t stream) {
-  if (narrow) return launch_mma<NX, NW, 128, 32, 32>(a, stream);
-  if constexpr (NX * NW == 4) return launch_mma<NX, NW, 64, 128, 32>(a, stream);
-  else return launch_mma<NX, NW, 128, 128, 64>(a, stream);
+  if (narrow) return launch_mma<Out, NX, NW, 128, 32, 32>(a, stream);
+  if constexpr (NX * NW == 4) return launch_mma<Out, NX, NW, 64, 128, 32>(a, stream);
+  else return launch_mma<Out, NX, NW, 128, 128, 64>(a, stream);
+}
+
+// What the epilogue refuses, in both entry points: an unknown dtype code, K
+// past one fold, a scale, bias or output off its element (the output off a
+// run's store).
+bool dequant_refuses(const void* out, const void* x_scale, const void* w_scale, const void* bias, int k,
+                     int out_type, int bias_type, int fold_tiles) {
+  const auto misaligned = [](const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to != 0; };
+  return out_type < DT_F32 || out_type > DT_F16 || bias_type < DT_NONE || bias_type > DT_F16 ||
+         (k + BK - 1) / BK > fold_tiles || misaligned(out, 4 * dt_size(out_type)) || misaligned(x_scale, 4) ||
+         misaligned(w_scale, 4) || (bias_type != DT_NONE && misaligned(bias, dt_size(bias_type)));
+}
+
+// launch(Out*{}) with the Out of a dtype code.
+template <typename F>
+int with_out_type(int out_type, F&& launch) {
+  if (out_type == DT_F32) return launch(static_cast<float*>(nullptr));
+  if (out_type == DT_BF16) return launch(static_cast<__nv_bfloat16*>(nullptr));
+  return launch(static_cast<__half*>(nullptr));
 }
 
 }  // namespace tc
@@ -602,7 +705,7 @@ extern "C" int bitslice_gemm_mma(const void* x0, const void* x1, const void* w0,
       misaligned(x1, 16) || misaligned(w0, w_vec ? 16 : 4) || misaligned(w1, w_vec ? 16 : 4) ||
       (w_vec && n % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  tc::Args a;
+  tc::Args a{};
   a.x[0] = static_cast<const int8_t*>(x0);
   a.x[1] = static_cast<const int8_t*>(x1);
   a.w[0] = static_cast<const int8_t*>(w0);
@@ -618,10 +721,10 @@ extern "C" int bitslice_gemm_mma(const void* x0, const void* x1, const void* w0,
   a.w_vec = w_vec;
   const auto st = static_cast<cudaStream_t>(stream);
   const bool nar = narrow != 0;
-  if (nx == 1 && nw == 1) return tc::launch_slices<1, 1>(a, nar, st);
-  if (nx == 2 && nw == 1) return tc::launch_slices<2, 1>(a, nar, st);
-  if (nx == 1 && nw == 2) return tc::launch_slices<1, 2>(a, nar, st);
-  return tc::launch_slices<2, 2>(a, nar, st);
+  if (nx == 1 && nw == 1) return tc::launch_slices<uint32_t, 1, 1>(a, nar, st);
+  if (nx == 2 && nw == 1) return tc::launch_slices<uint32_t, 2, 1>(a, nar, st);
+  if (nx == 1 && nw == 2) return tc::launch_slices<uint32_t, 1, 2>(a, nar, st);
+  return tc::launch_slices<uint32_t, 2, 2>(a, nar, st);
 }
 
 // The grouped product: x (rows, K) int8 sorted by group, w (groups, K, N)
@@ -637,7 +740,7 @@ extern "C" int bitslice_gemm_grouped(const void* x, const void* w, const void* o
       static_cast<long long>(fold_tiles) * tc::BK > tc::FOLD_LP || misaligned(x, 16) ||
       misaligned(w, w_vec ? 16 : 4) || misaligned(offsets, 4) || misaligned(out, 16) || (w_vec && n % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  tc::Args a;
+  tc::Args a{};
   a.x[0] = a.x[1] = static_cast<const int8_t*>(x);
   a.w[0] = a.w[1] = static_cast<const int8_t*>(w);
   a.out = static_cast<uint32_t*>(out);
@@ -647,8 +750,71 @@ extern "C" int bitslice_gemm_grouped(const void* x, const void* w, const void* o
   a.shift[0] = a.shift[1] = a.shift[2] = 0;
   a.fold_tiles = fold_tiles;
   a.w_vec = w_vec;
+  return tc::launch_grouped_tile<uint32_t>(a, static_cast<const int*>(offsets), groups, rows,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core path with the dequantizing epilogue: one slice pair, no
+// shift, x (M, K) and w (K, N) int8, out (M, N) of dtype code out_type,
+// x_scale (M,) and w_scale (N,) float32, bias (N,) of dtype code bias_type
+// (DT_NONE: none, bias unused); the plan as bitslice_gemm_mma's.  Refuses
+// (cudaErrorInvalidValue) what that path refuses and what the epilogue does
+// (tc::dequant_refuses): K past one fold among them.
+extern "C" int bitslice_gemm_mma_dequant(const void* x, const void* w, void* out, const void* x_scale,
+                                         const void* w_scale, const void* bias, int out_type, int bias_type,
+                                         int m, int n, int k, int narrow, int w_vec, int fold_tiles,
+                                         void* stream) {
+  const auto misaligned = [](const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to != 0; };
+  if (k % 16 != 0 || n % 4 != 0 || fold_tiles < 1 || static_cast<long long>(fold_tiles) * tc::BK > tc::FOLD_LP ||
+      misaligned(x, 16) || misaligned(w, w_vec ? 16 : 4) || (w_vec && n % 16 != 0) ||
+      tc::dequant_refuses(out, x_scale, w_scale, bias, k, out_type, bias_type, fold_tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tc::Args a{};
+  a.x[0] = a.x[1] = static_cast<const int8_t*>(x);
+  a.w[0] = a.w[1] = static_cast<const int8_t*>(w);
+  a.out = out;
+  a.x_scale = static_cast<const float*>(x_scale);
+  a.w_scale = static_cast<const float*>(w_scale);
+  a.bias = bias;
+  a.bias_type = bias_type;
+  a.m = m;
+  a.n = n;
+  a.k = k;
+  a.fold_tiles = fold_tiles;
+  a.w_vec = w_vec;
+  const auto st = static_cast<cudaStream_t>(stream);
+  return tc::with_out_type(out_type, [&](auto* o) {
+    return tc::launch_slices<std::remove_pointer_t<decltype(o)>, 1, 1>(a, narrow != 0, st);
+  });
+}
+
+// The grouped path with the dequantizing epilogue: bitslice_gemm_grouped's
+// operands and plan, out (rows, N) of dtype code out_type, x_scale (rows,)
+// and w_scale (groups, N) float32, no bias.  Refuses (cudaErrorInvalidValue)
+// what that path refuses and what the epilogue does.
+extern "C" int bitslice_gemm_grouped_dequant(const void* x, const void* w, const void* offsets, void* out,
+                                             const void* x_scale, const void* w_scale, int out_type, int rows,
+                                             int n, int k, int groups, int w_vec, int fold_tiles, void* stream) {
+  const auto misaligned = [](const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to != 0; };
+  if (rows < 0 || groups < 1 || k % 16 != 0 || n % 4 != 0 || fold_tiles < 1 ||
+      static_cast<long long>(fold_tiles) * tc::BK > tc::FOLD_LP || misaligned(x, 16) ||
+      misaligned(w, w_vec ? 16 : 4) || misaligned(offsets, 4) || (w_vec && n % 16 != 0) ||
+      tc::dequant_refuses(out, x_scale, w_scale, nullptr, k, out_type, tc::DT_NONE, fold_tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tc::Args a{};
+  a.x[0] = a.x[1] = static_cast<const int8_t*>(x);
+  a.w[0] = a.w[1] = static_cast<const int8_t*>(w);
+  a.out = out;
+  a.x_scale = static_cast<const float*>(x_scale);
+  a.w_scale = static_cast<const float*>(w_scale);
+  a.m = rows;
+  a.n = n;
+  a.k = k;
+  a.fold_tiles = fold_tiles;
+  a.w_vec = w_vec;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* off = static_cast<const int*>(offsets);
-  if (n <= 32) return tc::launch_grouped<128, 32, 32>(a, off, groups, rows, st);
-  return tc::launch_grouped<128, 128, 64>(a, off, groups, rows, st);
+  return tc::with_out_type(out_type, [&](auto* o) {
+    return tc::launch_grouped_tile<std::remove_pointer_t<decltype(o)>>(a, off, groups, rows, st);
+  });
 }

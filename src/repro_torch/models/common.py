@@ -3,10 +3,13 @@ JAX package's ``models/common.py`` (norms, RoPE, SwiGLU, initializers, the
 quantized linear layers and the training loss).
 
 :func:`quant_linear` is one int8 product when the spec fits one slice pair
-(:func:`int_matmul`) and otherwise goes through ``api.matmul`` over
+and otherwise goes through ``api.matmul`` over
 :class:`~repro_torch.kernels.api.SlicedTensor` operands; both run the
-bit-sliced GEMM kernel.  :func:`quant_linear_relu` runs ``relu(x @ W)`` as one traced
-Program over that kernel and the relu kernel.
+bit-sliced GEMM kernel.  The one-pair product dequantizes in the kernel's
+epilogue (``api.dequant_matmul``) where the kernel takes it; every other
+route's int32 sums go through :func:`dequantize`.  :func:`quant_linear_relu`
+runs ``relu(x @ W)`` as one traced Program over that kernel and the relu
+kernel.
 
 :func:`tp_linear` is a linear layer on a "model" axis wider than one: from
 the shape of the rank's weight it runs column-parallel (its output columns),
@@ -162,6 +165,19 @@ def int_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, w_q.shape[1])
 
 
+def dequantize(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor, bias: Optional[torch.Tensor],
+               dtype: torch.dtype) -> torch.Tensor:
+    """The dequantize of int32 sums that left the GEMM as int32 (a product
+    the epilogue does not take, a row-parallel sum, a multi-pair product,
+    ``quant_linear_relu``'s Executor): ``api.dequant_plain`` as PyTorch ops
+    under the ``model.dequant`` span, counted as ``model.dequant.torch`` on
+    the card."""
+    with obs.span("model.dequant"):
+        if acc.device.type == "cuda":
+            obs.count("model.dequant.torch")
+        return api.dequant_plain(acc, x_scale, w_scale, bias, dtype)
+
+
 def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec.int8, ms=None) -> torch.Tensor:
     """Bit-sliced integer linear: dynamic activation quantization and int32
     accumulation.
@@ -170,7 +186,12 @@ def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec
     its activations quantized in one pass on the card
     (:func:`_single_pass_act_quant`); wider specs go through ``api.matmul``
     over ``SlicedTensor`` operands, which splits into slices, skips the
-    all-zero ones and recombines with shifts.
+    all-zero ones and recombines with shifts.  The one-pair product without
+    ``ms`` dequantizes in the GEMM's epilogue (``api.dequant_matmul``,
+    counted as ``model.dequant.epilogue`` on the card) wherever the kernel
+    takes it (``api.dequant_matmul_takes``: the tensor-core path, K within
+    one fold); every other product's int32 sums take :func:`dequantize`.
+    Both give the same bits.
 
     With ``ms`` (a ``dist.sharding.ModelShard``) the linear is row-parallel:
     ``x`` is this rank's slice of each row's contraction and ``p`` the
@@ -182,6 +203,12 @@ def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec
     if spec.single_pass:
         with obs.span("model.act_quant"):
             x_q, x_scale = _single_pass_act_quant(x, spec.act_bits, ms)
+        if ms is None and api.dequant_matmul_takes(x_q, p["w_q"]):
+            if x.device.type == "cuda":
+                obs.count("model.dequant.epilogue")
+            out = api.dequant_matmul(x_q.reshape(-1, x_q.shape[-1]), p["w_q"], x_scale, p["w_scale"], p.get("b"),
+                                     x.dtype)
+            return out.reshape(*lead, -1)
         acc = int_matmul(x_q, p["w_q"])
     else:
         with obs.span("model.act_quant"):
@@ -192,11 +219,7 @@ def quant_linear(p: Params, x: torch.Tensor, spec: PrecisionSpec = PrecisionSpec
         acc = api.matmul(dataclasses.replace(x_st, scale=None), w_st).reshape(*lead, -1)
         x_scale = x_scale.reshape(*lead, 1)
     acc = collectives.reduce_from_model(acc, ms)
-    with obs.span("model.dequant"):
-        out = acc.to(torch.float32) * x_scale * p["w_scale"]
-        if "b" in p:
-            out = out + p["b"].to(torch.float32)
-        return out.to(x.dtype)
+    return dequantize(acc, x_scale, p["w_scale"], p.get("b"), x.dtype)
 
 
 def linear(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] = None, ms=None) -> torch.Tensor:
@@ -271,9 +294,8 @@ def quant_linear_relu(p: Params, x: torch.Tensor, spec: Optional[PrecisionSpec] 
     w_st = SlicedTensor.from_int(p["w_q"].to(torch.int32), spec.weight_bits,
                                  slice_bits=spec.slice_bits)
     raw = _matmul_relu(x_raw, w_st)
-    with obs.span("model.dequant"):
-        out = raw.to(torch.float32) * x_st.scale.reshape(-1, 1) * p["w_scale"].reshape(1, -1)
-        return out.reshape(*lead, -1).to(x.dtype)
+    out = dequantize(raw, x_st.scale.reshape(-1, 1), p["w_scale"].reshape(1, -1), None, x.dtype)
+    return out.reshape(*lead, -1)
 
 
 def maybe_quantize_tree(params: Params, cfg, path: str = "") -> Params:

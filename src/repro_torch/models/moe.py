@@ -30,12 +30,13 @@ token's output does not depend on the rest of the batch), and shared experts
 beside the routed ones.  The routed pairs are sorted stably by expert, the
 experts' row offsets found by ``searchsorted``, and each projection of all
 the experts is one launch of the grouped bit-sliced GEMM
-(``api.grouped_matmul``) over the sorted rows, behind the activation quantize
-and before the dequantize as in ``common.quant_linear``: no count is read on
-the host inside the layer.  Spans: ``model.moe.route`` (scores, top-k, sort,
-offsets, the rows' gather), ``model.moe.experts`` (the grouped products with
-their quantize and dequantize), ``model.moe.combine``; counter
-``moe.routed_rows`` (tokens × k).
+(``api.grouped_dequant_matmul``) over the sorted rows, behind the activation
+quantize as in ``common.quant_linear``, which dequantizes in its epilogue
+with each row's expert's column scales: no count is read on the host inside
+the layer.  Spans: ``model.moe.route`` (scores, top-k, sort, offsets, the
+rows' gather), ``model.moe.experts`` (the grouped products with their
+quantize), ``model.moe.combine``; counters ``moe.routed_rows`` (tokens × k)
+and, on the card, ``model.dequant.epilogue`` (one a grouped product).
 """
 from __future__ import annotations
 
@@ -184,23 +185,22 @@ def route_sigmoid(logits: torch.Tensor, bias: torch.Tensor, cfg) -> Tuple[torch.
     return weights * cfg.routed_scaling_factor, experts
 
 
-def sort_by_expert(experts: torch.Tensor, n_experts: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def sort_by_expert(experts: torch.Tensor, n_experts: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed pairs (``experts (T, k)`` flattened) in a stable order by
-    expert: (order, each sorted pair's expert, offsets (E + 1,) int32 where
-    expert e's pairs are ``offsets[e]`` to ``offsets[e + 1]``)."""
+    expert: (order, offsets (E + 1,) int32 where expert e's pairs are
+    ``offsets[e]`` to ``offsets[e + 1]``)."""
     flat = experts.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    expert = flat[order]
-    offsets = torch.searchsorted(expert, torch.arange(n_experts + 1, device=flat.device)).to(torch.int32)
-    return order, expert, offsets
+    offsets = torch.searchsorted(flat[order], torch.arange(n_experts + 1, device=flat.device)).to(torch.int32)
+    return order, offsets
 
 
-def _grouped_linear(p: Params, x: torch.Tensor, offsets: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
+def _grouped_linear(p: Params, x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """Each sorted row of ``x`` through its expert's linear of ``p``: the
-    grouped bit-sliced GEMM between the activation quantize (int8, as
-    ``common.linear``'s) and the dequantize (each row's scale times its
-    expert's column scales) when ``p`` is quantized, else float products, an
-    expert at a time."""
+    grouped bit-sliced GEMM behind the activation quantize (int8, as
+    ``common.linear``'s), dequantized in its epilogue (each row's scale
+    times its expert's column scales) when ``p`` is quantized, else float
+    products, an expert at a time."""
     if "w" in p:
         out = x.new_empty((x.shape[0], p["w"].shape[-1]))
         bounds = offsets.tolist()
@@ -209,10 +209,9 @@ def _grouped_linear(p: Params, x: torch.Tensor, offsets: torch.Tensor, expert: t
         return out
     with obs.span("model.act_quant"):
         x_q, x_scale = api.act_quant(x, PrecisionSpec.int8.act_bits)
-    acc = api.grouped_matmul(x_q, p["w_q"], offsets)
-    with obs.span("model.dequant"):
-        out = acc.to(torch.float32) * x_scale * p["w_scale"].squeeze(-2).index_select(0, expert)
-        return out.to(x.dtype)
+    if x.device.type == "cuda":
+        obs.count("model.dequant.epilogue")
+    return api.grouped_dequant_matmul(x_q, p["w_q"], offsets, x_scale, p["w_scale"], x.dtype)
 
 
 def dropless_moe_ffn(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -226,13 +225,13 @@ def dropless_moe_ffn(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, tor
     with obs.span("model.moe.route"):
         logits = xf.to(torch.float32) @ p["router"]["w"]
         weights, experts = route_sigmoid(logits, p["router"]["bias"], cfg)
-        order, expert, offsets = sort_by_expert(experts, cfg.n_experts)
+        order, offsets = sort_by_expert(experts, cfg.n_experts)
         rows = xf[order // k]
     obs.count("moe.routed_rows", rows.shape[0])
     with obs.span("model.moe.experts"):
-        gu = _grouped_linear(p["experts"]["gate_up"], rows, offsets, expert)
+        gu = _grouped_linear(p["experts"]["gate_up"], rows, offsets)
         f = gu.shape[-1] // 2
-        y = _grouped_linear(p["experts"]["down"], swiglu(gu[:, :f], gu[:, f:]), offsets, expert)
+        y = _grouped_linear(p["experts"]["down"], swiglu(gu[:, :f], gu[:, f:]), offsets)
     sh = p["shared"]
     shared = linear(sh["w_down"], swiglu(linear(sh["w_gate"], x), linear(sh["w_up"], x)))
     with obs.span("model.moe.combine"):

@@ -35,7 +35,9 @@ The spans the port records:
   the run's first ``serve.sample``);
 * ``model.act_quant`` (an activation's scale and quantization) and
   ``model.dequant`` (int32 accumulators to float times the scales, cast to
-  the activation's dtype) in ``quant_linear`` and ``quant_linear_relu``, and
+  the activation's dtype, where that runs as PyTorch ops:
+  ``models.common.dequantize``; a product dequantized in the GEMM's
+  epilogue has none) in ``quant_linear`` and ``quant_linear_relu``, and
   ``model.attention`` (the attention core, from the keys and queries after
   RoPE to the output before ``wo``) in the transformer's prefill and decode;
   in latent attention ``model.mla.latent`` (``wkv_a``, the latent's norm and
@@ -43,8 +45,8 @@ The spans the port records:
   expansion through ``wkv_b``); in the dropless expert layer
   (``models.moe.dropless_moe_ffn``) ``model.moe.route`` (router, scores,
   top-k, the stable sort by expert, the offsets, the rows' gather),
-  ``model.moe.experts`` (the grouped products with their quantize, SwiGLU
-  and dequantize) and ``model.moe.combine`` (the rows back in token order,
+  ``model.moe.experts`` (the grouped products with their quantize and
+  SwiGLU) and ``model.moe.combine`` (the rows back in token order,
   weighted and summed, the shared experts' output added).
 
 **Counters** are always on: :func:`count` adds to a named counter of the
@@ -58,7 +60,11 @@ Besides the launches, the port counts ``serve.prompt_slots`` and
 those of them that are padding), and ``model.act_quant.torch`` (a
 single-pass row-parallel ``quant_linear`` on the card, whose activations take
 the PyTorch chain, not the ``act_quant`` kernel: the kernel's share is
-``launch.act_quant`` over the two), and ``moe.routed_rows`` (the rows a
+``launch.act_quant`` over the two), ``model.dequant.epilogue`` (a card
+linear or grouped linear dequantized in the GEMM's epilogue) and
+``model.dequant.torch`` (a card linear whose int32 sums took the PyTorch
+dequantize: the epilogue's share is the first over the two), and
+``moe.routed_rows`` (the rows a
 dropless expert layer hands its grouped products: tokens × experts a token,
 known on the host).  The grouped bit-sliced GEMM counts its launches as
 ``launch.grouped_matmul``.

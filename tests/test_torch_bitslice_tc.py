@@ -203,12 +203,16 @@ def test_bitslice_plan_mirrors_the_kernels_constants():
         assert re.search(rf"constexpr int {name} = {value};", text), name
     assert "constexpr int FOLD_LP = (1 << 17) - 1;" in text and tbm.BITSLICE_FOLD_LP == (1 << 17) - 1
     bm, bn, wm = tbm.BITSLICE_MMA_TILES["narrow"]
-    assert f"if (narrow) return launch_mma<NX, NW, {bm}, {bn}, {wm}>" in text
+    assert f"if (narrow) return launch_mma<Out, NX, NW, {bm}, {bn}, {wm}>" in text
     bm, bn, wm = tbm.BITSLICE_MMA_TILES["square_2x2"]
-    assert f"if constexpr (NX * NW == 4) return launch_mma<NX, NW, {bm}, {bn}, {wm}>" in text
+    assert f"if constexpr (NX * NW == 4) return launch_mma<Out, NX, NW, {bm}, {bn}, {wm}>" in text
     bm, bn, wm = tbm.BITSLICE_MMA_TILES["square"]
-    assert f"else return launch_mma<NX, NW, {bm}, {bn}, {wm}>" in text
+    assert f"else return launch_mma<Out, NX, NW, {bm}, {bn}, {wm}>" in text
     assert re.search(r"constexpr int MAX_PAIRS = 1024;", text) and tbm.MAX_PAIRS == 1024
+    codes = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}
+    assert "constexpr int DT_NONE = 0, " + ", ".join(
+        f"DT_{codes[dt]} = {c}" for dt, c in sorted(tbm.DTYPE_CODES.items(), key=lambda i: i[1])) + ";" in text
+    assert tbm.ONE_PAIR_FOLD_K == tbm.bitslice_plan(1, 1, 1, 4, 16, 8, tbm.ONE_PAIR, (0, 0)).fold_k
 
 
 TABLE3 = (61440, 2048, 32)  # chip_smoke.py phase 3c: (M, K, N)

@@ -168,7 +168,7 @@ def _requests(cfg, lengths, new_tokens):
                             max_new_tokens=new_tokens) for i, n in enumerate(lengths)]
 
 
-def test_serve_engine_spans_and_pad_counters():
+def test_serve_engine_spans_and_pad_counters(monkeypatch):
     cfg, engine = _tiny_engine()
     lengths = (3, 12, 9)
     reqs = _requests(cfg, lengths, 3)
@@ -191,8 +191,18 @@ def test_serve_engine_spans_and_pad_counters():
     n_linear = cfg.n_layers * 7 + (0 if cfg.tie_embeddings else 1)
     assert sum(s.name == "model.attention" for s in inside) == cfg.n_layers
     assert sum(s.name == "model.act_quant" for s in inside) >= n_linear
-    assert sum(s.name == "model.dequant" for s in inside) == sum(s.name == "model.act_quant" for s in inside)
+    # every linear dequantizes in the GEMM's epilogue: no dequantize left outside it
+    assert sum(s.name == "model.dequant" for s in inside) == 0
     assert all(r.generated and len(r.generated) == 3 for r in reqs)
+    # the PyTorch dequantize, where the epilogue does not take a product, has a span a linear
+    monkeypatch.setattr(tapi, "dequant_matmul_takes", lambda *a: False)
+    obs.enable()
+    engine.run(_requests(cfg, lengths, 1))
+    obs.disable()
+    rec = obs.record()
+    prefill = rec.named("serve.prefill")[0]
+    inside = [s for s in rec.spans if prefill.start_ns <= s.start_ns and s.end_ns <= prefill.end_ns]
+    assert sum(s.name == "model.dequant" for s in inside) == sum(s.name == "model.act_quant" for s in inside)
 
 
 def test_off_the_engine_counts_but_records_no_span():
